@@ -1,0 +1,78 @@
+"""The port's dtype table: on-disk name -> torch dtype and numpy storage.
+
+Files name dtypes as numpy does (``"float32"``, ``"bfloat16"``, ...), so
+the JAX package reads the port's files and the other way round. numpy has
+no ``bfloat16`` without ``ml_dtypes``, which the card's host lacks, so a
+bfloat16 tensor is held on the host as ``uint16`` storage of the same
+width and turned back with ``.view(torch.bfloat16)``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple
+
+import numpy as np
+import torch
+
+
+class DType(NamedTuple):
+    name: str              # numpy-style name written to disk
+    torch: torch.dtype
+    storage: np.dtype      # host numpy dtype of the same width
+
+    @property
+    def itemsize(self) -> int:
+        return self.storage.itemsize
+
+
+_TABLE = [
+    DType("float32", torch.float32, np.dtype(np.float32)),
+    DType("float64", torch.float64, np.dtype(np.float64)),
+    DType("float16", torch.float16, np.dtype(np.float16)),
+    DType("bfloat16", torch.bfloat16, np.dtype(np.uint16)),
+    DType("int64", torch.int64, np.dtype(np.int64)),
+    DType("int32", torch.int32, np.dtype(np.int32)),
+    DType("int16", torch.int16, np.dtype(np.int16)),
+    DType("int8", torch.int8, np.dtype(np.int8)),
+    DType("uint8", torch.uint8, np.dtype(np.uint8)),
+    DType("bool", torch.bool, np.dtype(np.bool_)),
+]
+BY_NAME: Dict[str, DType] = {d.name: d for d in _TABLE}
+BY_TORCH: Dict[torch.dtype, DType] = {d.torch: d for d in _TABLE}
+
+
+def lookup(name: str) -> DType:
+    try:
+        return BY_NAME[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r} is not in the port's dtype "
+                         f"table") from None
+
+
+def of_tensor(t: torch.Tensor) -> DType:
+    try:
+        return BY_TORCH[t.dtype]
+    except KeyError:
+        raise ValueError(f"tensor dtype {t.dtype} is not in the port's "
+                         f"dtype table") from None
+
+
+def of_array(a: np.ndarray) -> DType:
+    """Entry for a numpy array; an ``ml_dtypes`` bfloat16 array (named
+    ``"bfloat16"`` by numpy) maps to the bfloat16 entry."""
+    return lookup(a.dtype.name)
+
+
+def host_view(buf: np.ndarray, name: str) -> np.ndarray:
+    """``buf``'s bytes as the storage dtype of ``name``."""
+    return buf.reshape(-1).view(np.uint8).view(lookup(name).storage)
+
+
+def host_to_tensor(buf: np.ndarray, name: str,
+                   device: torch.device) -> torch.Tensor:
+    """A host buffer holding dtype ``name`` as a tensor on ``device``
+    (shape kept, bytes unchanged)."""
+    shape = tuple(buf.shape)
+    flat = np.ascontiguousarray(buf).reshape(-1).view(np.uint8)
+    t = torch.from_numpy(flat).view(lookup(name).torch).reshape(shape)
+    return t.to(device) if torch.device(device).type != "cpu" else t

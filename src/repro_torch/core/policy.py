@@ -1,0 +1,116 @@
+"""Declarative checkpoint policy: the composable public configuration.
+
+One frozen config object per subsystem, composed into one
+:class:`CheckpointPolicy`:
+
+* :class:`EnginePolicy`  — which data-movement engine and its lane tuning;
+* :class:`StoragePolicy` — where committed steps live and integrity
+  checksums;
+* :class:`DistPolicy`    — the multi-rank writer world;
+* :class:`DeltaPolicy`   — the differential-checkpointing chain schedule;
+* a :class:`~repro_torch.core.registry.StateProviderRegistry` routing each
+  state leaf to its provider.
+
+Fields and defaults are the JAX package's. What this slice does not run
+yet is refused by the manager, not ignored: a multi-rank ``world``,
+remote ``tiers`` and ``retention`` raise "not yet ported".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+from .codecs import DELTA_CODEC
+from .registry import StateProviderRegistry
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePolicy:
+    """Data-movement engine selection and lane tuning (paper §V-A)."""
+
+    mode: str = "datastates"
+    host_cache_bytes: int = 1 << 30
+    flush_threads: int = 4
+    chunk_bytes: int = 4 << 20
+    throttle_mbps: Optional[float] = None
+    restore_threads: Optional[int] = None
+
+    def __post_init__(self):
+        if self.host_cache_bytes < 1:
+            raise ValueError("host_cache_bytes must be positive")
+        if self.flush_threads < 1 or self.chunk_bytes < 1:
+            raise ValueError("flush_threads and chunk_bytes must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class StoragePolicy:
+    """Residence of committed steps (repository layer). ``tiers`` and
+    ``retention`` keep the JAX package's fields; only the local tier
+    without retention is ported."""
+
+    tiers: Tuple[Any, ...] = ()
+    retention: Optional[Any] = None
+    manifest_checksums: bool = True
+
+    def __post_init__(self):
+        object.__setattr__(self, "tiers", tuple(self.tiers))
+
+
+@dataclasses.dataclass(frozen=True)
+class DistPolicy:
+    """Multi-rank writer world (only ``world`` of 1 is ported)."""
+
+    world: Optional[int] = None
+    coordinator: Optional[Any] = None
+    ack_timeout_s: Optional[float] = None
+    runtime: str = "thread"
+    node_size: Optional[int] = None
+
+    def __post_init__(self):
+        if self.world is not None and self.world < 1:
+            raise ValueError(f"world must be >= 1, got {self.world}")
+        if self.runtime not in ("thread", "process"):
+            raise ValueError(
+                f"runtime must be 'thread' or 'process', "
+                f"got {self.runtime!r}")
+        if self.node_size is not None and self.node_size < 1:
+            raise ValueError(
+                f"node_size must be >= 1, got {self.node_size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaPolicy:
+    """Differential checkpointing on the main engine path (paper §VII).
+
+    Every save streams XOR deltas of each delta-routed tensor against the
+    previous save's retained host copy, compressed on the flush lanes —
+    except a raw *keyframe* every ``keyframe_every`` saves, on the first
+    save of a run, and whenever the shard set / shapes / dtypes change.
+    ``verify_chain_on_restore`` re-audits every chain member (sizes +
+    manifest checksums) before a chain restore, so silent corruption of a
+    keyframe can never be XOR-amplified into a restored state.
+    """
+
+    keyframe_every: int = 4
+    codec: str = DELTA_CODEC
+    verify_chain_on_restore: bool = True
+
+    def __post_init__(self):
+        if self.keyframe_every < 1:
+            raise ValueError(
+                f"keyframe_every must be >= 1, got {self.keyframe_every}")
+
+
+@dataclasses.dataclass(frozen=True)
+class CheckpointPolicy:
+    """The complete declarative configuration of a checkpoint manager."""
+
+    engine: EnginePolicy = dataclasses.field(default_factory=EnginePolicy)
+    storage: StoragePolicy = dataclasses.field(default_factory=StoragePolicy)
+    dist: DistPolicy = dataclasses.field(default_factory=DistPolicy)
+    delta: Optional[DeltaPolicy] = None
+    providers: Optional[StateProviderRegistry] = None
+
+    def replace(self, **kw) -> "CheckpointPolicy":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,551 @@
+"""Composable state providers (paper §V-A3).
+
+A *state provider* (SP) encapsulates per-data-structure knowledge — residency
+(device vs. host), type (byte-addressable tensor vs. Python object), layout,
+and (de)serialization needs — and exposes a uniform, stream-oriented view to
+the data-movement engine: an iterator of :class:`Chunk` byte ranges. The
+engine stays agnostic to heterogeneity and only optimizes multi-tier I/O.
+
+* :class:`TensorStateProvider` — zero-copy. Host-resident tensors stream
+  memoryviews of their own buffers; device-resident tensors stream views of
+  their staged copy in the pinned :class:`~repro_torch.core.host_cache.HostCache`
+  reservation, chunk by chunk as D2H staging progresses (so flushing of a
+  tensor overlaps with staging of its own tail — paper §V-A4 / Fig 15).
+* :class:`ObjectStateProvider` — serializes Python objects (pickle/msgpack)
+  lazily at stream time; its chunks carry no fixed offset and are appended
+  log-structured (paper §V-A5).
+* :class:`CompositeStateProvider` — hierarchical composition: plans the
+  fixed-offset tensor region for one file, orders the stream tensors-first
+  (largest first) so object serialization overlaps with bulk tensor I/O.
+* :class:`DeltaStateProvider` — differential checkpointing on the main
+  engine path (paper §VII / ByteCheckpoint): XOR-deltas each staged chunk
+  against a retained previous-snapshot copy held in a
+  :class:`SnapshotCache` (inside the same pinned host-cache budget), and
+  emits ``codec="xor+zstd"`` chunks that the engine's flush lanes compress
+  and log-append. The XOR and its digest run on the engine's device (the
+  fused CUDA kernel on a card). Keyframe saves stream raw (fixed-offset) chunks while
+  refreshing the snapshot cache, so the chain can restart at any time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import threading
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
+    Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.locks import declares_lock
+from repro_torch.obs import trace as obs
+from repro_torch.obs.metrics import metrics as obs_metrics
+
+from . import msgpack_lite
+from .codecs import DELTA_CODEC, encode_delta_chunk, payload_digest
+from .host_cache import HostCache, Reservation
+from .layout import FileLayout
+
+DEFAULT_CHUNK_BYTES = 16 * 1024 * 1024
+
+
+@dataclasses.dataclass
+class Chunk:
+    """One byte range to persist. ``offset is None`` → log-append."""
+
+    name: str
+    kind: str                      # "tensor" | "object"
+    data: Any                      # memoryview | bytes
+    offset: Optional[int] = None   # fixed file offset; None = append
+    codec: str = "raw"
+    last: bool = False             # last chunk of this logical item
+    # For encoded (``codec != "raw"``) tensor chunks: which byte range of
+    # the *raw* tensor this chunk encodes — the flush lane compresses the
+    # payload, so raw addressing must travel with the chunk.
+    raw_range: Optional[Tuple[int, int]] = None
+    # Integrity digest of the (uncompressed) encoded payload, emitted by
+    # the fused encoder in the same pass that produced ``data``; recorded
+    # per chunk in the file footer. None when checksums are off.
+    digest: Optional[int] = None
+    # Invoked by the flush lane once this chunk's payload is written (or
+    # its write failed) — encoded chunks use it to credit the producer's
+    # in-flight byte budget.
+    on_flushed: Optional[Callable[[], None]] = None
+
+
+@declares_lock("encode.budget", rank=56, attrs=("_cond",))
+class EncodeBudget:
+    """Caps the bytes of freshly-allocated encoded (XOR) payloads queued
+    between producer and flush lanes.
+
+    Raw-path chunks are zero-copy views into budgeted cache reservations,
+    but delta chunks are fresh heap arrays: an unbounded flush queue would
+    transiently hold ~one full uncompressed state copy outside the pinned
+    host-cache budget (producers XOR at memcpy speed, flush lanes drain at
+    compress+disk speed). Producers acquire before allocating; the flush
+    lane credits back after the write — always, including error paths, so
+    a failed save cannot starve the producer. A single over-cap request is
+    admitted when nothing is in flight, so the cap never deadlocks.
+    """
+
+    def __init__(self, cap_bytes: int):
+        self.cap = int(cap_bytes)
+        self._used = 0
+        self._cond = threading.Condition()
+
+    def acquire(self, nbytes: int) -> None:
+        with self._cond:
+            while self._used > 0 and self._used + nbytes > self.cap:
+                self._cond.wait(timeout=60.0)
+            self._used += nbytes
+
+    def release(self, nbytes: int) -> None:
+        with self._cond:
+            self._used -= nbytes
+            self._cond.notify_all()
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaSaveSpec:
+    """One save's position in a delta chain (decided by the manager).
+
+    ``keyframe=True`` → stream full raw tensors (and refresh the snapshot
+    cache); ``keyframe=False`` → stream XOR deltas against the snapshot
+    cache, with ``base_step`` naming the previous save in the chain and
+    ``chain_depth`` counting hops back to the keyframe (keyframe = 0).
+    """
+
+    step: int
+    keyframe: bool
+    base_step: Optional[int] = None
+    chain_depth: int = 0
+    codec: str = DELTA_CODEC
+
+    def manifest_meta(self) -> Dict[str, Any]:
+        return {"keyframe": self.keyframe, "base_step": self.base_step,
+                "chain_depth": self.chain_depth, "codec": self.codec}
+
+
+@declares_lock("snapshot.cache", rank=54, attrs=("_lock",))
+class SnapshotCache:
+    """Per-engine retained previous-snapshot copies, one per tensor name.
+
+    Entries live inside the engine's pinned :class:`HostCache`, so the
+    snapshot budget and the staging budget share one back-pressure pool
+    (the cache must hold previous-version + in-flight-version bytes for a
+    delta save — checked up front by the engine). Thread-safe for the
+    per-name access pattern the engine uses (consecutive saves are gated,
+    so no two saves mutate the same entry concurrently).
+    """
+
+    def __init__(self, cache: HostCache, reserve_timeout_s: float = 60.0):
+        self._cache = cache
+        self._timeout = reserve_timeout_s
+        self._lock = threading.Lock()
+        self._entries: Dict[str, Reservation] = {}
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return list(self._entries)
+
+    def nbytes(self) -> int:
+        with self._lock:
+            return sum(r.nbytes for r in self._entries.values())
+
+    def view(self, name: str) -> Optional[memoryview]:
+        with self._lock:
+            res = self._entries.get(name)
+        return None if res is None else res.view
+
+    def ensure(self, name: str, nbytes: int) -> memoryview:
+        """Reservation for ``name`` sized ``nbytes`` (re-reserved on size
+        change). Raises :class:`~.host_cache.CacheFullError` rather than
+        deadlocking when the pool cannot hold it."""
+        with self._lock:
+            res = self._entries.get(name)
+            if res is not None and res.nbytes == nbytes:
+                return res.view
+            if res is not None:
+                del self._entries[name]
+        if res is not None:
+            res.release()
+        res = self._cache.reserve(nbytes, timeout=self._timeout)
+        with self._lock:
+            self._entries[name] = res
+        return res.view
+
+    def retain_only(self, names: Sequence[str]) -> None:
+        """Drop entries for tensors no longer in the shard set (elastic
+        reshard forced a keyframe with a new name set)."""
+        keep = set(names)
+        with self._lock:
+            doomed = [(n, r) for n, r in self._entries.items()
+                      if n not in keep]
+            for n, _r in doomed:
+                del self._entries[n]
+        for _n, r in doomed:
+            r.release()
+
+    def clear(self) -> None:
+        self.retain_only(())
+
+
+class StateProvider:
+    """Base: a named producer of checkpoint chunks."""
+
+    name: str
+
+    def chunks(self) -> Iterator[Chunk]:
+        raise NotImplementedError
+
+    def nbytes_hint(self) -> Optional[int]:
+        """Size if known a priori (tensors), else None (serialized objects)."""
+        return None
+
+
+@declares_lock("provider.stage", rank=58, attrs=("_cond",))
+class TensorStateProvider(StateProvider):
+    """Zero-copy SP for a byte-addressable tensor (host or device resident).
+
+    For device arrays, :meth:`bind_reservation` attaches the pinned-cache
+    reservation and :meth:`notify_staged` is called by the staging thread as
+    bytes land; :meth:`chunks` yields each chunk as soon as its bytes are
+    staged, enabling flush/staging overlap within a single large tensor.
+    """
+
+    def __init__(self, name: str, *, dtype: str, shape: Tuple[int, ...],
+                 nbytes: int, device: torch.device,
+                 host_array: Optional[np.ndarray] = None,
+                 global_shape: Optional[Tuple[int, ...]] = None,
+                 index: Optional[Tuple[Tuple[int, int], ...]] = None,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+        self.name = name
+        self.dtype = dtype
+        self.shape = tuple(shape)
+        self.nbytes = int(nbytes)
+        self.global_shape = global_shape
+        self.index = index
+        # where digests and encodes of the staged bytes run
+        self.device = torch.device(device)
+        self.chunk_bytes = chunk_bytes
+        self.offset: Optional[int] = None  # assigned by composite layout plan
+        # host-resident path
+        self._host_array = host_array
+        # device-resident path
+        self._reservation: Optional[Reservation] = None
+        self._staged = 0
+        self._cond = threading.Condition()
+        self._released = False
+        # Set by the engine when the save runs with manifest checksums:
+        # raw chunks then carry a per-chunk digest of their bytes,
+        # recorded in the file footer so verify can localize a flipped
+        # chunk inside a keyframe/raw tensor — not just fail the whole
+        # file. Encoded providers override the digest with their fused
+        # encoder's output instead.
+        self.checksum_chunks: bool = False
+
+    # -- residency wiring ----------------------------------------------------
+    @property
+    def device_resident(self) -> bool:
+        return self._host_array is None
+
+    def bind_reservation(self, res: Reservation) -> None:
+        self._reservation = res
+
+    @property
+    def reservation(self) -> Optional[Reservation]:
+        return self._reservation
+
+    def notify_staged(self, nbytes_total: int) -> None:
+        """Staging thread reports cumulative bytes landed in the cache."""
+        with self._cond:
+            self._staged = nbytes_total
+            self._cond.notify_all()
+
+    def release(self) -> None:
+        """Free the cache reservation once all chunks are flushed."""
+        with self._cond:
+            if self._released:
+                return
+            self._released = True
+        if self._reservation is not None:
+            self._reservation.release()
+
+    # -- StateProvider -------------------------------------------------------
+    def nbytes_hint(self) -> Optional[int]:
+        return self.nbytes
+
+    def _byte_view(self) -> memoryview:
+        if self._host_array is not None:
+            arr = np.ascontiguousarray(self._host_array)
+            return memoryview(arr).cast("B")
+        assert self._reservation is not None, (
+            f"device tensor {self.name} streamed before staging was bound")
+        return self._reservation.view
+
+    def chunks(self) -> Iterator[Chunk]:
+        view = self._byte_view()
+        n = self.nbytes
+        pos = 0
+        while pos < n:
+            end = min(pos + self.chunk_bytes, n)
+            if self._host_array is None:
+                # Wait until staging has landed these bytes (partial-tensor
+                # overlap: flush the head while the tail is still in DMA).
+                with self._cond:
+                    while self._staged < end:
+                        self._cond.wait()
+            yield Chunk(name=self.name, kind="tensor", data=view[pos:end],
+                        offset=self.offset + pos if self.offset is not None else None,
+                        raw_range=(pos, end), last=end >= n,
+                        digest=self._raw_digest(view[pos:end]))
+            pos = end
+
+    def _raw_digest(self, data) -> Optional[int]:
+        """Per-chunk digest of a raw chunk's bytes while they are hot from
+        the staging copy. Deliberately *not* counted against
+        ``engine.bytes_encode_read`` — that counter is the encoded routes'
+        single-read-of-staged-bytes equality and raw chunks never encode."""
+        if not self.checksum_chunks:
+            return None
+        with obs.span("encode.digest", tensor=self.name, bytes=len(data)):
+            return payload_digest(np.frombuffer(data, dtype=np.uint8),
+                                  self.device)
+
+
+def xor_bytes(cur: np.ndarray, prev: np.ndarray,
+              device: torch.device) -> np.ndarray:
+    """Bit-exact XOR of two equal-length byte arrays, computed on
+    ``device`` (the ``delta_xor`` CUDA kernel on a card, its plain version
+    on the CPU); returns a fresh uint8 array."""
+    from repro_torch.kernels import ops
+    return ops.host_delta_xor(cur, prev, device)
+
+
+class DeltaStateProvider(TensorStateProvider):
+    """Differential SP: streams XOR deltas against the previous snapshot.
+
+    Two modes, chosen per save by the manager's chain tracker
+    (:class:`DeltaSaveSpec`):
+
+    * **keyframe** — behaves like :class:`TensorStateProvider` (raw chunks
+      at fixed offsets) but additionally copies each staged chunk into the
+      engine's :class:`SnapshotCache`, re-arming the chain;
+    * **delta** — each staged chunk is XORed against the retained snapshot
+      bytes (kernel-backed), the snapshot entry is advanced to the current
+      bytes, and the XOR payload is emitted as a ``codec="xor+zstd"``
+      log-append chunk (``offset=None`` — encoded tensors never occupy the
+      fixed region, so bytes-on-disk shrink with the delta). Compression
+      happens downstream on the engine's flush lanes, keeping capture and
+      producer latency flat.
+
+    XOR is associative and order-insensitive, so restore may fold a chain
+    of deltas onto the keyframe in any order (``RestoreEngine.restore_chain``).
+    """
+
+    def __init__(self, name: str, *, prev: memoryview, keyframe: bool,
+                 codec: str = DELTA_CODEC, **kw):
+        super().__init__(name, **kw)
+        self.keyframe = keyframe
+        self.delta_codec = codec
+        self.enc_codec = codec  # uniform encoded-provider attribute
+        self._prev = prev
+        # set by the engine: fired exactly once when this provider's chunk
+        # stream ends (exhausted, closed, or abandoned by a failed
+        # producer) — the signal that its snapshot-cache entry is settled
+        # and the next save may start streaming.
+        self.on_stream_end: Optional[Callable[[], None]] = None
+        # Set by the engine to the save's `captured` event: streaming (and
+        # with it every producer-lane memcpy/XOR) is deferred until the
+        # device is fully drained, so the D2H staging lane never contends
+        # with encode work for the GIL — capture latency (the metric that
+        # blocks training) stays identical to the raw path; the XOR +
+        # compress pipeline runs in the shadow of the next iteration.
+        # Applied to keyframe mode too, deliberately: the keyframe's
+        # snapshot-cache refresh is a producer-lane memcpy that measurably
+        # (~2×) inflated capture when overlapped with staging; trading
+        # async persist tail for zero training stall is the right side of
+        # that bargain.
+        self.capture_gate: Optional[threading.Event] = None
+        # Set by the engine: bounds in-flight freshly-allocated XOR
+        # payload bytes between producer and flush lanes.
+        self.encode_budget: Optional[EncodeBudget] = None
+        # checksum_chunks (inherited) additionally makes the fused encoder
+        # emit a per-chunk payload digest in the same pass as the delta.
+        assert len(prev) == self.nbytes, (
+            f"snapshot cache entry for {name} is {len(prev)} B, "
+            f"tensor is {self.nbytes} B")
+
+    @property
+    def fixed_offset(self) -> bool:
+        """Keyframes live in the planned fixed-offset region; deltas are
+        compressed downstream and log-appended."""
+        return self.keyframe
+
+    def _signal_stream_end(self) -> None:
+        cb, self.on_stream_end = self.on_stream_end, None
+        if cb is not None:
+            cb()
+
+    def chunks(self) -> Iterator[Chunk]:
+        try:
+            if self.capture_gate is not None:
+                self.capture_gate.wait()
+            view = self._byte_view()
+            prev = np.frombuffer(self._prev, dtype=np.uint8)
+            n = self.nbytes
+            pos = 0
+            while pos < n:
+                end = min(pos + self.chunk_bytes, n)
+                if self._host_array is None:
+                    with self._cond:
+                        while self._staged < end:
+                            self._cond.wait()
+                cur = np.frombuffer(view[pos:end], dtype=np.uint8)
+                if self.keyframe:
+                    # refresh the snapshot, stream the raw bytes; the
+                    # per-chunk digest rides the same pass while the bytes
+                    # are hot from the snapshot memcpy, closing the
+                    # keyframe half of the verify-localization story
+                    prev[pos:end] = cur
+                    yield Chunk(name=self.name, kind="tensor",
+                                data=view[pos:end],
+                                offset=self.offset + pos
+                                if self.offset is not None else None,
+                                raw_range=(pos, end), last=end >= n,
+                                digest=self._raw_digest(view[pos:end]))
+                else:
+                    nb = end - pos
+                    budget = self.encode_budget
+                    on_flushed = None
+                    if budget is not None:
+                        budget.acquire(nb)
+                        on_flushed = (lambda b=budget, nb=nb: b.release(nb))
+                    try:
+                        with obs.span("encode.delta", tensor=self.name,
+                                      bytes=nb, fused=True):
+                            base = prev[pos:end]
+                            delta, digest = encode_delta_chunk(
+                                cur, base, self.checksum_chunks,
+                                self.device)
+                            # advance the chain base without touching the
+                            # staged bytes again: base ^ delta == cur bit-
+                            # exactly, and delta is already in cache — the
+                            # fused pass above is the chunk's only read of
+                            # cur
+                            np.bitwise_xor(base, delta, out=base)
+                            obs_metrics.inc("engine.bytes_encode_read", nb)
+                    except BaseException:
+                        # the chunk will never reach a flush lane, so
+                        # nobody else can credit the budget back — a leak
+                        # here would shrink every later save's headroom
+                        if budget is not None:
+                            budget.release(nb)
+                        raise
+                    yield Chunk(name=self.name, kind="tensor", data=delta,
+                                offset=None, codec=self.delta_codec,
+                                raw_range=(pos, end), last=end >= n,
+                                digest=digest, on_flushed=on_flushed)
+                pos = end
+        finally:
+            self._signal_stream_end()
+
+
+class ObjectStateProvider(StateProvider):
+    """SP for non-tensor Python state (dicts, RNG seeds, config, ...).
+
+    Serialization happens lazily inside :meth:`chunks` — i.e. on the engine's
+    producer thread, *after* tensor chunks have been enqueued — so it overlaps
+    with bulk tensor I/O instead of blocking the training loop (§V-A5).
+    """
+
+    def __init__(self, name: str, obj: Any, codec: str = "pickle",
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 preserialized: Optional[bytes] = None):
+        self.name = name
+        self._obj = obj
+        self.codec = codec
+        self.chunk_bytes = chunk_bytes
+        self._preserialized = preserialized
+        self.serialized_nbytes: Optional[int] = (
+            len(preserialized) if preserialized is not None else None)
+
+    def serialize(self) -> bytes:
+        if self._preserialized is not None:  # legacy blocking-upfront engines
+            return self._preserialized
+        if self.codec == "pickle":
+            payload = pickle.dumps(self._obj, protocol=pickle.HIGHEST_PROTOCOL)
+        elif self.codec == "msgpack":
+            payload = msgpack_lite.packb(self._obj)
+        else:
+            raise ValueError(f"unknown codec {self.codec}")
+        self.serialized_nbytes = len(payload)
+        return payload
+
+    def chunks(self) -> Iterator[Chunk]:
+        payload = self.serialize()
+        n = len(payload)
+        if n == 0:
+            yield Chunk(name=self.name, kind="object", data=b"",
+                        codec=self.codec, last=True)
+            return
+        for pos in range(0, n, self.chunk_bytes):
+            end = min(pos + self.chunk_bytes, n)
+            yield Chunk(name=self.name, kind="object",
+                        data=payload[pos:end], codec=self.codec,
+                        last=end >= n)
+
+
+class CompositeStateProvider(StateProvider):
+    """Hierarchical composition of SPs targeting one checkpoint file.
+
+    Responsibilities (paper §V-A3): (a) compute sizes/offsets for the fixed
+    region, (b) group/order chunks for the persistent layout, (c) stream
+    tensors first — largest first — so the engine is busy with bulk I/O while
+    object serialization proceeds.
+    """
+
+    def __init__(self, name: str, providers: Sequence[StateProvider]):
+        self.name = name
+        self.tensor_providers: List[TensorStateProvider] = [
+            p for p in providers if isinstance(p, TensorStateProvider)]
+        self.object_providers: List[ObjectStateProvider] = [
+            p for p in providers if isinstance(p, ObjectStateProvider)]
+        composites = [p for p in providers if isinstance(p, CompositeStateProvider)]
+        for c in composites:  # hierarchical merge
+            self.tensor_providers.extend(c.tensor_providers)
+            self.object_providers.extend(c.object_providers)
+        self._layout: Optional[FileLayout] = None
+
+    def plan_layout(self) -> FileLayout:
+        """Fix tensor offsets (largest-first order = stream order).
+
+        Only providers with ``fixed_offset`` (raw tensors, keyframes) get
+        fixed-region offsets; encoded providers (delta mode) are excluded —
+        their compressed chunks log-append, so the file never reserves
+        their raw footprint."""
+        if self._layout is None:
+            self.tensor_providers.sort(key=lambda p: -p.nbytes)
+            fixed = [p for p in self.tensor_providers
+                     if getattr(p, "fixed_offset", True)]
+            specs = [(p.name, p.nbytes, p.dtype, p.shape, p.global_shape,
+                      p.index) for p in fixed]
+            self._layout = FileLayout.plan(specs)
+            for p, entry in zip(fixed, self._layout.tensors):
+                p.offset = entry.offset
+        return self._layout
+
+    def encoded_providers(self) -> List[TensorStateProvider]:
+        return [p for p in self.tensor_providers
+                if not getattr(p, "fixed_offset", True)]
+
+    def nbytes_hint(self) -> Optional[int]:
+        return sum(p.nbytes for p in self.tensor_providers)
+
+    def chunks(self) -> Iterator[Chunk]:
+        self.plan_layout()
+        for p in self.tensor_providers:   # bulk zero-copy I/O first
+            yield from p.chunks()
+        for p in self.object_providers:   # serialization overlapped w/ flush
+            yield from p.chunks()

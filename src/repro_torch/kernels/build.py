@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+The kernels have a plain C interface, so one ``nvcc`` call builds them into
+a shared library that ``ctypes`` loads: no PyTorch headers, so the build is
+short. The library lands in ``build/repro_torch/`` at the root of the
+checkout, named by a hash of its sources, at the first launch of any kernel
+(never at import: hosts without ``nvcc`` import every module).
+
+Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3``, and never
+``--use_fast_math`` — the int8 quantize kernels that join this library
+depend on IEEE division.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = (CSRC / "ckpt_kernels.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_N = ctypes.c_int64
+#: C entry point -> argtypes (pointers and the stream as void*, lengths i64)
+SIGNATURES = {
+    "ckpt_checksum_u32": (_P, _N, _P, _P),
+    "ckpt_xor_checksum_u32": (_P, _P, _P, _N, _P, _P),
+    "ckpt_delta_xor": (_P, _P, _P, _N, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelBuildError(
+        "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+        "cannot be built on this host")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libckpt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless the hashed library already exists."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+class CudaKernel:
+    """One C entry point of the library, with its launch count.
+
+    ``launches`` rises by one per successful launch and nowhere else, so a
+    run can show that its path went through the kernel."""
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+        self._count_lock = threading.Lock()
+
+    def launch(self, *args) -> None:
+        import torch
+
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(library(), self.symbol)(*args, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed: cudaError {rc}")
+        with self._count_lock:
+            self.launches += 1

@@ -1,0 +1,125 @@
+"""Dispatch of the checkpoint kernels by the device of their input.
+
+A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor
+on a CUDA device goes to the hand-written kernel, and a failed build or
+launch raises — nothing falls back. The ``host_*`` helpers take
+host-staged bytes (numpy arrays, ``bytes``, memoryviews) and a device:
+they move the bytes there, run the kernel, and bring back only the
+outputs (the repro package feeds its kernels host-staged chunks the same
+way, ``core/codecs.py:247`` and ``core/restore.py:837-840``).
+Background lanes call them inside :func:`lane_stream`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import checksum as _checksum
+from . import delta as _delta
+from . import fused as _fused
+from .checksum import U32_MASK, as_words
+
+#: the restore fold moves at most this many bytes to the card per launch
+XOR_PIECE_BYTES = 64 << 20
+
+
+@contextlib.contextmanager
+def lane_stream(device: torch.device) -> Iterator[Optional[object]]:
+    """Run the enclosed kernels, copies and read-backs of a background lane
+    on a CUDA stream of their own (from PyTorch's pool of non-blocking
+    streams), so they neither queue behind nor synchronize with the work
+    the training loop keeps on its stream. Yields the stream, or ``None``
+    on the CPU, where there is nothing to switch."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield None
+        return
+    stream = torch.cuda.Stream(device=device)
+    with torch.cuda.stream(stream):
+        yield stream
+
+
+def _kind(t: torch.Tensor) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no checkpoint kernel for device {t.device}")
+    return kind
+
+
+def checksum(words: torch.Tensor) -> int:
+    """Digest of int32 ``words`` (see :func:`as_words`)."""
+    if _kind(words) == "cpu":
+        return _checksum.checksum_plain(words)
+    return int(_checksum.checksum_cuda(words).item()) & U32_MASK
+
+
+def xor_checksum(a: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, int]:
+    """``(a ^ b, digest of a ^ b)`` over int32 word tensors."""
+    if _kind(a) == "cpu":
+        _delta.check_pair(a, b, "cpu")
+        return _fused.xor_checksum_plain(a, b)
+    delta, dig = _fused.xor_checksum_cuda(a, b)
+    return delta, int(dig.item()) & U32_MASK
+
+
+def delta_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a ^ b`` over int32 word tensors."""
+    if _kind(a) == "cpu":
+        _delta.check_pair(a, b, "cpu")
+        return _delta.delta_xor_plain(a, b)
+    return _delta.delta_xor_cuda(a, b)
+
+
+# ------------------------------------------------------ host-staged bytes
+def host_u8(data) -> np.ndarray:
+    """Flat uint8 numpy view of ``bytes``/memoryview/ndarray data."""
+    if isinstance(data, np.ndarray):
+        return data.reshape(-1).view(np.uint8)
+    return np.frombuffer(memoryview(data), dtype=np.uint8)
+
+
+def _words_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
+    if not b.flags["C_CONTIGUOUS"] or not b.flags["WRITEABLE"]:
+        b = b.copy()
+    t = torch.from_numpy(b)
+    if device.type != "cpu":
+        t = t.to(device)
+    return as_words(t)
+
+
+def host_checksum(data, device: torch.device) -> int:
+    """Digest of host bytes, computed on ``device``."""
+    return checksum(_words_on(host_u8(data), torch.device(device)))
+
+
+def _to_host(words: torch.Tensor, nbytes: int) -> np.ndarray:
+    return words.cpu().numpy().view(np.uint8)[:nbytes]
+
+
+def host_xor_checksum(cur, prev, device: torch.device
+                      ) -> Tuple[np.ndarray, int]:
+    """``(cur ^ prev as a fresh uint8 array, its digest)`` on ``device``."""
+    cur, prev = host_u8(cur), host_u8(prev)
+    device = torch.device(device)
+    delta, dig = xor_checksum(_words_on(cur, device),
+                              _words_on(prev, device))
+    return _to_host(delta, cur.size), dig
+
+
+def host_delta_xor(cur, prev, device: torch.device) -> np.ndarray:
+    """``cur ^ prev`` as a fresh uint8 array, computed on ``device`` in
+    pieces of at most :data:`XOR_PIECE_BYTES`."""
+    cur, prev = host_u8(cur), host_u8(prev)
+    device = torch.device(device)
+    out = np.empty(cur.size, dtype=np.uint8)
+    for lo in range(0, cur.size, XOR_PIECE_BYTES):
+        hi = min(lo + XOR_PIECE_BYTES, cur.size)
+        d = delta_xor(_words_on(cur[lo:hi], device),
+                      _words_on(prev[lo:hi], device))
+        out[lo:hi] = _to_host(d, hi - lo)
+    return out

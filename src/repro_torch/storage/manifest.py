@@ -1,0 +1,233 @@
+"""Per-step manifests: the crash-consistency unit of the repository.
+
+A step is *committed* iff its manifest exists in the catalog. The manifest
+is computed from the fully-persisted step directory (file list, sizes,
+per-file integrity checksums through the checksum kernel in
+``repro_torch.kernels``) and written atomically *last*, so a crash at any
+earlier point leaves an invisible (orphaned) step instead of a
+restorable-looking half checkpoint.
+
+Checksums walk the file in fixed 4 MiB chunks, digest each chunk, and fold
+the chunk digests order-sensitively as ``sum((i+1) * digest_i) mod 2^32``,
+so block reorder or truncation within *and* across chunks is caught. The
+algorithm tag and the fold are the JAX package's, so either package
+verifies the other's steps.
+
+The multi-rank rank and node manifests of the JAX package are not yet
+ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import json
+import os
+import struct
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+MANIFEST_VERSION = 1
+CHECKSUM_CHUNK_BYTES = 4 << 20
+CHECKSUM_ALGO = "pallas-weighted-u32-chunk4m-v1"
+
+# Filenames that belong to the repository, not the checkpoint payload.
+_CONTROL_SUFFIXES = (".tmp",)
+
+
+class ManifestError(ValueError):
+    """A manifest failed to build or validate — the step must not be
+    committed."""
+
+
+def file_checksum(path: str, device: torch.device,
+                  chunk_bytes: int = CHECKSUM_CHUNK_BYTES) -> int:
+    """Position-weighted u32 checksum of a file's bytes, chunk digests
+    computed on ``device`` (the checksum kernel on a card, its plain
+    version on the CPU).
+
+    The JAX package zero-pads the tail chunk to ``chunk_bytes``; zero words
+    add nothing to a digest, so the tail is digested as read. The file
+    length is recorded separately in the manifest, so zero padding is not a
+    blind spot."""
+    from repro_torch.kernels import ops
+
+    device = torch.device(device)
+    buf = np.empty(chunk_bytes, dtype=np.uint8)
+    total = 0
+    with open(path, "rb") as f:
+        i = 0
+        while True:
+            n = f.readinto(memoryview(buf))
+            if not n:
+                break
+            digest = ops.host_checksum(buf[:n], device)
+            total = (total + (i + 1) * digest) % (1 << 32)
+            i += 1
+    return total
+
+
+@dataclasses.dataclass(frozen=True)
+class FileEntry:
+    """One checkpoint file inside a step.
+
+    ``codec`` records how the file's tensor payload is encoded: ``"raw"``
+    for full snapshots/keyframes, ``"xor+zstd"`` for delta files. ``None``
+    for non-tensor files. ``domains`` records which state domains the file
+    carries and how each was routed (``{"model": {"providers":
+    ["tensor"], "codecs": ["raw"]}, ...}``)."""
+
+    name: str
+    nbytes: int
+    checksum: Optional[int] = None
+    codec: Optional[str] = None
+    domains: Optional[Dict[str, Any]] = None
+
+
+def dsllm_file_meta(path: str) -> Optional[Dict[str, Any]]:
+    """Footer ``meta`` dict of one ``.dsllm`` file. ``None`` when
+    unreadable."""
+    try:
+        from repro_torch.core.layout import FileReader
+        return FileReader(path).meta or {}
+    except (OSError, ValueError, KeyError, TypeError):
+        return None
+
+
+def dsllm_file_codec(path: str) -> Optional[str]:
+    """Tensor codec of one ``.dsllm`` file, from its footer meta."""
+    meta = dsllm_file_meta(path)
+    d = (meta or {}).get("delta") or {}
+    if not d:
+        return None
+    return "raw" if d.get("keyframe", True) else d.get("codec", "raw")
+
+
+@dataclasses.dataclass
+class StepManifest:
+    """Everything the catalog knows about one committed step."""
+
+    step: int
+    files: List[FileEntry]
+    format: str = "unknown"            # dsllm | snapshot | sync | unknown
+    engine_mode: Optional[str] = None
+    checksum_algo: Optional[str] = None
+    created_unix: float = 0.0
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    version: int = MANIFEST_VERSION
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(f.nbytes for f in self.files)
+
+    def file(self, name: str) -> Optional[FileEntry]:
+        for f in self.files:
+            if f.name == name:
+                return f
+        return None
+
+    def to_json_bytes(self) -> bytes:
+        d = dataclasses.asdict(self)
+        d["files"] = [dataclasses.asdict(f) for f in self.files]
+        return json.dumps(d, indent=1, sort_keys=True).encode()
+
+    @classmethod
+    def from_json_bytes(cls, data: bytes) -> "StepManifest":
+        d = json.loads(data.decode())
+        files = [FileEntry(**f) for f in d.pop("files", [])]
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(files=files, **{k: v for k, v in d.items() if k in known})
+
+    @classmethod
+    def build(cls, sdir: str, step: int, *, device: torch.device,
+              engine_mode: Optional[str] = None, checksum: bool = True,
+              meta: Optional[Dict[str, Any]] = None) -> "StepManifest":
+        """Scan a fully-persisted step directory into a manifest.
+
+        ``meta["file_checksums"]`` (checksums the writers streamed while
+        persisting) and ``meta["file_domains"]`` (per-file routing known
+        since plan time) are popped and land on the :class:`FileEntry`\\ s;
+        a file without a streamed checksum is hashed on ``device``."""
+        names = sorted(
+            n for n in os.listdir(sdir)
+            if os.path.isfile(os.path.join(sdir, n))
+            and not any(s in n for s in _CONTROL_SUFFIXES))
+        meta = dict(meta or {})
+        file_domains: Dict[str, Any] = meta.pop("file_domains", None) or {}
+        file_checksums: Dict[str, int] = \
+            meta.pop("file_checksums", None) or {}
+        probe_codec = meta.get("delta") is not None
+        probe_domains = meta.get("domains") is not None
+        files = []
+        for n in names:
+            path = os.path.join(sdir, n)
+            if checksum and n in file_checksums:
+                csum: Optional[int] = int(file_checksums[n])
+            elif checksum:
+                csum = file_checksum(path, device)
+            else:
+                csum = None
+            fe = FileEntry(name=n, nbytes=os.path.getsize(path),
+                           checksum=csum, domains=file_domains.get(n))
+            if (probe_codec or (probe_domains and fe.domains is None)) \
+                    and n.endswith(".dsllm"):
+                fmeta = dsllm_file_meta(path) or {}
+                repl: Dict[str, Any] = {}
+                d = fmeta.get("delta") or {}
+                if probe_codec and d:
+                    repl["codec"] = "raw" if d.get("keyframe", True) \
+                        else d.get("codec", "raw")
+                if probe_domains and fe.domains is None \
+                        and fmeta.get("domains"):
+                    repl["domains"] = fmeta["domains"]
+                if repl:
+                    fe = dataclasses.replace(fe, **repl)
+            files.append(fe)
+        return cls(step=step, files=files, format=detect_format(names),
+                   engine_mode=engine_mode,
+                   checksum_algo=CHECKSUM_ALGO if checksum else None,
+                   created_unix=time.time(), meta=meta)
+
+
+def detect_format(names) -> str:
+    names = list(names)
+    if any(n.endswith(".dsllm") for n in names):
+        return "dsllm"
+    if any(n.startswith("manifest_rank") and n.endswith(".pkl")
+           for n in names):
+        return "snapshot"
+    if any(n.endswith(".pkl") for n in names):
+        return "sync"
+    return "unknown"
+
+
+_TRAILER = struct.Struct("<Q8s")
+
+
+def _dsllm_trailer_ok(path: str) -> bool:
+    from repro_torch.core.layout import MAGIC
+    try:
+        size = os.path.getsize(path)
+        if size < _TRAILER.size:
+            return False
+        with open(path, "rb") as f:
+            f.seek(size - _TRAILER.size)
+            footer_len, magic = _TRAILER.unpack(f.read(_TRAILER.size))
+        return magic == MAGIC and footer_len <= size - _TRAILER.size
+    except OSError:
+        return False
+
+
+def probe_step_complete(sdir: str) -> bool:
+    """Completeness check for a manifest-less (legacy) step directory:
+    every ``*.dsllm`` file must end in a valid footer trailer (the engine
+    writes footers last, so a crash victim fails this). The snapshot and
+    sync formats are not yet ported, so their directories never count as
+    complete here."""
+    if not os.path.isdir(sdir):
+        return False
+    dsllm = glob.glob(os.path.join(sdir, "*.dsllm"))
+    return bool(dsllm) and all(_dsllm_trailer_ok(p) for p in dsllm)
