@@ -7,28 +7,42 @@ Phases, any failure exits non-zero:
 
 1. Device: the card's name, the device count, and its name and power limit
    as ``nvidia-smi`` reports them. No card: exit non-zero, print no result.
+   TF32 is off for matrix products and cuDNN, and cuBLAS gets a fixed
+   workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) so identical inputs give
+   identical losses.
 2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    (into ``build/repro_torch/``), timed.
-3. Kernels: each kernel against its plain PyTorch version on the card, at
-   odd sizes and at the main path's shapes — results must be bit-identical
-   — then timed with CUDA events beside its plain version, its bound, and
-   (for ``delta_xor``) ``torch.bitwise_xor`` as the library yardstick.
-4. Main path: llama3.2-1b at full width (d_model 2048, d_ff 8192, vocab
-   128,256, 32/8 heads, tied embeddings) cut to 2 layers: 384.3 M params,
-   bf16 params plus fp32 master/m/v, about 5.4 GB per save, made on the card
-   from a seeded generator. Three steps of the two-phase loop (seeded
-   gradients on the card; ``wait_for_capture``; in-place AdamW; ``save``)
-   under ``DeltaPolicy(keyframe_every=3)`` give a keyframe and two deltas;
-   then step 3 (chain verify + XOR fold) and step 1 restore onto the card and
-   must equal the saved states bit for bit. Kernel launch counts are zeroed
-   just before this phase and read just after; each kernel must have run.
-5. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+3. Kernels: each of the five kernels against its plain PyTorch version on
+   the card, at odd sizes and at the main path's shapes — results must be
+   bit-identical — then timed with CUDA events beside its plain version,
+   its bound, and (for ``delta_xor``) ``torch.bitwise_xor`` as the library
+   yardstick.
+4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
+   d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
+   384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
+   made on the card from a seeded generator. Three steps of the two-phase
+   loop (seeded gradients on the card; ``wait_for_capture``; in-place
+   AdamW; ``save``) under ``DeltaPolicy(keyframe_every=3)`` give a keyframe
+   and two deltas; then step 3 (chain verify + XOR fold) and step 1 restore
+   onto the card and must equal the saved states bit for bit.
+5. Training path (slice 2): the same model trained by ``Trainer`` (forward,
+   backward, ``wait_for_capture``, in-place AdamW, ``save``) on batches of
+   4 x 2048 tokens for 6 steps, saving at 2 (keyframe), 4 and 6 (deltas)
+   with params delta-routed and fp32 optimizer state quantized to int8;
+   then a fresh manager and trainer resume step 6: params bit for bit,
+   master/m/v equal to the plain int8 round trip of the saved leaves, and
+   one more step from each trainer gives the same loss.
+   Kernel launch counts are zeroed just before each of phases 4 and 5 and
+   read just after; each kernel of the phase must have run.
+6. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -37,14 +51,27 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
-#: H100 SXM device memory (data sheet). The three kernels do a few integer
-#: operations per 4-byte word, so their bound is the bytes they move.
+#: H100 SXM device memory (data sheet). The u32 kernels do a few integer
+#: operations per 4-byte word and the int8 pair about twenty fp32
+#: operations per value (against 67 TFLOP/s), so the bound of all five is
+#: the bytes they move.
 HBM_BYTES_PER_S = 3.35e12
 HOST_CACHE_BYTES = 12 << 30
 #: words per call on the main path: 4 MiB chunks for the encode and the
 #: file checksums, 64 MiB pieces for the restore fold
 MAIN_WORDS = {"checksum_u32": 1 << 20, "xor_checksum_u32": 1 << 20,
               "delta_xor": 1 << 24}
+#: quantization rows per call on the main path: one 4 MiB chunk
+MAIN_ROWS = 4096
+#: the training phase: tokens per batch row (the longest sequence on the
+#: direct attention path), batch rows, steps and the save interval
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_INTERVAL = 2048, 4, 6, 2
+SOURCE = "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
+REPLACES = {"checksum_u32": "src/repro/kernels/checksum.py:43",
+            "xor_checksum_u32": "src/repro/kernels/fused.py:78",
+            "delta_xor": "src/repro/kernels/delta.py:30",
+            "quantize_checksum_int8": "src/repro/kernels/fused.py:169",
+            "dequantize_checksum_int8": "src/repro/kernels/fused.py:201"}
 
 
 def fail(msg: str) -> None:
@@ -58,9 +85,21 @@ def log(msg: str) -> None:
 
 # ------------------------------------------------------------- kernels
 def _kernels():
-    from repro_torch.kernels import checksum, delta, fused
-    return {"checksum_u32": checksum, "xor_checksum_u32": fused,
-            "delta_xor": delta}
+    """Each kernel's launch counter, by name."""
+    from repro_torch.kernels import checksum, delta, fused, quantize
+    return {"checksum_u32": checksum.KERNEL,
+            "xor_checksum_u32": fused.KERNEL, "delta_xor": delta.KERNEL,
+            "quantize_checksum_int8": quantize.QUANT_KERNEL,
+            "dequantize_checksum_int8": quantize.DEQUANT_KERNEL}
+
+
+def _zero_launches() -> None:
+    for k in _kernels().values():
+        k.launches = 0
+
+
+def _launches() -> dict:
+    return {name: k.launches for name, k in _kernels().items()}
 
 
 def _random_words(n: int, gen):
@@ -115,13 +154,13 @@ def _time_ms(fn, reps: int) -> float:
 
 def check_kernels():
     """Parity at odd sizes and at the main path's shape, then times. The
-    launches made here are not counted: counts are zeroed before the main
+    launches made here are not counted: counts are zeroed before each
     path."""
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = {}
-    for name in _kernels():
+    for name in ("checksum_u32", "xor_checksum_u32", "delta_xor"):
         n_main = MAIN_WORDS[name]
         worst = 0
         for n in (1, 3, 65_537, n_main):
@@ -154,6 +193,71 @@ def check_kernels():
             f"{rows[name]['bound_ms']:.4f} ms"
             + (f", torch.bitwise_xor {library_ms:.4f} ms)"
                if library_ms is not None else ")"))
+    rows.update(check_int8_kernels(gen))
+    return rows
+
+
+def _int8_rows(n_rows: int, gen):
+    """Seeded fp32 rows (normal, times 10) with the edge rows of the int8
+    math in front: an all-zero row (scale 1.0); a row of amax 127 (scale
+    exactly 1.0) holding the half steps +-0.5, +-2.5, +-3.5, +-126.5; a
+    row with subnormals among normal values."""
+    import torch
+    x = torch.randn((n_rows, 256), generator=gen, device="cuda") * 10
+    edges = [torch.zeros(256), torch.zeros(256), x[-1].cpu()]
+    edges[1][:10] = torch.tensor([127, -127, 0.5, -0.5, 2.5, -2.5, 3.5,
+                                  -3.5, 126.5, -126.5])
+    edges[2][:3] = torch.tensor([1e-40, -3e-39, 1e-45])
+    for i, e in enumerate(edges[:n_rows]):
+        x[i] = e.cuda()
+    return x
+
+
+def check_int8_kernels(gen) -> dict:
+    """The fused int8 encode and decode against their plain versions:
+    payload body, digest and decoded values bit for bit at 1, 3, 257 rows
+    and at a 4 MiB chunk's 4,096 rows; then timed at 4,096 rows. No single
+    PyTorch call quantizes with a digest, so there is no library time."""
+    import torch
+    from repro_torch.kernels import checksum, quantize as tq
+    mask = checksum.U32_MASK
+    for n_rows in (1, 3, 257, MAIN_ROWS):
+        x = _int8_rows(n_rows, gen)
+        body, dig = tq.quantize_checksum_cuda(x)
+        pbody, pdig = tq.quantize_checksum_plain(x)
+        out, odig = tq.dequantize_checksum_cuda(body, n_rows)
+        pout, podig = tq.dequantize_checksum_plain(body, n_rows)
+        torch.cuda.synchronize()
+        if not torch.equal(body, pbody) or (int(dig.item()) & mask) != pdig:
+            fail(f"quantize_checksum_int8 disagrees with its plain version "
+                 f"at {n_rows} rows")
+        if not torch.equal(out.view(torch.int32), pout.view(torch.int32)) \
+                or (int(odig.item()) & mask) != podig or podig != pdig:
+            fail(f"dequantize_checksum_int8 disagrees with its plain "
+                 f"version at {n_rows} rows")
+    x = torch.randn((MAIN_ROWS, 256), generator=gen, device="cuda")
+    body, _ = tq.quantize_checksum_cuda(x)
+    calls = {
+        "quantize_checksum_int8": (
+            lambda: tq.quantize_checksum_cuda(x),
+            lambda: tq.quantize_checksum_plain(x)),
+        "dequantize_checksum_int8": (
+            lambda: tq.dequantize_checksum_cuda(body, MAIN_ROWS),
+            lambda: tq.dequantize_checksum_plain(body, MAIN_ROWS))}
+    # 4 bytes in and 1 + 4/256 out per value, or the reverse
+    nbytes = MAIN_ROWS * (256 * 4 + tq.body_nbytes(1))
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        ms = _time_ms(kern, 200)
+        plain_ms = _time_ms(plain, 20)
+        rows[name] = {
+            "name": name, "rows": MAIN_ROWS, "max_abs_err": 0, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None}
+        log(f"kernel {name}: bit-identical at 1, 3, 257, {MAIN_ROWS} rows; "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+            f"{rows[name]['bound_ms']:.5f} ms)")
     return rows
 
 
@@ -259,10 +363,9 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                 f"{row['capture_stall_s']:.4f} s, persist "
                 f"{row['persist_s']:.3f} s, commit {row['commit_s']:.3f} s, "
                 f"{row['bytes_written']} bytes written")
-        report["launches_save"] = {k: m.KERNEL.launches
-                                   for k, m in _kernels().items()}
+        report["launches_save"] = _launches()
         for step, want in ((3, _tensors(state(3))), (1, step1)):
-            before = {k: m.KERNEL.launches for k, m in _kernels().items()}
+            before = _launches()
             t0 = time.perf_counter()
             out = mgr.restore(state(0), step=step)
             if device == "cuda":
@@ -276,8 +379,8 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             row = {"step": step, "total_s": secs, "verify_s": st.verify_s,
                    "read_s": st.read_s, "fold_s": st.fold_s,
                    "assemble_s": st.assemble_s, "bytes_read": st.bytes_read,
-                   "launches": {k: m.KERNEL.launches - before[k]
-                                for k, m in _kernels().items()}}
+                   "launches": {k: n - before[k]
+                                for k, n in _launches().items()}}
             report.setdefault("restores", []).append(row)
             log(f"restore step {step}: {secs:.3f} s (verify "
                 f"{st.verify_s:.3f} s, read {st.read_s:.3f} s, fold "
@@ -295,7 +398,202 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
     return report
 
 
+def _mixed_policy(host_cache_bytes: int, flush_threads: int):
+    """The README's policy: params delta-routed under a keyframe every 3
+    saves, fp32 optimizer state quantized to int8."""
+    from repro_torch.core import (CheckpointPolicy, DeltaPolicy,
+                                  EnginePolicy, StateProviderRegistry)
+    return CheckpointPolicy(
+        engine=EnginePolicy(host_cache_bytes=host_cache_bytes,
+                            flush_threads=flush_threads),
+        delta=DeltaPolicy(keyframe_every=3),
+        providers=(StateProviderRegistry()
+                   .add_rule(provider="quantized", domain="optimizer",
+                             dtype="float32")
+                   .add_rule(provider="auto")))
+
+
+def _int8_error_bound(amax):
+    """How far an int8 round trip may move a value of a row whose largest
+    magnitude is ``amax``: half a quantization step (``amax / 254``), plus
+    the fp32 rounding of the scale, the quotient and the product (at most
+    ``2 * 2^-24 * amax``, taken as ``2^-22 * amax``), plus the whole value
+    in a row the reference flushes (a scale below the least normal float,
+    so ``amax < 127 * 2^-126``)."""
+    return amax / 254 + amax * 2.0 ** -22 + 127 * 2.0 ** -126
+
+
+def _check_int8_round_trip(got, saved, what: str) -> None:
+    """``got`` is bit for bit the plain dequantize of the plain quantize of
+    ``saved`` (rows of 256 from the leaf's first value, the tail padded
+    with zeros as the codec pads it), computed on ``saved``'s device, and
+    lies within :func:`_int8_error_bound` of ``saved``."""
+    import torch
+    from repro_torch.kernels import quantize as tq
+    x = saved.reshape(-1)
+    pad = (-x.numel()) % tq.ROW_ELEMS
+    rows = torch.cat([x, x.new_zeros(pad)]).reshape(-1, tq.ROW_ELEMS)
+    body, _ = tq.quantize_checksum_plain(rows)
+    want, _ = tq.dequantize_checksum_plain(body, rows.shape[0])
+    want = want.reshape(-1)[:x.numel()]
+    g = got.reshape(-1)
+    if got.device != saved.device or got.dtype != torch.float32 \
+            or not torch.equal(g.view(torch.int32), want.view(torch.int32)):
+        fail(f"{what}: restored values are not the int8 round trip of the "
+             f"saved ones")
+    amax = rows.abs().amax(dim=1).repeat_interleave(tq.ROW_ELEMS)
+    amax = amax[:x.numel()].double()
+    err = (g.double() - x.double()).abs()
+    excess = err - _int8_error_bound(amax)
+    if bool((excess > 0).any()):
+        i = int(excess.argmax())
+        fail(f"{what}: value {i} moved by {float(err[i])!r}, more than "
+             f"half a quantization step of its row (amax "
+             f"{float(amax[i])!r})")
+
+
+def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
+                   flush_threads: int, batch: int, seq_len: int,
+                   steps: int = TRAIN_STEPS,
+                   interval: int = TRAIN_INTERVAL) -> dict:
+    """Train ``steps`` steps saving every ``interval`` under the mixed
+    policy, resume the last step with a fresh manager and trainer, check
+    the restored state, and take one more step from each trainer."""
+    import torch
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.tree import leaves
+    from repro_torch.obs import trace as obs
+    from repro_torch.training.loop import Trainer
+
+    class RecordingManager(CheckpointManager):
+        """The manager, keeping each save's future for the report."""
+
+        def save(self, step, state, blocking=False):
+            fut = super().save(step, state, blocking)
+            self.futures.append(fut)
+            return fut
+
+    policy = _mixed_policy(host_cache_bytes, flush_threads)
+    mgr = RecordingManager.from_policy(workdir, policy, device=device)
+    mgr.futures = []
+    report = {"batch": batch, "seq_len": seq_len, "steps": []}
+    try:
+        tr = Trainer(cfg, batch=batch, seq_len=seq_len, manager=mgr,
+                     seed=SEED, device=device)
+        with obs.tracing() as tracer:
+            t0 = time.perf_counter()
+            records = tr.run(steps, ckpt_interval=interval)
+            report["run_s"] = time.perf_counter() - t0
+        report["exit_drain_s"] = tr.exit_drain_s
+        report["quantize_launches_per_save"] = \
+            _launches()["quantize_checksum_int8"] / len(mgr.futures)
+        spans = {e["args"]["step"]: e
+                 for e in tracer.spans("train.iteration")}
+        for r in records:
+            sp = spans[r.step]
+            # a save is in flight from its request until it persisted
+            inflight = [f.step for f in mgr.futures if f.step < r.step
+                        and f.stats.t_request < sp["t1"]
+                        and f.stats.t_persisted > sp["t0"]]
+            if not math.isfinite(r.loss):
+                fail(f"train step {r.step}: loss {r.loss}")
+            report["steps"].append({
+                "step": r.step, "loss": r.loss, "iter_s": r.iter_s,
+                "grad_s": r.grad_s, "stall_s": r.ckpt_stall_s,
+                "prologue_s": r.prologue_s, "saved": r.ckpt_requested,
+                "saves_in_flight": inflight})
+            log(f"train step {r.step}: loss {r.loss:.6f}, iteration "
+                f"{r.iter_s:.4f} s, forward+backward {r.grad_s:.4f} s, "
+                f"stall {r.ckpt_stall_s:.4f} s (prologue "
+                f"{r.prologue_s:.4f} s), saves in flight {inflight}")
+        if mgr.commit_errors:
+            fail(f"commit errors: {mgr.commit_errors}")
+        report["saves"] = []
+        for fut in mgr.futures:
+            st = fut.stats
+            row = {"step": fut.step,
+                   "kind": ("keyframe" if st.extra["delta"]["keyframe"]
+                            else "delta"),
+                   "prologue_s": st.blocking_s,
+                   "capture_s": st.capture_latency_s,
+                   "persist_s": st.persist_latency_s,
+                   "commit_s": st.commit_latency_s,
+                   "bytes_written":
+                       mgr.repository.manifest(fut.step).total_bytes,
+                   "codecs": st.extra.get("domains")}
+            report["saves"].append(row)
+            log(f"save step {row['step']} ({row['kind']}): prologue "
+                f"{row['prologue_s']:.4f} s, capture {row['capture_s']:.3f}"
+                f" s, persist {row['persist_s']:.3f} s, commit "
+                f"{row['commit_s']:.3f} s, {row['bytes_written']} bytes "
+                f"written")
+        # the first trainer goes on without its manager; free its pinned
+        # cache before the second one pins its own
+        tr.manager = None
+    finally:
+        mgr.close()
+    del mgr
+    gc.collect()
+
+    mgr2 = CheckpointManager.from_policy(workdir, policy, device=device)
+    try:
+        tr2 = Trainer(cfg, batch=batch, seq_len=seq_len, manager=mgr2,
+                      seed=SEED + 1, device=device)
+        before = _launches()
+        t0 = time.perf_counter()
+        step = tr2.resume(step=steps)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = tr2.last_resume_stats
+        if step != steps or tr2.pipeline.state != tr.pipeline.state:
+            fail(f"resume gave step {step}, data cursor "
+                 f"{tr2.pipeline.state}; saved {steps}, "
+                 f"{tr.pipeline.state}")
+        for i, (a, b) in enumerate(zip(leaves(tr2.params),
+                                       leaves(tr.params))):
+            if a.device != b.device or a.dtype != b.dtype \
+                    or not torch.equal(a, b) or not a.requires_grad:
+                fail(f"resume: param leaf {i} is not the saved one")
+        if not torch.equal(tr2.opt_state["count"], tr.opt_state["count"]):
+            fail("resume: the optimizer step count differs")
+        for key in ("master", "m", "v"):
+            for i, (a, b) in enumerate(zip(leaves(tr2.opt_state[key]),
+                                           leaves(tr.opt_state[key]))):
+                _check_int8_round_trip(a, b, f"resume: {key} leaf {i}")
+        report["restore"] = {
+            "step": step, "total_s": secs, "verify_s": st.verify_s,
+            "read_s": st.read_s, "fold_s": st.fold_s,
+            "assemble_s": st.assemble_s, "bytes_read": st.bytes_read,
+            "launches": {k: n - before[k] for k, n in _launches().items()}}
+        log(f"resume step {step}: {secs:.3f} s (verify {st.verify_s:.3f} s,"
+            f" read {st.read_s:.3f} s, fold {st.fold_s:.3f} s, assemble "
+            f"{st.assemble_s:.3f} s), {st.bytes_read} bytes read; params "
+            f"bit-exact, master/m/v the int8 round trip of the saved state")
+        # one more step from each: the loss reads only the params and the
+        # data cursor, both restored exactly
+        after = [t.run(1)[-1] for t in (tr, tr2)]
+    finally:
+        mgr2.close()
+    a, b = after[0].loss, after[1].loss
+    rel = abs(a - b) / abs(a)
+    report["next_step"] = {"step": after[0].step, "loss": a,
+                           "resumed_loss": b, "bit_identical": a == b,
+                           "rel_diff": rel,
+                           "grad_s": [r.grad_s for r in after]}
+    if not (math.isfinite(a) and rel <= 1e-6):
+        fail(f"step {after[0].step} after resume: loss {b!r}, the "
+             f"uninterrupted trainer's {a!r}")
+    log(f"step {after[0].step} from both trainers: loss {a!r} and {b!r} "
+        f"({'bit-identical' if a == b else f'relative difference {rel}'}); "
+        f"forward+backward {after[0].grad_s:.4f} s and "
+        f"{after[1].grad_s:.4f} s with no save in flight")
+    return report
+
+
 def main() -> None:
+    # before CUDA starts: cuBLAS picks its workspace once per handle
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -309,6 +607,8 @@ def main() -> None:
         from repro_torch.kernels import build
     except ImportError as exc:
         fail(f"the repro_torch package is not next to this script: {exc}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -317,7 +617,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"device: {kind} x{count}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}; nvidia-smi: {smi}")
+        f"{torch.version.cuda}; nvidia-smi: {smi}; TF32 off; "
+        f"CUBLAS_WORKSPACE_CONFIG={os.environ['CUBLAS_WORKSPACE_CONFIG']}")
 
     t0 = time.perf_counter()
     lib = build.build()
@@ -335,35 +636,53 @@ def main() -> None:
     cfg = get_config("llama3.2-1b", n_layers=2,
                      layer_groups=uniform_groups("full", 2))
     workdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+
+    # -- phase 4: the checkpoint path of slice 1 --------------------------
     shutil.rmtree(workdir, ignore_errors=True)
-    kernels = _kernels()
     try:
         torch.cuda.reset_peak_memory_stats()
-        for m in kernels.values():
-            m.KERNEL.launches = 0
+        _zero_launches()
         t0 = time.perf_counter()
         report = run_main_path("cuda", cfg, workdir, HOST_CACHE_BYTES,
                                flush_threads=8)
-        launches = {k: m.KERNEL.launches for k, m in kernels.items()}
+        launches = _launches()
         main_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was never launched on the main path")
-    log(f"main path: {main_s:.1f} s; launches {json.dumps(launches)} "
+    for k in ("checksum_u32", "xor_checksum_u32", "delta_xor"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was never launched on the checkpoint path")
+    log(f"checkpoint path: {main_s:.1f} s; launches {json.dumps(launches)} "
         f"(saves {json.dumps(report['launches_save'])}); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
         f"pinned host cache {report['pinned_bytes']} bytes")
     log("report " + json.dumps(report))
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    source = "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
-    replaces = {"checksum_u32": "src/repro/kernels/checksum.py:43",
-                "xor_checksum_u32": "src/repro/kernels/fused.py:78",
-                "delta_xor": "src/repro/kernels/delta.py:30"}
+    # -- phase 5: the training path of slice 2 ----------------------------
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_train_path("cuda", cfg, workdir, HOST_CACHE_BYTES,
+                                flush_threads=8, batch=TRAIN_BATCH,
+                                seq_len=TRAIN_SEQ)
+        launches = _launches()
+        train_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for k, n in launches.items():
+        if n == 0:
+            fail(f"kernel {k} was never launched on the training path")
+    log(f"training path: {train_s:.1f} s; launches {json.dumps(launches)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log("train report " + json.dumps(report))
+
     line = {"kernels": [{
-        "name": k, "route": "cuda", "source": source,
-        "replaces": replaces[k], "launches": launches[k],
+        "name": k, "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES[k], "launches": launches[k],
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

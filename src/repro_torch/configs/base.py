@@ -1,6 +1,8 @@
 """The dense-transformer subset of ``repro/configs/base.py``'s
 ``ModelConfig``: the fields that decide the parameter tree (and so the
-checkpointed state), nothing of the forward pass yet."""
+checkpointed state) and those the dense forward reads (``rope_theta``,
+``tie_embeddings``, ``norm``, ``act``, ``dtype``); none of the mesh,
+remat or analysis flags."""
 
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ from .host_cache import CacheFullError, HostCache, Reservation
 from .layout import FileLayout, FileReader, FileWriter, TensorEntry, ObjectEntry
 from .state_provider import (Chunk, CompositeStateProvider, DeltaSaveSpec,
                              DeltaStateProvider, ObjectStateProvider,
-                             SnapshotCache, StateProvider,
+                             QuantizedStateProvider, SnapshotCache, StateProvider,
                              TensorStateProvider)
 from .baselines import BaseCheckpointEngine, DataStatesEngine
 from .distributed import (ShardRecord, group_by_rank, plan_shards,
@@ -35,7 +35,7 @@ __all__ = [
     "CacheFullError", "HostCache", "Reservation",
     "FileLayout", "FileReader", "FileWriter", "TensorEntry", "ObjectEntry",
     "Chunk", "CompositeStateProvider", "DeltaSaveSpec", "DeltaStateProvider",
-    "ObjectStateProvider", "SnapshotCache", "StateProvider",
+    "ObjectStateProvider", "QuantizedStateProvider", "SnapshotCache", "StateProvider",
     "TensorStateProvider",
     "BaseCheckpointEngine", "DataStatesEngine",
     "ShardRecord", "group_by_rank", "plan_shards",

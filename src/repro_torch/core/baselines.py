@@ -3,7 +3,7 @@ interface the manager builds from.
 
 :class:`DataStatesEngine` composes state providers (zero-copy tensors, lazy
 object serialization overlapped with bulk I/O, XOR deltas against a
-retained snapshot) over the streamlined :class:`DataMovementEngine`. The
+retained snapshot, int8-quantized fp32 state) over the streamlined :class:`DataMovementEngine`. The
 paper's three baselines of the JAX package (``datastates-old``,
 ``snapshot``, ``sync``) are not yet ported.
 """
@@ -22,8 +22,8 @@ from .engine import CheckpointError, CheckpointFuture, DataMovementEngine, \
     FilePlan
 from .state_provider import (CompositeStateProvider, DeltaSaveSpec,
                              DeltaStateProvider, EncodeBudget,
-                             ObjectStateProvider, SnapshotCache,
-                             TensorStateProvider)
+                             ObjectStateProvider, QuantizedStateProvider,
+                             SnapshotCache, TensorStateProvider)
 
 
 def resolve_provider(rec: ShardRecord, delta: Optional[DeltaSaveSpec]):
@@ -259,9 +259,7 @@ class DataStatesEngine(BaseCheckpointEngine):
                             f" — factories must build TensorStateProvider "
                             f"subclasses")
                 elif kind == "quantized":
-                    raise NotImplementedError(
-                        f"the quantized provider is not yet ported "
-                        f"({rec.tensor_name!r} is routed to it)")
+                    tp = QuantizedStateProvider(rec.tensor_name, **kw)
                 elif kind == "delta":
                     tp = DeltaStateProvider(
                         rec.tensor_name,

@@ -399,7 +399,11 @@ class FileReader:
     def tensor_names(self) -> List[str]:
         return list(self.tensors)
 
-    def read_tensor(self, name: str) -> np.ndarray:
+    def read_tensor(self, name: str,
+                    device: torch.device = "cuda") -> np.ndarray:
+        """A stored tensor's host array. ``device`` decodes a
+        self-contained encoded tensor (the dequantize kernel on a card);
+        a raw tensor never touches it."""
         e = self.tensors[name]
         if e.codec != "raw":
             from .codecs import is_chained_codec
@@ -410,7 +414,7 @@ class FileReader:
                     f"through RestoreEngine.restore_chain / "
                     f"CheckpointManager.restore")
             # self-contained encoding (e.g. int8 quantized): decode in place
-            return dtypes.host_view(self.read_encoded_tensor(name),
+            return dtypes.host_view(self.read_encoded_tensor(name, device),
                                     e.dtype).reshape(e.shape)
         mm = np.memmap(self.path, mode="r", dtype=np.uint8,
                        offset=e.offset, shape=(e.nbytes,))
@@ -447,11 +451,13 @@ class FileReader:
                             f"corrupt delta payload")
         return out
 
-    def read_encoded_tensor(self, name: str) -> np.ndarray:
+    def read_encoded_tensor(self, name: str,
+                            device: torch.device) -> np.ndarray:
         """Raw (decoded) bytes of a *self-contained* encoded tensor
-        (e.g. ``int8q+zstd`` quantized payloads), assembled in raw order.
-        Chained codecs (XOR deltas) must go through
-        :meth:`read_encoded_delta` + chain replay instead."""
+        (e.g. ``int8q+zstd`` quantized payloads), assembled in raw order
+        and decoded on ``device``; chunks that carry a fused-encode digest
+        are verified in the same pass. Chained codecs (XOR deltas) must go
+        through :meth:`read_encoded_delta` + chain replay instead."""
         from .codecs import decode_chunk_payload, is_chained_codec
         from .reduction import _decompress
         e = self.tensors[name]
@@ -472,7 +478,7 @@ class FileReader:
                 payload = _decompress(f.read(comp_nb))
                 # decode verifies the fused digest while dequantizing
                 out[lo:hi] = decode_chunk_payload(e.codec, payload, lo, hi,
-                                                 expect_digest=dig)
+                                                 dig, device)
                 covered = hi
         if covered != e.nbytes:
             # without this, a gap in the chunk list would silently hand

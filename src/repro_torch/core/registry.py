@@ -15,8 +15,8 @@ is routed by the **first matching rule** to a provider:
 * ``"delta"``      — XOR differential encoding under the manager's
   :class:`~repro_torch.core.policy.DeltaPolicy` chain schedule
   (:class:`~repro_torch.core.state_provider.DeltaStateProvider`);
-* ``"quantized"``  — blockwise int8 quantization (not yet ported:
-  routing a leaf here fails the save)
+* ``"quantized"``  — per-row int8 quantization of fp32 state on the
+  engine's device
   (:class:`~repro_torch.core.state_provider.QuantizedStateProvider`) — e.g.
   optimizer moments at 4× reduction while params stay raw;
 * ``"auto"``       — the adaptive default: delta when the save is

@@ -18,9 +18,14 @@ the keyframe restores like a full snapshot, then each delta step's payloads
 are decompressed, digest-verified and XOR-folded into the host buffers on
 the engine's device (the ``delta_xor`` kernel on a card).
 
-Not yet ported: the TorchSnapshot-style and sync-pickle formats, the
-self-contained quantized payloads, and elastic re-sharding onto a
-different device layout (DeviceMesh/DTensor templates).
+Self-contained encoded tensors (int8-quantized optimizer state) restore
+like raw ones: decoded once per restore on the engine's device (the
+dequantize kernel on a card, digest-verified), in plain, chain and
+selective ``domains=`` restores alike.
+
+Not yet ported: the TorchSnapshot-style and sync-pickle formats, and
+elastic re-sharding onto a different device layout (DeviceMesh/DTensor
+templates).
 """
 
 from __future__ import annotations
@@ -207,6 +212,27 @@ class _DsllmShard(_ShardSource):
             yield self.path, self.offset + off, nb
 
 
+class _EncodedShard(_ShardSource):
+    """A self-contained encoded tensor (e.g. an int8-quantized optimizer
+    moment) in a native file: its compressed log chunks decode without a
+    chain base, so it restores standalone — decoded at most once per
+    restore (thread-safe), then sliced in memory."""
+
+    __slots__ = ("loader",)
+
+    def __init__(self, index: Region, shape, dtype,
+                 loader: Callable[[], np.ndarray]):
+        super().__init__(index, shape, dtype)
+        self.loader = loader
+
+    def byte_ranges(self, local_region: Region):
+        return None
+
+    def read_fallback(self, local_region: Region) -> np.ndarray:
+        arr = self.loader()
+        return arr[tuple(slice(lo, hi) for lo, hi in local_region)]
+
+
 class _OnceLoader:
     """Thread-safe load-once wrapper around an expensive whole-file read."""
 
@@ -271,7 +297,8 @@ def _leaf_dtype_name(leaf) -> str:
 class RestoreEngine:
     """Plans and executes parallel ranged restores of ``.dsllm`` steps.
 
-    ``device`` runs the chain replay's digest checks and XOR folds.
+    ``device`` runs the chain replay's digest checks and XOR folds and
+    the int8 decodes.
     ``threads`` is the ranged-read fan-out width (``1`` gives a serial
     engine with identical results). ``read_chunk_bytes`` caps a single
     ``preadv`` so large tensors split across the pool instead of
@@ -317,9 +344,19 @@ class RestoreEngine:
                     idx.delta_tensors.setdefault(base, []).append(
                         (rd, entry))
                 elif entry.codec != "raw":
-                    raise RestoreError(
-                        f"{entry.name!r} in {p!r} is {entry.codec}-encoded;"
-                        f" that codec is not yet ported")
+                    # self-contained encoding (quantized): restorable
+                    # standalone through a decode-once shard source
+                    region = entry.index if entry.index is not None \
+                        else tuple((0, d) for d in entry.shape)
+                    comp_nb = sum(c[1] for c in entry.enc_chunks or ())
+                    loader = _OnceLoader(
+                        (lambda r=rd, e=entry: dtypes.host_view(
+                            r.read_encoded_tensor(e.name, self.device),
+                            e.dtype).reshape(e.shape)),
+                        comp_nb, stats, stats_lock)
+                    idx.tensors.setdefault(base, []).append(
+                        _EncodedShard(tuple(map(tuple, region)),
+                                      entry.shape, entry.dtype, loader))
                 else:
                     idx.tensors.setdefault(base, []).append(
                         _DsllmShard(p, entry))
@@ -367,6 +404,15 @@ class RestoreEngine:
                     dst_view: np.ndarray,
                     tasks: List[Callable[[], Tuple[int, int]]]) -> None:
         ranges = src.byte_ranges(src_local)
+        if ranges is None:
+            # a decoded (not byte-addressable) source: its loader decodes
+            # once and accounts the bytes it read
+            def decode_task(src=src, src_local=src_local,
+                            dst_view=dst_view):
+                dst_view[...] = src.read_fallback(src_local)
+                return 0, 0
+            tasks.append(decode_task)
+            return
         if not dst_view.flags["C_CONTIGUOUS"]:
             # a stored shard covering part of the leaf (a multi-device
             # save by the JAX package): read its runs into a scratch

@@ -17,6 +17,9 @@ engine stays agnostic to heterogeneity and only optimizes multi-tier I/O.
 * :class:`CompositeStateProvider` — hierarchical composition: plans the
   fixed-offset tensor region for one file, orders the stream tensors-first
   (largest first) so object serialization overlaps with bulk tensor I/O.
+* :class:`QuantizedStateProvider` — per-row int8 quantization of fp32
+  state on the engine's device (self-contained ``int8q+zstd`` payloads, so
+  quantized tensors restore standalone — see :mod:`repro_torch.core.codecs`).
 * :class:`DeltaStateProvider` — differential checkpointing on the main
   engine path (paper §VII / ByteCheckpoint): XOR-deltas each staged chunk
   against a retained previous-snapshot copy held in a
@@ -43,7 +46,9 @@ from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import metrics as obs_metrics
 
 from . import msgpack_lite
-from .codecs import DELTA_CODEC, encode_delta_chunk, payload_digest
+from .codecs import (DELTA_CODEC, INT8_CODEC, INT8_ROW_BYTES,
+                     encode_delta_chunk, encode_int8_block,
+                     int8_encoded_nbytes, payload_digest)
 from .host_cache import HostCache, Reservation
 from .layout import FileLayout
 
@@ -450,6 +455,91 @@ class DeltaStateProvider(TensorStateProvider):
                 pos = end
         finally:
             self._signal_stream_end()
+
+
+class QuantizedStateProvider(TensorStateProvider):
+    """Compressed SP: per-row int8 quantization of fp32 state (4x).
+
+    Each staged chunk is cut on quantization-row boundaries, quantized on
+    the engine's device with per-row symmetric scales (the fused
+    quantize+digest kernel on a card, :func:`~.codecs.encode_int8_block`)
+    and emitted as a self-contained ``codec="int8q+zstd"`` log-append
+    payload that the flush lanes compress. Like the delta path, encoded
+    tensors never occupy the fixed region; unlike it the payloads have no
+    chain base, so a quantized tensor restores standalone, selective
+    per-domain restores included, at a loss of at most half a
+    quantization step per value.
+
+    The natural routing target is optimizer state
+    (``ProviderRule(domain="optimizer", dtype="float32",
+    provider="quantized")``) while params stay raw or delta-encoded; a
+    non-fp32 leaf routed here is an error at construction.
+    """
+
+    def __init__(self, name: str, *, codec: str = INT8_CODEC, **kw):
+        super().__init__(name, **kw)
+        if np.dtype(self.dtype) != np.float32:
+            raise ValueError(
+                f"QuantizedStateProvider requires float32 state; "
+                f"{name!r} is {self.dtype} — scope the registry rule "
+                f"with dtype='float32'")
+        self.enc_codec = codec
+        # chunk boundaries land on whole quantization rows, so every
+        # payload decodes on its own
+        self.chunk_bytes = max(
+            INT8_ROW_BYTES,
+            self.chunk_bytes - self.chunk_bytes % INT8_ROW_BYTES)
+        # same engine wiring as DeltaStateProvider: encode work waits for
+        # the save's captured event, so the staging lane runs uncontended,
+        # and fresh payload allocations are bounded by the encode budget
+        self.capture_gate: Optional[threading.Event] = None
+        self.encode_budget: Optional[EncodeBudget] = None
+
+    @property
+    def fixed_offset(self) -> bool:
+        return False
+
+    def chunks(self) -> Iterator[Chunk]:
+        if self.capture_gate is not None:
+            self.capture_gate.wait()
+        view = self._byte_view()
+        n = self.nbytes
+        pos = 0
+        while pos < n:
+            end = min(pos + self.chunk_bytes, n)
+            if self._host_array is None:
+                with self._cond:
+                    while self._staged < end:
+                        self._cond.wait()
+            raw = np.frombuffer(view[pos:end], dtype=np.uint8)
+            # the payload size is known before encoding, so its footprint
+            # is reserved once per chunk before the encode allocates it
+            enc_nb = int8_encoded_nbytes(end - pos)
+            budget = self.encode_budget
+            on_flushed = None
+            if budget is not None:
+                budget.acquire(enc_nb)
+                on_flushed = (lambda b=budget, nb=enc_nb: b.release(nb))
+            try:
+                with obs.span("encode.int8", tensor=self.name,
+                              bytes=end - pos, fused=True):
+                    payload, digest = encode_int8_block(
+                        raw, self.checksum_chunks, self.device)
+                    obs_metrics.inc("engine.bytes_encode_read", end - pos)
+            except BaseException:
+                # an un-yielded chunk credits its own reservation back
+                if budget is not None:
+                    budget.release(enc_nb)
+                raise
+            if len(payload) != enc_nb:
+                raise RuntimeError(
+                    f"{self.name}: int8q payload of {len(payload)} B, "
+                    f"expected {enc_nb} B")
+            yield Chunk(name=self.name, kind="tensor", data=payload,
+                        offset=None, codec=self.enc_codec,
+                        raw_range=(pos, end), last=end >= n,
+                        digest=digest, on_flushed=on_flushed)
+            pos = end
 
 
 class ObjectStateProvider(StateProvider):

@@ -7,8 +7,7 @@ checkout, named by a hash of its sources, at the first launch of any kernel
 (never at import: hosts without ``nvcc`` import every module).
 
 Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3``, and never
-``--use_fast_math`` — the int8 quantize kernels that join this library
-depend on IEEE division.
+``--use_fast_math`` — the int8 quantize kernel depends on IEEE division.
 """
 
 from __future__ import annotations
@@ -35,6 +34,8 @@ SIGNATURES = {
     "ckpt_checksum_u32": (_P, _N, _P, _P),
     "ckpt_xor_checksum_u32": (_P, _P, _P, _N, _P, _P),
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
+    "ckpt_quantize_checksum_int8": (_P, _N, _P, _P, _P),
+    "ckpt_dequantize_checksum_int8": (_P, _N, _P, _P, _P),
 }
 
 _lock = threading.Lock()

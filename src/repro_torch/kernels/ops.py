@@ -21,6 +21,7 @@ import torch
 from . import checksum as _checksum
 from . import delta as _delta
 from . import fused as _fused
+from . import quantize as _quant
 from .checksum import U32_MASK, as_words
 
 #: the restore fold moves at most this many bytes to the card per launch
@@ -75,6 +76,24 @@ def delta_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _delta.delta_xor_cuda(a, b)
 
 
+def fused_quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``(int8q payload body, its digest)`` of float32 rows ``x`` of
+    shape ``(n_rows, 256)``."""
+    if _kind(x) == "cpu":
+        return _quant.quantize_checksum_plain(x)
+    body, dig = _quant.quantize_checksum_cuda(x)
+    return body, int(dig.item()) & U32_MASK
+
+
+def fused_dequantize_int8(body: torch.Tensor, n_rows: int
+                          ) -> Tuple[torch.Tensor, int]:
+    """``(float32 rows, digest)`` of an int8q payload body."""
+    if _kind(body) == "cpu":
+        return _quant.dequantize_checksum_plain(body, n_rows)
+    out, dig = _quant.dequantize_checksum_cuda(body, n_rows)
+    return out, int(dig.item()) & U32_MASK
+
+
 # ------------------------------------------------------ host-staged bytes
 def host_u8(data) -> np.ndarray:
     """Flat uint8 numpy view of ``bytes``/memoryview/ndarray data."""
@@ -83,13 +102,17 @@ def host_u8(data) -> np.ndarray:
     return np.frombuffer(memoryview(data), dtype=np.uint8)
 
 
-def _words_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
+def _bytes_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
     if not b.flags["C_CONTIGUOUS"] or not b.flags["WRITEABLE"]:
         b = b.copy()
     t = torch.from_numpy(b)
     if device.type != "cpu":
         t = t.to(device)
-    return as_words(t)
+    return t
+
+
+def _words_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
+    return as_words(_bytes_on(b, device))
 
 
 def host_checksum(data, device: torch.device) -> int:
@@ -123,3 +146,24 @@ def host_delta_xor(cur, prev, device: torch.device) -> np.ndarray:
                       _words_on(prev[lo:hi], device))
         out[lo:hi] = _to_host(d, hi - lo)
     return out
+
+
+def host_fused_quantize_int8(rows, device: torch.device
+                             ) -> Tuple[np.ndarray, int]:
+    """``(payload body as a fresh uint8 array, its digest)`` of host bytes
+    holding whole float32 rows of 256, quantized on ``device``: the rows
+    go up (4 bytes a value), the body comes back (about 1 byte a value)."""
+    b = host_u8(rows)
+    x = _bytes_on(b, torch.device(device)).view(torch.float32) \
+        .reshape(-1, _quant.ROW_ELEMS)
+    body, dig = fused_quantize_int8(x)
+    return body.cpu().numpy(), dig
+
+
+def host_fused_dequantize_int8(body, n_rows: int, device: torch.device
+                               ) -> Tuple[np.ndarray, int]:
+    """``(float32 rows' bytes as a fresh uint8 array, digest)`` of a host
+    payload body, decoded on ``device``."""
+    t = _bytes_on(host_u8(body), torch.device(device))
+    out, dig = fused_dequantize_int8(t, n_rows)
+    return out.cpu().numpy().reshape(-1).view(np.uint8), dig

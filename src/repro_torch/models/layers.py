@@ -1,0 +1,143 @@
+"""Dense-transformer layers as plain functions on tensors (port of the
+dense half of ``repro/models/layers.py``): rmsnorm, RoPE, the causal mask,
+GQA attention on the direct path, the gated FFN, embedding and tied
+logits. Parameters are dicts of tensors in the JAX package's tree;
+autograd gives the backward.
+
+Cast points are the reference's: norms and RoPE compute in fp32 and cast
+back to the input dtype; attention logits are scaled in the working dtype,
+then softmaxed in fp32 under a ``-1e30`` mask and cast to ``v``'s dtype.
+A Python scalar that JAX applies to a bf16 array is cast to bf16 first
+(weak typing), so it is applied here as a 0-d tensor of the working dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+#: the direct (materialised-logits) attention path; longer sequences take
+#: the JAX package's blocked online-softmax path, not yet ported
+DIRECT_SDPA_MAX_SEQ = 2048
+
+
+def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as JAX applies a Python scalar to ``like``: in its dtype."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+# --------------------------------------------------------------------- norms
+def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to ``x.dtype``."""
+    xf = x.to(torch.float32)
+    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- rope
+def rope_frequencies(hd: int, theta: float,
+                     device: torch.device) -> torch.Tensor:
+    exps = torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: (..., S). Rotates in fp32."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- masks
+def make_mask(seq_len: int, device: torch.device) -> torch.Tensor:
+    """(S, S) causal mask (``kind="full"``, no prefix)."""
+    i = torch.arange(seq_len, device=device)[:, None]
+    j = torch.arange(seq_len, device=device)[None, :]
+    return j <= i
+
+
+# ----------------------------------------------------------------- attention
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,KV,hd); GQA by grouping heads."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    qg = q.reshape(B, S, KV, rep, hd)
+    logits = torch.einsum("bskrh,btkh->bkrst", qg, k) \
+        / _scalar(math.sqrt(hd), q)
+    logits = logits.to(torch.float32).masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    out = torch.einsum("bkrst,btkh->bskrh", probs, v)
+    return out.reshape(B, S, H * hd)
+
+
+def full_seq_sdpa(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over the whole sequence on the direct path."""
+    S = q.shape[1]
+    if S > DIRECT_SDPA_MAX_SEQ:
+        raise NotImplementedError(
+            f"sequence length {S} > {DIRECT_SDPA_MAX_SEQ}: the blocked "
+            f"online-softmax attention path is not yet ported")
+    return _sdpa(q, k, v, make_mask(S, q.device))
+
+
+def attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal self-attention. x: (B,S,d)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KV, hd)
+    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return full_seq_sdpa(q, k, v) @ p["wo"]
+
+
+# ----------------------------------------------------------------------- ffn
+def apply_ffn(cfg, p: Dict[str, torch.Tensor],
+              x: torch.Tensor) -> torch.Tensor:
+    """Gated FFN: ``act(x @ w_gate) * (x @ w_up) @ w_down``."""
+    up = x @ p["w_up"]
+    gate = x @ p["w_gate"]
+    if cfg.act == "silu":
+        h = torch.nn.functional.silu(gate) * up
+    elif cfg.act == "gelu":
+        h = torch.nn.functional.gelu(gate, approximate="tanh") * up
+    else:
+        raise NotImplementedError(f"activation {cfg.act!r} is not ported")
+    return h @ p["w_down"]
+
+
+# ----------------------------------------------------------------- embedding
+def embed_tokens(p: Dict[str, torch.Tensor],
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """tokens: (B,S) int -> (B,S,d)."""
+    return p["embed"][tokens.long()]
+
+
+def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],
+                       x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ p["embed"].T
+    return x @ p["head"]
+
+
+def positions_for(batch: int, seq_len: int,
+                  device: torch.device) -> torch.Tensor:
+    """(B, S) token positions."""
+    return torch.arange(seq_len, device=device).expand(batch, seq_len)
+

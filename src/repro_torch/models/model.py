@@ -1,5 +1,5 @@
-"""Parameter trees of the dense models (port of the init half of
-``repro/models/model.py``; the forward pass comes with the training loop).
+"""The dense models: parameter trees, forward and loss (port of the dense
+half of ``repro/models/model.py``).
 
 :func:`param_shapes` reproduces the tree of ``init_params`` exactly —
 ``{"embed": {"embed"}, "ln_f": {"scale"}, "groups": ((stacked block, ...),
@@ -8,6 +8,10 @@ w_gate}, "ln1": {scale}, "ln2": {scale}}`` stacked over the group's
 repeat count — so state built here checkpoints under the same tensor
 names as the JAX package's. Matrices are in ``cfg.dtype`` (bf16), norm
 scales in fp32.
+
+:func:`forward` runs the stacked groups with a Python loop over the
+repeat index where the JAX package scans, slicing each stacked leaf, so
+the parameters keep their tree and the names the checkpoint resolves.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import torch
 
 from repro_torch.core import dtypes
 from repro_torch.core.tree import map_leaves
+
+from . import layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +93,54 @@ def init_params(cfg, generator: torch.Generator,
         x = torch.randn(spec.shape, generator=generator, device=device)
         return x.mul_(spec.scale).to(dt)
     return map_leaves(make, param_shapes(cfg))
+
+
+# ------------------------------------------------------------------ forward
+def block_forward(cfg, p: Dict[str, Any], x: torch.Tensor, *,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """One ``full`` block: pre-norm attention then pre-norm FFN, each added
+    to the residual in ``x.dtype``."""
+    h = layers.apply_norm(p["ln1"], x)
+    x = x + layers.attention(cfg, p["attn"], h,
+                             positions=positions).to(x.dtype)
+    h2 = layers.apply_norm(p["ln2"], x)
+    return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+
+
+def _embed_inputs(cfg, params: Dict[str, Any],
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Token embeddings times ``sqrt(d_model)`` in the working dtype."""
+    x = layers.embed_tokens(params["embed"], batch["tokens"])
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                            device=x.device)
+
+
+def forward(cfg, params: Dict[str, Any],
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Full-sequence forward; returns the logits (B, S, vocab)."""
+    x = _embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    positions = layers.positions_for(B, S, x.device)
+    for (pattern, count), stacked in zip(cfg.layer_groups,
+                                         params["groups"]):
+        if any(btype != "full" for btype in pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: block types {pattern} are not yet ported")
+        for i in range(count):
+            for pp in stacked:
+                x = block_forward(cfg, map_leaves(lambda t: t[i], pp), x,
+                                  positions=positions)
+    x = layers.apply_norm(params["ln_f"], x)
+    return layers.logits_from_hidden(cfg, params["embed"], x)
+
+
+def loss_fn(cfg, params: Dict[str, Any],
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token cross-entropy: ``logsumexp`` over fp32 logits of the
+    positions ``[:-1]`` minus the gold logit, averaged."""
+    logits = forward(cfg, params, batch)
+    tgt = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1].to(torch.float32)
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    return (logz - gold).mean()

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import repro.core as J
+import repro.core.codecs as jcodecs
 from repro.configs import get_config as jget_config
 from repro.configs import smoke_variant as jsmoke
 from repro.models.model import init_params as jinit_params
@@ -326,15 +327,126 @@ def test_unported_configurations_are_refused(tmp_path, policy, match):
 
 
 def test_quantized_route_is_refused(tmp_path):
-    reg = T.StateProviderRegistry(
-        [T.ProviderRule(provider="quantized", dtype="float32")])
-    mgr = T.CheckpointManager.from_policy(str(tmp_path), T.CheckpointPolicy(
-        providers=reg), device="cpu")
+    """The quantized route takes float32 leaves only: a bf16 leaf routed
+    to it fails the save in both packages alike, never quantizing it."""
+    for mod, kw, leaf in (
+            (J, {}, jnp.zeros(8, jnp.bfloat16)),
+            (T, {"device": "cpu"}, torch.zeros(8, dtype=torch.bfloat16))):
+        reg = mod.StateProviderRegistry(
+            [mod.ProviderRule(provider="quantized")])
+        mgr = mod.CheckpointManager.from_policy(
+            str(tmp_path / mod.__name__), mod.CheckpointPolicy(
+                providers=reg), **kw)
+        try:
+            with pytest.raises(ValueError, match="requires float32"):
+                mgr.save(1, {"m": leaf}, blocking=True)
+            assert mgr.latest_step() is None
+        finally:
+            mgr.close()
+
+
+def _mixed_policy(mod):
+    """Params delta-routed (keyframe every 3), fp32 optimizer state
+    quantized, 64 KiB chunks so every leaf crosses several encodes."""
+    return mod.CheckpointPolicy(
+        engine=mod.EnginePolicy(host_cache_bytes=64 << 20,
+                                chunk_bytes=1 << 16),
+        delta=mod.DeltaPolicy(keyframe_every=3),
+        providers=(mod.StateProviderRegistry()
+                   .add_rule(provider="quantized", domain="optimizer",
+                             dtype="float32")
+                   .add_rule(provider="auto")))
+
+
+def _int8_round_trip(x: np.ndarray) -> np.ndarray:
+    """The reference codec's encode then decode of one fp32 leaf."""
+    raw = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    payload, dig = jcodecs.encode_int8_block(raw, with_digest=True)
+    out = jcodecs.decode_int8_block(payload, 0, raw.size, expect_digest=dig)
+    return out.view(np.float32).reshape(x.shape)
+
+
+def _quantized(state):
+    """``state`` as a mixed-policy restore returns it: params, the count
+    and the objects exact, master/m/v through the int8 round trip."""
+    opt = dict(state["optimizer"])
+    for key in ("master", "m", "v"):
+        opt[key] = jax.tree_util.tree_map(_int8_round_trip, opt[key])
+    return {**state, "optimizer": opt}
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_quantized_steps_cross_packages(tmp_path, states, writer):
+    """K, delta, delta under the mixed policy, written by either package
+    and read by both: every leaf equal bit for bit across the readers,
+    params exact against the saved input, quantized leaves equal to the
+    reference codec's round trip of it, and ``repro``'s ``verify_step``
+    passes on every step."""
+    if writer == "repro":
+        jm = J.CheckpointManager.from_policy(str(tmp_path),
+                                             _mixed_policy(J))
+        for step in (1, 2, 3):
+            jm.save(step, _jax(states[step]))
+        jm.wait_for_persist()
+        jm.wait_for_commit()
+        assert not jm.commit_errors
+        jm.close()
+    else:
+        tm = T.CheckpointManager.from_policy(str(tmp_path), _mixed_policy(T),
+                                             device="cpu")
+        try:
+            futs = [tm.save(step, from_numpy_state(states[step], "cpu"))
+                    for step in (1, 2, 3)]
+            tm.wait_for_persist()
+            tm.wait_for_commit()
+            assert not tm.commit_errors
+            doms = futs[1].stats.extra["domains"]
+            assert [f.stats.extra["delta"]["keyframe"] for f in futs] == \
+                [True, False, False]
+        finally:
+            tm.close()
+        assert "int8q+zstd" in str(doms["optimizer"])
+    repo = JRepository(str(tmp_path))
+    for step in (1, 2, 3):
+        assert repo.verify_step(step).ok
+    jm = J.CheckpointManager.from_policy(str(tmp_path), _mixed_policy(J))
+    tm = T.CheckpointManager.from_policy(str(tmp_path), _mixed_policy(T),
+                                         device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match="quantized"):
-            mgr.save(1, {"m": torch.zeros(8)})
+        for step in (3, 1, 2):
+            want = _quantized(states[step])
+            got_t = to_numpy_state(tm.restore(
+                from_numpy_state(states[1], "cpu"), step=step))
+            got_j = _np(jm.restore(_jax(states[1]), step=step))
+            _assert_tree_equal(got_t, got_j)
+            _assert_tree_equal(got_t, want)
+            assert tm.repository.verify_step(step).ok
     finally:
-        mgr.close()
+        jm.close()
+        tm.close()
+
+
+def test_quantized_optimizer_restores_by_domain(tmp_path, states):
+    """``domains=("optimizer",)`` on a delta step of the mixed policy:
+    the quantized leaves decode standalone, the delta-routed count
+    replays its chain, and the model domain is the template's own."""
+    tm = T.CheckpointManager.from_policy(str(tmp_path), _mixed_policy(T),
+                                         device="cpu")
+    try:
+        for step in (1, 2):
+            tm.save(step, from_numpy_state(states[step], "cpu"))
+        tm.wait_for_persist()
+        tm.wait_for_commit()
+        template = from_numpy_state(states[1], "cpu")
+        tm.restore(template, step=2)
+        full = tm.last_restore_stats.bytes_read
+        out = tm.restore(template, step=2, domains=("optimizer",))
+        assert tm.last_restore_stats.bytes_read < full
+        assert out["model"] is template["model"]
+        _assert_tree_equal(to_numpy_state(out["optimizer"]),
+                           _quantized(states[2])["optimizer"])
+    finally:
+        tm.close()
 
 
 def test_plan_shards_names_match_reference(states):

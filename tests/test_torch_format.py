@@ -119,10 +119,16 @@ def test_delta_encode_matches_reference(nbytes):
 
 
 def test_int8q_payloads_are_refused():
-    with pytest.raises(tcodecs.CodecError, match="int8q not yet ported"):
-        tcodecs.decode_chunk_payload("int8q+zstd", b"\0" * 16, 0, 8)
+    """A malformed int8q payload is refused by the port's decoder, never
+    misread; a chained codec never decodes standalone."""
+    with pytest.raises(tcodecs.CodecError, match="declares 0 raw bytes"):
+        tcodecs.decode_chunk_payload("int8q+zstd", b"\0" * 16, 0, 8, None,
+                                     "cpu")
+    with pytest.raises(tcodecs.CodecError, match="shorter than its header"):
+        tcodecs.decode_chunk_payload("int8q+zstd", b"\0" * 4, 0, 8, None,
+                                     "cpu")
     with pytest.raises(tcodecs.CodecError, match="chained"):
-        tcodecs.decode_chunk_payload("xor+zstd", b"", 0, 0)
+        tcodecs.decode_chunk_payload("xor+zstd", b"", 0, 0, None, "cpu")
     assert tcodecs.is_chained_codec(tcodecs.DELTA_CODEC)
     assert not tcodecs.is_chained_codec(tcodecs.INT8_CODEC)
     assert (tcodecs.DELTA_CODEC, tcodecs.INT8_CODEC) == \

@@ -183,7 +183,9 @@ def test_build_flags_are_fixed():
     assert "fast_math" not in flags and "-O3" in flags
     assert set(build.SIGNATURES) == {"ckpt_checksum_u32",
                                      "ckpt_xor_checksum_u32",
-                                     "ckpt_delta_xor"}
+                                     "ckpt_delta_xor",
+                                     "ckpt_quantize_checksum_int8",
+                                     "ckpt_dequantize_checksum_int8"}
     src = build.SOURCES[0].read_text()
     for sym in build.SIGNATURES:
         assert f'extern "C" int {sym}(' in src
