@@ -12,11 +12,15 @@ Phases, any failure exits non-zero:
    identical losses.
 2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    (into ``build/repro_torch/``), timed.
-3. Kernels: each of the five kernels against its plain PyTorch version on
-   the card, at odd sizes and at the main path's shapes — results must be
-   bit-identical — then timed with CUDA events beside its plain version,
-   its bound, and (for ``delta_xor``) ``torch.bitwise_xor`` as the library
-   yardstick.
+3. Kernels: each of the six kernels against its plain PyTorch version on
+   the card, at odd sizes and at the main path's shapes — the five
+   checkpoint kernels bit-identical, flash attention within 2e-5 (fp32)
+   and 2e-2 (bf16) for the ``full``, ``window`` and ``chunked`` masks at
+   S 1, 257 and 2,100 with 32/8 and 4/4 heads — then timed with CUDA
+   events beside its plain version, its bound, and a library yardstick
+   where one PyTorch call computes the same function (``torch.bitwise_xor``
+   for ``delta_xor``, ``scaled_dot_product_attention`` for flash attention,
+   timed here only; the port never calls it).
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
@@ -32,14 +36,24 @@ Phases, any failure exits non-zero:
    then a fresh manager and trainer resume step 6: params bit for bit,
    master/m/v equal to the plain int8 round trip of the saved leaves, and
    one more step from each trainer gives the same loss.
-   Kernel launch counts are zeroed just before each of phases 4 and 5 and
-   read just after; each kernel of the phase must have run.
-6. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+6. Serving path (slice 3), on phase 5's checkpoints: ``load_params_for_
+   serving`` restores the params of step 6 (chain 2, 4, 6) onto the card,
+   bit for bit, reading fewer bytes than phase 5's full resume; then
+   ``greedy_generate`` prefills 2 seeded prompts of 4,096 tokens (past
+   2,048: the flash-attention kernel, once per layer) and decodes 32
+   tokens, twice, with the same tokens both times; then three timed runs
+   of the prefill and decode steps, one prefill and one decode step under
+   ``torch.profiler``, and layer 0's real q/k/v through the kernel and its
+   plain version.
+   Kernel launch counts are zeroed just before each of phases 4, 5 and 6
+   and read just after; each kernel of the phase must have run.
+7. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -53,9 +67,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 #: H100 SXM device memory (data sheet). The u32 kernels do a few integer
 #: operations per 4-byte word and the int8 pair about twenty fp32
-#: operations per value (against 67 TFLOP/s), so the bound of all five is
-#: the bytes they move.
+#: operations per value (against 67 TFLOP/s), so the bound of those five
+#: is the bytes they move.
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM dense bf16 tensor-core peak (data sheet): flash attention's
+#: products are bf16 at the serving shape
+BF16_FLOP_PER_S = 989e12
 HOST_CACHE_BYTES = 12 << 30
 #: words per call on the main path: 4 MiB chunks for the encode and the
 #: file checksums, 64 MiB pieces for the restore fold
@@ -66,12 +83,24 @@ MAIN_ROWS = 4096
 #: the training phase: tokens per batch row (the longest sequence on the
 #: direct attention path), batch rows, steps and the save interval
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_INTERVAL = 2048, 4, 6, 2
-SOURCE = "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
+#: the serving phase: prompts, prompt tokens (past the 2,048 of the
+#: direct attention path) and new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
+#: flash attention at odd sizes: sequence lengths, (H, KV) heads, masks
+FLASH_SEQS = (1, 257, 2100)
+FLASH_HEADS = ((32, 8), (4, 4))
+FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("chunked", 0, 192))
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
+           for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
+                     "quantize_checksum_int8", "dequantize_checksum_int8")}
+SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {"checksum_u32": "src/repro/kernels/checksum.py:43",
             "xor_checksum_u32": "src/repro/kernels/fused.py:78",
             "delta_xor": "src/repro/kernels/delta.py:30",
             "quantize_checksum_int8": "src/repro/kernels/fused.py:169",
-            "dequantize_checksum_int8": "src/repro/kernels/fused.py:201"}
+            "dequantize_checksum_int8": "src/repro/kernels/fused.py:201",
+            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
 
 
 def fail(msg: str) -> None:
@@ -86,11 +115,13 @@ def log(msg: str) -> None:
 # ------------------------------------------------------------- kernels
 def _kernels():
     """Each kernel's launch counter, by name."""
-    from repro_torch.kernels import checksum, delta, fused, quantize
+    from repro_torch.kernels import (checksum, delta, flash_attention, fused,
+                                     quantize)
     return {"checksum_u32": checksum.KERNEL,
             "xor_checksum_u32": fused.KERNEL, "delta_xor": delta.KERNEL,
             "quantize_checksum_int8": quantize.QUANT_KERNEL,
-            "dequantize_checksum_int8": quantize.DEQUANT_KERNEL}
+            "dequantize_checksum_int8": quantize.DEQUANT_KERNEL,
+            "flash_attention": flash_attention.KERNEL}
 
 
 def _zero_launches() -> None:
@@ -194,6 +225,7 @@ def check_kernels():
             + (f", torch.bitwise_xor {library_ms:.4f} ms)"
                if library_ms is not None else ")"))
     rows.update(check_int8_kernels(gen))
+    rows.update(check_flash_kernel(gen))
     return rows
 
 
@@ -259,6 +291,90 @@ def check_int8_kernels(gen) -> dict:
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{rows[name]['bound_ms']:.5f} ms)")
     return rows
+
+
+def _flash_err(got, want, tol: float) -> float:
+    """Largest ``|got - want|``, or ``inf`` where ``got`` is not finite or
+    lies past ``tol + tol * |want|`` (``assert_allclose`` with ``atol =
+    rtol = tol``, as ``tests/test_kernels.py`` holds the Pallas kernel)."""
+    import torch
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) \
+            or bool((diff > tol + tol * w.abs()).any()):
+        return math.inf
+    return float(diff.max())
+
+
+def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
+                   itemsize: int) -> tuple:
+    """(bound ms, bound_by) of causal ``full`` attention: ``4 * hd``
+    FLOP per visible (query, key) pair, ``S (S + 1) / 2`` pairs per (b, h),
+    against the bf16 tensor-core peak; q, k, v read once and the output
+    written once against the memory rate."""
+    flop = 4 * hd * B * H * S * (S + 1) // 2
+    nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
+    t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_flash_kernel(gen) -> dict:
+    """Flash attention against its plain version at odd sizes (every mask,
+    both dtypes, 32/8 and 4/4 heads) and at the serving shape (B 2,
+    S 4,096, 32/8 heads, hd 64, bf16, ``full``); then timed there beside
+    the plain version, the bound, and PyTorch's
+    ``scaled_dot_product_attention`` (causal, GQA) as the library time."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B, hd = SERVE_BATCH, 64
+    worst = 0.0
+    cases = [(B, S, H, KV, dt, kind) for S in FLASH_SEQS
+             for H, KV in FLASH_HEADS for dt in ("float32", "bfloat16")
+             for kind in FLASH_KINDS]
+    cases.append((B, SERVE_PROMPT, 32, 8, "bfloat16", FLASH_KINDS[0]))
+    for B_, S, H, KV, dt, (kind, window, chunk) in cases:
+        tdt = getattr(torch, dt)
+        q = torch.randn(B_, S, H, hd, device="cuda", generator=gen).to(tdt)
+        k = torch.randn(B_, S, KV, hd, device="cuda", generator=gen).to(tdt)
+        v = torch.randn(B_, S, KV, hd, device="cuda", generator=gen).to(tdt)
+        got = fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
+                                      chunk=chunk)
+        want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
+                                        chunk=chunk)
+        torch.cuda.synchronize()
+        err = _flash_err(got, want, FLASH_TOL[dt])
+        if got.shape != want.shape or got.dtype != q.dtype \
+                or not math.isfinite(err):
+            fail(f"flash_attention disagrees with its plain version at "
+                 f"B {B_} S {S} heads {H}/{KV} {dt} {kind}: max |diff| "
+                 f"{float((got.float() - want.float()).abs().max())!r}")
+        worst = max(worst, err)
+    S, H, KV = SERVE_PROMPT, 32, 8
+    q = torch.randn(B, S, H, hd, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
+        .to(torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v), 50)
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
+    library_ms = _time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
+    bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2)
+    log(f"kernel flash_attention: within {FLASH_TOL} of its plain version "
+        f"at S {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, masks "
+        f"{[k[0] for k in FLASH_KINDS]}, fp32 and bf16 (max |diff| "
+        f"{worst:.3g}); at B {B} S {S} heads {H}/{KV} hd {hd} bf16 causal: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+        f"{bound_by}, scaled_dot_product_attention {library_ms:.4f} ms)")
+    return {"flash_attention": {
+        "name": "flash_attention", "shape": [B, S, H, KV, hd],
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms}}
 
 
 # ----------------------------------------------------------- main path
@@ -455,10 +571,11 @@ def _check_int8_round_trip(got, saved, what: str) -> None:
 def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                    flush_threads: int, batch: int, seq_len: int,
                    steps: int = TRAIN_STEPS,
-                   interval: int = TRAIN_INTERVAL) -> dict:
+                   interval: int = TRAIN_INTERVAL) -> tuple:
     """Train ``steps`` steps saving every ``interval`` under the mixed
     policy, resume the last step with a fresh manager and trainer, check
-    the restored state, and take one more step from each trainer."""
+    the restored state, and take one more step from each trainer. Returns
+    ``(report, host copies of the last saved step's param leaves)``."""
     import torch
     from repro_torch.core import CheckpointManager
     from repro_torch.core.tree import leaves
@@ -570,6 +687,10 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             f" read {st.read_s:.3f} s, fold {st.fold_s:.3f} s, assemble "
             f"{st.assemble_s:.3f} s), {st.bytes_read} bytes read; params "
             f"bit-exact, master/m/v the int8 round trip of the saved state")
+        # the params of the last save, kept on the host for the serving
+        # phase: the step below changes them
+        saved_params = [t.detach().to("cpu", copy=True)
+                        for t in leaves(tr.params)]
         # one more step from each: the loss reads only the params and the
         # data cursor, both restored exactly
         after = [t.run(1)[-1] for t in (tr, tr2)]
@@ -588,6 +709,192 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         f"({'bit-identical' if a == b else f'relative difference {rel}'}); "
         f"forward+backward {after[0].grad_s:.4f} s and "
         f"{after[1].grad_s:.4f} s with no save in flight")
+    return report, saved_params
+
+
+def _profile(fn, top: int = 6) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: wall time up to a
+    synchronize (profiler on), the device's busy time (the sum of the
+    self time of every device-side event — kernels, copies, fills — on one
+    stream, so nothing overlaps) and the ``top`` device events by time, as
+    ``[name, ms, calls]``. Host-side operators are left out: their device
+    time is their kernels'."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    if not events:
+        fail("torch.profiler recorded no device time on the card")
+    return {"wall_ms": wall * 1e3,
+            "device_ms": sum(e.self_device_time_total for e in events) / 1e3,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                    for e in events[:top]]}
+
+
+def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
+                   full_restore_bytes: int, batch: int, prompt_len: int,
+                   n_new: int) -> dict:
+    """Serve from the training checkpoint of ``step`` in ``workdir``:
+    restore its params (``model`` domain only) onto ``device`` and hold
+    them against ``saved`` bit for bit and their bytes read below
+    ``full_restore_bytes``; generate ``n_new`` tokens greedily from
+    ``batch`` seeded prompts of ``prompt_len`` tokens twice (same tokens
+    both times), counting the attention kernel's launches over one run.
+    The launch counts of the whole phase are read right after; the timed
+    run and the kernel check on layer 0's q/k/v come after that."""
+    import torch
+    from repro_torch.core import dtypes
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    template = map_leaves(
+        lambda spec: torch.empty(spec.shape, device=device,
+                                 dtype=dtypes.lookup(spec.dtype).torch),
+        M.param_shapes(cfg))
+    t0 = time.perf_counter()
+    params, st = engine.load_params_for_serving(workdir, template, step=step)
+    sync()
+    secs = time.perf_counter() - t0
+    got = leaves(params)
+    if len(got) != len(saved):
+        fail(f"serving restore: {len(got)} param leaves, {len(saved)} saved")
+    for i, (a, b) in enumerate(zip(got, saved)):
+        if a.device.type != device or a.dtype != b.dtype \
+                or not torch.equal(a.cpu(), b):
+            fail(f"serving restore: param leaf {i} is not step {step}'s")
+    if not 0 < st.bytes_read < full_restore_bytes:
+        fail(f"serving restore read {st.bytes_read} bytes, not fewer than "
+             f"the full resume's {full_restore_bytes}")
+    report = {"restore": {
+        "step": step, "total_s": secs, "verify_s": st.verify_s,
+        "read_s": st.read_s, "fold_s": st.fold_s,
+        "assemble_s": st.assemble_s, "bytes_read": st.bytes_read,
+        "full_resume_bytes_read": full_restore_bytes}}
+    log(f"serving restore of step {step} (params only): {secs:.3f} s "
+        f"(verify {st.verify_s:.3f} s, read {st.read_s:.3f} s, fold "
+        f"{st.fold_s:.3f} s, assemble {st.assemble_s:.3f} s), "
+        f"{st.bytes_read} bytes read (full resume {full_restore_bytes}); "
+        f"bit-exact")
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
+                           dtype=torch.int32).to(device)
+    prompt = {"tokens": tokens}
+    runs = []
+    for _ in range(2):
+        before = fa.KERNEL.launches
+        t0 = time.perf_counter()
+        out = engine.greedy_generate(cfg, params, prompt, n_new)
+        sync()
+        runs.append((out, time.perf_counter() - t0,
+                     fa.KERNEL.launches - before))
+    (out, gen_s, n_flash), (out2, _s, _n) = runs
+    report["launches"] = _launches()
+    if out.shape != (batch, n_new) or out.device.type != device \
+            or bool(((out < 0) | (out >= cfg.vocab)).any()):
+        fail(f"greedy_generate gave {out.dtype}{tuple(out.shape)} on "
+             f"{out.device} with tokens outside the vocabulary")
+    if not torch.equal(out, out2):
+        fail("greedy_generate gave other tokens the second time")
+    want_flash = cfg.n_layers if on_card else 0
+    if n_flash != want_flash:
+        fail(f"one greedy_generate launched flash attention {n_flash} "
+             f"times, not {want_flash} (one per layer in the prefill; "
+             f"decode takes the direct path)")
+
+    # the same steps, timed on the host clock up to a synchronize: one
+    # prefill, then n_new decode steps, three times
+    cfg_n = dataclasses.replace(cfg, max_decode_len=n_new)
+    prefill = engine.make_prefill_step(cfg_n)
+    decode = engine.make_decode_step(cfg_n)
+
+    def next_token(logits):
+        return torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+
+    def timed_generate():
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, prompt)
+        sync()
+        t1 = time.perf_counter()
+        toks = []
+        for i in range(n_new):
+            toks.append(next_token(logits))
+            logits, caches = decode(params, toks[-1], caches, prompt_len + i)
+        sync()
+        if not torch.equal(torch.cat(toks, 1), out):
+            fail("the timed prefill and decode steps gave other tokens than "
+                 "greedy_generate")
+        return t1 - t0, time.perf_counter() - t1
+
+    times = [timed_generate() for _ in range(3)]
+    prefill_s = min(t[0] for t in times)
+    decode_s = min(t[1] for t in times)
+    report.update(
+        tokens=out.cpu().tolist(), generate_s=[r[1] for r in runs],
+        flash_launches_per_generate=n_flash,
+        prefill_ms=[t[0] * 1e3 for t in times],
+        decode_ms_per_step=[t[1] * 1e3 / n_new for t in times],
+        decode_tokens_per_s=batch * n_new / decode_s,
+        generate_tokens_per_s=batch * n_new / min(r[1] for r in runs))
+    log(f"serving: {batch} prompts x {prompt_len} tokens, {n_new} new "
+        f"tokens, the same twice; greedy_generate "
+        f"{', '.join(f'{r[1]:.3f}' for r in runs)} s (best "
+        f"{report['generate_tokens_per_s']:.1f} tokens/s), flash launches "
+        f"per greedy_generate {n_flash}; timed x3: prefill "
+        f"{', '.join(f'{t:.2f}' for t in report['prefill_ms'])} ms, decode "
+        f"{', '.join(f'{t:.3f}' for t in report['decode_ms_per_step'])} ms "
+        f"per step of {batch} tokens (best "
+        f"{report['decode_tokens_per_s']:.1f} tokens/s)")
+    if on_card:
+        logits, caches = prefill(params, prompt)
+        nxt = next_token(logits)
+        report["profile"] = {
+            "prefill": _profile(lambda: prefill(params, prompt)),
+            "decode": _profile(lambda: decode(params, nxt, caches,
+                                              prompt_len))}
+        for name, prof in report["profile"].items():
+            log(f"profile of one {name} step: wall {prof['wall_ms']:.2f} "
+                f"ms, device busy {prof['device_ms']:.2f} ms; top kernels "
+                f"(ms, calls): {json.dumps(prof['top'])}")
+        del logits, caches
+
+    # layer 0's real q/k/v through the kernel and its plain version
+    with torch.no_grad():
+        p0 = map_leaves(lambda t: t[0], params["groups"][0][0])
+        x = M._embed_inputs(cfg, params, tokens)
+        h = layers.apply_norm(p0["ln1"], x)
+        q, k, v = layers.project_qkv(
+            cfg, p0["attn"], h, layers.positions_for(batch, prompt_len,
+                                                     x.device))
+        want = fa.flash_attention_plain(q, k, v, kv_block=cfg.attn_kv_block)
+        got = (fa.flash_attention_cuda(q, k, v) if on_card else want)
+        sync()
+    err = _flash_err(got, want, FLASH_TOL["bfloat16"])
+    if not math.isfinite(err):
+        fail("flash_attention disagrees with its plain version on layer "
+             "0's q/k/v of the served prompts")
+    report["layer0_max_abs_err"] = err
+    log(f"layer 0's q/k/v {tuple(q.shape)}/{tuple(k.shape)}: kernel within "
+        f"{FLASH_TOL['bfloat16']} of the plain version (max |diff| "
+        f"{err:.3g})")
     return report
 
 
@@ -661,28 +968,53 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 5: the training path of slice 2 ----------------------------
+    # -- phases 5 and 6: training (slice 2), then serving from its
+    # checkpoints (slice 3) before they are removed ------------------------
+    path_launches = {"checkpoint": launches}
     try:
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         t0 = time.perf_counter()
-        report = run_train_path("cuda", cfg, workdir, HOST_CACHE_BYTES,
-                                flush_threads=8, batch=TRAIN_BATCH,
-                                seq_len=TRAIN_SEQ)
-        launches = _launches()
+        report, saved_params = run_train_path(
+            "cuda", cfg, workdir, HOST_CACHE_BYTES, flush_threads=8,
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        launches = path_launches["training"] = _launches()
         train_s = time.perf_counter() - t0
+        for k, n in launches.items():
+            if n == 0 and k != "flash_attention":
+                fail(f"kernel {k} was never launched on the training path")
+        log(f"training path: {train_s:.1f} s; launches "
+            f"{json.dumps(launches)}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        log("train report " + json.dumps(report))
+        full_resume_bytes = report["restore"]["bytes_read"]
+        del report
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_serve_path("cuda", cfg, workdir, TRAIN_STEPS,
+                                saved_params, full_resume_bytes,
+                                batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                                n_new=SERVE_NEW)
+        launches = path_launches["serving"] = report["launches"]
+        serve_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was never launched on the training path")
-    log(f"training path: {train_s:.1f} s; launches {json.dumps(launches)}; "
+    for k in ("checksum_u32", "delta_xor", "flash_attention"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was never launched on the serving path")
+    log(f"serving path: {serve_s:.1f} s; launches {json.dumps(launches)}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    log("train report " + json.dumps(report))
+    log("serve report " + json.dumps(report))
 
+    # launches: summed over the three paths, each counted from zero
     line = {"kernels": [{
-        "name": k, "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES[k], "launches": launches[k],
+        "name": k, "route": "cuda", "source": SOURCES[k],
+        "replaces": REPLACES[k],
+        "launches": sum(p[k] for p in path_launches.values()),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

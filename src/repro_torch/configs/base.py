@@ -1,8 +1,9 @@
 """The dense-transformer subset of ``repro/configs/base.py``'s
 ``ModelConfig``: the fields that decide the parameter tree (and so the
 checkpointed state) and those the dense forward reads (``rope_theta``,
-``tie_embeddings``, ``norm``, ``act``, ``dtype``); none of the mesh,
-remat or analysis flags."""
+``tie_embeddings``, ``norm``, ``act``, ``dtype``), and the two the
+serving path reads (``attn_kv_block``, ``max_decode_len``); none of the
+mesh, remat or analysis flags."""
 
 from __future__ import annotations
 
@@ -32,6 +33,8 @@ class ModelConfig:
     act: str = "silu"                # silu (gated) | gelu (gated) | gelu_mlp
     source: str = ""
     dtype: str = "bfloat16"
+    attn_kv_block: int = 1024        # KV block size for blocked attention
+    max_decode_len: int = 0          # decode-cache headroom after prefill
 
     @property
     def hd(self) -> int:

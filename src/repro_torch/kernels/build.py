@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The kernels have a plain C interface, so one ``nvcc`` call builds them into
-a shared library that ``ctypes`` loads: no PyTorch headers, so the build is
-short. The library lands in ``build/repro_torch/`` at the root of the
+The kernels have a plain C interface, so no PyTorch headers are compiled
+and the build is short: one ``nvcc -c`` per source, all started together,
+then one ``nvcc -shared`` links the objects into a library that ``ctypes``
+loads. The library lands in ``build/repro_torch/`` at the root of the
 checkout, named by a hash of its sources, at the first launch of any kernel
 (never at import: hosts without ``nvcc`` import every module).
 
 Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3``, and never
-``--use_fast_math`` — the int8 quantize kernel depends on IEEE division.
+``--use_fast_math`` — the int8 quantize kernel depends on IEEE division,
+and the attention kernel on IEEE ``expf`` and division.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ from pathlib import Path
 from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "ckpt_kernels.cu",)
+SOURCES = (CSRC / "ckpt_kernels.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: compile flags of every source (the link step adds ``-shared``)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -36,6 +39,8 @@ SIGNATURES = {
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
     "ckpt_quantize_checksum_int8": (_P, _N, _P, _P, _P),
     "ckpt_dequantize_checksum_int8": (_P, _N, _P, _P, _P),
+    # q, k, v, out; B, S, T, H, KV, hd, is_bf16, kind, window, chunk
+    "ckpt_flash_attention_fwd": (_P, _P, _P, _P) + (_N,) * 10 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -72,15 +77,40 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"tmp{os.getpid()}"
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{tag}.o") for src in SOURCES]
+    jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in jobs]
+    try:
+        results = [(cmd, p.communicate()[0], p.returncode)
+                   for cmd, p in zip(jobs, procs)]
+        for cmd, text, rc in results:
+            if rc != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        tmp = out.with_suffix(f".{tag}.so")
+        _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        os.replace(tmp, out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return out
+
+
+def _run(cmd) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KernelBuildError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
 
 
 def library() -> ctypes.CDLL:

@@ -1,0 +1,140 @@
+"""Causal online-softmax attention (port of
+``repro/kernels/flash_attention.py:flash_attention_bh``).
+
+Layouts are the JAX package's: q ``(B, S, H, hd)``, k and v
+``(B, T, KV, hd)`` with ``H % KV == 0`` (query head ``h`` reads KV head
+``h // (H // KV)``), output ``(B, S, H * hd)`` in q's dtype. Query ``i``
+sees key ``j`` when ``j <= i`` and, for ``kind="window"``,
+``j > i - window``, or, for ``kind="chunked"``, ``i // chunk ==
+j // chunk`` (``repro.models.layers._allowed`` without a prefix).
+
+:func:`flash_attention_plain` is the port of ``_flash_fwd_impl``
+(``repro/models/layers.py:151-185``), the function that the Pallas kernel
+and ``repro.kernels.ref.flash_attention_ref`` compute: q pre-scaled in fp32
+by ``1/sqrt(hd)``, an online softmax over KV blocks of ``kv_block`` keys
+with running ``m``, ``l`` and ``acc`` in fp32, masked logits at ``-1e30``
+and their probabilities zeroed, and ``acc / (l + 1e-30)`` cast to q's
+dtype. The reference pads the sequence to a multiple of ``kv_block``
+(``blocked_sdpa``, ``layers.py:249-254``); the padded keys lie past every
+real query and are masked. The plain version pads the keys the same way
+(and masks ``j >= T`` explicitly); query rows are independent, so it does
+not pad them. The CUDA kernel, ``ckpt_flash_attention_fwd`` in
+``csrc/flash_attention.cu``, masks the ragged tail instead and takes any
+S and T; its KV tiles are 64 keys whatever ``kv_block`` says.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .build import CudaKernel
+from .checksum import aligned
+
+KINDS = ("full", "window", "chunked")
+#: the head width the CUDA kernel is built for (llama3.2-1b's)
+KERNEL_HEAD_DIM = 64
+#: CUDA grid limits on the head and batch axes
+MAX_GRID_YZ = 65_535
+NEG_INF = -1e30
+
+KERNEL = CudaKernel("ckpt_flash_attention_fwd")
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 kind: str, window: int, chunk: int) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"expected q (B, S, H, hd) and k, v (B, T, KV, hd), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, H, hd = q.shape
+    if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
+        raise ValueError(
+            f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}: batch and "
+            f"head width must agree and H a multiple of KV")
+    if not (q.dtype == k.dtype == v.dtype) \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"expected one dtype, float32 or bfloat16; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    if kind == "chunked" and chunk < 1:
+        raise ValueError(f"kind='chunked' needs chunk >= 1, got {chunk}")
+
+
+def allowed(qpos: torch.Tensor, kpos: torch.Tensor, kind: str, window: int,
+            chunk: int) -> torch.Tensor:
+    """(Sq, Sk) visibility between absolute positions."""
+    i = qpos[:, None]
+    j = kpos[None, :]
+    m = j <= i
+    if kind == "window":
+        m = m & (j > i - window)
+    elif kind == "chunked":
+        m = m & ((i // chunk) == (j // chunk))
+    return m
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, kind: str = "full", window: int = 0,
+                          chunk: int = 0, kv_block: int = 1024
+                          ) -> torch.Tensor:
+    """The attention in plain PyTorch ops, on any device."""
+    check_inputs(q, k, v, kind, window, chunk)
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    kvb = max(1, min(kv_block, T))
+    pad = (-T) % kvb
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    f32 = torch.float32
+    dev = q.device
+    qg = q.reshape(B, S, KV, rep, hd).to(f32) * (1.0 / math.sqrt(hd))
+    qpos = torch.arange(S, device=dev)
+    m = torch.full((B, S, KV, rep), NEG_INF, dtype=f32, device=dev)
+    l = torch.zeros((B, S, KV, rep), dtype=f32, device=dev)
+    acc = torch.zeros((B, S, KV, rep, hd), dtype=f32, device=dev)
+    for lo in range(0, T + pad, kvb):
+        kpos = torch.arange(lo, lo + kvb, device=dev)
+        k_j = k[:, lo:lo + kvb].to(f32)
+        v_j = v[:, lo:lo + kvb].to(f32)
+        logits = torch.einsum("bskrh,btkh->bskrt", qg, k_j)
+        allow = allowed(qpos, kpos, kind, window, chunk) & (kpos < T)
+        allow = allow[None, :, None, None, :]
+        logits = torch.where(allow, logits, NEG_INF)
+        m_new = torch.maximum(m, logits.amax(-1))
+        scale = torch.exp(m - m_new)
+        pexp = torch.exp(logits - m_new[..., None])
+        pexp = torch.where(allow, pexp, 0.0)
+        l = l * scale + pexp.sum(-1)
+        acc = acc * scale[..., None] + torch.einsum(
+            "bskrt,btkh->bskrh", pexp, v_j)
+        m = m_new
+    out = acc / (l[..., None] + 1e-30)
+    return out.reshape(B, S, H * hd).to(q.dtype)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, kind: str = "full", window: int = 0,
+                         chunk: int = 0) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors; returns ``(B, S, H * hd)``."""
+    check_inputs(q, k, v, kind, window, chunk)
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"expected CUDA tensors on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if hd != KERNEL_HEAD_DIM or B > MAX_GRID_YZ or H > MAX_GRID_YZ:
+        raise ValueError(
+            f"the kernel takes hd {KERNEL_HEAD_DIM} and B, H <= "
+            f"{MAX_GRID_YZ}; got B {B}, H {H}, hd {hd}")
+    q, k, v = (aligned(t.contiguous()) for t in (q, k, v))
+    out = torch.empty((B, S, H * hd), dtype=q.dtype, device=q.device)
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  B, S, T, H, KV, hd, int(q.dtype == torch.bfloat16),
+                  KINDS.index(kind), window, chunk)
+    return out

@@ -1,4 +1,4 @@
-"""Dispatch of the checkpoint kernels by the device of their input.
+"""Dispatch of the port's kernels by the device of their input.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor
 on a CUDA device goes to the hand-written kernel, and a failed build or
@@ -20,6 +20,7 @@ import torch
 
 from . import checksum as _checksum
 from . import delta as _delta
+from . import flash_attention as _fa
 from . import fused as _fused
 from . import quantize as _quant
 from .checksum import U32_MASK, as_words
@@ -92,6 +93,28 @@ def fused_dequantize_int8(body: torch.Tensor, n_rows: int
         return _quant.dequantize_checksum_plain(body, n_rows)
     out, dig = _quant.dequantize_checksum_cuda(body, n_rows)
     return out, int(dig.item()) & U32_MASK
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kind: str = "full", window: int = 0, chunk: int = 0,
+                    kv_block: int = 1024) -> torch.Tensor:
+    """Causal online-softmax attention: q ``(B, S, H, hd)``, k/v
+    ``(B, T, KV, hd)`` -> ``(B, S, H * hd)`` in q's dtype (see
+    :mod:`.flash_attention`). ``kv_block`` sets the plain version's KV
+    blocks; the kernel tiles by 64 keys.
+
+    Forward only: under grad with an input that requires it, this raises,
+    since a ctypes launch would cut the autograd graph without a word (the
+    backward, ``repro/models/layers.py:188-233``, is not yet ported)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward only: the backward of the blocked "
+            "attention is not yet ported (run it under torch.no_grad())")
+    if _kind(q) == "cpu":
+        return _fa.flash_attention_plain(q, k, v, kind=kind, window=window,
+                                         chunk=chunk, kv_block=kv_block)
+    return _fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
+                                    chunk=chunk)
 
 
 # ------------------------------------------------------ host-staged bytes

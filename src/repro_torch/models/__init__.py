@@ -1,1 +1,1 @@
-"""Model parameter trees (the forward pass is not yet ported)."""
+"""The dense models: parameter trees, forward, loss and decode."""

@@ -12,6 +12,8 @@ scales in fp32.
 :func:`forward` runs the stacked groups with a Python loop over the
 repeat index where the JAX package scans, slicing each stacked leaf, so
 the parameters keep their tree and the names the checkpoint resolves.
+With ``collect_caches`` it also returns the decode caches that
+:func:`decode` reads and writes, in the JAX package's cache tree.
 """
 
 from __future__ import annotations
@@ -97,41 +99,103 @@ def init_params(cfg, generator: torch.Generator,
 
 # ------------------------------------------------------------------ forward
 def block_forward(cfg, p: Dict[str, Any], x: torch.Tensor, *,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One ``full`` block: pre-norm attention then pre-norm FFN, each added
-    to the residual in ``x.dtype``."""
+    to the residual in ``x.dtype``. Returns ``(x, (k, v))``."""
     h = layers.apply_norm(p["ln1"], x)
-    x = x + layers.attention(cfg, p["attn"], h,
-                             positions=positions).to(x.dtype)
+    a, kv = layers.attention(cfg, p["attn"], h, positions=positions)
+    x = x + a.to(x.dtype)
     h2 = layers.apply_norm(p["ln2"], x)
-    return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype), kv
+
+
+def _cache_from_kv(cfg, k: torch.Tensor,
+                   v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The decode cache of a ``full`` block from its prefill K/V, with
+    ``cfg.max_decode_len`` empty slots after the prompt for the tokens
+    generated after it."""
+    if cfg.max_decode_len:
+        pad = (0, 0, 0, 0, 0, cfg.max_decode_len)
+        return {"k": torch.nn.functional.pad(k, pad),
+                "v": torch.nn.functional.pad(v, pad)}
+    return {"k": k, "v": v}
+
+
+def _check_full(cfg, pattern) -> None:
+    if any(btype != "full" for btype in pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: block types {pattern} are not yet ported")
 
 
 def _embed_inputs(cfg, params: Dict[str, Any],
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings times ``sqrt(d_model)`` in the working dtype."""
-    x = layers.embed_tokens(params["embed"], batch["tokens"])
+    x = layers.embed_tokens(params["embed"], tokens)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
                             device=x.device)
 
 
-def forward(cfg, params: Dict[str, Any],
-            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Full-sequence forward; returns the logits (B, S, vocab)."""
-    x = _embed_inputs(cfg, params, batch)
+def forward(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            *, collect_caches: bool = False):
+    """Full-sequence forward; returns the logits (B, S, vocab), or
+    ``(logits, caches)`` with ``collect_caches``: the decode caches in the
+    JAX package's tree, one tuple per layer group of one ``{"k", "v"}``
+    dict per pattern position, each leaf stacked over the group's repeat
+    index, ``(count, B, S + max_decode_len, KV, hd)``."""
+    x = _embed_inputs(cfg, params, batch["tokens"])
     B, S, _ = x.shape
     positions = layers.positions_for(B, S, x.device)
+    caches = []
     for (pattern, count), stacked in zip(cfg.layer_groups,
                                          params["groups"]):
-        if any(btype != "full" for btype in pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: block types {pattern} are not yet ported")
+        _check_full(cfg, pattern)
+        per_pos = [[] for _ in pattern]
         for i in range(count):
-            for pp in stacked:
-                x = block_forward(cfg, map_leaves(lambda t: t[i], pp), x,
-                                  positions=positions)
+            for j, pp in enumerate(stacked):
+                x, (k, v) = block_forward(
+                    cfg, map_leaves(lambda t: t[i], pp), x,
+                    positions=positions)
+                if collect_caches:
+                    per_pos[j].append(_cache_from_kv(cfg, k, v))
+        if collect_caches:
+            caches.append(tuple(
+                {key: torch.stack([c[key] for c in cs]) for key in ("k", "v")}
+                for cs in per_pos))
     x = layers.apply_norm(params["ln_f"], x)
-    return layers.logits_from_hidden(cfg, params["embed"], x)
+    logits = layers.logits_from_hidden(cfg, params["embed"], x)
+    return (logits, tuple(caches)) if collect_caches else logits
+
+
+def block_decode(cfg, p: Dict[str, Any], x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+    """One ``full`` block on one token at ``pos``; the cache's k and v are
+    written in place (:func:`layers.decode_attention`), so only x comes
+    back."""
+    h = layers.apply_norm(p["ln1"], x)
+    a, _k, _v = layers.decode_attention(cfg, p["attn"], h, cache["k"],
+                                        cache["v"], pos)
+    x = x + a.to(x.dtype)
+    h2 = layers.apply_norm(p["ln2"], x)
+    return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+
+
+def decode(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+           caches, pos: int):
+    """One-token decode. ``batch["tokens"]``: (B, 1). Returns ``(logits,
+    caches)``; each layer's cache slice is written in place, so the
+    stacked cache tensors that come back are the ones passed in."""
+    x = _embed_inputs(cfg, params, batch["tokens"])
+    for (pattern, count), stacked, gcache in zip(
+            cfg.layer_groups, params["groups"], caches):
+        _check_full(cfg, pattern)
+        for i in range(count):
+            for pp, cc in zip(stacked, gcache):
+                x = block_decode(cfg, map_leaves(lambda t: t[i], pp), x,
+                                 {key: cc[key][i] for key in ("k", "v")},
+                                 pos)
+    x = layers.apply_norm(params["ln_f"], x)
+    return layers.logits_from_hidden(cfg, params["embed"], x), caches
 
 
 def loss_fn(cfg, params: Dict[str, Any],

@@ -1,0 +1,162 @@
+"""Serving: restore a training checkpoint's parameters, prefill a prompt
+batch, decode greedily (port of ``repro/serving/engine.py`` for the dense
+family).
+
+``prefill_step`` consumes a full prompt and returns (last-token logits,
+decode caches); ``decode_step`` consumes one token and the caches.
+PyTorch runs eagerly, so the steps are plain functions where the JAX
+package jits them, and they run under ``torch.no_grad()``. Everything
+stays on the device of the params: on a card a prompt longer than 2,048
+tokens goes through the flash-attention kernel, decode through the direct
+attention path. Cache templates are ``meta`` tensors, PyTorch's shape-and-
+dtype stand-ins for ``jax.ShapeDtypeStruct``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core import dtypes
+from repro_torch.core.checkpoint import restore_from_repository
+from repro_torch.core.restore import RestoreEngine, RestoreStats
+from repro_torch.core.tree import leaves
+from repro_torch.models import model as M
+from repro_torch.storage.repository import CheckpointRepository
+
+
+def _device_of(tree: Any) -> torch.device:
+    for leaf in leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            return leaf.device
+    raise ValueError("the params template holds no tensor")
+
+
+def load_params_for_serving(directory: str, params_template: Any,
+                            step: Optional[int] = None,
+                            threads: Optional[int] = None,
+                            repository: Optional[CheckpointRepository] = None,
+                            fleet: Optional[Any] = None
+                            ) -> Tuple[Any, RestoreStats]:
+    """Restore *model parameters only* from a training checkpoint.
+
+    Serving needs no optimizer state, so this restores the ``model``
+    sub-tree alone through the manager's selective-restore path
+    (:func:`repro_torch.core.checkpoint.restore_from_repository` with
+    ``domains=("model",)``): only the parameters' byte ranges are read
+    from the (much larger) training checkpoint, a delta step replays its
+    chain after verifying it, and ``step=None`` takes the newest committed
+    step that restores. The params come back on the device of
+    ``params_template``'s tensors (their shapes and dtypes must match the
+    saved ones), and the chain verify and fold run there too.
+
+    ``repository`` may be the port's :class:`CheckpointRepository` of
+    ``directory`` (local tier). Remote tiers (``repro``'s tiered
+    repository) and the fleet warm-start fabric (``fleet=``) are not yet
+    ported and raise, as does any other repository object.
+
+    Returns ``(params, stats)``; ``stats.bytes_read`` shows the sub-tree
+    effect.
+    """
+    if fleet is not None:
+        raise NotImplementedError(
+            "fleet= (the fleet warm-start fabric) is not yet ported")
+    device = _device_of(params_template)
+    repo = repository
+    if repo is None:
+        repo = CheckpointRepository(directory, device=device)
+    elif not isinstance(repo, CheckpointRepository):
+        raise NotImplementedError(
+            f"repository={type(repo).__name__}: only the port's local-tier "
+            f"CheckpointRepository is ported; remote tiers are not")
+    engine = RestoreEngine(device, threads=threads)
+    tree, stats, _step = restore_from_repository(
+        repo, {"model": params_template}, step=step, engine=engine,
+        domains=("model",))
+    return tree["model"], stats
+
+
+def make_prefill_step(cfg) -> Callable:
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits, caches = M.forward(cfg, params, batch,
+                                       collect_caches=True)
+        return logits[:, -1:, :], caches
+    return prefill_step
+
+
+def make_decode_step(cfg) -> Callable:
+    def decode_step(params, tokens, caches, pos):
+        with torch.no_grad():
+            return M.decode(cfg, params, {"tokens": tokens}, caches, pos)
+    return decode_step
+
+
+# ---------------------------------------------------------------- templates
+def _cache_entry_shapes(cfg, btype: str, batch: int, seq_len: int
+                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of one layer's decode cache (without the stack
+    dimension)."""
+    if btype != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: the decode cache of block type {btype!r} is not "
+            f"yet ported")
+    dt = dtypes.lookup(cfg.dtype).torch
+    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": (shape, dt), "v": (shape, dt)}
+
+
+def cache_template(cfg, batch: int, seq_len: int,
+                   make_leaf: Optional[Callable] = None) -> Tuple:
+    """The caches' tree of ``meta`` tensors (or of ``make_leaf(shape,
+    dtype)``), stacked over each group's repeat count."""
+    if make_leaf is None:
+        def make_leaf(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+    groups = []
+    for pattern, count in cfg.layer_groups:
+        per_pos = []
+        for btype in pattern:
+            entries = _cache_entry_shapes(cfg, btype, batch, seq_len)
+            per_pos.append({k: make_leaf((count,) + shape, dt)
+                            for k, (shape, dt) in entries.items()})
+        groups.append(tuple(per_pos))
+    return tuple(groups)
+
+
+def zero_caches(cfg, batch: int, seq_len: int,
+                device: torch.device = "cuda") -> Tuple:
+    return cache_template(
+        cfg, batch, seq_len,
+        make_leaf=lambda shape, dt: torch.zeros(shape, dtype=dt,
+                                                device=device))
+
+
+def greedy_generate(cfg, params, prompt_batch: Dict[str, torch.Tensor],
+                    n_new: int) -> torch.Tensor:
+    """Prefill ``prompt_batch["tokens"]`` (B, S) and decode ``n_new``
+    tokens greedily (argmax of the fp32 last-position logits); returns
+    them as (B, n_new) int32. The cache has ``n_new`` slots after the
+    prompt (``max_decode_len``); token ``i`` is decoded at position
+    ``S + i`` (the dense family has no prefix embeddings). As in the
+    reference, the loop decodes once more after the last token it
+    returns."""
+    cfg = dataclasses.replace(cfg, max_decode_len=n_new)
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    logits, caches = prefill(params, prompt_batch)
+    S = prompt_batch["tokens"].shape[1]
+
+    def next_tokens(logits):
+        return torch.argmax(logits[:, -1].to(torch.float32), dim=-1) \
+            .to(torch.int32).reshape(-1, 1)
+
+    out = []
+    nxt = next_tokens(logits)
+    for i in range(n_new):
+        out.append(nxt)
+        logits, caches = decode(params, nxt, caches, S + i)
+        nxt = next_tokens(logits)
+    return torch.cat(out, dim=1)

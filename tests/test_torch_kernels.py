@@ -185,10 +185,11 @@ def test_build_flags_are_fixed():
                                      "ckpt_xor_checksum_u32",
                                      "ckpt_delta_xor",
                                      "ckpt_quantize_checksum_int8",
-                                     "ckpt_dequantize_checksum_int8"}
-    src = build.SOURCES[0].read_text()
+                                     "ckpt_dequantize_checksum_int8",
+                                     "ckpt_flash_attention_fwd"}
+    src = "".join(s.read_text() for s in build.SOURCES)
     for sym in build.SIGNATURES:
-        assert f'extern "C" int {sym}(' in src
+        assert src.count(f'extern "C" int {sym}(') == 1
 
 
 def _cuda_or_skip():

@@ -179,8 +179,12 @@ def test_pipeline_draws_the_reference_batches():
 
 
 def test_long_sequences_are_refused():
-    """The blocked online-softmax attention past 2048 tokens is not yet
-    ported: it raises rather than running another algorithm."""
-    q = torch.zeros(1, layers.DIRECT_SDPA_MAX_SEQ + 1, 2, 4)
+    """Past 2048 tokens attention takes the blocked online-softmax path,
+    whose backward is not yet ported: under grad it raises rather than
+    returning a tensor that trains nothing; without grad it runs."""
+    q = torch.zeros(1, layers.DIRECT_SDPA_MAX_SEQ + 1, 2, 4,
+                    requires_grad=True)
     with pytest.raises(NotImplementedError, match="blocked"):
         layers.full_seq_sdpa(q, q, q)
+    with torch.no_grad():
+        assert layers.full_seq_sdpa(q, q, q).shape == (1, q.shape[1], 8)
