@@ -12,15 +12,19 @@ Phases, any failure exits non-zero:
    identical losses.
 2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
    (into ``build/repro_torch/``), timed.
-3. Kernels: each of the six kernels against its plain PyTorch version on
-   the card, at odd sizes and at the main path's shapes — the five
-   checkpoint kernels bit-identical, flash attention within 2e-5 (fp32)
-   and 2e-2 (bf16) for the ``full``, ``window`` and ``chunked`` masks at
-   S 1, 257 and 2,100 with 32/8 and 4/4 heads — then timed with CUDA
-   events beside its plain version, its bound, and a library yardstick
-   where one PyTorch call computes the same function (``torch.bitwise_xor``
-   for ``delta_xor``, ``scaled_dot_product_attention`` for flash attention,
-   timed here only; the port never calls it).
+3. Kernels: each of the eleven kernels against its plain PyTorch version
+   on the card, at odd sizes and at the main path's shapes — the ten
+   checkpoint and reduction kernels bit-identical (the reduction kernels
+   with NaN, inf, subnormal and tie values in their inputs), flash
+   attention within 2e-5 (fp32) and 2e-2 (bf16) for the ``full``,
+   ``window`` and ``chunked`` masks at S 1, 257 and 2,100 with 32/8 and
+   4/4 heads — then timed with CUDA events beside its plain version, its
+   bound, and a library yardstick where one PyTorch call computes the
+   same function (``torch.bitwise_xor`` for ``delta_xor``,
+   ``scaled_dot_product_attention`` for flash attention,
+   ``x.to(torch.bfloat16)`` for the downcast, ``torch.mul`` for
+   ``dequantize_int8``, ``torch.sub`` for ``delta_f32``; timed here only,
+   the port never calls them).
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
@@ -45,9 +49,18 @@ Phases, any failure exits non-zero:
    of the prefill and decode steps, one prefill and one decode step under
    ``torch.profiler``, and layer 0's real q/k/v through the kernel and its
    plain version.
-   Kernel launch counts are zeroed just before each of phases 4, 5 and 6
-   and read just after; each kernel of the phase must have run.
-7. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+7. Offline reduction path (slice 4): the same model's state made on the
+   card from a seeded generator, three in-place AdamW steps on seeded
+   gradients, each followed by saves of two ``DifferentialCheckpointer``
+   streams (keyframe every 3: K, delta, delta): ``quant="bf16"`` of the
+   fp32 master (stacked leaves folded to 2-D) and ``quant="int8"`` of the
+   fp32 first moment (each leaf as rows of 256); then steps 1-3 restore
+   and must equal, bit for bit, the working arrays the plain versions give
+   on the card; then the ``dequantize_int8`` kernel on step 3's restored
+   q is within one scale of the saved moment.
+   Kernel launch counts are zeroed just before each of phases 4, 5, 6 and
+   7 and read just after; each kernel of the phase must have run.
+8. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -91,16 +104,40 @@ FLASH_SEQS = (1, 257, 2100)
 FLASH_HEADS = ((32, 8), (4, 4))
 FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("chunked", 0, 192))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the reduction kernels at the reducer's shapes: llama3.2-1b's embedding
+#: (128,256 x 2,048 fp32) for the downcast, the same leaf as rows of 256
+#: for the int8 pair, and delta_xor's fold piece for the two u32/f32 ones
+DOWNCAST_SHAPE = (128_256, 2048)
+INT8_ROWS = 128_256 * 2048 // 256
+#: the reducer phase: keyframe every 3 saves, so steps 1-3 save K, delta,
+#: delta
+REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 3, 3
 SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
            for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
-                     "quantize_checksum_int8", "dequantize_checksum_int8")}
+                     "quantize_checksum_int8", "dequantize_checksum_int8",
+                     "xor_fold_checksum_u32", "quantize_int8",
+                     "dequantize_int8", "downcast_bf16", "delta_f32")}
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention.cu"
 REPLACES = {"checksum_u32": "src/repro/kernels/checksum.py:43",
             "xor_checksum_u32": "src/repro/kernels/fused.py:78",
             "delta_xor": "src/repro/kernels/delta.py:30",
             "quantize_checksum_int8": "src/repro/kernels/fused.py:169",
             "dequantize_checksum_int8": "src/repro/kernels/fused.py:201",
-            "flash_attention": "src/repro/kernels/flash_attention.py:80"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:80",
+            "xor_fold_checksum_u32": "src/repro/kernels/fused.py:106",
+            "quantize_int8": "src/repro/kernels/quantize.py:52",
+            "dequantize_int8": "src/repro/kernels/quantize.py:74",
+            "downcast_bf16": "src/repro/kernels/quantize.py:28",
+            "delta_f32": "src/repro/kernels/delta.py:50"}
+#: fp32 bit patterns the reduction kernels must treat as the reference
+#: does: NaNs (quiet, signalling, with payload, both signs), +-inf, the
+#: largest floats, rounding ties of the bf16 downcast, subnormals of both
+#: signs, the least normal float, signed zeros
+EDGE_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FA00000, 0xFF800001,
+             0x7FFFFFFF, 0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7FFFFF,
+             0x3F808000, 0x3F818000, 0x3F80FFFF, 0x7F7F8000, 0x00000001,
+             0x80000001, 0x000116C2, 0x007FFFFF, 0x00800000, 0x80800000,
+             0x00008000, 0x00018000, 0x00000000, 0x80000000)
 
 
 def fail(msg: str) -> None:
@@ -121,7 +158,12 @@ def _kernels():
             "xor_checksum_u32": fused.KERNEL, "delta_xor": delta.KERNEL,
             "quantize_checksum_int8": quantize.QUANT_KERNEL,
             "dequantize_checksum_int8": quantize.DEQUANT_KERNEL,
-            "flash_attention": flash_attention.KERNEL}
+            "flash_attention": flash_attention.KERNEL,
+            "xor_fold_checksum_u32": fused.FOLD_KERNEL,
+            "quantize_int8": quantize.QUANT_INT8_KERNEL,
+            "dequantize_int8": quantize.DEQUANT_INT8_KERNEL,
+            "downcast_bf16": quantize.DOWNCAST_BF16_KERNEL,
+            "delta_f32": delta.F32_KERNEL}
 
 
 def _zero_launches() -> None:
@@ -226,6 +268,7 @@ def check_kernels():
                if library_ms is not None else ")"))
     rows.update(check_int8_kernels(gen))
     rows.update(check_flash_kernel(gen))
+    rows.update(check_reduction_kernels(gen))
     return rows
 
 
@@ -290,6 +333,139 @@ def check_int8_kernels(gen) -> dict:
         log(f"kernel {name}: bit-identical at 1, 3, 257, {MAIN_ROWS} rows; "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{rows[name]['bound_ms']:.5f} ms)")
+    return rows
+
+
+def _edge_values(device: str):
+    """:data:`EDGE_BITS` as a float32 tensor on ``device``."""
+    import torch
+    return torch.tensor([b - (1 << 32) if b >= 1 << 31 else b
+                         for b in EDGE_BITS], dtype=torch.int32) \
+        .view(torch.float32).to(device)
+
+
+def _place(x, values, at: int = 0) -> None:
+    """Write as many of ``values`` as fit into flat ``x`` from ``at``."""
+    k = max(0, min(values.numel(), x.numel() - at))
+    x.view(-1)[at:at + k] = values[:k]
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape or a.device != b.device:
+        return False
+    view = {1: torch.int8, 2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.view(view), b.view(view))
+
+
+def _reduction_calls(gen, downcast_shape, n_rows: int, n_words: int,
+                     device: str = "cuda"):
+    """(kernel call, plain call, library call or None) of the five
+    reduction kernels on seeded inputs with :data:`EDGE_BITS` placed in
+    them. The int8 rows: row 0 zero (scale 1.0), row 1 every edge value (a
+    NaN in a row makes its scale 1.0, as in the reference), row 2 the
+    non-NaN ones (an inf scale), row 3 the finite ones; the dequantize's
+    q is the plain quantize of those rows, its scales from row 1 on the
+    edge values; the two elementwise kernels pair each edge value with
+    others."""
+    import torch
+    from repro_torch.kernels import delta, fused, quantize as tq
+    edge = _edge_values(device)
+    x = torch.randn(downcast_shape, generator=gen, device=device) * 100
+    _place(x, edge)
+    _place(x, edge, x.numel() - edge.numel())
+    rows = torch.randn((n_rows, 256), generator=gen, device=device) * 10
+    rows[0] = 0
+    _place(rows[1], edge)
+    _place(rows[2], edge[~torch.isnan(edge)])
+    _place(rows[3], edge[torch.isfinite(edge)])
+    q, scales = tq.quantize_int8_plain(rows)
+    _place(scales, edge, 1)
+    a = torch.randn(n_words, generator=gen, device=device)
+    b = a + torch.randn(n_words, generator=gen, device=device) * 1e-3
+    k = edge.numel()
+    _place(a, edge)
+    _place(b, edge.roll(5))
+    _place(a, edge.roll(11), k)
+    _place(b, edge, k)
+    wa, wb = a.view(torch.int32), b.view(torch.int32)
+    return {
+        "downcast_bf16": (lambda: tq.downcast_bf16_cuda(x),
+                          lambda: tq.downcast_bf16_plain(x),
+                          lambda: x.to(torch.bfloat16)),
+        "quantize_int8": (lambda: tq.quantize_int8_cuda(rows),
+                          lambda: tq.quantize_int8_plain(rows), None),
+        "dequantize_int8": (lambda: tq.dequantize_int8_cuda(q, scales),
+                            lambda: tq.dequantize_int8_plain(q, scales),
+                            lambda: torch.mul(q, scales)),
+        "delta_f32": (lambda: delta.delta_f32_cuda(a, b),
+                      lambda: delta.delta_f32_plain(a, b),
+                      lambda: torch.sub(a, b)),
+        "xor_fold_checksum_u32": (
+            lambda: fused.xor_fold_checksum_cuda(wa, wb),
+            lambda: fused.xor_fold_checksum_plain(wa, wb), None)}
+
+
+def _reduction_agree(name: str, got, want) -> bool:
+    from repro_torch.kernels import checksum
+    if name == "xor_fold_checksum_u32":
+        return _same_bits(got[0], want[0]) \
+            and (int(got[1].item()) & checksum.U32_MASK) == want[1]
+    if name == "quantize_int8":
+        return _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    return _same_bits(got, want)
+
+
+def check_reduction_kernels(gen) -> dict:
+    """The five kernels of the offline reduction path against their plain
+    versions, bit for bit, with the NaN, inf, subnormal and tie values of
+    :data:`EDGE_BITS` in every input (and a zero row for the int8 pair),
+    at small sizes and at the reducer's shapes; then timed there beside
+    the plain version, the bound (bytes over the memory rate: a few
+    operations a value) and the library call where one computes the same
+    function (``x.to(torch.bfloat16)``, ``torch.mul(q, scales)``,
+    ``torch.sub``; ``quantize_int8`` and the fold's digest have none)."""
+    import torch
+    for shape, n_rows, n_words in (((256, 256), 256, 1), ((512, 768), 768, 3),
+                                   ((256, 256), 256, 65_537),
+                                   (DOWNCAST_SHAPE, INT8_ROWS,
+                                    MAIN_WORDS["delta_xor"])):
+        calls = _reduction_calls(gen, shape, n_rows, n_words)
+        for name, (kern, plain, _lib) in calls.items():
+            got = kern()
+            want = plain()
+            torch.cuda.synchronize()
+            if not _reduction_agree(name, got, want):
+                fail(f"{name} disagrees with its plain version at "
+                     f"{shape} / {n_rows} rows / {n_words} words")
+            del got, want
+        del calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_values = DOWNCAST_SHAPE[0] * DOWNCAST_SHAPE[1]
+    n_words = MAIN_WORDS["delta_xor"]
+    nbytes = {"downcast_bf16": 6 * n_values,
+              "quantize_int8": INT8_ROWS * (1024 + 256 + 4),
+              "dequantize_int8": INT8_ROWS * (1024 + 256 + 4),
+              "delta_f32": 12 * n_words, "xor_fold_checksum_u32": 12 * n_words}
+    calls = _reduction_calls(gen, DOWNCAST_SHAPE, INT8_ROWS, n_words)
+    rows = {}
+    for name, (kern, plain, lib) in calls.items():
+        big = name in ("downcast_bf16", "quantize_int8", "dequantize_int8")
+        ms = _time_ms(kern, 20 if big else 30)
+        plain_ms = _time_ms(plain, 3 if big else 5)
+        library_ms = _time_ms(lib, 20 if big else 30) if lib else None
+        rows[name] = {
+            "name": name, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": library_ms}
+        log(f"kernel {name}: bit-identical to its plain version with NaN, "
+            f"inf, subnormal and tie inputs; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms"
+            + (f", library {library_ms:.4f} ms)" if lib else ")"))
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -898,6 +1074,156 @@ def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
     return report
 
 
+def _fold_2d(t):
+    """A stacked leaf ``(count, rows, cols)`` as ``(count * rows, cols)``;
+    1-D and 2-D leaves as they are."""
+    return t.reshape(-1, t.shape[-1]) if t.dim() > 2 else t
+
+
+def _rows_256(t):
+    """A leaf as rows of 256 values."""
+    return t.reshape(-1, 256)
+
+
+def _plain_work(t, quant: str):
+    """The working array the reducer keeps for ``t`` (``encode_tensor``'s
+    choice of quantizer, made by the kernels' plain versions on ``t``'s
+    device), as a host array."""
+    import torch
+    from repro_torch.core import reduction as R
+    from repro_torch.kernels import quantize as tq
+    rows = t.dtype == torch.float32 and t.dim() == 2 \
+        and t.shape[0] % tq.TILE == 0
+    if quant == "bf16" and rows and t.shape[1] % tq.TILE == 0:
+        return R._host(tq.downcast_bf16_plain(t))
+    if quant == "int8" and rows and t.shape[1] == tq.ROW_ELEMS:
+        return R._host(tq.quantize_int8_plain(t)[0])
+    return R._host(t)
+
+
+def run_reduction_path(device: str, cfg, workdir: str,
+                       steps: int = REDUCE_STEPS) -> dict:
+    """The offline reduction path (slice 4): ``steps`` in-place AdamW steps
+    on seeded gradients, each followed by a save of two offline
+    checkpointers (keyframe every 3: K, delta, delta).
+    ``quant="bf16"`` saves the fp32 master with stacked leaves folded to
+    ``(count * rows, cols)``; ``quant="int8"`` saves the fp32 first moment
+    with every leaf viewed as rows of 256. Without the fold no llama leaf
+    meets the reference's 2-D shape test (``repro/core/reduction.py:84``,
+    ``:87``) and nothing would be quantized; the norm scales still fall
+    back to raw, as in the reference. Then steps 1..``steps`` restore and
+    must equal, bit for bit, the working arrays the plain versions give on
+    ``device`` for that step's saved state; then the ``dequantize_int8``
+    kernel on the last step's restored q and stored scales must be within
+    one scale of the saved moment (``tests/test_reduction.py:40-51``)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import reduction as R
+    from repro_torch.core.tree import flatten_with_path, keystr, map_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         init_opt_state)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    params = init_params(cfg, gen, device)
+    opt = init_opt_state(params)
+    flat, unflatten = flatten_with_path(params)
+    hp = AdamWConfig()
+    views = {"bf16": lambda: map_leaves(_fold_2d, opt["master"]),
+             "int8": lambda: map_leaves(_rows_256, opt["m"])}
+    ckpts = {q: R.DifferentialCheckpointer(
+        os.path.join(workdir, q), keyframe_every=REDUCE_KEYFRAME_EVERY,
+        quant=q, device=device) for q in views}
+    want = {q: [] for q in views}
+    report = {"saves": [], "restores": []}
+    last = None
+    for step in range(1, steps + 1):
+        grads = unflatten([
+            (torch.randn(t.shape, generator=gen, device=device)
+             * 1e-2).to(t.dtype) for _p, t in flat])
+        apply_updates(params, opt, grads, hp)
+        del grads
+        for quant, view in views.items():
+            tree = view()
+            t0 = time.perf_counter()
+            info = ckpts[quant].save(step, tree)
+            secs = time.perf_counter() - t0
+            want[quant].append({keystr(p): _plain_work(t, quant)
+                                for p, t in flatten_with_path(tree)[0]})
+            row = {"step": step, "quant": quant, "s": secs,
+                   "keyframe": info["keyframe"],
+                   "raw_bytes": info["raw_bytes"],
+                   "compressed_bytes": info["compressed_bytes"],
+                   "ratio": info["ratio"],
+                   "working_bytes": sum(a.nbytes for a in
+                                        want[quant][-1].values())}
+            report["saves"].append(row)
+            log(f"reducer save step {step} ({quant}, "
+                f"{'keyframe' if row['keyframe'] else 'delta'}): "
+                f"{secs:.3f} s, {row['raw_bytes']} raw bytes, "
+                f"{row['working_bytes']} working bytes, "
+                f"{row['compressed_bytes']} compressed (ratio "
+                f"{row['ratio']:.3f})")
+            if info["keyframe"] != (step % REDUCE_KEYFRAME_EVERY == 1):
+                fail(f"reducer step {step} ({quant}): keyframe "
+                     f"{info['keyframe']}")
+    for quant, ck in ckpts.items():
+        for step in range(1, steps + 1):
+            t0 = time.perf_counter()
+            got = ck.restore(step)
+            secs = time.perf_counter() - t0
+            expect = want[quant][step - 1]
+            if list(got) != list(expect):
+                fail(f"reducer restore of step {step} ({quant}): names "
+                     f"{list(got)} against {list(expect)}")
+            for name, w in expect.items():
+                g = got[name]
+                if g.shape != w.shape or g.dtype != w.dtype \
+                        or not np.array_equal(g.reshape(-1).view(np.uint8),
+                                              w.reshape(-1).view(np.uint8)):
+                    fail(f"reducer restore of step {step} ({quant}): "
+                         f"{name} is not the saved working array")
+            report["restores"].append({"step": step, "quant": quant,
+                                       "s": secs})
+            log(f"reducer restore step {step} ({quant}): {secs:.3f} s, "
+                f"bit-exact")
+            if step == steps and quant == "int8":
+                last = got
+            del got
+    rec = R.load_record(os.path.join(ckpts["int8"].directory,
+                                     f"diff_{steps:08d}.pkl"))
+    moments = {keystr(p): t
+               for p, t in flatten_with_path(views["int8"]())[0]}
+    worst = 0.0
+    n_deq = 0
+    for name, enc in rec["tensors"].items():
+        if enc.quant != "int8":
+            continue
+        scales = torch.from_numpy(np.frombuffer(
+            R._decompress(enc.scales), np.float32).copy()) \
+            .reshape(-1, 1).to(device)
+        q = torch.from_numpy(last[name]).to(device)
+        out = ops.dequantize_int8(q, scales)
+        err = (out - moments[name]).abs()
+        if not bool((err <= scales).all()):
+            fail(f"reducer: dequantized {name} of step {steps} is more "
+                 f"than one scale from the saved moment")
+        worst = max(worst, float((err / scales).max()))
+        n_deq += 1
+    sync()
+    report.update(dequantized_leaves=n_deq, worst_err_over_scale=worst)
+    log(f"reducer: dequantize_int8 of step {steps}'s {n_deq} int8 leaves "
+        f"within one scale of the saved first moment (worst "
+        f"{worst:.4f} of a scale)")
+    return report
+
+
 def main() -> None:
     # before CUDA starts: cuBLAS picks its workspace once per handle
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -980,8 +1306,9 @@ def main() -> None:
             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
         launches = path_launches["training"] = _launches()
         train_s = time.perf_counter() - t0
-        for k, n in launches.items():
-            if n == 0 and k != "flash_attention":
+        for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
+                  "quantize_checksum_int8", "dequantize_checksum_int8"):
+            if launches[k] == 0:
                 fail(f"kernel {k} was never launched on the training path")
         log(f"training path: {train_s:.1f} s; launches "
             f"{json.dumps(launches)}; max_memory_allocated "
@@ -1009,8 +1336,32 @@ def main() -> None:
     log(f"serving path: {serve_s:.1f} s; launches {json.dumps(launches)}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     log("serve report " + json.dumps(report))
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # launches: summed over the three paths, each counted from zero
+    # -- phase 7: the offline reduction path (slice 4) --------------------
+    reduce_dir = os.path.join(ROOT, "build", "chip_smoke_reduce")
+    shutil.rmtree(reduce_dir, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_reduction_path("cuda", cfg, reduce_dir)
+        launches = path_launches["reduction"] = _launches()
+        reduce_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(reduce_dir, ignore_errors=True)
+    for k in ("checksum_u32", "downcast_bf16", "quantize_int8", "delta_xor",
+              "dequantize_int8"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was never launched on the reduction path")
+    log(f"reduction path: {reduce_s:.1f} s; launches "
+        f"{json.dumps(launches)}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    log("reduce report " + json.dumps(report))
+
+    # launches: summed over the four paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k],

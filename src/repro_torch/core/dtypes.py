@@ -4,7 +4,10 @@ Files name dtypes as numpy does (``"float32"``, ``"bfloat16"``, ...), so
 the JAX package reads the port's files and the other way round. numpy has
 no ``bfloat16`` without ``ml_dtypes``, which the card's host lacks, so a
 bfloat16 tensor is held on the host as ``uint16`` storage of the same
-width and turned back with ``.view(torch.bfloat16)``.
+width and turned back with ``.view(torch.bfloat16)``. Where a host array
+must still say that it holds bfloat16 (the offline reducer's working
+arrays), its dtype is :data:`BF16_HOST`: ``uint16`` that carries the name
+in its metadata (:func:`host_name`).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ _TABLE = [
     DType("bool", torch.bool, np.dtype(np.bool_)),
 ]
 BY_NAME: Dict[str, DType] = {d.name: d for d in _TABLE}
+#: uint16 host storage that remembers it holds bfloat16 (numpy compares
+#: dtypes without their metadata, so compare :func:`host_name` instead)
+BF16_HOST = np.dtype(np.uint16, metadata={"name": "bfloat16"})
 BY_TORCH: Dict[torch.dtype, DType] = {d.torch: d for d in _TABLE}
 
 
@@ -57,10 +63,19 @@ def of_tensor(t: torch.Tensor) -> DType:
                          f"dtype table") from None
 
 
+def host_name(a: np.ndarray) -> str:
+    """The dtype name of a host array: ``"bfloat16"`` for an ``ml_dtypes``
+    bfloat16 array and for :data:`BF16_HOST` storage, numpy's name
+    otherwise."""
+    md = a.dtype.metadata
+    return md["name"] if md and "name" in md else a.dtype.name
+
+
 def of_array(a: np.ndarray) -> DType:
     """Entry for a numpy array; an ``ml_dtypes`` bfloat16 array (named
-    ``"bfloat16"`` by numpy) maps to the bfloat16 entry."""
-    return lookup(a.dtype.name)
+    ``"bfloat16"`` by numpy) and :data:`BF16_HOST` storage map to the
+    bfloat16 entry."""
+    return lookup(host_name(a))
 
 
 def host_view(buf: np.ndarray, name: str) -> np.ndarray:

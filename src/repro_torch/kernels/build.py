@@ -8,8 +8,10 @@ checkout, named by a hash of its sources, at the first launch of any kernel
 (never at import: hosts without ``nvcc`` import every module).
 
 Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3``, and never
-``--use_fast_math`` — the int8 quantize kernel depends on IEEE division,
-and the attention kernel on IEEE ``expf`` and division.
+``--use_fast_math`` — the int8 quantize kernels depend on IEEE division,
+and the attention kernel on IEEE ``expf`` and division. The reduction
+kernels flush subnormals themselves, where the reference does, so no
+``-ftz`` either.
 """
 
 from __future__ import annotations
@@ -36,9 +38,15 @@ _N = ctypes.c_int64
 SIGNATURES = {
     "ckpt_checksum_u32": (_P, _N, _P, _P),
     "ckpt_xor_checksum_u32": (_P, _P, _P, _N, _P, _P),
+    "ckpt_xor_fold_checksum_u32": (_P, _P, _P, _N, _P, _P),
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
     "ckpt_quantize_checksum_int8": (_P, _N, _P, _P, _P),
     "ckpt_dequantize_checksum_int8": (_P, _N, _P, _P, _P),
+    # x, n_rows, q, scales / q, scales, n_rows, out
+    "ckpt_quantize_int8": (_P, _N, _P, _P, _P),
+    "ckpt_dequantize_int8": (_P, _P, _N, _P, _P),
+    "ckpt_downcast_bf16": (_P, _N, _P, _P),
+    "ckpt_delta_f32": (_P, _P, _P, _N, _P),
     # q, k, v, out; B, S, T, H, KV, hd, is_bf16, kind, window, chunk
     "ckpt_flash_attention_fwd": (_P, _P, _P, _P) + (_N,) * 10 + (_P,),
 }

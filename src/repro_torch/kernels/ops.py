@@ -8,6 +8,17 @@ they move the bytes there, run the kernel, and bring back only the
 outputs (the repro package feeds its kernels host-staged chunks the same
 way, ``core/codecs.py:247`` and ``core/restore.py:837-840``).
 Background lanes call them inside :func:`lane_stream`.
+
+Every kernel of ``repro/kernels/ops.py`` has its wrapper here:
+``checksum`` (``tensor_checksum``, ``:63``), ``xor_checksum``
+(``fused_xor_checksum``, ``:108``), ``fused_xor_fold`` (``:119``),
+``delta_xor`` (``:90``), ``delta_f32`` (``:99``), ``downcast_bf16``
+(``:72``), ``quantize_int8`` (``:78``), ``dequantize_int8`` (``:84``),
+``fused_quantize_int8`` (``:131``), ``fused_dequantize_int8``
+(``:140``) and ``flash_attention`` (``:151``). The reference pads the
+u32 and f32 wrappers' inputs to 65,536-word blocks; these take any
+length, and the offline reducer pads where the reference's bytes on disk
+depend on it (``core/reduction.py``).
 """
 
 from __future__ import annotations
@@ -77,6 +88,46 @@ def delta_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _delta.delta_xor_cuda(a, b)
 
 
+def fused_xor_fold(base: torch.Tensor, delta: torch.Tensor
+                   ) -> Tuple[torch.Tensor, int]:
+    """``(base ^ delta, digest of delta)`` over int32 word tensors."""
+    if _kind(base) == "cpu":
+        _delta.check_pair(base, delta, "cpu")
+        return _fused.xor_fold_checksum_plain(base, delta)
+    folded, dig = _fused.xor_fold_checksum_cuda(base, delta)
+    return folded, int(dig.item()) & U32_MASK
+
+
+def delta_f32(cur: torch.Tensor, prev: torch.Tensor) -> torch.Tensor:
+    """Flat ``cur - prev`` of two float32 tensors of one shape, with the
+    reference's flushing (:mod:`.delta`)."""
+    if _kind(cur) == "cpu":
+        return _delta.delta_f32_plain(cur, prev)
+    return _delta.delta_f32_cuda(cur, prev)
+
+
+def downcast_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``(R, C)``, R and C multiples of 256 -> bfloat16."""
+    if _kind(x) == "cpu":
+        return _quant.downcast_bf16_plain(x)
+    return _quant.downcast_bf16_cuda(x)
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``(R, 256)``, R a multiple of 256 -> ``(q int8 (R, 256),
+    scales float32 (R, 1))``."""
+    if _kind(x) == "cpu":
+        return _quant.quantize_int8_plain(x)
+    return _quant.quantize_int8_cuda(x)
+
+
+def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``q * scales`` as float32 ``(R, 256)``."""
+    if _kind(q) == "cpu":
+        return _quant.dequantize_int8_plain(q, scales)
+    return _quant.dequantize_int8_cuda(q, scales)
+
+
 def fused_quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """``(int8q payload body, its digest)`` of float32 rows ``x`` of
     shape ``(n_rows, 256)``."""
@@ -125,7 +176,9 @@ def host_u8(data) -> np.ndarray:
     return np.frombuffer(memoryview(data), dtype=np.uint8)
 
 
-def _bytes_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
+def bytes_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A flat uint8 array as a tensor on ``device`` (copied where numpy's
+    buffer cannot be shared: not contiguous, or read-only)."""
     if not b.flags["C_CONTIGUOUS"] or not b.flags["WRITEABLE"]:
         b = b.copy()
     t = torch.from_numpy(b)
@@ -135,7 +188,7 @@ def _bytes_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _words_on(b: np.ndarray, device: torch.device) -> torch.Tensor:
-    return as_words(_bytes_on(b, device))
+    return as_words(bytes_on(b, device))
 
 
 def host_checksum(data, device: torch.device) -> int:
@@ -177,7 +230,7 @@ def host_fused_quantize_int8(rows, device: torch.device
     holding whole float32 rows of 256, quantized on ``device``: the rows
     go up (4 bytes a value), the body comes back (about 1 byte a value)."""
     b = host_u8(rows)
-    x = _bytes_on(b, torch.device(device)).view(torch.float32) \
+    x = bytes_on(b, torch.device(device)).view(torch.float32) \
         .reshape(-1, _quant.ROW_ELEMS)
     body, dig = fused_quantize_int8(x)
     return body.cpu().numpy(), dig
@@ -187,6 +240,6 @@ def host_fused_dequantize_int8(body, n_rows: int, device: torch.device
                                ) -> Tuple[np.ndarray, int]:
     """``(float32 rows' bytes as a fresh uint8 array, digest)`` of a host
     payload body, decoded on ``device``."""
-    t = _bytes_on(host_u8(body), torch.device(device))
+    t = bytes_on(host_u8(body), torch.device(device))
     out, dig = fused_dequantize_int8(t, n_rows)
     return out.cpu().numpy().reshape(-1).view(np.uint8), dig

@@ -66,9 +66,15 @@ class LocalBackend(StorageBackend):
         return path
 
     def put(self, key: str, data: bytes) -> None:
+        """The temp file is a hidden sibling (``.<name>.tmp-<pid>-<hex>``)
+        whose name does not start with the object's, so one left by a
+        writer that died is never taken for the object by a listing that
+        matches names by prefix (the offline reducer's ``diff_*``)."""
         path = self._path(key)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}"
+        head, name = os.path.split(path)
+        tmp = os.path.join(
+            head, f".{name}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
         with open(tmp, "wb") as f:
             f.write(data)
         os.replace(tmp, path)

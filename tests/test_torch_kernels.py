@@ -183,9 +183,14 @@ def test_build_flags_are_fixed():
     assert "fast_math" not in flags and "-O3" in flags
     assert set(build.SIGNATURES) == {"ckpt_checksum_u32",
                                      "ckpt_xor_checksum_u32",
+                                     "ckpt_xor_fold_checksum_u32",
                                      "ckpt_delta_xor",
+                                     "ckpt_delta_f32",
                                      "ckpt_quantize_checksum_int8",
                                      "ckpt_dequantize_checksum_int8",
+                                     "ckpt_quantize_int8",
+                                     "ckpt_dequantize_int8",
+                                     "ckpt_downcast_bf16",
                                      "ckpt_flash_attention_fwd"}
     src = "".join(s.read_text() for s in build.SOURCES)
     for sym in build.SIGNATURES:
