@@ -11,15 +11,23 @@ Phases, any failure exits non-zero:
    workspace (``CUBLAS_WORKSPACE_CONFIG=:4096:8``) so identical inputs give
    identical losses.
 2. Build: the CUDA kernels of ``src/repro_torch/kernels/csrc`` with nvcc
-   (into ``build/repro_torch/``), timed.
+   (into ``build/repro_torch/``), timed; then what was compiled for the
+   attention kernels: ptxas' registers and spills, and the count of
+   ``wgmma`` (HGMMA), TMA (UTMALDG, UTMASTG), mbarrier (SYNCS),
+   ``mma.sync`` (HMMA) and SFU exponential instructions in their SASS
+   (``cuobjdump -sass``); the bf16 kernel must have ``wgmma`` and TMA
+   loads and no ``mma.sync``.
 3. Kernels: each of the eleven kernels against its plain PyTorch version
    on the card, at odd sizes and at the main path's shapes — the ten
    checkpoint and reduction kernels bit-identical (the reduction kernels
    with NaN, inf, subnormal and tie values in their inputs), flash
    attention within 2e-5 (fp32) and 2e-2 (bf16) for the ``full``,
-   ``window`` and ``chunked`` masks at S 1, 257 and 2,100 with 32/8 and
-   4/4 heads — then timed with CUDA events beside its plain version, its
-   bound, and a library yardstick where one PyTorch call computes the
+   ``window`` (200, and 32: narrower than a tile) and ``chunked`` (192:
+   across tiles) masks at S 1, 127, 128, 129, 257 and 2,100, and 300
+   queries over 200 keys, with 32/8 and 4/4 heads — then timed with CUDA
+   events beside its plain version, its bound (flash attention also as
+   TFLOP/s and its share of the bound), and a library yardstick where one
+   PyTorch call computes the
    same function (``torch.bitwise_xor`` for ``delta_xor``,
    ``scaled_dot_product_attention`` for flash attention,
    ``x.to(torch.bfloat16)`` for the downcast, ``torch.mul`` for
@@ -99,10 +107,14 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_INTERVAL = 2048, 4, 6, 2
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
-#: flash attention at odd sizes: sequence lengths, (H, KV) heads, masks
-FLASH_SEQS = (1, 257, 2100)
+#: flash attention at odd sizes: (queries, keys) — one short of, on and
+#: past the bf16 kernel's 128-row tiles, fewer keys than queries — (H, KV)
+#: heads, and masks: a window narrower than a tile, chunks across tiles
+FLASH_SEQS = ((1, 1), (127, 127), (128, 128), (129, 129), (257, 257),
+              (300, 200), (2100, 2100))
 FLASH_HEADS = ((32, 8), (4, 4))
-FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("chunked", 0, 192))
+FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("window", 32, 0),
+               ("chunked", 0, 192))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the reduction kernels at the reducer's shapes: llama3.2-1b's embedding
 #: (128,256 x 2,048 fp32) for the downcast, the same leaf as rows of 256
@@ -482,13 +494,18 @@ def _flash_err(got, want, tol: float) -> float:
     return float(diff.max())
 
 
+def flash_flop(B: int, S: int, H: int, hd: int) -> int:
+    """FLOP of the two products of causal ``full`` attention: ``4 * hd``
+    per visible (query, key) pair, ``S (S + 1) / 2`` pairs per (b, h)."""
+    return 4 * hd * B * H * S * (S + 1) // 2
+
+
 def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
                    itemsize: int) -> tuple:
-    """(bound ms, bound_by) of causal ``full`` attention: ``4 * hd``
-    FLOP per visible (query, key) pair, ``S (S + 1) / 2`` pairs per (b, h),
-    against the bf16 tensor-core peak; q, k, v read once and the output
-    written once against the memory rate."""
-    flop = 4 * hd * B * H * S * (S + 1) // 2
+    """(bound ms, bound_by) of causal ``full`` attention: its FLOP
+    (:func:`flash_flop`) against the bf16 tensor-core peak; q, k, v read
+    once and the output written once against the memory rate."""
+    flop = flash_flop(B, S, H, hd)
     nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
     t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -505,15 +522,16 @@ def check_flash_kernel(gen) -> dict:
     from repro_torch.kernels import flash_attention as fa
     B, hd = SERVE_BATCH, 64
     worst = 0.0
-    cases = [(B, S, H, KV, dt, kind) for S in FLASH_SEQS
+    cases = [(B, S, T, H, KV, dt, kind) for S, T in FLASH_SEQS
              for H, KV in FLASH_HEADS for dt in ("float32", "bfloat16")
              for kind in FLASH_KINDS]
-    cases.append((B, SERVE_PROMPT, 32, 8, "bfloat16", FLASH_KINDS[0]))
-    for B_, S, H, KV, dt, (kind, window, chunk) in cases:
+    cases.append((B, SERVE_PROMPT, SERVE_PROMPT, 32, 8, "bfloat16",
+                  FLASH_KINDS[0]))
+    for B_, S, T, H, KV, dt, (kind, window, chunk) in cases:
         tdt = getattr(torch, dt)
         q = torch.randn(B_, S, H, hd, device="cuda", generator=gen).to(tdt)
-        k = torch.randn(B_, S, KV, hd, device="cuda", generator=gen).to(tdt)
-        v = torch.randn(B_, S, KV, hd, device="cuda", generator=gen).to(tdt)
+        k = torch.randn(B_, T, KV, hd, device="cuda", generator=gen).to(tdt)
+        v = torch.randn(B_, T, KV, hd, device="cuda", generator=gen).to(tdt)
         got = fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
                                       chunk=chunk)
         want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
@@ -523,7 +541,8 @@ def check_flash_kernel(gen) -> dict:
         if got.shape != want.shape or got.dtype != q.dtype \
                 or not math.isfinite(err):
             fail(f"flash_attention disagrees with its plain version at "
-                 f"B {B_} S {S} heads {H}/{KV} {dt} {kind}: max |diff| "
+                 f"B {B_} S {S} T {T} heads {H}/{KV} {dt} {kind} (window "
+                 f"{window}, chunk {chunk}): max |diff| "
                  f"{float((got.float() - want.float()).abs().max())!r}")
         worst = max(worst, err)
     S, H, KV = SERVE_PROMPT, 32, 8
@@ -540,17 +559,67 @@ def check_flash_kernel(gen) -> dict:
         lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 50)
     bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2)
+    tflops = flash_flop(B, S, H, hd) / (ms * 1e-3) / 1e12
     log(f"kernel flash_attention: within {FLASH_TOL} of its plain version "
-        f"at S {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, masks "
-        f"{[k[0] for k in FLASH_KINDS]}, fp32 and bf16 (max |diff| "
-        f"{worst:.3g}); at B {B} S {S} heads {H}/{KV} hd {hd} bf16 causal: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-        f"{bound_by}, scaled_dot_product_attention {library_ms:.4f} ms)")
+        f"at (S, T) {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, "
+        f"masks {FLASH_KINDS}, fp32 and bf16 (max |diff| {worst:.3g}); at "
+        f"B {B} S {S} heads {H}/{KV} hd {hd} bf16 causal: {ms:.4f} ms, "
+        f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound (plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms)")
     return {"flash_attention": {
         "name": "flash_attention", "shape": [B, S, H, KV, hd],
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}}
+        "library_ms": library_ms, "tflops": tflops,
+        "bound_share": bound_ms / ms}}
+
+
+#: SASS opcodes counted in the attention kernels: wgmma (HGMMA), TMA loads
+#: and stores (UTMALDG, UTMASTG), mbarrier operations (SYNCS), mma.sync
+#: (HMMA) and the SFU's exponentials
+FLASH_SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA", "MUFU.EX2")
+
+
+def describe_flash_build(lib) -> None:
+    """Log what was compiled for ``flash_fwd_*``: ptxas' registers,
+    barriers, static shared memory, stack and spills (the ``-Xptxas -v``
+    report the build keeps; the bf16 kernel's ring is dynamic shared
+    memory, which ptxas does not see),
+    and the count of each of :data:`FLASH_SASS_OPS` in each kernel's SASS
+    (``cuobjdump -sass``). Fails if the bf16 kernel has no ``wgmma`` or no
+    TMA load in its SASS, or ``mma.sync``."""
+    import re
+    from repro_torch.kernels import build
+    name = None
+    for line in build.ptxas_report(lib).read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S*flash_fwd_\w+?)(?:E|')", line)
+        if m:
+            name = re.search(r"flash_fwd_[a-z0-9]+", m.group(1)).group(0)
+            continue
+        if name and re.search(r"registers|spill|warning|C75", line):
+            log(f"ptxas {name}: {line.strip()}")
+        if "Compile time" in line:
+            name = None
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("cuobjdump not found: the SASS of flash_fwd_* is not counted")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    for body in sass.split("Function : ")[1:]:
+        kernel = re.search(r"flash_fwd_[a-z0-9]+", body.split("\n", 1)[0])
+        if not kernel:
+            continue
+        counts = {op: len(re.findall(r"\b" + re.escape(op) + r"[ .]", body))
+                  for op in FLASH_SASS_OPS}
+        log(f"sass {kernel.group(0)}: {json.dumps(counts)}")
+        if kernel.group(0) == "flash_fwd_bf16" and (
+                not counts["HGMMA"] or not counts["UTMALDG"]
+                or counts["HMMA"]):
+            fail(f"flash_fwd_bf16 is not the wgmma/TMA kernel: {counts}")
 
 
 # ----------------------------------------------------------- main path
@@ -1257,6 +1326,7 @@ def main() -> None:
     lib = build.build()
     build.library()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    describe_flash_build(lib)
 
     rows = check_kernels()
 
@@ -1368,7 +1438,8 @@ def main() -> None:
         "launches": sum(p[k] for p in path_launches.values()),
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **{x: r[x] for x in ("tflops", "bound_share") if x in r}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

@@ -4,14 +4,21 @@ The kernels have a plain C interface, so no PyTorch headers are compiled
 and the build is short: one ``nvcc -c`` per source, all started together,
 then one ``nvcc -shared`` links the objects into a library that ``ctypes``
 loads. The library lands in ``build/repro_torch/`` at the root of the
-checkout, named by a hash of its sources, at the first launch of any kernel
-(never at import: hosts without ``nvcc`` import every module).
+checkout, named by a hash of every file under ``csrc/`` and of the compile
+and link flags, at the first launch of any kernel (never at import: hosts
+without ``nvcc`` import every module). The attention kernel's TMA tensor
+maps are encoded through the entry point that the CUDA runtime hands out
+(``cudaGetDriverEntryPoint``), so the library links no ``libcuda``.
 
-Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3``, and never
-``--use_fast_math`` — the int8 quantize kernels depend on IEEE division,
-and the attention kernel on IEEE ``expf`` and division. The reduction
-kernels flush subnormals themselves, where the reference does, so no
-``-ftz`` either.
+Flags are fixed: ``-gencode arch=compute_90a,code=sm_90a -O3`` (``wgmma``
+and ``setmaxnreg`` exist only for ``sm_90a``) and ``-Xptxas -v``, whose
+report of each kernel's registers, shared memory and spills is kept beside
+the library (:func:`ptxas_report`). Never ``--use_fast_math``: the int8
+quantize kernels depend on IEEE division, and so does the attention
+kernel's ``1 / (l + 1e-30)``; its bf16 body takes its exponentials as
+``ex2.approx.ftz`` of log2-scaled logits, written out in the source, and
+its fp32 body IEEE ``expf``. The reduction kernels flush subnormals
+themselves, where the reference does, so no ``-ftz`` either.
 """
 
 from __future__ import annotations
@@ -28,9 +35,11 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "ckpt_kernels.cu", CSRC / "flash_attention.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-#: compile flags of every source (the link step adds ``-shared``)
+#: compile flags of every source
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: flags of the link step
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -72,11 +81,20 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
+    """Named by a hash of every file under ``csrc/`` (sources and headers)
+    and of the compile and link flags."""
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(src.relative_to(CSRC).as_posix().encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(LINK_FLAGS).encode())
     return BUILD_DIR / f"libckpt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_report(lib: Path) -> Path:
+    """Where :func:`build` keeps the compiler's ``-Xptxas -v`` report."""
+    return lib.with_suffix(".ptxas.txt")
 
 
 def build() -> Path:
@@ -100,8 +118,11 @@ def build() -> Path:
             if rc != 0:
                 raise KernelBuildError(
                     f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        tmp_report = out.with_suffix(f".{tag}.txt")
+        tmp_report.write_text("".join(text for _c, text, _r in results))
+        os.replace(tmp_report, ptxas_report(out))
         tmp = out.with_suffix(f".{tag}.so")
-        _run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        _run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)])
         os.replace(tmp, out)
     finally:
         for p in procs:

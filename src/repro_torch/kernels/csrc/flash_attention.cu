@@ -2,9 +2,9 @@
 // with ctypes by repro_torch/kernels/build.py, built in the same library as
 // ckpt_kernels.cu).
 //
-//   flash_attention_fwd   replaces repro/kernels/flash_attention.py:flash_attention_bh
-//                         (the Pallas TPU kernel that repro.kernels.ops.flash_attention
-//                         wraps, and the TPU twin of repro.models.layers.blocked_sdpa)
+//   ckpt_flash_attention_fwd  replaces repro/kernels/flash_attention.py:flash_attention_bh
+//                             (the Pallas TPU kernel that repro.kernels.ops.flash_attention
+//                             wraps, and the TPU twin of repro.models.layers.blocked_sdpa)
 //
 // What it computes (the plain version is flash_attention_plain in
 // repro_torch/kernels/flash_attention.py): causal online-softmax attention
@@ -17,41 +17,74 @@
 // Translation from the TPU kernel:
 // - The TPU grid is (B*H, q blocks, kv blocks) with the kv axis sequential,
 //   carrying m, l and acc in VMEM scratch between grid steps. Here one CTA
-//   owns one (b, h, 64-query tile) and walks the kv tiles in a loop, with m,
-//   l and acc in registers; CTAs run in parallel in any order. The q tiles
-//   are issued last-first, so the long causal rows start first.
+//   owns one (b, h, query tile) and walks the kv tiles in a loop, with m, l
+//   and acc in registers; CTAs run in parallel in any order. The query
+//   tiles are issued longest first, so the long causal rows start first.
 // - The Pallas wrapper materialises the GQA repeat (jnp.repeat over KV
 //   heads); here query head h reads KV head h / (H / KV) directly.
 // - The Pallas kernel asserts S % q_block == 0; here ragged S and T are
-//   masked in the kernel: rows past S are computed on zeros and not
-//   stored, keys past T are staged as zeros and masked.
+//   handled in the kernel: rows past S are computed on zeros and not
+//   stored, keys past T arrive as zeros and are masked.
 // - KV tiles that lie wholly outside the mask of the CTA's rows (above the
 //   causal diagonal, below the window, before the chunk) are skipped; in
 //   the reference their contribution is exactly zero (alpha = 1, p = 0).
-//
-// Two bodies, one per input type:
-// - bf16 (the serving path): 4 warps, 16 query rows each, with mma.sync
-//   m16n8k16 bf16 tensor-core products (fp32 accumulation) for q.k^T and for
-//   p.v; the probabilities are rounded to bf16 for the second product, as
-//   FlashAttention-2 does. The product q.k is scaled in fp32 afterwards.
-// - fp32: plain fp32 FMA on the CUDA cores (the tensor cores' TF32 keeps
-//   too few digits for the 2e-5 tolerance), q pre-scaled in fp32 as the
-//   reference does, 4 threads per query row.
 //
 // Bound on the card: attention at the serving shape (B 2, S 4,096, 32/8
 // heads, hd 64, causal) does about 1.37e11 FLOP of bf16 products
 // (4 * hd per visible query-key pair) against 84 MB of input and output (q,
 // k, v read once, the output written once), so it is bound by the tensor
 // cores' 989 TFLOP/s (0.139 ms), not by the 3.35 TB/s of device memory
-// (0.025 ms). This first version stages K and V tiles with plain
-// 16-byte loads and no pipelining, so it stays well above that bound;
-// wgmma, TMA and a load/compute pipeline are later work.
+// (0.025 ms). At hd 64 the softmax's exponentials cost the SM as many
+// cycles as the two products (16 a cycle on the SFUs against 1,024
+// multiply-adds a cycle on the tensor cores), so the design keeps several
+// warpgroups in flight, each one's softmax beside the others' products.
 //
-// Kernels launch on the caller's stream and allocate nothing; the entry
-// point returns cudaGetLastError() so a refused launch is reported.
+// Two bodies, one per input type:
+// - bf16 (the serving path), a warp-specialised Hopper pipeline. A CTA of
+//   four warpgroups owns 192 query rows of one (b, h); CTAs are issued
+//   heads first, then batch, then the query tiles longest first:
+//   * warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
+//     and one thread issues every TMA load, Q once, then each 128-key K
+//     and V tile into a two-stage shared-memory ring. TMA writes the tiles
+//     in the 128-byte swizzle (a 64-wide bf16 row is exactly 128 bytes) and
+//     zero-fills rows past S and T, so ragged tails need no staging code.
+//     full[stage] mbarriers carry the transaction bytes; the producer waits
+//     on empty[stage] before it refills a stage.
+//   * warpgroups 1-3 are the consumers, 64 query rows each (setmaxnreg
+//     .inc). S = Q K^T is four wgmma m64n128k16 (A and B K-major from the
+//     swizzled tiles), scaled in fp32 afterwards with log2(e) folded in for
+//     ex2.approx; the online softmax stays in registers (row max and sum
+//     over a quad of lanes). The S accumulator, packed to bf16, is wgmma's
+//     A fragment layout, so O += P V is eight wgmma m64n64k16 with P from
+//     registers and V read MN-major from its tile (the transpose bit, no
+//     copy). Q K^T of tile i is issued together with P V of tile i - 1, so
+//     that product runs while the warpgroup takes tile i's softmax. Each
+//     consumer warp arrives on empty[stage] once its P V has retired.
+//   * Masks cost only where they bite: each row's visible keys are the
+//     interval [lo(i), min(i, T - 1)] (lo is 0, i - window + 1 or the
+//     chunk's start), so a tile that every row of a warpgroup sees whole
+//     runs no per-element test, a tile that none of them sees is skipped,
+//     and only the tiles across an edge compare each key, on 32-bit
+//     positions.
+//   * Epilogue: acc times the IEEE reciprocal of l + 1e-30, as bf16, into
+//     the warpgroup's own rows of the Q tile (free once its last product
+//     retired), in the same swizzle, then one TMA store, which also clips
+//     rows past S.
+// - fp32: plain fp32 FMA on the CUDA cores (the tensor cores' TF32 keeps
+//   too few digits for the 2e-5 tolerance), q pre-scaled in fp32 as the
+//   reference does, 4 threads per query row, 64-query CTAs, IEEE expf and
+//   division.
+//
+// The tensor maps are encoded on the host per call with
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so the
+// library links no libcuda; a map that cuTensorMapEncodeTiled refuses is
+// returned as an error, never sent to another body. Kernels launch on the caller's stream
+// and allocate nothing; the entry point returns cudaGetLastError() so a
+// refused launch is reported.
 
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums only: no libcuda symbol is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -216,13 +249,188 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
 }
 
 // ------------------------------------------------------------------ bf16
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
+// The Hopper body. Tiles are rows of 64 bf16 (128 bytes, one swizzle row
+// each), 1,024-byte aligned so the 128-byte swizzle of TMA and of the wgmma
+// descriptors line up.
+constexpr int kConsumers = 3;               // consumer warpgroups
+constexpr int kTileQ = 64 * kConsumers;      // query rows per CTA
+constexpr int kTileK = 128;                  // keys per ring stage
+constexpr int kStages = 2;
+constexpr int kRowBytes = HD * 2;
+constexpr int kTileBytes = kTileK * kRowBytes;  // 16 KB: one K or V stage
+constexpr int kQBytes = kTileQ * kRowBytes;     // 24 KB: Q, then the output
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kConsumerWarps = 4 * kConsumers;
+constexpr int kProducerRegs = 24;
+// what the producer gives up, shared among the consumers (a multiple of 8)
+constexpr int kConsumerRegs =
+    (65536 / kThreads + (65536 / kThreads - kProducerRegs) / kConsumers) / 8 *
+    8;
+// shared memory from a 1,024-byte aligned base: Q, the K ring, the V ring,
+// then the barriers (q_full, k_full[], v_full[], empty[])
+constexpr int kSmemK = kQBytes;
+constexpr int kSmemV = kSmemK + kStages * kTileBytes;
+constexpr int kSmemBar = kSmemV + kStages * kTileBytes;
+constexpr int kSmemBytes = kSmemBar + (1 + 3 * kStages) * 8 + 1024;
+
+struct TileParams {
+  int S, T, group;  // group: query heads per KV head
+  int kind, window, chunk;
+  int n_qtiles;
+  float scale_log2;  // log2(e) / sqrt(hd)
+};
+
+// Query i sees keys [row_lo(i), row_hi(i)] (an empty interval when lo > hi).
+__device__ __forceinline__ int row_lo(int i, const TileParams& p) {
+  if (p.kind == kWindow) return i - p.window + 1;
+  if (p.kind == kChunked) return (i / p.chunk) * p.chunk;
+  return 0;
+}
+
+__device__ __forceinline__ int row_hi(int i, const TileParams& p) {
+  return i < p.T - 1 ? i : p.T - 1;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of the 4-D map (hd, heads, seq, B) at {0, head, row, b}.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int head, int row,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head),
+      "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int head, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(0), "r"(head), "r"(row), "r"(b)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (B128).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((saddr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N of this warpgroup's committed groups are in flight
+// (groups retire in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads across the asynchronous
+// products.
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128 fp32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) *
+// B (16 x 128, K-major smem: the keys' rows).
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 fp32) += A (64 x 16 bf16 in registers) * B (16 x 64, MN-major
+// smem: V's rows, read through the transpose bit).
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats as bf16 (round to nearest even), the first in the low half.
@@ -231,196 +439,388 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+// Fragment layout of wgmma (and of its register A operand): in warp w of a
+// warpgroup, lane 4g + t holds rows 16w + g and 16w + g + 8, and in each
+// 8-wide column block j the columns 8j + 2t and 8j + 2t + 1: d[4j + 0, 1]
+// on the first row, d[4j + 2, 3] on the second.
+
+// One consumer thread's two rows: the keys each sees, the running max (log2
+// units) and this thread's share of the running sums.
+struct Rows {
+  int lo_a, hi_a, lo_b, hi_b;
+  float m_a, m_b, l_a, l_b;
+};
+
+// S = Q K^T of one tile into s (four k-steps of 16 along hd, 32 bytes each).
+__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
+                                         uint64_t dk) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// O += P V of one tile: 16 keys (2,048 bytes of V) a step.
+__device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         const uint32_t (&pa)[8][4],
+                                         uint64_t dv) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) wgmma_pv(o, pa[c], dv + 128 * c);
+  wgmma_commit();
 }
 
-// rows x HD bf16 from global rows (pos0 + r, head) into smem rows of LD,
-// zeros for pos >= len; 16-byte vectors.
-template <int LD>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           int64_t b, int64_t pos0,
-                                           int64_t len, int64_t heads,
-                                           int64_t head, int rows) {
-  constexpr int VPR = HD / 8;
-  for (int e = threadIdx.x; e < rows * VPR; e += blockDim.x) {
-    const int r = e / VPR, c = e % VPR;
-    const int64_t pos = pos0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (pos < len)
-      val = *reinterpret_cast<const uint4*>(
-          src + row_offset(b, pos, len, heads, head, HD) + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
+// The online softmax of one tile of logits s at keys jb.. (in place: s
+// becomes p), with the per-key mask only when `whole` is false. Returns
+// the factors by which the accumulator's two rows must be rescaled.
+__device__ __forceinline__ void online_softmax(float (&s)[64], int jb, int t,
+                                               bool whole, float scale_log2,
+                                               Rows& r, float& al_a,
+                                               float& al_b) {
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (!whole) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = jb + 8 * j + 2 * t + (e & 1);
+        const bool ok = e < 2 ? (key >= r.lo_a && key <= r.hi_a)
+                              : (key >= r.lo_b && key <= r.hi_b);
+        if (!ok) s[4 * j + e] = -INFINITY;  // p = ex2(-inf) = 0
+      }
+    }
+    mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+  // m never falls below -1e30, so a row that sees nothing yet keeps
+  // alpha = 1 and p = 0
+  const float mn_a = fmaxf(r.m_a, mx_a * scale_log2);
+  const float mn_b = fmaxf(r.m_b, mx_b * scale_log2);
+  al_a = ex2(r.m_a - mn_a);
+  al_b = ex2(r.m_b - mn_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+  float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -mn_a));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -mn_a));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -mn_b));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], scale_log2, -mn_b));
+    sa0 += s[4 * j];
+    sa1 += s[4 * j + 1];
+    sb0 += s[4 * j + 2];
+    sb1 += s[4 * j + 3];
+  }
+  r.l_a = r.l_a * al_a + (sa0 + sa1);
+  r.l_b = r.l_b * al_b + (sb0 + sb1);
+}
+
+// Keys 16c .. 16c + 15 of p, as bf16, are the A fragment of P V's step c.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
+                                       const float (&s)[64]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    pa[c][0] = pack_f32(s[8 * c], s[8 * c + 1]);
+    pa[c][1] = pack_f32(s[8 * c + 2], s[8 * c + 3]);
+    pa[c][2] = pack_f32(s[8 * c + 4], s[8 * c + 5]);
+    pa[c][3] = pack_f32(s[8 * c + 6], s[8 * c + 7]);
   }
 }
 
-// 128 threads = 4 warps; warp w owns query rows 16w .. 16w + 15 of the tile.
-// mma fragment layout (m16n8k16): lane = 4 * g + t; a thread holds rows g
-// and g + 8 of its warp's tile and columns 2t, 2t + 1 of each 8-wide slab.
-__global__ void __launch_bounds__(128) flash_fwd_bf16(Params p) {
-  constexpr int LD = HD + 8;  // padded smem row: conflict-free fragments
-  constexpr int NK = kBlockK / 8;
-  constexpr int ND = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kBlockQ * LD;
-  __nv_bfloat16* vs = ks + kBlockK * LD;
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_o,
+                   const TileParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_ring[];
+  const uint32_t base = (smem_u32(smem_ring) + 1023u) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t bar_q = base + kSmemBar;
+  const uint32_t bar_k = bar_q + 8;            // k_full[kStages]
+  const uint32_t bar_v = bar_k + 8 * kStages;  // v_full[kStages]
+  const uint32_t bar_e = bar_v + 8 * kStages;  // empty[kStages]
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int64_t q0 = (int64_t)(gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int64_t q1 = q0 + kBlockQ < p.S ? q0 + kBlockQ : p.S;
-  const int64_t h = blockIdx.y;
-  const int64_t b = blockIdx.z;
-  const int64_t kvh = h / (p.H / p.KV);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (p.n_qtiles - 1 - static_cast<int>(blockIdx.z)) * kTileQ;
+  const int kvh = h / p.group;
+  const int q_last = (q0 + kTileQ < p.S ? q0 + kTileQ : p.S) - 1;
+  const int lo = max(row_lo(q0, p), 0);
+  const int hi = row_hi(q_last, p);
+  const int t0 = lo / kTileK;
+  const int n_tiles = hi >= lo ? hi / kTileK + 1 - t0 : 0;
 
-  stage_bf16<LD>(qs, q, b, q0, p.S, p.H, h, kBlockQ);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_e + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int r0 = warp * 16 + g;
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const __nv_bfloat16* base = qs + kk * 16 + 2 * t;
-    qf[kk][0] = ld_u32(base + r0 * LD);
-    qf[kk][1] = ld_u32(base + (r0 + 8) * LD);
-    qf[kk][2] = ld_u32(base + r0 * LD + 8);
-    qf[kk][3] = ld_u32(base + (r0 + 8) * LD + 8);
-  }
 
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};
-  float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
-  const int64_t i_r[2] = {q0 + r0, q0 + r0 + 8};
-  int64_t t0, t1;
-  kv_tiles(q0, q1, p, &t0, &t1);
-
-  for (int64_t kt = t0; kt < t1; ++kt) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    const int64_t jb = kt * kBlockK;
-    stage_bf16<LD>(ks, k, b, jb, p.T, p.KV, kvh, kBlockK);
-    stage_bf16<LD>(vs, v, b, jb, p.T, p.KV, kvh, kBlockK);
-    __syncthreads();
-
-    float s[NK][4];
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* kb = ks + (n * 8 + g) * LD + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        mma_16816(s[n], qf[kk], ld_u32(kb + kk * 16), ld_u32(kb + kk * 16 + 8));
-    }
-
-    uint32_t ok = 0;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const int64_t j = jb + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * p.scale;
-        if (allowed(i_r[rr], j, p)) {
-          ok |= 1u << (n * 4 + e);
-        } else {
-          x = kNegInf;
-        }
-        s[n][e] = x;
-        mx[rr] = fmaxf(mx[rr], x);
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, kQBytes);
+      tma_load(sq, &tm_q, bar_q, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
+        const int jb = (t0 + it) * kTileK;
+        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
+        tma_load(base + kSmemK + s * kTileBytes, &tm_k, bar_k + 8 * s, kvh,
+                 jb, b);
+        mbar_expect_tx(bar_v + 8 * s, kTileBytes);
+        tma_load(base + kSmemV + s * kTileBytes, &tm_v, bar_v + 8 * s, kvh,
+                 jb, b);
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
-      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
-      const float m_new = fmaxf(m_r[rr], mx[rr]);
-      alpha[rr] = expf(m_r[rr] - m_new);
-      m_r[rr] = m_new;
-      l_r[rr] *= alpha[rr];
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ct = threadIdx.x - 128;
+    const int cw = ct >> 7;
+    const int warp = (ct >> 5) & 3;
+    const int lane = ct & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = q0 + cw * 64;
+    const int ia = r0 + warp * 16 + g;
+    Rows r;
+    r.lo_a = row_lo(ia, p);
+    r.hi_a = row_hi(ia, p);
+    r.lo_b = row_lo(ia + 8, p);
+    r.hi_b = row_hi(ia + 8, p);
+    r.m_a = r.m_b = kNegInf;
+    r.l_a = r.l_b = 0.f;
+    // keys some row of the warpgroup sees, and keys every row of it sees
+    // (lo and hi do not fall as the row rises)
+    const int some_lo = max(row_lo(r0, p), 0), some_hi = row_hi(r0 + 63, p);
+    const int every_lo = row_lo(r0 + 63, p), every_hi = row_hi(r0, p);
+    // the CTA's tiles [first, last) that this warpgroup computes; none when
+    // every one of its rows lies past S
+    int first = 0, last = 0;
+    if (r0 < p.S && some_lo <= some_hi) {
+      first = max(some_lo / kTileK - t0, 0);
+      last = max(min(some_hi / kTileK + 1 - t0, n_tiles), first);
     }
-#pragma unroll
-    for (int n = 0; n < NK; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const float pe =
-            (ok >> (n * 4 + e)) & 1u ? expf(s[n][e] - m_r[rr]) : 0.f;
-        s[n][e] = pe;
-        l_r[rr] += pe;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-    // p (the s fragments of keys 16c .. 16c + 15) is the A operand of p.v
-#pragma unroll
-    for (int c = 0; c < kBlockK / 16; ++c) {
-      const uint32_t a[4] = {pack_f32(s[2 * c][0], s[2 * c][1]),
-                             pack_f32(s[2 * c][2], s[2 * c][3]),
-                             pack_f32(s[2 * c + 1][0], s[2 * c + 1][1]),
-                             pack_f32(s[2 * c + 1][2], s[2 * c + 1][3])};
-      const __nv_bfloat16* vb = vs + (c * 16 + 2 * t) * LD + g;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* col = vb + n * 8;
-        mma_16816(o[n], a, pack_bf16(col[0], col[LD]),
-                  pack_bf16(col[8 * LD], col[9 * LD]));
-      }
-    }
-  }
+    const uint32_t sq_rows = sq + cw * 64 * kRowBytes;
+    const uint64_t dq = sw128_desc(sq_rows, 16, 1024);
+    // K is K-major like Q; V is MN-major, where N = 64 is one swizzle atom
+    // wide and both byte offsets are the 1,024 between 8-row groups
+    auto k_desc = [&](int st) {
+      return sw128_desc(base + kSmemK + st * kTileBytes, 16, 1024);
+    };
+    auto v_desc = [&](int st) {
+      return sw128_desc(base + kSmemV + st * kTileBytes, 1024, 1024);
+    };
+    auto parity = [](int it) { return static_cast<uint32_t>(it / kStages) & 1; };
+    auto whole = [&](int it) {
+      const int jb = (t0 + it) * kTileK;
+      return every_lo <= jb && jb + kTileK - 1 <= every_hi;
+    };
+    auto release = [&](int it) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_e + 8 * (it % kStages));
+    };
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    auto pass = [&](int it) {  // a tile none of this warpgroup's rows sees
+      mbar_wait(bar_k + 8 * (it % kStages), parity(it));
+      mbar_wait(bar_v + 8 * (it % kStages), parity(it));
+      release(it);
+    };
+
+    float o[32];
+    float s[64];
+    uint32_t pa[8][4];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    float l = l_r[rr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    if (i_r[rr] >= p.S) continue;
-    const float den = l + kTiny;
-    __nv_bfloat16* dst = out + row_offset(b, i_r[rr], p.S, p.H, h, HD) + 2 * t;
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<uint32_t*>(dst + n * 8) =
-          pack_f32(o[n][2 * rr] / den, o[n][2 * rr + 1] / den);
+    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    float al_a, al_b;
+    auto rescale = [&] {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n] *= al_a;
+        o[4 * n + 1] *= al_a;
+        o[4 * n + 2] *= al_b;
+        o[4 * n + 3] *= al_b;
+      }
+    };
+
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < first; ++it) pass(it);
+    if (first < last) {
+      mbar_wait(bar_k + 8 * (first % kStages), parity(first));
+      wgmma_fence();
+      issue_qk(s, dq, k_desc(first % kStages));
+      wgmma_wait<0>();
+      hold(s);
+      online_softmax(s, (t0 + first) * kTileK, t, whole(first), p.scale_log2,
+                     r, al_a, al_b);  // o is still 0: nothing to rescale
+      pack_p(pa, s);
+      // Q K^T of tile it is issued with P V of tile it - 1, whose product
+      // runs on while this warpgroup takes tile it's softmax
+      for (int it = first + 1; it < last; ++it) {
+        mbar_wait(bar_k + 8 * (it % kStages), parity(it));
+        mbar_wait(bar_v + 8 * ((it - 1) % kStages), parity(it - 1));
+        hold(o);
+        wgmma_fence();
+        issue_qk(s, dq, k_desc(it % kStages));
+        issue_pv(o, pa, v_desc((it - 1) % kStages));
+        wgmma_wait<1>();  // S of tile it; P V of tile it - 1 still runs
+        hold(s);
+        online_softmax(s, (t0 + it) * kTileK, t, whole(it), p.scale_log2, r,
+                       al_a, al_b);
+        wgmma_wait<0>();
+        hold(o);
+        release(it - 1);
+        rescale();
+        pack_p(pa, s);
+      }
+      mbar_wait(bar_v + 8 * ((last - 1) % kStages), parity(last - 1));
+      hold(o);
+      wgmma_fence();
+      issue_pv(o, pa, v_desc((last - 1) % kStages));
+      wgmma_wait<0>();
+      hold(o);
+      release(last - 1);
+    }
+    for (int it = last; it < n_tiles; ++it) pass(it);
+
+    float l_a = r.l_a, l_b = r.l_b;
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 1);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 1);
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, 2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, 2);
+    if (r0 < p.S) {
+      const float inv_a = 1.f / (l_a + kTiny), inv_b = 1.f / (l_b + kTiny);
+      const int ra = warp * 16 + g;  // rows ra and ra + 8 share ra % 8 = g
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const uint32_t col = static_cast<uint32_t>(((n ^ g) << 4) + 4 * t);
+        const uint32_t va = pack_f32(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
+        const uint32_t vb = pack_f32(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sq_rows + ra * kRowBytes +
+                                                      col),
+                     "r"(va)
+                     : "memory");
+        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                         sq_rows + (ra + 8) * kRowBytes + col),
+                     "r"(vb)
+                     : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      if ((ct & 127) == 0) tma_store(&tm_o, sq_rows, h, r0, b);
+    }
   }
 }
 
-cudaError_t launch(const Params& p, bool bf16, int64_t B, cudaStream_t st) {
+// ------------------------------------------------------------------ host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda function), looked up once through the
+// runtime.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor (B, len, heads, hd) as the 4-D map (hd, heads, len, B) with
+// boxes of `rows` rows of one head, 128-byte swizzled; reads past len give
+// zeros.
+bool rows_map(CUtensorMap* map, const void* base, int64_t heads, int64_t len,
+              int64_t B, uint32_t rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(kRowBytes),
+      static_cast<cuuint64_t>(heads * kRowBytes),
+      static_cast<cuuint64_t>(len * heads * kRowBytes)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(HD), 1, rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_bf16(const Params& p, int64_t B, cudaStream_t st) {
+  // 32-bit positions, and the query tiles on grid.z
+  constexpr int64_t kMaxLen = int64_t{1} << 30;
+  const int64_t n_qtiles = (p.S + kTileQ - 1) / kTileQ;
+  if (p.S > kMaxLen || p.T > kMaxLen || n_qtiles > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, to;
+  if (!rows_map(&tq, p.q, p.H, p.S, B, kTileQ) ||
+      !rows_map(&tk, p.k, p.KV, p.T, B, kTileK) ||
+      !rows_map(&tv, p.v, p.KV, p.T, B, kTileK) ||
+      !rows_map(&to, p.out, p.H, p.S, B, 64))
+    return cudaErrorInvalidValue;
+  TileParams tp;
+  tp.S = static_cast<int>(p.S);
+  tp.T = static_cast<int>(p.T);
+  tp.group = static_cast<int>(p.H / p.KV);
+  tp.kind = p.kind;
+  // a window <= 0 sees nothing, one past every position sees everything
+  tp.window = static_cast<int>(
+      p.window < 0 ? 0 : (p.window > kMaxLen ? kMaxLen : p.window));
+  tp.chunk = static_cast<int>(p.chunk > kMaxLen ? kMaxLen : p.chunk);
+  tp.n_qtiles = static_cast<int>(n_qtiles);
+  tp.scale_log2 = static_cast<float>(1.4426950408889634 /
+                                     std::sqrt(static_cast<double>(HD)));
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (rc != cudaSuccess) return rc;
+  // heads fastest, then batch, then the query tiles longest first
+  const dim3 grid(static_cast<unsigned>(p.H), static_cast<unsigned>(B),
+                  static_cast<unsigned>(n_qtiles));
+  flash_fwd_bf16<<<grid, kThreads, kSmemBytes, st>>>(tq, tk, tv, to, tp);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const Params& p, int64_t B, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((p.S + kBlockQ - 1) / kBlockQ),
                   static_cast<unsigned>(p.H), static_cast<unsigned>(B));
-  if (bf16) {
-    const int smem = 3 * kBlockQ * (HD + 8) * 2;
-    cudaError_t rc = cudaFuncSetAttribute(
-        flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return rc;
-    flash_fwd_bf16<<<grid, 128, smem, st>>>(p);
-  } else {
-    const int smem = (3 * kBlockQ * (HD + 1) + kBlockQ * (kBlockK + 1)) * 4;
-    cudaError_t rc = cudaFuncSetAttribute(
-        flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return rc;
-    flash_fwd_f32<<<grid, 256, smem, st>>>(p);
-  }
+  const int smem = (3 * kBlockQ * (HD + 1) + kBlockQ * (kBlockK + 1)) * 4;
+  cudaError_t rc = cudaFuncSetAttribute(
+      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  flash_fwd_f32<<<grid, 256, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -455,5 +855,6 @@ extern "C" int ckpt_flash_attention_fwd(const void* q, const void* k,
   p.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd != HD) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch(p, is_bf16 != 0, B, st));
+  return static_cast<int>(is_bf16 != 0 ? launch_bf16(p, B, st)
+                                       : launch_f32(p, B, st));
 }

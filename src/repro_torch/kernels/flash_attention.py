@@ -20,7 +20,8 @@ real query and are masked. The plain version pads the keys the same way
 (and masks ``j >= T`` explicitly); query rows are independent, so it does
 not pad them. The CUDA kernel, ``ckpt_flash_attention_fwd`` in
 ``csrc/flash_attention.cu``, masks the ragged tail instead and takes any
-S and T; its KV tiles are 64 keys whatever ``kv_block`` says.
+S and T; its KV tiles are 128 keys in bf16 (64 in fp32) whatever
+``kv_block`` says.
 """
 
 from __future__ import annotations

@@ -17,11 +17,19 @@ both packages, which gives the same bits) go through:
 * ``repro.kernels.ref.flash_attention_ref`` (plain masked softmax) at odd
   sizes, ragged against the KV block and with fewer keys than queries:
   within 2e-5 in fp32.
+* Both, at the CUDA kernel's 128-row tile boundaries (S 127, 128, 129, and
+  300 queries over 200 keys) with a window narrower than a tile (32) and
+  chunks that straddle tiles (192): the Pallas kernel in interpret mode in
+  fp32 and bf16, the masked softmax in fp32 on every row that sees a key
+  (it gives a row that sees none the mean of v, the flash kernels 0).
 
 The wrapper raises under grad (the backward is not ported), never falls
 back on a CUDA tensor, and counts only its own launches. A ``gpu``-marked
-test holds the CUDA kernel against the plain version on a card; it skips
-inside the test on a host without one.
+test holds the CUDA kernel against the plain version on a card at the same
+tile edges and masks, in both dtypes; it skips inside the test on a host
+without one. The kernel's source is checked here for what its bf16 body is
+built from: TMA loads under ``mbarrier``s, ``wgmma`` for both products, a
+producer warpgroup beside the consumers, and no ``mma.sync``.
 """
 
 import jax
@@ -36,6 +44,7 @@ from repro.models import layers as jlayers
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import variants
 from repro_torch.models import layers
 
 KINDS = [("full", 0, 0), ("window", 128, 0), ("chunked", 0, 128)]
@@ -115,6 +124,59 @@ def test_plain_matches_masked_softmax_at_odd_sizes(S, T, kind, window,
                                atol=2e-5, rtol=2e-5)
 
 
+#: the CUDA kernel's tile edges: one row short of, on and past a 128-row
+#: tile, and fewer keys than queries
+TILE_EDGES = [(127, 127), (128, 128), (129, 129), (300, 200)]
+TILE_KINDS = [("full", 0, 0), ("window", 32, 0), ("chunked", 0, 192)]
+
+
+def _pallas_block(n: int) -> int:
+    """A block that divides ``n`` (the Pallas kernel asserts it)."""
+    return 64 if n % 64 == 0 else n
+
+
+@pytest.mark.parametrize("S,T", TILE_EDGES)
+@pytest.mark.parametrize("kind,window,chunk", TILE_KINDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_kernel_at_tile_edges(S, T, kind, window, chunk,
+                                                   dtype):
+    B, H, KV, hd = 1, 4, 2, 64
+    (jq, jk, jv), (q, k, v) = _both(_qkv(B, S, T, H, KV, hd, 11 + S), dtype)
+    want = jops.flash_attention(jq, jk, jv, kind=kind, window=window,
+                                chunk=chunk, q_block=_pallas_block(S),
+                                kv_block=_pallas_block(T), interpret=True)
+    got = tops.flash_attention(q, k, v, kind=kind, window=window,
+                               chunk=chunk, kv_block=128)
+    assert got.shape == (B, S, H * hd) and got.dtype == q.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want).reshape(B, S, H * hd),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("S,T", TILE_EDGES)
+@pytest.mark.parametrize("kind,window,chunk", TILE_KINDS)
+def test_plain_matches_masked_softmax_at_tile_edges(S, T, kind, window,
+                                                    chunk):
+    B, H, KV, hd = 1, 4, 2, 64
+    qn, kn, vn = _qkv(B, S, T, H, KV, hd, 23 + T)
+    got = fa.flash_attention_plain(
+        torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+        kind=kind, window=window, chunk=chunk, kv_block=128).numpy()
+    fold = lambda a, n: np.repeat(a, H // a.shape[2], 2).transpose(
+        0, 2, 1, 3).reshape(B * H, n, hd)
+    want = np.asarray(jref.flash_attention_ref(
+        fold(qn, S), fold(kn, T), fold(vn, T), kind=kind, window=window,
+        chunk=chunk)).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+    sees = fa.allowed(torch.arange(S), torch.arange(T), kind, window,
+                      chunk).any(1).numpy()
+    assert sees.any()
+    got = got.reshape(B, S, H * hd)
+    np.testing.assert_allclose(got[:, sees],
+                               want.reshape(B, S, H * hd)[:, sees],
+                               atol=2e-5, rtol=2e-5)
+    # a row that sees no key is 0 / (0 + 1e-30) in the flash kernels
+    assert not got[:, ~sees].any()
+
+
 def test_fully_masked_rows_are_zero():
     """A window of 0 masks every key: each row's output is
     ``0 / (0 + 1e-30) = 0``, not a mean of v (``exp(0)`` must not leak
@@ -163,23 +225,50 @@ def test_entry_point_is_in_the_library():
     assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 15
 
 
+def test_bf16_body_is_a_warp_specialised_tma_wgmma_pipeline():
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    code = "\n".join(line.split("//")[0] for line in src.splitlines())
+    for part in ("cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier",
+                 "mbarrier.try_wait.parity", "wgmma.mma_async.sync.aligned."
+                 "m64n128k16.f32.bf16.bf16", "wgmma.mma_async.sync.aligned."
+                 "m64n64k16.f32.bf16.bf16", "setmaxnreg.dec",
+                 "setmaxnreg.inc", "CU_TENSOR_MAP_SWIZZLE_128B",
+                 "cp.async.bulk.tensor.4d.global.shared::cta"):
+        assert part in code, part
+    assert "mma.sync" not in code
+
+
+@pytest.mark.parametrize("name", sorted(variants.ABLATIONS))
+def test_ablations_apply_to_the_kernel_source(name):
+    """Each ablation of ``python -m repro_torch.kernels.variants`` edits
+    the shipped source (so the tool does not silently time the kernel
+    unchanged); only the shipped kernel is left as it is."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    out = variants.variant_source(variants.ABLATIONS[name])
+    assert (out == src) == (name == "kernel")
+    with pytest.raises(ValueError, match="not in"):
+        variants.variant_source([["no such text", ""]])
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S", [1, 257, 2100])
+@pytest.mark.parametrize("S,T", [(1, 1), (127, 127), (128, 128), (129, 129),
+                                 (257, 257), (300, 200), (2100, 2100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("heads", [(32, 8), (4, 4)])
-def test_cuda_kernel_matches_plain(S, dtype, heads):
+def test_cuda_kernel_matches_plain(S, T, dtype, heads):
     _cuda_or_skip()
     H, KV = heads
-    (_j, cpu) = _both(_qkv(1, S, S, H, KV, 64, S), dtype)
+    (_j, cpu) = _both(_qkv(1, S, T, H, KV, 64, S), dtype)
     q, k, v = (t.cuda() for t in cpu)
+    kinds = [("full", 0, 0), ("window", 300, 0), ("window", 32, 0),
+             ("chunked", 0, 512), ("chunked", 0, 192)]
     before = fa.KERNEL.launches
-    for kind, window, chunk in [("full", 0, 0), ("window", 300, 0),
-                                ("chunked", 0, 512)]:
+    for kind, window, chunk in kinds:
         got = tops.flash_attention(q, k, v, kind=kind, window=window,
                                    chunk=chunk)
         want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
@@ -187,4 +276,4 @@ def test_cuda_kernel_matches_plain(S, dtype, heads):
         torch.cuda.synchronize()
         np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
                                    atol=TOL[dtype], rtol=TOL[dtype])
-    assert fa.KERNEL.launches == before + 3
+    assert fa.KERNEL.launches == before + len(kinds)

@@ -197,6 +197,25 @@ def test_build_flags_are_fixed():
         assert src.count(f'extern "C" int {sym}(') == 1
 
 
+def test_library_hash_covers_every_file_under_csrc(monkeypatch, tmp_path):
+    """A header beside the sources, an edit to any file, or another link
+    flag names another library, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in build.SOURCES:
+        (csrc / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(build, "CSRC", csrc)
+    first = build.library_path()
+    (csrc / "shared.cuh").write_text("// device code shared by sources\n")
+    with_header = build.library_path()
+    (csrc / "shared.cuh").write_text("// edited\n")
+    edited = build.library_path()
+    monkeypatch.setattr(build, "LINK_FLAGS", build.LINK_FLAGS + ("-lcuda",))
+    relinked = build.library_path()
+    assert len({first, with_header, edited, relinked}) == 4
+    assert build.ptxas_report(first).parent == first.parent
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
