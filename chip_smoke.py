@@ -20,7 +20,10 @@ Phases, any failure exits non-zero:
 3. Kernels: each of the eleven kernels against its plain PyTorch version
    on the card, at odd sizes and at the main path's shapes — the ten
    checkpoint and reduction kernels bit-identical (the reduction kernels
-   with NaN, inf, subnormal and tie values in their inputs), flash
+   with NaN, inf, subnormal and tie values in their inputs; ``delta_xor``
+   also at 4 and 5 words, around a block's tile, with a partial last tile
+   and on words at a 4-byte offset; the downcast also at (256, 768) and,
+   through its flat entry, at lengths with a partial tile), flash
    attention within 2e-5 (fp32) and 2e-2 (bf16) for the ``full``,
    ``window`` (200, and 32: narrower than a tile) and ``chunked`` (192:
    across tiles) masks at S 1, 127, 128, 129, 257 and 2,100, and 300
@@ -32,7 +35,11 @@ Phases, any failure exits non-zero:
    ``scaled_dot_product_attention`` for flash attention,
    ``x.to(torch.bfloat16)`` for the downcast, ``torch.mul`` for
    ``dequantize_int8``, ``torch.sub`` for ``delta_f32``; timed here only,
-   the port never calls them).
+   the port never calls them; a kernel and its library call are timed in
+   turns, library, kernel, kernel, library, each after an untimed turn of
+   the same call). ``delta_xor``, the downcast and their library calls are also
+   timed on the device alone (``torch.profiler``: the kernels' own time,
+   no host time between launches).
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
@@ -141,17 +148,6 @@ REPLACES = {"checksum_u32": "src/repro/kernels/checksum.py:43",
             "dequantize_int8": "src/repro/kernels/quantize.py:74",
             "downcast_bf16": "src/repro/kernels/quantize.py:28",
             "delta_f32": "src/repro/kernels/delta.py:50"}
-#: fp32 bit patterns the reduction kernels must treat as the reference
-#: does: NaNs (quiet, signalling, with payload, both signs), +-inf, the
-#: largest floats, rounding ties of the bf16 downcast, subnormals of both
-#: signs, the least normal float, signed zeros
-EDGE_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FA00000, 0xFF800001,
-             0x7FFFFFFF, 0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7FFFFF,
-             0x3F808000, 0x3F818000, 0x3F80FFFF, 0x7F7F8000, 0x00000001,
-             0x80000001, 0x000116C2, 0x007FFFFF, 0x00800000, 0x80800000,
-             0x00008000, 0x00018000, 0x00000000, 0x80000000)
-
-
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -222,6 +218,39 @@ def _calls(name: str, a, b):
             lambda: delta.delta_xor_plain(a, b), cmp)
 
 
+def _xor_sizes(n_main: int) -> tuple:
+    """``delta_xor``'s parity lengths: 1 to 5 words, one short of, on and
+    one past a block's tile, a length whose last tile is partial (and a
+    word tail), an odd length, and the main path's."""
+    from repro_torch.kernels import delta
+    t = delta.TILE_WORDS
+    return (1, 3, 4, 5, t - 1, t, t + 1, 10 * t + t // 4 + 3, 65_537, n_main)
+
+
+def _device_ms(fn, reps: int) -> float:
+    """The device's own time of one call (``torch.profiler``)."""
+    import torch
+    from repro_torch.kernels import variants
+    return variants.device_ms(torch, fn, reps)
+
+
+def _time_turns(kern, lib, reps: int, clock=None) -> tuple:
+    """``(kernel, library)`` ms per call, timed in turns: library, kernel,
+    kernel, library, each the mean of its two turns, and each turn right
+    after an untimed turn of the same call. What ran just before moves a
+    kernel's time on the card (the first calls after set-up run a few per
+    cent slow; ``delta_xor`` runs about 2 % slow right after a 0.5 GB
+    downcast written with plain stores), so neither is timed after the
+    other."""
+    clock = clock or _time_ms
+
+    def turn(fn):
+        _time_ms(fn, reps)
+        return clock(fn, reps)
+    lib_1, kern_1, kern_2, lib_2 = (turn(fn) for fn in (lib, kern, kern, lib))
+    return (kern_1 + kern_2) / 2, (lib_1 + lib_2) / 2
+
+
 def _time_ms(fn, reps: int) -> float:
     import torch
     for _ in range(3):
@@ -247,8 +276,10 @@ def check_kernels():
     rows = {}
     for name in ("checksum_u32", "xor_checksum_u32", "delta_xor"):
         n_main = MAIN_WORDS[name]
+        sizes = _xor_sizes(n_main) if name == "delta_xor" \
+            else (1, 3, 65_537, n_main)
         worst = 0
-        for n in (1, 3, 65_537, n_main):
+        for n in sizes:
             a, b = _random_words(n, gen), _random_words(n, gen)
             err = _calls(name, a, b)[2]()
             torch.cuda.synchronize()
@@ -256,14 +287,24 @@ def check_kernels():
                 fail(f"{name} disagrees with its plain version at {n} "
                      f"words: max |diff| {err}")
             worst = max(worst, err)
+        if name == "delta_xor":
+            # sliced at a 4-byte offset, so the wrapper's `aligned` clones
+            a, b = _random_words(4098, gen)[1:], _random_words(4098, gen)[1:]
+            if a.data_ptr() % 16 == 0 or _calls(name, a, b)[2]() != 0:
+                fail("delta_xor disagrees with its plain version on words "
+                     "at a 4-byte offset")
         a, b = _random_words(n_main, gen), _random_words(n_main, gen)
         kern, plain, _ = _calls(name, a, b)
         reps = 200 if n_main <= (1 << 20) else 30
-        ms = _time_ms(kern, reps)
-        plain_ms = _time_ms(plain, max(5, reps // 10))
-        library_ms = None
+        library_ms, device = None, {}
         if name == "delta_xor":
-            library_ms = _time_ms(lambda: torch.bitwise_xor(a, b), reps)
+            lib = lambda: torch.bitwise_xor(a, b)  # noqa: E731
+            ms, library_ms = _time_turns(kern, lib, reps)
+            dev, lib_dev = _time_turns(kern, lib, reps, _device_ms)
+            device = {"device_ms": dev, "library_device_ms": lib_dev}
+        else:
+            ms = _time_ms(kern, reps)
+        plain_ms = _time_ms(plain, max(5, reps // 10))
         # each input read once, each output written once: 4N for the
         # digest, 12N for the XOR kernels
         nbytes = (4 if name == "checksum_u32" else 12) * n_main
@@ -272,12 +313,15 @@ def check_kernels():
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "bound_by": "bytes",
-            "library_ms": library_ms}
-        log(f"kernel {name}: bit-identical at 1, 3, 65537, {n_main} words; "
+            "library_ms": library_ms, **device}
+        log(f"kernel {name}: bit-identical at {', '.join(map(str, sizes))} "
+            f"words{' and at a 4-byte offset' if device else ''}; "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
             f"{rows[name]['bound_ms']:.4f} ms"
-            + (f", torch.bitwise_xor {library_ms:.4f} ms)"
-               if library_ms is not None else ")"))
+            + (f", torch.bitwise_xor {library_ms:.4f} ms; device alone "
+               f"{device['device_ms']:.4f} ms, torch.bitwise_xor "
+               f"{device['library_device_ms']:.4f} ms)"
+               if device else ")"))
     rows.update(check_int8_kernels(gen))
     rows.update(check_flash_kernel(gen))
     rows.update(check_reduction_kernels(gen))
@@ -349,11 +393,9 @@ def check_int8_kernels(gen) -> dict:
 
 
 def _edge_values(device: str):
-    """:data:`EDGE_BITS` as a float32 tensor on ``device``."""
-    import torch
-    return torch.tensor([b - (1 << 32) if b >= 1 << 31 else b
-                         for b in EDGE_BITS], dtype=torch.int32) \
-        .view(torch.float32).to(device)
+    """``quantize.EDGE_BITS`` as a float32 tensor on ``device``."""
+    from repro_torch.kernels import quantize
+    return quantize.edge_values(device)
 
 
 def _place(x, values, at: int = 0) -> None:
@@ -373,7 +415,7 @@ def _same_bits(a, b) -> bool:
 def _reduction_calls(gen, downcast_shape, n_rows: int, n_words: int,
                      device: str = "cuda"):
     """(kernel call, plain call, library call or None) of the five
-    reduction kernels on seeded inputs with :data:`EDGE_BITS` placed in
+    reduction kernels on seeded inputs with ``quantize.EDGE_BITS`` placed in
     them. The int8 rows: row 0 zero (scale 1.0), row 1 every edge value (a
     NaN in a row makes its scale 1.0, as in the reference), row 2 the
     non-NaN ones (an inf scale), row 3 the finite ones; the dequantize's
@@ -431,7 +473,7 @@ def _reduction_agree(name: str, got, want) -> bool:
 def check_reduction_kernels(gen) -> dict:
     """The five kernels of the offline reduction path against their plain
     versions, bit for bit, with the NaN, inf, subnormal and tie values of
-    :data:`EDGE_BITS` in every input (and a zero row for the int8 pair),
+    ``quantize.EDGE_BITS`` in every input (and a zero row for the int8 pair),
     at small sizes and at the reducer's shapes; then timed there beside
     the plain version, the bound (bytes over the memory rate: a few
     operations a value) and the library call where one computes the same
@@ -439,6 +481,7 @@ def check_reduction_kernels(gen) -> dict:
     ``torch.sub``; ``quantize_int8`` and the fold's digest have none)."""
     import torch
     for shape, n_rows, n_words in (((256, 256), 256, 1), ((512, 768), 768, 3),
+                                   ((256, 768), 256, 4),
                                    ((256, 256), 256, 65_537),
                                    (DOWNCAST_SHAPE, INT8_ROWS,
                                     MAIN_WORDS["delta_xor"])):
@@ -454,6 +497,7 @@ def check_reduction_kernels(gen) -> dict:
         del calls
         gc.collect()
         torch.cuda.empty_cache()
+    _check_downcast_flat(gen)
     n_values = DOWNCAST_SHAPE[0] * DOWNCAST_SHAPE[1]
     n_words = MAIN_WORDS["delta_xor"]
     nbytes = {"downcast_bf16": 6 * n_values,
@@ -464,21 +508,51 @@ def check_reduction_kernels(gen) -> dict:
     rows = {}
     for name, (kern, plain, lib) in calls.items():
         big = name in ("downcast_bf16", "quantize_int8", "dequantize_int8")
-        ms = _time_ms(kern, 20 if big else 30)
+        reps = 50 if big else 30
+        if lib:
+            ms, library_ms = _time_turns(kern, lib, reps)
+        else:
+            ms, library_ms = _time_ms(kern, reps), None
+        device = {}
+        if name == "downcast_bf16":
+            dev, lib_dev = _time_turns(kern, lib, reps, _device_ms)
+            device = {"device_ms": dev, "library_device_ms": lib_dev}
         plain_ms = _time_ms(plain, 3 if big else 5)
-        library_ms = _time_ms(lib, 20 if big else 30) if lib else None
         rows[name] = {
             "name": name, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": library_ms}
+            "bound_by": "bytes", "library_ms": library_ms, **device}
         log(f"kernel {name}: bit-identical to its plain version with NaN, "
             f"inf, subnormal and tie inputs; {ms:.4f} ms (plain "
             f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms"
-            + (f", library {library_ms:.4f} ms)" if lib else ")"))
+            + (f", library {library_ms:.4f} ms" if lib else "")
+            + (f"; device alone {device['device_ms']:.4f} ms, library "
+               f"{device['library_device_ms']:.4f} ms" if device else "")
+            + ")")
     del calls
     gc.collect()
     torch.cuda.empty_cache()
     return rows
+
+
+def _check_downcast_flat(gen) -> None:
+    """The downcast through its flat entry at lengths no (R, C) of its
+    shape contract gives (those are multiples of 65,536 values, so of the
+    kernel's tile): 1 to 5 values, one short of and one past a tile, and a
+    partial last tile with a tail, with the edge values at both ends."""
+    import torch
+    from repro_torch.kernels import delta, quantize as tq
+    t = delta.TILE_WORDS
+    edge = _edge_values("cuda")
+    for n in (1, 3, 4, 5, t - 1, t + 1, 10 * t + t // 4 + 3):
+        x = torch.randn(n, generator=gen, device="cuda") * 100
+        _place(x, edge)
+        _place(x, edge, max(0, n - edge.numel()))
+        if not _same_bits(tq.downcast_bf16_words_cuda(x),
+                          tq.downcast_bf16_words_plain(x)):
+            fail(f"downcast_bf16 disagrees with its plain version at {n} "
+                 f"flat values")
+    torch.cuda.synchronize()
 
 
 def _flash_err(got, want, tol: float) -> float:
@@ -1439,7 +1513,8 @@ def main() -> None:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        **{x: r[x] for x in ("tflops", "bound_share") if x in r}}
+        **{x: r[x] for x in ("tflops", "bound_share", "device_ms",
+                             "library_device_ms") if x in r}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

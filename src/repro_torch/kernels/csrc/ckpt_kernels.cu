@@ -15,9 +15,9 @@
 //   downcast_bf16             quantize.py
 //   delta_f32                 delta.py
 //
-// The int8 kernels and the two elementwise kernels of the offline
-// reduction path have their own notes further down; what follows is about
-// the four u32 kernels.
+// The int8 kernels, the offline reduction's kernels and the streaming core
+// (delta_xor and downcast_bf16) have their own notes further down; what
+// follows is about the three digest kernels.
 //
 // The digest is the position-weighted sum
 //     sum_i x[i] * (65599 + i mod 65521)   mod 2^32
@@ -35,11 +35,16 @@
 // operations per word and is limited by device memory: the least time is
 // the bytes moved over 3.35 TB/s (the H100 SXM data sheet's HBM3 rate),
 // 4N bytes for checksum_u32 and 12N bytes (two inputs read, one output
-// written) for the two fused XOR kernels and delta_xor, N in words. The design
-// answers that bound with 16-byte vector loads and stores (uint4,
-// neighbouring threads on neighbouring addresses), a grid-stride loop sized
-// to keep every SM busy, one 64-bit modulo per four words, and a single
-// atomic per block, so no second pass over memory is needed.
+// written) for the two fused XOR kernels, N in words. The digest kernels
+// answer that bound with 16-byte vector loads and stores (uint4,
+// neighbouring threads on neighbouring addresses), a grid-stride loop
+// capped at 132 x 8 blocks, one 64-bit modulo per four words, and a single
+// atomic per block, so no second pass over memory is needed. They keep
+// that loop, with one load in flight per thread, rather than the
+// streaming core's one-pass grid: each block ends in a reduction and an
+// atomic, which a grid of thousands of blocks would multiply, and at the
+// main path's 4 MiB chunks their time is the host's (wrapper, ctypes,
+// allocation), not the loop's.
 //
 // Where the data lives: the checkpoint path stages device state into pinned
 // host memory first, and these kernels are fed that host-staged data (the
@@ -145,24 +150,6 @@ xor_checksum_kernel(const uint32_t* __restrict__ a,
     acc += weigh1(kDigestB ? b[i] : d, i);
   }
   block_fold(acc, dig);
-}
-
-__global__ void __launch_bounds__(kThreads)
-xor_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-           uint32_t* __restrict__ out, int64_t n) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t n4 = n >> 2;
-  const uint4* __restrict__ a4 = reinterpret_cast<const uint4*>(a);
-  const uint4* __restrict__ b4 = reinterpret_cast<const uint4*>(b);
-  uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out);
-  for (int64_t j = tid; j < n4; j += stride) {
-    const uint4 u = a4[j];
-    const uint4 v = b4[j];
-    o4[j] = make_uint4(u.x ^ v.x, u.y ^ v.y, u.z ^ v.z, u.w ^ v.w);
-  }
-  for (int64_t i = (n4 << 2) + tid; i < n; i += stride) out[i] = a[i] ^ b[i];
 }
 
 int blocks_for(int64_t n) {
@@ -364,33 +351,15 @@ int row_blocks_for(int64_t n_rows) {
 //
 // Bound on the card: a few operations a value, so device memory bounds all
 // four: 6 bytes a value for the downcast (4 in, 2 out), (1024 + 4 + 256)
-// bytes a row for the int8 pair, 12 bytes a value for delta_f32. The
-// design answers that as the u32 kernels do: 16-byte loads with
-// neighbouring threads on neighbouring addresses (8-byte stores for the
-// downcast's bf16 pairs), a grid-stride loop, one warp a row for the int8
-// pair.
+// bytes a row for the int8 pair, 12 bytes a value for delta_f32. The int8
+// pair runs one warp a row in a grid-stride loop; delta_f32 keeps the
+// digest kernels' grid-stride loop with one 16-byte load in flight per
+// thread. No path launches it, and it moves to the streaming core below
+// in a PR of its own. The downcast runs on the streaming core.
 
 __device__ __forceinline__ uint32_t bf16_bits(uint32_t u) {
   if ((u & 0x7fffffffu) > 0x7f800000u) return ((u >> 16) & 0x8000u) | 0x7fc0u;
   return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
-}
-
-__global__ void __launch_bounds__(kThreads)
-downcast_bf16_kernel(const uint32_t* __restrict__ x, int64_t n,
-                     uint16_t* __restrict__ out) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t n4 = n >> 2;
-  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(x);
-  uint2* __restrict__ o2 = reinterpret_cast<uint2*>(out);
-  for (int64_t j = tid; j < n4; j += stride) {
-    const uint4 v = x4[j];
-    o2[j] = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
-                       bf16_bits(v.z) | (bf16_bits(v.w) << 16));
-  }
-  for (int64_t i = (n4 << 2) + tid; i < n; i += stride)
-    out[i] = static_cast<uint16_t>(bf16_bits(x[i]));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -462,6 +431,344 @@ delta_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
     out[i] = sub_flushed(a[i], b[i]);
 }
 
+
+// ------------------------------------------------------- streaming core
+// delta_xor      replaces repro/kernels/delta.py:delta_xor
+// downcast_bf16  replaces repro/kernels/quantize.py:downcast_bf16
+//
+// Both are pure streams: read 16-byte vectors, do a few integer operations
+// on each, write. One template serves both, over the per-vector operation
+// (XorOp, Bf16Op below).
+//
+// Bound on the card: the bytes moved over 3.35 TB/s, 12 bytes a word for
+// the XOR (two words in, one out) and 6 a value for the downcast (4 in,
+// 2 out). What stood between the earlier grid-stride loop and that bound,
+// and what this design does about it:
+//
+// * Bytes in flight. The loop issued one 16-byte load per thread, then
+//   waited, computed and stored before it issued the next. Here each
+//   thread issues kStreamVecs (2) independent loads per input before any
+//   compute or store: 32 or 64 bytes a thread, 64 or 128 KiB an SM at
+//   full occupancy. 2 to 8 loads a thread, at 256 or 512 threads a
+//   block, run within about 2 % of one another, and which is fastest
+//   changes from run to run; one load a thread is slower.
+// * The walk through memory. A grid capped at 132 x 8 blocks walked the
+//   downcast's 1 GB in about 243 trips, and the blocks drifted apart over
+//   them, so the addresses in flight spread over the whole buffer. Here
+//   the grid covers n in one pass, one block per tile of kStreamThreads *
+//   kStreamVecs vectors (kStreamBlocksPerSm = 0), handed to SMs in
+//   order as they free up: what is in flight stays one window of the
+//   buffer, and only the last tile can be partial. A grid-stride loop over
+//   132 x 4 blocks of this kernel is as slow for the downcast as the old
+//   loop.
+// * Caches. Every byte is touched once, so the loads bypass L1
+//   (ld.global.nc.L1::no_allocate) and the stores are marked streaming
+//   (st.global.cs, evict first), to keep the outputs from crowding the
+//   50 MB L2 (kStreamHints). For the XOR the pair beats plain loads and
+//   stores by about 1 %, except right after a large kernel that wrote
+//   with plain stores (x.to(torch.bfloat16) of 0.5 GB), where it runs
+//   about 2 % slower than plain; non-coherent loads with plain stores are
+//   the slowest of all. The downcast does not move with the hints.
+// * Index arithmetic: one 64-bit tile base per block, 32-bit offsets
+//   inside the tile.
+//
+// Both kernels then run at the library's share of the bound (about 0.9
+// for the XOR, 0.93 for the downcast, on an H100 SXM at 700 W): what is
+// left is the card's own limit for a stream with one write to two reads,
+// and for the XOR the start and end of a 0.07 ms launch. PERF.md has the
+// numbers (python -m repro_torch.kernels.variants stream).
+//
+// Design (B), kept as a variant behind kStreamTma: persistent blocks
+// stream tiles of kTmaTileVecs vectors through a kTmaStages ring in shared
+// memory with 1-D bulk copies (cp.async.bulk ... mbarrier::complete_tx),
+// convert in shared memory, and write each tile back with a bulk store
+// (cp.async.bulk.global.shared::cta, bulk_group), waiting with
+// wait_group.read before an output stage is reused. Bulk copies take
+// 16-byte aligned addresses and sizes, so whole tiles go through them and
+// the rest of the buffer through plain loads. It is bit-identical, and
+// slower than (A) in every run, most for the downcast.
+//
+// Any n works: the last, partial tile checks each vector against n / 4,
+// and block 0 writes the n mod 4 trailing words one at a time. Inputs and
+// outputs are 16-byte aligned (the wrappers see to it) and must not alias.
+// The downcast's bits are bf16_bits above, the same integer rounding as
+// the plain version; nothing here converts through float.
+
+constexpr int kSms = 132;
+constexpr int kStreamThreads = 512;
+// 16-byte loads each thread issues per input before it computes
+constexpr int kStreamVecs = 2;
+// 0 plain loads and stores; 1 ld.global.nc.L1::no_allocate and
+// st.global.cs; 2 ld.global.cs and st.global.cs; 3 as 1 with an L2::256B
+// prefetch hint on the loads
+constexpr int kStreamHints = 1;
+// 0: one block a tile, one pass; k > 0: a grid-stride loop over at most
+// 132 * k blocks
+constexpr int kStreamBlocksPerSm = 0;
+// design (B): bulk copies through a ring in shared memory
+constexpr bool kStreamTma = false;
+constexpr int kTmaStages = 4;
+constexpr int kTmaTileVecs = 512;
+
+struct XorOp {
+  static constexpr int kInputs = 2;
+  using Vec = uint4;      // what one 16-byte vector of each input gives
+  using Word = uint32_t;  // what one word of each input gives
+  __device__ static uint4 vec(uint4 a, uint4 b) {
+    return make_uint4(a.x ^ b.x, a.y ^ b.y, a.z ^ b.z, a.w ^ b.w);
+  }
+  __device__ static uint32_t word(uint32_t a, uint32_t b) { return a ^ b; }
+};
+
+struct Bf16Op {
+  static constexpr int kInputs = 1;
+  using Vec = uint2;
+  using Word = uint16_t;
+  __device__ static uint2 vec(uint4 v, uint4) {
+    return make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                      bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+  }
+  __device__ static uint16_t word(uint32_t u, uint32_t) {
+    return static_cast<uint16_t>(bf16_bits(u));
+  }
+};
+
+template <int kHints>
+__device__ __forceinline__ uint4 stream_load(const uint4* p) {
+  uint4 v;
+  if constexpr (kHints == 1) {
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+  } else if constexpr (kHints == 2) {
+    v = __ldcs(p);
+  } else if constexpr (kHints == 3) {
+    asm("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+  } else {
+    v = *p;
+  }
+  return v;
+}
+
+template <int kHints, class V>
+__device__ __forceinline__ void stream_store(V* p, V v) {
+  if constexpr (kHints == 0) {
+    *p = v;
+  } else {
+    __stcs(p, v);
+  }
+}
+
+// The n mod 4 words after the last whole vector, by block 0.
+template <class Op>
+__device__ __forceinline__ void stream_words(const uint32_t* __restrict__ a,
+                                             const uint32_t* __restrict__ b,
+                                             typename Op::Word* __restrict__ out,
+                                             int64_t n) {
+  const int64_t i = (n & ~int64_t{3}) + threadIdx.x;
+  if (blockIdx.x == 0 && i < n)
+    out[i] = Op::word(a[i], Op::kInputs == 2 ? b[i] : 0u);
+}
+
+template <class Op, int kVecs, int kHints>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+              typename Op::Word* __restrict__ out, int64_t n) {
+  using Vec = typename Op::Vec;
+  constexpr int kTile = kStreamThreads * kVecs;
+  const int64_t n_vec = n >> 2;
+  const int64_t n_tiles = (n_vec + kTile - 1) / kTile;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t base = t * kTile;
+    const uint4* __restrict__ pa = reinterpret_cast<const uint4*>(a) + base;
+    const uint4* __restrict__ pb =
+        reinterpret_cast<const uint4*>(Op::kInputs == 2 ? b : a) + base;
+    Vec* __restrict__ po = reinterpret_cast<Vec*>(out) + base;
+    const int left = n_vec - base < kTile ? static_cast<int>(n_vec - base)
+                                          : kTile;
+    if (left == kTile) {
+      uint4 va[kVecs], vb[kVecs];
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int i = u * kStreamThreads + threadIdx.x;
+        va[u] = stream_load<kHints>(pa + i);
+        if constexpr (Op::kInputs == 2) vb[u] = stream_load<kHints>(pb + i);
+      }
+#pragma unroll
+      for (int u = 0; u < kVecs; ++u) {
+        const int i = u * kStreamThreads + threadIdx.x;
+        if constexpr (Op::kInputs == 2) {
+          stream_store<kHints>(po + i, Op::vec(va[u], vb[u]));
+        } else {
+          stream_store<kHints>(po + i, Op::vec(va[u], va[u]));
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < left; i += kStreamThreads) {
+        const uint4 x = stream_load<kHints>(pa + i);
+        const uint4 y = Op::kInputs == 2 ? stream_load<kHints>(pb + i) : x;
+        stream_store<kHints>(po + i, Op::vec(x, y));
+      }
+    }
+  }
+  stream_words<Op>(a, b, out, n);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <class Op>
+constexpr int tma_smem_bytes() {
+  return kTmaStages * (Op::kInputs * kTmaTileVecs * 16 +
+                       kTmaTileVecs * static_cast<int>(sizeof(typename Op::Vec))) +
+         kTmaStages * 8;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kStreamThreads)
+stream_tma_kernel(const uint32_t* __restrict__ a,
+                  const uint32_t* __restrict__ b,
+                  typename Op::Word* __restrict__ out, int64_t n) {
+  using Vec = typename Op::Vec;
+  constexpr uint32_t kIn = kTmaTileVecs * 16;
+  constexpr uint32_t kOut = kTmaTileVecs * sizeof(Vec);
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* s_in = smem;                                    // [stage][input]
+  uint8_t* s_out = smem + kTmaStages * Op::kInputs * kIn;  // [stage]
+  const uint32_t full = smem_u32(s_out + kTmaStages * kOut);
+  const int64_t n_vec = n >> 2;
+  const int64_t n_full = n_vec / kTmaTileVecs;
+  const int64_t mine = n_full > blockIdx.x
+                           ? (n_full - 1 - blockIdx.x) / gridDim.x + 1
+                           : 0;
+  const uint8_t* ga = reinterpret_cast<const uint8_t*>(a);
+  const uint8_t* gb = reinterpret_cast<const uint8_t*>(b);
+  uint8_t* go = reinterpret_cast<uint8_t*>(out);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTmaStages; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full + 8 * s)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0: the i-th tile of this block into stage i mod kTmaStages.
+  auto issue = [&](int64_t i) {
+    const int s = static_cast<int>(i % kTmaStages);
+    const int64_t off = (blockIdx.x + i * gridDim.x) * kIn;
+    const uint32_t bar = full + 8 * s;
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(Op::kInputs * kIn)
+        : "memory");
+    for (int k = 0; k < Op::kInputs; ++k)
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+          "[%0], [%1], %2, [%3];\n" ::"r"(
+              smem_u32(s_in + (s * Op::kInputs + k) * kIn)),
+          "l"((k == 0 ? ga : gb) + off), "r"(kIn), "r"(bar)
+          : "memory");
+  };
+  if (threadIdx.x == 0)
+    for (int64_t i = 0; i < kTmaStages && i < mine; ++i) issue(i);
+
+  for (int64_t i = 0; i < mine; ++i) {
+    const int s = static_cast<int>(i % kTmaStages);
+    mbar_wait(full + 8 * s, static_cast<uint32_t>((i / kTmaStages) & 1));
+    const uint4* in_a = reinterpret_cast<const uint4*>(
+        s_in + s * Op::kInputs * kIn);
+    const uint4* in_b = in_a + (Op::kInputs - 1) * kTmaTileVecs;
+    Vec* o = reinterpret_cast<Vec*>(s_out + s * kOut);
+#pragma unroll
+    for (int u = 0; u < kTmaTileVecs / kStreamThreads; ++u) {
+      const int j = u * kStreamThreads + threadIdx.x;
+      o[j] = Op::vec(in_a[j], in_b[j]);
+    }
+    // the writes above, seen by the bulk store's (async) proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    // tile i + 1 writes the output stage of tile i + 1 - kTmaStages: at
+    // most kTmaStages - 2 stores may still be reading shared memory
+    if (threadIdx.x == 0)
+      asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kTmaStages - 2)
+                   : "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+              go + (blockIdx.x + i * gridDim.x) * kOut),
+          "r"(smem_u32(o)), "r"(kOut)
+          : "memory");
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      if (i + kTmaStages < mine) issue(i + kTmaStages);
+    }
+  }
+  if (threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+
+  // what no whole tile covers, through plain loads
+  if (blockIdx.x == 0) {
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    const uint4* b4 = reinterpret_cast<const uint4*>(b);
+    Vec* o4 = reinterpret_cast<Vec*>(out);
+    for (int64_t j = n_full * kTmaTileVecs + threadIdx.x; j < n_vec;
+         j += kStreamThreads)
+      o4[j] = Op::vec(a4[j], Op::kInputs == 2 ? b4[j] : a4[j]);
+  }
+  stream_words<Op>(a, b, out, n);
+}
+
+template <class Op>
+int launch_stream(const void* a, const void* b, void* out, int64_t n,
+                  void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* wa = static_cast<const uint32_t*>(a);
+  const uint32_t* wb = static_cast<const uint32_t*>(b);
+  auto* wo = static_cast<typename Op::Word*>(out);
+  if constexpr (kStreamTma) {
+    constexpr int smem = tma_smem_bytes<Op>();
+    const cudaError_t rc = cudaFuncSetAttribute(
+        stream_tma_kernel<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    // blocks an SM holds: 228 KiB less 1 KiB reserved a block, at most 8
+    const int per_sm = (228 * 1024) / (smem + 1024) < 8
+                           ? (228 * 1024) / (smem + 1024)
+                           : 8;
+    const int64_t n_full = (n >> 2) / kTmaTileVecs;
+    const int64_t cap = int64_t{kSms} * (per_sm < 1 ? 1 : per_sm);
+    const int64_t grid = n_full < 1 ? 1 : (n_full < cap ? n_full : cap);
+    stream_tma_kernel<Op><<<static_cast<int>(grid), kStreamThreads, smem,
+                            st>>>(wa, wb, wo, n);
+  } else {
+    constexpr int64_t kTile = int64_t{kStreamThreads} * kStreamVecs;
+    int64_t grid = ((n >> 2) + kTile - 1) / kTile;
+    if (kStreamBlocksPerSm > 0 && grid > int64_t{kSms} * kStreamBlocksPerSm)
+      grid = int64_t{kSms} * kStreamBlocksPerSm;
+    if (grid < 1) grid = 1;
+    stream_kernel<Op, kStreamVecs, kStreamHints>
+        <<<static_cast<int>(grid), kStreamThreads, 0, st>>>(wa, wb, wo, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All pointers are device pointers to 16-byte aligned buffers of n u32
@@ -496,11 +803,7 @@ extern "C" int ckpt_xor_fold_checksum_u32(const void* base, const void* delta,
 
 extern "C" int ckpt_delta_xor(const void* a, const void* b, void* out,
                               int64_t n, void* stream) {
-  xor_kernel<<<blocks_for(n), kThreads, 0,
-               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint32_t*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_stream<XorOp>(a, b, out, n, stream);
 }
 
 // x: 16-byte aligned f32[n_rows * 256]; body: 4-byte aligned
@@ -527,13 +830,10 @@ extern "C" int ckpt_dequantize_checksum_int8(const void* body, int64_t n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: 16-byte aligned f32[n]; out: 8-byte aligned bf16[n], written whole.
+// x: 16-byte aligned f32[n]; out: 16-byte aligned bf16[n], written whole.
 extern "C" int ckpt_downcast_bf16(const void* x, int64_t n, void* out,
                                   void* stream) {
-  downcast_bf16_kernel<<<blocks_for(n), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), n, static_cast<uint16_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_stream<Bf16Op>(x, nullptr, out, n, stream);
 }
 
 // x: 16-byte aligned f32[n_rows * 256]; q: 4-byte aligned i8[n_rows * 256];

@@ -22,6 +22,11 @@ from .checksum import aligned
 from .quantize import flush_subnormals
 
 KERNEL = CudaKernel("ckpt_delta_xor")
+#: words one block of ``ckpt_delta_xor`` (and of ``ckpt_downcast_bf16``)
+#: takes: 4 words a 16-byte vector, ``kStreamVecs`` (2) vectors for each of
+#: ``kStreamThreads`` (512) threads in ``csrc/ckpt_kernels.cu``. Parity
+#: checks probe lengths around it.
+TILE_WORDS = 4 * 2 * 512
 F32_KERNEL = CudaKernel("ckpt_delta_f32")
 
 

@@ -183,6 +183,22 @@ def dequantize_checksum_cuda(body: torch.Tensor, n_rows: int
 
 #: the Pallas kernels' tile edge: rows (and downcast columns) divide by it
 TILE = 256
+#: fp32 bit patterns the reduction kernels must treat as the reference
+#: does: NaNs (quiet, signalling, with payload, both signs), +-inf, the
+#: largest floats, rounding ties of the bf16 downcast, subnormals of both
+#: signs, the least normal float, signed zeros
+EDGE_BITS = (0x7FC00000, 0xFFC00000, 0x7F800001, 0x7FA00000, 0xFF800001,
+             0x7FFFFFFF, 0x7F800000, 0xFF800000, 0x7F7FFFFF, 0xFF7FFFFF,
+             0x3F808000, 0x3F818000, 0x3F80FFFF, 0x7F7F8000, 0x00000001,
+             0x80000001, 0x000116C2, 0x007FFFFF, 0x00800000, 0x80800000,
+             0x00008000, 0x00018000, 0x00000000, 0x80000000)
+
+
+def edge_values(device) -> torch.Tensor:
+    """:data:`EDGE_BITS` as a float32 tensor on ``device``."""
+    return torch.tensor([b - (1 << 32) if b >= 1 << 31 else b
+                         for b in EDGE_BITS], dtype=torch.int32) \
+        .view(torch.float32).to(device)
 
 
 def flush_subnormals(v: torch.Tensor) -> torch.Tensor:
@@ -198,6 +214,12 @@ def _check_downcast(x: torch.Tensor) -> None:
         raise ValueError(
             f"downcast_bf16 takes float32 (R, C) with R and C multiples of "
             f"{TILE}, got {x.dtype}{tuple(x.shape)}")
+
+
+def _check_flat_f32(x: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() != 1:
+        raise ValueError(f"expected flat float32, got {x.dtype}"
+                         f"{tuple(x.shape)}")
 
 
 def _check_quantize(x: torch.Tensor) -> None:
@@ -220,11 +242,10 @@ def _check_dequantize(q: torch.Tensor, scales: torch.Tensor) -> None:
             f"{scales.dtype}{tuple(scales.shape)}@{scales.device}")
 
 
-def downcast_bf16_plain(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``(R, C)`` -> bfloat16, round to nearest even, in int32
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 of any shape, round to nearest even, in int32
     arithmetic on the bits (NaNs are replaced before the add, so nothing
     overflows)."""
-    _check_downcast(x)
     u = x.contiguous().view(torch.int32)
     nan = (u & 0x7FFFFFFF) > 0x7F800000
     safe = torch.where(nan, torch.zeros_like(u), u)
@@ -233,6 +254,19 @@ def downcast_bf16_plain(x: torch.Tensor) -> torch.Tensor:
     # the 16-bit pattern into int16's range, so the cast is exact
     r = torch.where(r >= 0x8000, r - 0x10000, r)
     return r.to(torch.int16).view(torch.bfloat16)
+
+
+def downcast_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``(R, C)`` -> bfloat16, as :func:`_round_bf16`."""
+    _check_downcast(x)
+    return _round_bf16(x)
+
+
+def downcast_bf16_words_plain(x: torch.Tensor) -> torch.Tensor:
+    """Flat float32 of any length -> flat bfloat16: the plain version of
+    :func:`downcast_bf16_words_cuda`."""
+    _check_flat_f32(x)
+    return _round_bf16(x.reshape(-1))
 
 
 def quantize_int8_plain(x: torch.Tensor
@@ -249,14 +283,23 @@ def dequantize_int8_plain(q: torch.Tensor, scales: torch.Tensor
     return flush_subnormals(q.to(torch.float32) * flush_subnormals(scales))
 
 
-def downcast_bf16_cuda(x: torch.Tensor) -> torch.Tensor:
-    _check_downcast(x)
+def downcast_bf16_words_cuda(x: torch.Tensor) -> torch.Tensor:
+    """The kernel on a flat float32 tensor of any length. The shape
+    contract of :func:`downcast_bf16_cuda` gives lengths that are
+    multiples of 65,536, so the kernel's partial last tile and trailing
+    words are checked through this entry."""
+    _check_flat_f32(x)
     _need_cuda(x)
     flat = aligned(x.reshape(-1))
-    out = torch.empty(tuple(x.shape), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(flat.numel(), dtype=torch.bfloat16, device=x.device)
     DOWNCAST_BF16_KERNEL.launch(flat.data_ptr(), flat.numel(),
                                 out.data_ptr())
     return out
+
+
+def downcast_bf16_cuda(x: torch.Tensor) -> torch.Tensor:
+    _check_downcast(x)
+    return downcast_bf16_words_cuda(x.reshape(-1)).view(tuple(x.shape))
 
 
 def quantize_int8_cuda(x: torch.Tensor

@@ -11,14 +11,17 @@
   on a card; they skip inside the test on a host without one.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, checksum, delta, fused
+from repro_torch.kernels import build, checksum, delta, fused, quantize
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import variants
 
 
 def _bytes_case(nbytes: int, dtype, seed: int) -> np.ndarray:
@@ -216,13 +219,63 @@ def test_library_hash_covers_every_file_under_csrc(monkeypatch, tmp_path):
     assert build.ptxas_report(first).parent == first.parent
 
 
+def _edge_words(device) -> torch.Tensor:
+    """``quantize.EDGE_BITS`` (NaNs, signalling NaNs, subnormals, ties) as
+    int32 words."""
+    return quantize.edge_values(device).view(torch.int32)
+
+
+def test_tile_words_match_the_streaming_core():
+    """``delta.TILE_WORDS`` (the lengths the parity checks probe) is what
+    one block of the shipped streaming core takes: 4 words a vector."""
+    src = (build.CSRC / "ckpt_kernels.cu").read_text()
+
+    def const(name):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        return int(m.group(1))
+    assert delta.TILE_WORDS == 4 * const("kStreamVecs") \
+        * const("kStreamThreads")
+    assert "constexpr bool kStreamTma = false;" in src
+    assert "constexpr int kStreamBlocksPerSm = 0;" in src
+
+
+def test_stream_kernels_share_one_core():
+    """``ckpt_delta_xor`` and ``ckpt_downcast_bf16`` launch the one
+    streaming template over their per-vector operations; the digest
+    kernels and ``delta_f32`` keep the grid-stride loop."""
+    src = (build.CSRC / "ckpt_kernels.cu").read_text()
+    assert "return launch_stream<XorOp>(a, b, out, n, stream);" in src
+    assert "return launch_stream<Bf16Op>(x, nullptr, out, n, stream);" in src
+    for kernel in ("checksum_kernel<<<blocks_for(n)",
+                   "xor_checksum_kernel<false><<<blocks_for(n)",
+                   "delta_f32_kernel<<<blocks_for(n)"):
+        assert kernel in src
+    assert "__float2bfloat16_rn(" not in src  # NaN bits differ
+
+
+@pytest.mark.parametrize("name", sorted(variants.STREAM_ABLATIONS))
+def test_stream_ablations_apply_to_the_kernel_source(name):
+    """Each variant of ``python -m repro_torch.kernels.variants stream``
+    edits ``ckpt_kernels.cu`` (the tool never times the shipped core
+    unchanged under another name); only ``stream`` is the shipped one."""
+    src = (build.CSRC / variants.STREAM).read_text()
+    out = variants.variant_source(variants.STREAM_ABLATIONS[name],
+                                  variants.STREAM)
+    assert (out == src) == (name == "stream")
+    assert out.count('extern "C" int ckpt_delta_xor(') == 1
+    with pytest.raises(ValueError, match="not in ckpt_kernels.cu"):
+        variants.variant_source([["no such text", ""]], variants.STREAM)
+
+
 def _cuda_or_skip():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_words", [1, 3, 65_537, 1 << 20])
+@pytest.mark.parametrize("n_words", [
+    1, 3, 4, 5, delta.TILE_WORDS - 1, delta.TILE_WORDS, delta.TILE_WORDS + 1,
+    10 * delta.TILE_WORDS + delta.TILE_WORDS // 4 + 3, 65_537, 1 << 20])
 def test_cuda_kernels_match_plain(n_words):
     _cuda_or_skip()
     g = torch.Generator(device="cuda").manual_seed(n_words)
@@ -230,10 +283,27 @@ def test_cuda_kernels_match_plain(n_words):
                       device="cuda", generator=g)
     b = torch.randint(-2**31, 2**31 - 1, (n_words,), dtype=torch.int32,
                       device="cuda", generator=g)
+    edge = _edge_words("cuda")
+    k = min(n_words, edge.numel())
+    a[:k], b[:k] = edge[:k], edge.roll(5)[:k]
     assert tops.checksum(a) == checksum.checksum_plain(a)
     d, dig = tops.xor_checksum(a, b)
     dp, digp = fused.xor_checksum_plain(a, b)
     assert torch.equal(d, dp) and dig == digp
+    assert torch.equal(tops.delta_xor(a, b), delta.delta_xor_plain(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words", [delta.TILE_WORDS + 1, 65_537])
+def test_cuda_delta_xor_matches_plain_at_a_4_byte_offset(n_words):
+    """Words sliced at a 4-byte offset: the wrapper clones them to 16-byte
+    alignment before the launch."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(n_words)
+    a, b = (torch.randint(-2**31, 2**31 - 1, (n_words + 1,),
+                          dtype=torch.int32, device="cuda", generator=g)[1:]
+            for _ in range(2))
+    assert a.data_ptr() % 16 != 0
     assert torch.equal(tops.delta_xor(a, b), delta.delta_xor_plain(a, b))
 
 

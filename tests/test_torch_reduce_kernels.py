@@ -257,6 +257,30 @@ def test_cuda_entry_points_refuse_host_tensors():
                                      torch.zeros(4, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("n", [1, 3, 5, 4097, 65_536 + 1030])
+def test_plain_flat_downcast_matches_reference(n):
+    """The flat downcast (lengths no (R, C) of the shape contract gives:
+    the kernel's partial tiles) rounds as the 2-D one and the oracle."""
+    x = _downcast_input(256, 512, seed=n).reshape(-1)[:n].copy()
+    got = tq.downcast_bf16_words_plain(torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n,)
+    bits = got.view(torch.int16).numpy().view(np.uint16)
+    np.testing.assert_array_equal(bits, _u16(jref.downcast_bf16_ref(x)))
+    whole = _downcast_input(256, 512, seed=n)
+    np.testing.assert_array_equal(
+        bits, tq.downcast_bf16_plain(torch.from_numpy(whole)).reshape(-1)[:n]
+        .view(torch.int16).numpy().view(np.uint16))
+
+
+def test_flat_downcast_refuses_other_shapes_and_host_tensors():
+    with pytest.raises(ValueError, match="flat float32"):
+        tq.downcast_bf16_words_plain(torch.zeros(4, 4))
+    with pytest.raises(ValueError, match="flat float32"):
+        tq.downcast_bf16_words_plain(torch.zeros(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.downcast_bf16_words_cuda(torch.zeros(5))
+
+
 def test_reduction_entry_points_are_in_the_library():
     src = "".join(s.read_text() for s in build.SOURCES)
     for kern in (tq.DOWNCAST_BF16_KERNEL, tq.QUANT_INT8_KERNEL,
@@ -294,6 +318,33 @@ def test_cuda_reduction_kernels_match_plain(n_rows):
     s[:k, 0] = torch.from_numpy(DEQUANT_EDGE_SCALES).cuda()
     assert _same_bits(tops.dequantize_int8(q, s),
                       tq.dequantize_int8_plain(q, s))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [
+    (1,), (3,), (4,), (5,), (delta.TILE_WORDS - 1,), (delta.TILE_WORDS + 1,),
+    (10 * delta.TILE_WORDS + delta.TILE_WORDS // 4 + 3,),
+    (256, 256), (256, 768), (768, 1280)])
+def test_cuda_downcast_matches_plain_at_tile_edges(shape):
+    """The streaming core's tile edges: flat lengths with a partial last
+    tile and trailing words (through the flat entry) and (R, C) shapes,
+    with the NaN, signalling-NaN, subnormal and tie values in front and
+    at the end."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(sum(shape))
+    x = torch.randn(shape, device="cuda", generator=g) * 100
+    edge = torch.cat([tq.edge_values("cuda"),
+                      torch.from_numpy(DOWNCAST_EDGES).cuda()])
+    flat = x.view(-1)
+    k = min(flat.numel(), edge.numel())
+    flat[:k] = edge[:k]
+    flat[flat.numel() - k:] = edge[:k]
+    if len(shape) == 1:
+        got, want = (tq.downcast_bf16_words_cuda(x),
+                     tq.downcast_bf16_words_plain(x))
+    else:
+        got, want = tops.downcast_bf16(x), tq.downcast_bf16_plain(x)
+    assert _same_bits(got, want)
 
 
 @pytest.mark.gpu
