@@ -37,9 +37,15 @@ Phases, any failure exits non-zero:
    ``dequantize_int8``, ``torch.sub`` for ``delta_f32``; timed here only,
    the port never calls them; a kernel and its library call are timed in
    turns, library, kernel, kernel, library, each after an untimed turn of
-   the same call). ``delta_xor``, the downcast and their library calls are also
-   timed on the device alone (``torch.profiler``: the kernels' own time,
-   no host time between launches).
+   the same call). ``delta_xor``, ``delta_f32``, the downcast and their
+   library calls are also timed on the device alone (``torch.profiler``:
+   the kernels' own time, no host time between launches). The digest
+   ``checksum_u32`` is checked in one segment and in segments (every case
+   of ``variants.CHECKSUM_CASES``: none, short last segments, trailing
+   words, the 64 MiB piece) and timed, wrapper and device, at one 4 MiB
+   chunk and at one 64 MiB piece of 16 chunks (``file_checksum``'s call);
+   a 4 MiB call must show one device record under the profiler, the
+   kernel's, and no fill.
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
@@ -74,7 +80,8 @@ Phases, any failure exits non-zero:
    on the card; then the ``dequantize_int8`` kernel on step 3's restored
    q is within one scale of the saved moment.
    Kernel launch counts are zeroed just before each of phases 4, 5, 6 and
-   7 and read just after; each kernel of the phase must have run.
+   7 and read just after; each kernel of the phase must have run. Phases
+   4-6 log the digest's launches and each restore's chain-verify time.
 8. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -102,10 +109,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: products are bf16 at the serving shape
 BF16_FLOP_PER_S = 989e12
 HOST_CACHE_BYTES = 12 << 30
-#: words per call on the main path: 4 MiB chunks for the encode and the
-#: file checksums, 64 MiB pieces for the restore fold
-MAIN_WORDS = {"checksum_u32": 1 << 20, "xor_checksum_u32": 1 << 20,
-              "delta_xor": 1 << 24}
+#: words per call on the main path: 4 MiB chunks for the encode, 64 MiB
+#: pieces for the restore fold (the digest's chunks and pieces are
+#: ``variants.CHUNK_WORDS`` and ``PIECE_WORDS``)
+MAIN_WORDS = {"xor_checksum_u32": 1 << 20, "delta_xor": 1 << 24}
 #: quantization rows per call on the main path: one 4 MiB chunk
 MAIN_ROWS = 4096
 #: the training phase: tokens per batch row (the longest sequence on the
@@ -194,12 +201,6 @@ def _calls(name: str, a, b):
     import torch
     from repro_torch.kernels import checksum, delta, fused
     mask = checksum.U32_MASK
-    if name == "checksum_u32":
-        def cmp():
-            got = int(checksum.checksum_cuda(a).item()) & mask
-            return abs(got - checksum.checksum_plain(a))
-        return (lambda: checksum.checksum_cuda(a),
-                lambda: checksum.checksum_plain(a), cmp)
     if name == "xor_checksum_u32":
         def cmp():
             d, dig = fused.xor_checksum_cuda(a, b)
@@ -273,8 +274,8 @@ def check_kernels():
     import torch
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    rows = {}
-    for name in ("checksum_u32", "xor_checksum_u32", "delta_xor"):
+    rows = check_checksum_kernel(gen)
+    for name in ("xor_checksum_u32", "delta_xor"):
         n_main = MAIN_WORDS[name]
         sizes = _xor_sizes(n_main) if name == "delta_xor" \
             else (1, 3, 65_537, n_main)
@@ -305,9 +306,9 @@ def check_kernels():
         else:
             ms = _time_ms(kern, reps)
         plain_ms = _time_ms(plain, max(5, reps // 10))
-        # each input read once, each output written once: 4N for the
-        # digest, 12N for the XOR kernels
-        nbytes = (4 if name == "checksum_u32" else 12) * n_main
+        # each input read once, each output written once: 12N for the
+        # XOR kernels
+        nbytes = 12 * n_main
         rows[name] = {
             "name": name, "words": n_main, "max_abs_err": worst,
             "ms": ms, "plain_ms": plain_ms,
@@ -326,6 +327,78 @@ def check_kernels():
     rows.update(check_flash_kernel(gen))
     rows.update(check_reduction_kernels(gen))
     return rows
+
+
+def _device_record_names(fn, reps: int = 20) -> set:
+    """Names of the device events ``torch.profiler`` records over ``reps``
+    calls of ``fn`` (kernels, copies, fills)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def check_checksum_kernel(gen) -> dict:
+    """The digest against its plain version in one segment
+    (``variants.CHECKSUM_SIZES``) and in segments
+    (``variants.CHECKSUM_CASES``, and at a 4-byte offset), then timed:
+    one 4 MiB chunk through ``checksum_cuda`` (``host_checksum``'s call)
+    and one 64 MiB piece of 16 chunks through ``checksum_segments_cuda``
+    (``file_checksum``'s call), wrapper and device time, beside the plain
+    version and the bound (4 bytes a word over the memory rate). No
+    PyTorch call computes the digest. The row's ``ms`` is the piece's."""
+    import torch
+    from repro_torch.kernels import checksum as tc
+    from repro_torch.kernels import variants
+    bad = variants.checksum_disagreement(torch)
+    if bad is not None:
+        fail(f"checksum_u32 disagrees with its plain version: {bad}")
+    chunk_words, piece_words = variants.CHUNK_WORDS, variants.PIECE_WORDS
+    piece = _random_words(piece_words, gen)
+    chunk = piece[:chunk_words]
+    out = torch.empty(16, dtype=torch.int32, device="cuda")
+    calls = {"chunk": (lambda: tc.checksum_cuda(chunk),
+                       lambda: tc.checksum_plain(chunk), 200),
+             "piece": (lambda: tc.checksum_segments_cuda(
+                           piece, chunk_words, out),
+                       lambda: tc.checksum_segments_plain(
+                           piece, chunk_words), 100)}
+    names = _device_record_names(calls["chunk"][0])
+    if len(names) != 1 or "checksum_segments_kernel" not in next(iter(names)):
+        fail(f"a 4 MiB checksum_u32 call recorded the device events "
+             f"{sorted(names)}, not the digest kernel alone")
+    t = {}
+    for k, (kern, plain, reps) in calls.items():
+        t[k] = {"ms": _time_ms(kern, reps), "device_ms": _device_ms(kern, 20),
+                "plain_ms": _time_ms(plain, 5),
+                "bound_ms": 4 * (piece_words if k == "piece"
+                                 else chunk_words) / HBM_BYTES_PER_S * 1e3}
+    c, p = t["chunk"], t["piece"]
+    log(f"kernel checksum_u32: bit-identical at "
+        f"{', '.join(map(str, variants.CHECKSUM_SIZES))} words, in segments "
+        f"at (words, words a segment) {variants.CHECKSUM_CASES} and at a "
+        f"4-byte offset; one device record a call ({next(iter(names))}); "
+        f"4 MiB chunk {c['ms']:.4f} ms, device {c['device_ms']:.4f} ms "
+        f"(plain {c['plain_ms']:.4f} ms, bound {c['bound_ms']:.5f} ms); "
+        f"64 MiB piece of 16 chunks {p['ms']:.4f} ms, device "
+        f"{p['device_ms']:.4f} ms, {p['bound_ms'] / p['device_ms']:.3f} of "
+        f"the bound (plain {p['plain_ms']:.4f} ms, bound "
+        f"{p['bound_ms']:.5f} ms)")
+    return {"checksum_u32": {
+        "name": "checksum_u32", "words": piece_words,
+        "seg_words": chunk_words, "max_abs_err": 0, "ms": p["ms"],
+        "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "device_ms": p["device_ms"],
+        **{f"chunk_{k}": v for k, v in c.items()}}}
 
 
 def _int8_rows(n_rows: int, gen):
@@ -514,7 +587,7 @@ def check_reduction_kernels(gen) -> dict:
         else:
             ms, library_ms = _time_ms(kern, reps), None
         device = {}
-        if name == "downcast_bf16":
+        if name in ("downcast_bf16", "delta_f32"):
             dev, lib_dev = _time_turns(kern, lib, reps, _device_ms)
             device = {"device_ms": dev, "library_device_ms": lib_dev}
         plain_ms = _time_ms(plain, 3 if big else 5)
@@ -1433,6 +1506,12 @@ def main() -> None:
         f"(saves {json.dumps(report['launches_save'])}); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
         f"pinned host cache {report['pinned_bytes']} bytes")
+    log(f"checkpoint path digest: checksum_u32 {launches['checksum_u32']} "
+        f"launches (saves {report['launches_save']['checksum_u32']}; "
+        + "; ".join(f"restore of step {r['step']} "
+                    f"{r['launches']['checksum_u32']}, verify_s "
+                    f"{r['verify_s']:.3f}" for r in report["restores"])
+        + ")")
     log("report " + json.dumps(report))
     del report
     gc.collect()
@@ -1457,6 +1536,10 @@ def main() -> None:
         log(f"training path: {train_s:.1f} s; launches "
             f"{json.dumps(launches)}; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated()} bytes")
+        log(f"training path digest: checksum_u32 {launches['checksum_u32']} "
+            f"launches (resume of step {report['restore']['step']} "
+            f"{report['restore']['launches']['checksum_u32']}, verify_s "
+            f"{report['restore']['verify_s']:.3f})")
         log("train report " + json.dumps(report))
         full_resume_bytes = report["restore"]["bytes_read"]
         del report
@@ -1479,6 +1562,9 @@ def main() -> None:
             fail(f"kernel {k} was never launched on the serving path")
     log(f"serving path: {serve_s:.1f} s; launches {json.dumps(launches)}; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(f"serving path digest: checksum_u32 {launches['checksum_u32']} "
+        f"launches; params restore verify_s "
+        f"{report['restore']['verify_s']:.3f}")
     log("serve report " + json.dumps(report))
     del report
     gc.collect()
@@ -1514,7 +1600,9 @@ def main() -> None:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         **{x: r[x] for x in ("tflops", "bound_share", "device_ms",
-                             "library_device_ms") if x in r}}
+                             "library_device_ms", "chunk_ms",
+                             "chunk_device_ms", "chunk_plain_ms",
+                             "chunk_bound_ms") if x in r}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

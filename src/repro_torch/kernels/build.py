@@ -46,6 +46,8 @@ _N = ctypes.c_int64
 #: C entry point -> argtypes (pointers and the stream as void*, lengths i64)
 SIGNATURES = {
     "ckpt_checksum_u32": (_P, _N, _P, _P),
+    # x, n_words, seg_words, out
+    "ckpt_checksum_u32_segments": (_P, _N, _N, _P, _P),
     "ckpt_xor_checksum_u32": (_P, _P, _P, _N, _P, _P),
     "ckpt_xor_fold_checksum_u32": (_P, _P, _P, _N, _P, _P),
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
@@ -157,7 +159,9 @@ def library() -> ctypes.CDLL:
 
 
 class CudaKernel:
-    """One C entry point of the library, with its launch count.
+    """One kernel of the library, reached through its C entry point
+    ``symbol`` (or another ``entry`` of the same kernel), with its launch
+    count.
 
     ``launches`` rises by one per successful launch and nowhere else, so a
     run can show that its path went through the kernel."""
@@ -167,13 +171,13 @@ class CudaKernel:
         self.launches = 0
         self._count_lock = threading.Lock()
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, entry: Optional[str] = None) -> None:
         import torch
 
+        symbol = entry or self.symbol
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(library(), self.symbol)(*args, stream)
+        rc = getattr(library(), symbol)(*args, stream)
         if rc != 0:
-            raise RuntimeError(
-                f"{self.symbol} launch failed: cudaError {rc}")
+            raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
         with self._count_lock:
             self.launches += 1

@@ -15,19 +15,19 @@
 //   downcast_bf16             quantize.py
 //   delta_f32                 delta.py
 //
-// The int8 kernels, the offline reduction's kernels and the streaming core
-// (delta_xor and downcast_bf16) have their own notes further down; what
-// follows is about the three digest kernels.
+// The int8 kernels, the offline reduction's kernels, the streaming core
+// (delta_xor, downcast_bf16 and delta_f32) and the segmented digest
+// (checksum_u32) have their own notes further down; what follows is about
+// the digest itself and the two fused XOR digests.
 //
 // The digest is the position-weighted sum
 //     sum_i x[i] * (65599 + i mod 65521)   mod 2^32
 // over the little-endian u32 words of a buffer. The Pallas kernels walk the
 // input in sequential 65,536-word grid steps and carry the sum in one SMEM
 // word; here blocks run in parallel and in no order, so each thread keeps a
-// private u32 partial (wrap-around multiply-add is exact mod 2^32), the
-// block reduces it with warp shuffles and shared memory, and one
-// atomicAdd per block folds it into the output word. Addition mod 2^32 is
-// associative and commutative, so the result is bit-exact in any block
+// private u32 partial (wrap-around multiply-add is exact mod 2^32) and the
+// block reduces it with warp shuffles and shared memory. Addition mod 2^32
+// is associative and commutative, so the result is bit-exact in any block
 // order. Zero words add nothing, so no padding to 65,536 words is needed:
 // the wrapper only zero-pads the byte tail to a whole word.
 //
@@ -35,16 +35,18 @@
 // operations per word and is limited by device memory: the least time is
 // the bytes moved over 3.35 TB/s (the H100 SXM data sheet's HBM3 rate),
 // 4N bytes for checksum_u32 and 12N bytes (two inputs read, one output
-// written) for the two fused XOR kernels, N in words. The digest kernels
-// answer that bound with 16-byte vector loads and stores (uint4,
-// neighbouring threads on neighbouring addresses), a grid-stride loop
-// capped at 132 x 8 blocks, one 64-bit modulo per four words, and a single
-// atomic per block, so no second pass over memory is needed. They keep
-// that loop, with one load in flight per thread, rather than the
-// streaming core's one-pass grid: each block ends in a reduction and an
-// atomic, which a grid of thousands of blocks would multiply, and at the
-// main path's 4 MiB chunks their time is the host's (wrapper, ctypes,
-// allocation), not the loop's.
+// written) for the two fused XOR kernels, N in words. The fused XOR
+// kernels run a grid-stride loop capped at 132 x 8 blocks with 16-byte
+// loads and stores and fold each block's sum into a zeroed output word
+// with one atomicAdd. The plain digest does not: at the main path's 4 MiB
+// chunk the device work is about a microsecond, and what a call cost was
+// on the host and around the kernel (a fill kernel to zero the output
+// word, a blocking upload, a stream sync per chunk, one launch per chunk
+// of every file checksummed). So checksum_u32 digests many chunks in one
+// launch, each chunk reduced inside one thread-block cluster that writes
+// its digest with a plain store (no zeroed word, no atomic), and
+// storage/manifest.py feeds it 64 MiB pinned pieces while it reads the
+// next piece from disk.
 //
 // Where the data lives: the checkpoint path stages device state into pinned
 // host memory first, and these kernels are fed that host-staged data (the
@@ -54,8 +56,10 @@
 // of the device-to-host copy is a later change.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
-// point returns cudaGetLastError() so a refused launch is reported.
+// point returns the launch's error or cudaGetLastError(), so a refused
+// launch is reported.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -71,9 +75,9 @@ __device__ __forceinline__ uint32_t next_r(uint32_t r) {
   return r == kWeightMod ? 0u : r;
 }
 
-// Weighted sum of the four words of v, whose first word sits at index i.
-__device__ __forceinline__ uint32_t weigh4(uint4 v, int64_t i) {
-  uint32_t r = static_cast<uint32_t>(i % kWeightMod);
+// Weighted sum of the four words of v, whose first word's weight is
+// kWeightBase + r.
+__device__ __forceinline__ uint32_t weigh4_r(uint4 v, uint32_t r) {
   uint32_t s = v.x * (kWeightBase + r);
   r = next_r(r);
   s += v.y * (kWeightBase + r);
@@ -84,13 +88,20 @@ __device__ __forceinline__ uint32_t weigh4(uint4 v, int64_t i) {
   return s;
 }
 
+// The same, with the first word at index i.
+__device__ __forceinline__ uint32_t weigh4(uint4 v, int64_t i) {
+  return weigh4_r(v, static_cast<uint32_t>(i % kWeightMod));
+}
+
 __device__ __forceinline__ uint32_t weigh1(uint32_t x, int64_t i) {
   return x * (kWeightBase + static_cast<uint32_t>(i % kWeightMod));
 }
 
-// Block-wide sum of one u32 per thread, added to *out by one atomic.
-__device__ __forceinline__ void block_fold(uint32_t acc, uint32_t* out) {
-  __shared__ uint32_t warp_sums[kThreads / 32];
+// Block-wide sum of one u32 per thread of a kBlock-thread block; the sum
+// is valid in thread 0.
+template <int kBlock>
+__device__ __forceinline__ uint32_t block_sum(uint32_t acc) {
+  __shared__ uint32_t warp_sums[kBlock / 32];
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   const int lane = threadIdx.x & 31;
@@ -98,26 +109,17 @@ __device__ __forceinline__ void block_fold(uint32_t acc, uint32_t* out) {
   if (lane == 0) warp_sums[warp] = acc;
   __syncthreads();
   if (warp == 0) {
-    acc = lane < (kThreads / 32) ? warp_sums[lane] : 0u;
+    acc = lane < (kBlock / 32) ? warp_sums[lane] : 0u;
     for (int off = 16; off > 0; off >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0 && acc != 0u) atomicAdd(out, acc);
   }
+  return acc;
 }
 
-__global__ void __launch_bounds__(kThreads)
-checksum_kernel(const uint32_t* __restrict__ x, int64_t n,
-                uint32_t* __restrict__ out) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t n4 = n >> 2;
-  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(x);
-  uint32_t acc = 0u;
-  for (int64_t j = tid; j < n4; j += stride) acc += weigh4(x4[j], j << 2);
-  for (int64_t i = (n4 << 2) + tid; i < n; i += stride)
-    acc += weigh1(x[i], i);
-  block_fold(acc, out);
+// Block-wide sum of one u32 per thread, added to *out by one atomic.
+__device__ __forceinline__ void block_fold(uint32_t acc, uint32_t* out) {
+  acc = block_sum<kThreads>(acc);
+  if (threadIdx.x == 0 && acc != 0u) atomicAdd(out, acc);
 }
 
 // out = a ^ b with the digest of the words written (the delta-route
@@ -352,10 +354,8 @@ int row_blocks_for(int64_t n_rows) {
 // Bound on the card: a few operations a value, so device memory bounds all
 // four: 6 bytes a value for the downcast (4 in, 2 out), (1024 + 4 + 256)
 // bytes a row for the int8 pair, 12 bytes a value for delta_f32. The int8
-// pair runs one warp a row in a grid-stride loop; delta_f32 keeps the
-// digest kernels' grid-stride loop with one 16-byte load in flight per
-// thread. No path launches it, and it moves to the streaming core below
-// in a PR of its own. The downcast runs on the streaming core.
+// pair runs one warp a row in a grid-stride loop; the downcast and
+// delta_f32 run on the streaming core below.
 
 __device__ __forceinline__ uint32_t bf16_bits(uint32_t u) {
   if ((u & 0x7fffffffu) > 0x7f800000u) return ((u >> 16) & 0x8000u) | 0x7fc0u;
@@ -411,39 +411,19 @@ __device__ __forceinline__ float sub_flushed(float a, float b) {
   return flush(flush(a) - flush(b));
 }
 
-__global__ void __launch_bounds__(kThreads)
-delta_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ out, int64_t n) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  const int64_t n4 = n >> 2;
-  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(a);
-  const float4* __restrict__ b4 = reinterpret_cast<const float4*>(b);
-  float4* __restrict__ o4 = reinterpret_cast<float4*>(out);
-  for (int64_t j = tid; j < n4; j += stride) {
-    const float4 u = a4[j];
-    const float4 v = b4[j];
-    o4[j] = make_float4(sub_flushed(u.x, v.x), sub_flushed(u.y, v.y),
-                        sub_flushed(u.z, v.z), sub_flushed(u.w, v.w));
-  }
-  for (int64_t i = (n4 << 2) + tid; i < n; i += stride)
-    out[i] = sub_flushed(a[i], b[i]);
-}
-
-
 // ------------------------------------------------------- streaming core
 // delta_xor      replaces repro/kernels/delta.py:delta_xor
 // downcast_bf16  replaces repro/kernels/quantize.py:downcast_bf16
+// delta_f32      replaces repro/kernels/delta.py:delta_f32
 //
-// Both are pure streams: read 16-byte vectors, do a few integer operations
-// on each, write. One template serves both, over the per-vector operation
-// (XorOp, Bf16Op below).
+// All three are pure streams: read 16-byte vectors, do a few operations
+// on each, write. One template serves them, over the per-vector operation
+// (XorOp, Bf16Op, F32SubOp below).
 //
 // Bound on the card: the bytes moved over 3.35 TB/s, 12 bytes a word for
-// the XOR (two words in, one out) and 6 a value for the downcast (4 in,
-// 2 out). What stood between the earlier grid-stride loop and that bound,
-// and what this design does about it:
+// the XOR and the subtraction (two words in, one out) and 6 a value for
+// the downcast (4 in, 2 out). What stood between the earlier grid-stride
+// loop and that bound, and what this design does about it:
 //
 // * Bytes in flight. The loop issued one 16-byte load per thread, then
 //   waited, computed and stored before it issued the next. Here each
@@ -492,7 +472,9 @@ delta_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // and block 0 writes the n mod 4 trailing words one at a time. Inputs and
 // outputs are 16-byte aligned (the wrappers see to it) and must not alias.
 // The downcast's bits are bf16_bits above, the same integer rounding as
-// the plain version; nothing here converts through float.
+// the plain version; nothing here converts through float. The subtraction
+// is sub_flushed above, the reduction section's flush on its inputs and
+// its result, so its flush bits are those of the int8 dequantize.
 
 constexpr int kSms = 132;
 constexpr int kStreamThreads = 512;
@@ -530,6 +512,20 @@ struct Bf16Op {
   }
   __device__ static uint16_t word(uint32_t u, uint32_t) {
     return static_cast<uint16_t>(bf16_bits(u));
+  }
+};
+
+struct F32SubOp {
+  static constexpr int kInputs = 2;
+  using Vec = uint4;      // the bits of four fp32 results
+  using Word = uint32_t;
+  __device__ static uint32_t word(uint32_t a, uint32_t b) {
+    return __float_as_uint(
+        sub_flushed(__uint_as_float(a), __uint_as_float(b)));
+  }
+  __device__ static uint4 vec(uint4 a, uint4 b) {
+    return make_uint4(word(a.x, b.x), word(a.y, b.y), word(a.z, b.z),
+                      word(a.w, b.w));
   }
 };
 
@@ -769,17 +765,152 @@ int launch_stream(const void* a, const void* b, void* out, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------ segmented digest
+// checksum_u32  replaces repro/kernels/checksum.py:checksum_u32
+//
+// One launch digests the consecutive seg_words-word segments of a buffer
+// (the last may be short) and writes one u32 per segment: the digest of
+// that segment alone, its position weights restarting at 0, as
+// storage/manifest.py's file_checksum digests each 4 MiB chunk of a file.
+// One buffer's digest is the one-segment case.
+//
+// Bound on the card: 4 bytes a word over 3.35 TB/s, 0.0200 ms for a
+// 64 MiB piece of 16 chunks. What the design does about it:
+//
+// * One cluster of kSumCluster blocks a segment, a grid of n_segs
+//   clusters: 16 chunks at 8 blocks put one block on 128 of the 132 SMs
+//   in one launch. Each block walks its share of the segment in tiles of
+//   kSumThreads x kSumVecs vectors, issuing all kSumVecs 16-byte loads of
+//   a tile (ld.global.nc.L1::no_allocate, as the streaming core) before
+//   it adds. Clusters of 16 (the non-portable size) run one 4 MiB chunk
+//   faster, on 16 SMs, but a 64 MiB piece 8 % slower: 256 blocks do not
+//   spread evenly over 132 SMs (python -m repro_torch.kernels.variants
+//   checksum; PERF.md).
+// * No atomics, no zeroed output, no global scratch. Each block reduces
+//   its sum with warp shuffles (block_sum), writes it into rank 0's shared
+//   memory (distributed shared memory, map_shared_rank), and after a
+//   cluster barrier rank 0 adds the kSumCluster sums and stores out[seg]
+//   with a plain store. The flush lanes and the restore call the kernel
+//   at once on streams of their own, so scratch in device memory, or a
+//   ticket counter for a last-block reduction, would race between them.
+// * Word positions are 32-bit inside a segment (seg_words < 2^31), so the
+//   weight needs a 32-bit modulo by a constant (a multiply-high), not the
+//   64-bit modulo of the fused kernels' weigh4.
+//
+// Cluster barriers: every thread arrives (relaxed) on entry and waits
+// just before its block writes into rank 0's shared memory, so rank 0 has
+// started by then; the cluster.sync() after the writes keeps rank 0 from
+// reading, and every block from exiting, before all sums are in.
+
+constexpr int kSumThreads = 512;
+// 16-byte loads each thread issues per tile before it adds
+constexpr int kSumVecs = 4;
+// blocks a segment: 8 is the largest portable cluster (the variants
+// tool's cluster16 also allows the non-portable size before launching)
+constexpr int kSumCluster = 8;
+constexpr int64_t kMaxSegWords = int64_t{1} << 31;
+
+__global__ void __launch_bounds__(kSumThreads)
+checksum_segments_kernel(const uint32_t* __restrict__ x, int64_t n,
+                         int64_t seg_words, uint32_t* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  __shared__ uint32_t cluster_sums[kSumCluster];
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t rank = cluster.block_rank();
+  const int64_t seg = blockIdx.x / kSumCluster;
+  const int64_t lo = seg * seg_words;
+  const uint32_t len =
+      static_cast<uint32_t>(n - lo < seg_words ? n - lo : seg_words);
+  const uint32_t n_vec = len >> 2;
+  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(x + lo);
+  constexpr uint32_t kTile = kSumThreads * kSumVecs;
+  uint32_t acc = 0u;
+  for (uint32_t t = rank * kTile; t < n_vec; t += kSumCluster * kTile) {
+    if (n_vec - t >= kTile) {
+      uint4 v[kSumVecs];
+#pragma unroll
+      for (int u = 0; u < kSumVecs; ++u)
+        v[u] = stream_load<1>(x4 + t + u * kSumThreads + threadIdx.x);
+#pragma unroll
+      for (int u = 0; u < kSumVecs; ++u)
+        acc += weigh4_r(v[u], ((t + u * kSumThreads + threadIdx.x) << 2) %
+                                  kWeightMod);
+    } else {
+      for (uint32_t j = t + threadIdx.x; j < n_vec; j += kSumThreads)
+        acc += weigh4_r(stream_load<1>(x4 + j), (j << 2) % kWeightMod);
+    }
+  }
+  // the len mod 4 words after the last whole vector
+  const uint32_t i = (n_vec << 2) + threadIdx.x;
+  if (rank == 0 && i < len) acc += x[lo + i] * (kWeightBase + i % kWeightMod);
+  acc = block_sum<kSumThreads>(acc);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x == 0) cluster.map_shared_rank(cluster_sums, 0)[rank] = acc;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    uint32_t sum = 0u;
+#pragma unroll
+    for (int k = 0; k < kSumCluster; ++k) sum += cluster_sums[k];
+    out[seg] = sum;
+  }
+}
+
+// n_segs clusters of kSumCluster blocks, launched with the cluster
+// dimension as a launch attribute.
+int launch_cluster_checksum(const void* x, int64_t n, int64_t seg_words,
+                            int64_t n_segs, void* out, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kSumCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_segs * kSumCluster));
+  cfg.blockDim = dim3(kSumThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &cfg, checksum_segments_kernel, static_cast<const uint32_t*>(x), n,
+      seg_words, static_cast<uint32_t*>(out));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_checksum(const void* x, int64_t n, int64_t seg_words,
+                    int64_t n_segs, void* out, void* stream) {
+  if (n < 0 || seg_words < 0 || seg_words >= kMaxSegWords || n_segs < 1 ||
+      n_segs > (int64_t{1} << 31) / kSumCluster - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cluster_checksum(x, n, seg_words, n_segs, out,
+                                 static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // All pointers are device pointers to 16-byte aligned buffers of n u32
-// words; `out`/`dig` must not alias the inputs. `dig` and `out` of the
-// checksum are accumulated into, so the caller zeroes them first.
+// words; `out`/`dig` must not alias the inputs. `dig` of the fused XOR
+// kernels is accumulated into, so the caller zeroes it first.
+
+// out: one u32, written whole (0 for n == 0); n < 2^31.
 extern "C" int ckpt_checksum_u32(const void* x, int64_t n, void* out,
                                  void* stream) {
-  checksum_kernel<<<blocks_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), n, static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return launch_checksum(x, n, n, 1, out, stream);
+}
+
+// out: u32[ceil(n_words / seg_words)], written whole; seg_words a positive
+// multiple of 4 below 2^31, so every segment starts 16-byte aligned.
+// n_words == 0 launches nothing.
+extern "C" int ckpt_checksum_u32_segments(const void* x, int64_t n_words,
+                                          int64_t seg_words, void* out,
+                                          void* stream) {
+  if (seg_words <= 0 || seg_words % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_words == 0) return 0;
+  return launch_checksum(x, n_words, seg_words,
+                         (n_words + seg_words - 1) / seg_words, out, stream);
 }
 
 extern "C" int ckpt_xor_checksum_u32(const void* a, const void* b, void* out,
@@ -861,9 +992,5 @@ extern "C" int ckpt_dequantize_int8(const void* q, const void* scales,
 // a, b, out: 16-byte aligned f32[n]; out must not alias the inputs.
 extern "C" int ckpt_delta_f32(const void* a, const void* b, void* out,
                               int64_t n, void* stream) {
-  delta_f32_kernel<<<blocks_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_stream<F32SubOp>(a, b, out, n, stream);
 }

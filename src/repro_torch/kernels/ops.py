@@ -10,7 +10,8 @@ way, ``core/codecs.py:247`` and ``core/restore.py:837-840``).
 Background lanes call them inside :func:`lane_stream`.
 
 Every kernel of ``repro/kernels/ops.py`` has its wrapper here:
-``checksum`` (``tensor_checksum``, ``:63``), ``xor_checksum``
+``checksum`` (``tensor_checksum``, ``:63``; ``checksum_segments``
+digests many chunks in one launch), ``xor_checksum``
 (``fused_xor_checksum``, ``:108``), ``fused_xor_fold`` (``:119``),
 ``delta_xor`` (``:90``), ``delta_f32`` (``:99``), ``downcast_bf16``
 (``:72``), ``quantize_int8`` (``:78``), ``dequantize_int8`` (``:84``),
@@ -68,6 +69,17 @@ def checksum(words: torch.Tensor) -> int:
     if _kind(words) == "cpu":
         return _checksum.checksum_plain(words)
     return int(_checksum.checksum_cuda(words).item()) & U32_MASK
+
+
+def checksum_segments(words: torch.Tensor, seg_words: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The digest of each consecutive ``seg_words``-word segment of int32
+    ``words``, as u32 bits in an int32 tensor on ``words``' device (into
+    ``out`` if given). On a card this only enqueues: nothing waits for the
+    kernel."""
+    if _kind(words) == "cpu":
+        return _checksum.checksum_segments_plain(words, seg_words, out)
+    return _checksum.checksum_segments_cuda(words, seg_words, out)
 
 
 def xor_checksum(a: torch.Tensor, b: torch.Tensor

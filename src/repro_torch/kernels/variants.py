@@ -2,6 +2,7 @@
 
     python -m repro_torch.kernels.variants [variants.json]
     python -m repro_torch.kernels.variants stream [variants.json]
+    python -m repro_torch.kernels.variants checksum [variants.json]
 
 A variant is a list of ``[old, new]`` text substitutions applied to one
 source under ``csrc/`` (each ``old`` must occur in it). Each variant is
@@ -23,21 +24,34 @@ same kernel with one part of its work removed at a time, to show which
 part holds it back.
 
 ``stream``: variants of ``csrc/ckpt_kernels.cu``'s streaming core
-(``ckpt_delta_xor``, ``ckpt_downcast_bf16``), checked bit for bit against
-``delta_xor_plain`` and the plain downcast at lengths around every
-variant's tile (with :data:`.quantize.EDGE_BITS` in the inputs, and an
-input sliced at a 4-byte offset) and at the main path's shapes, then timed
-there: ``delta_xor`` at 16,777,216 words beside ``torch.bitwise_xor``,
-``downcast_bf16`` at 128,256 x 2,048 fp32 beside ``x.to(torch.bfloat16)``.
-Each is timed twice: the wrapper, back to back under CUDA events, and the
-device alone, the kernels' own time under ``torch.profiler``
-(:func:`device_ms`). Without a file it runs :data:`STREAM_ABLATIONS`:
-``loop``, the grid-stride loop the two kernels ran before the core (one
-load in flight a thread, a grid of at most 132 x 8 blocks); 1, 2, 4 and
-8 loads in flight per thread and input; 256 threads a block against 512;
-each kind of cache hint; a grid-stride loop over 132 x 4 blocks against
-one pass; and design (B), bulk copies through shared memory. The summary
+(``ckpt_delta_xor``, ``ckpt_downcast_bf16``, ``ckpt_delta_f32``), checked
+bit for bit against ``delta_xor_plain``, the plain downcast and
+``delta_f32_plain`` at lengths around every variant's tile (with
+:data:`.quantize.EDGE_BITS` in the inputs, and an input sliced at a
+4-byte offset) and at the main path's shapes, then timed there:
+``delta_xor`` at 16,777,216 words beside ``torch.bitwise_xor``,
+``delta_f32`` at as many values beside ``torch.sub``, ``downcast_bf16``
+at 128,256 x 2,048 fp32 beside ``x.to(torch.bfloat16)``. Each is timed
+twice: the wrapper, back to back under CUDA events, and the device alone,
+the kernels' own time under ``torch.profiler`` (:func:`device_ms`).
+Without a file it runs :data:`STREAM_ABLATIONS`: ``loop``, the
+grid-stride loop the three kernels ran before the core (one load in
+flight a thread, a grid of at most 132 x 8 blocks); 1, 2, 4 and 8 loads
+in flight per thread and input; 256 threads a block against 512; each
+kind of cache hint; a grid-stride loop over 132 x 4 blocks against one
+pass; and design (B), bulk copies through shared memory. The summary
 gives the median of the rounds.
+
+``checksum``: variants of the segmented digest (``ckpt_checksum_u32``,
+``ckpt_checksum_u32_segments``), checked bit for bit against the plain
+versions at :data:`CHECKSUM_SIZES` (one segment) and
+:data:`CHECKSUM_CASES` (segments), then timed as ``stream`` times, at one
+4 MiB chunk and at one 64 MiB piece of 16 chunks. No PyTorch call
+computes the digest. Without a file it runs :data:`CHECKSUM_ABLATIONS`:
+clusters of 16 blocks against 8, 2 and 8 loads in flight a thread
+against 4, and ``atomic_loop``, the design it replaced (per segment one
+launch of a grid-stride loop with an atomic a block, after a memset of
+the digests).
 """
 
 from __future__ import annotations
@@ -173,14 +187,15 @@ def _time_ms(torch, fn, reps: int = REPS) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(torch, fn, reps: int, tries: int = 3) -> float:
-    """Device time of one call of ``fn``, which must launch one device
-    operation a call: the mean self time of the device events (kernels,
-    copies, fills) that ``torch.profiler`` records over ``reps``
-    back-to-back calls. Host time between launches is left out. The
-    profiler can drop records, so the mean is over the records it kept
-    (dividing by ``reps`` would read low); a session that kept none is
-    run again, up to ``tries`` times."""
+def device_ms(torch, fn, reps: int, tries: int = 3, per_call: int = 1
+              ) -> float:
+    """Device time of one call of ``fn``, which must launch ``per_call``
+    device operations a call: ``per_call`` times the mean self time of the
+    device events (kernels, copies, fills) that ``torch.profiler`` records
+    over ``reps`` back-to-back calls. Host time between launches is left
+    out. The profiler can drop records, so the mean is over the records it
+    kept (dividing by ``reps`` would read low); a session that kept none
+    is run again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -195,7 +210,8 @@ def device_ms(torch, fn, reps: int, tries: int = 3) -> float:
                   if e.device_type == DeviceType.CUDA]
         n = sum(e.count for e in events)
         if n:
-            return sum(e.self_device_time_total for e in events) / n / 1e3
+            return sum(e.self_device_time_total for e in events) / n \
+                * per_call / 1e3
     raise RuntimeError(f"torch.profiler recorded no device time in "
                        f"{tries} sessions")
 
@@ -304,6 +320,26 @@ loop_downcast_kernel(const uint32_t* __restrict__ x, int64_t n,
     out[i] = static_cast<uint16_t>(bf16_bits(x[i]));
 }
 
+__global__ void __launch_bounds__(kThreads)
+loop_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ out, int64_t n) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t n4 = n >> 2;
+  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(a);
+  const float4* __restrict__ b4 = reinterpret_cast<const float4*>(b);
+  float4* __restrict__ o4 = reinterpret_cast<float4*>(out);
+  for (int64_t j = tid; j < n4; j += stride) {
+    const float4 u = a4[j];
+    const float4 v = b4[j];
+    o4[j] = make_float4(sub_flushed(u.x, v.x), sub_flushed(u.y, v.y),
+                        sub_flushed(u.z, v.z), sub_flushed(u.w, v.w));
+  }
+  for (int64_t i = (n4 << 2) + tid; i < n; i += stride)
+    out[i] = sub_flushed(a[i], b[i]);
+}
+
 }  // namespace
 """
 LOOP = [
@@ -320,6 +356,12 @@ LOOP = [
      "                          static_cast<cudaStream_t>(stream)>>>(\n"
      "      static_cast<const uint32_t*>(x), n,\n"
      "      static_cast<uint16_t*>(out));\n"
+     "  return static_cast<int>(cudaGetLastError());"],
+    ["  return launch_stream<F32SubOp>(a, b, out, n, stream);",
+     "  loop_f32_kernel<<<blocks_for(n), kThreads, 0,\n"
+     "                     static_cast<cudaStream_t>(stream)>>>(\n"
+     "      static_cast<const float*>(a), static_cast<const float*>(b),\n"
+     "      static_cast<float*>(out), n);\n"
      "  return static_cast<int>(cudaGetLastError());"]]
 #: the shipped streaming core, the loop it replaced, and variants of the
 #: core
@@ -380,15 +422,20 @@ def stream_disagreement(torch):
         a, b = _stream_inputs(torch, tq, n, gen)
         if not same(delta.delta_xor_cuda(a, b), delta.delta_xor_plain(a, b)):
             return f"delta_xor at {n} words"
-        x = a.view(torch.float32)
+        x, y = a.view(torch.float32), b.view(torch.float32)
         if not same(tq.downcast_bf16_words_cuda(x),
                     tq.downcast_bf16_words_plain(x)):
             return f"downcast_bf16 at {n} words"
+        if not same(delta.delta_f32_cuda(x, y), delta.delta_f32_plain(x, y)):
+            return f"delta_f32 at {n} values"
     # sliced at a 4-byte offset: the wrappers clone to 16-byte alignment
     a, b = _stream_inputs(torch, tq, 4097 + 1, gen)
     a, b = a[1:], b[1:]
     if not same(delta.delta_xor_cuda(a, b), delta.delta_xor_plain(a, b)):
         return "delta_xor at a 4-byte offset"
+    x, y = a.view(torch.float32), b.view(torch.float32)
+    if not same(delta.delta_f32_cuda(x, y), delta.delta_f32_plain(x, y)):
+        return "delta_f32 at a 4-byte offset"
     if not same(tq.downcast_bf16_words_cuda(a.view(torch.float32)),
                 tq.downcast_bf16_words_plain(a.view(torch.float32))):
         return "downcast_bf16 at a 4-byte offset"
@@ -432,11 +479,15 @@ def stream_main(args) -> None:
     gen.manual_seed(1)
     a, b = _stream_inputs(torch, tq, XOR_WORDS, gen)
     x = torch.randn(DOWNCAST_SHAPE, device="cuda", generator=gen) * 100
+    fa, fb = a.view(torch.float32), b.view(torch.float32)
     calls = {"downcast_bf16": (lambda: tq.downcast_bf16_cuda(x),
                                lambda: x.to(torch.bfloat16)),
              "delta_xor": (lambda: delta.delta_xor_cuda(a, b),
-                           lambda: torch.bitwise_xor(a, b))}
+                           lambda: torch.bitwise_xor(a, b)),
+             "delta_f32": (lambda: delta.delta_f32_cuda(fa, fb),
+                           lambda: torch.sub(fa, fb))}
     bound = {"delta_xor": 12 * XOR_WORDS / HBM_BYTES_PER_S * 1e3,
+             "delta_f32": 12 * XOR_WORDS / HBM_BYTES_PER_S * 1e3,
              "downcast_bf16": 6 * x.numel() / HBM_BYTES_PER_S * 1e3}
     names = [*libs, "library"]
     times = {k: {n: {"ms": [], "device_ms": []} for n in names}
@@ -476,6 +527,190 @@ def stream_main(args) -> None:
     print(json.dumps({"bound_ms": bound, "times": times}), flush=True)
 
 
+# ---------------------------------------------------- segmented digest
+_CLUSTER = "constexpr int kSumCluster = 8;"
+_SUM_VECS = "constexpr int kSumVecs = 4;"
+#: the digest the segmented one replaced (a grid-stride loop over at most
+#: 132 x 8 blocks of 256 threads, one 16-byte load in flight a thread, a
+#: 64-bit modulo a vector, one atomicAdd a block into a zeroed word), put
+#: back in its place: a memset of the digests, as the wrapper's
+#: torch.zeros did, then one launch a segment, as the loop over chunks did
+ATOMIC_KERNELS = """__global__ void __launch_bounds__(kThreads)
+atomic_checksum_kernel(const uint32_t* __restrict__ x, int64_t n,
+                       uint32_t* __restrict__ out) {
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t n4 = n >> 2;
+  const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(x);
+  uint32_t acc = 0u;
+  for (int64_t j = tid; j < n4; j += stride) acc += weigh4(x4[j], j << 2);
+  for (int64_t i = (n4 << 2) + tid; i < n; i += stride)
+    acc += weigh1(x[i], i);
+  block_fold(acc, out);
+}
+
+int launch_atomic_checksum(const void* x, int64_t n, int64_t seg_words,
+                           int64_t n_segs, void* out, cudaStream_t st) {
+  const cudaError_t rc = cudaMemsetAsync(out, 0, 4 * n_segs, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const uint32_t* w = static_cast<const uint32_t*>(x);
+  uint32_t* o = static_cast<uint32_t*>(out);
+  for (int64_t s = 0; s < n_segs; ++s) {
+    const int64_t lo = s * seg_words;
+    const int64_t len = n - lo < seg_words ? n - lo : seg_words;
+    atomic_checksum_kernel<<<blocks_for(len), kThreads, 0, st>>>(
+        w + lo, len, o + s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_checksum("""
+ATOMIC = [
+    ["int launch_checksum(", ATOMIC_KERNELS],
+    ["  return launch_cluster_checksum(x, n, seg_words, n_segs, out,\n"
+     "                                 static_cast<cudaStream_t>(stream));",
+     "  return launch_atomic_checksum(x, n, seg_words, n_segs, out,\n"
+     "                                static_cast<cudaStream_t>(stream));"]]
+#: clusters of 16 blocks, past the portable 8: the size and the attribute
+#: that allows it, set once a process (it stays with the function)
+CLUSTER16 = [
+    [_CLUSTER, "constexpr int kSumCluster = 16;"],
+    ["  cudaLaunchAttribute attr;\n",
+     "  static const cudaError_t allowed = cudaFuncSetAttribute(\n"
+     "      checksum_segments_kernel,\n"
+     "      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
+     "  if (allowed != cudaSuccess) return static_cast<int>(allowed);\n"
+     "  cudaLaunchAttribute attr;\n"]]
+#: the shipped digest (clusters of 8 blocks, 4 loads in flight a thread),
+#: variants of it, and the design it replaced
+CHECKSUM_ABLATIONS = {
+    "checksum": [],
+    "cluster16": CLUSTER16,
+    "vecs2": [[_SUM_VECS, "constexpr int kSumVecs = 2;"]],
+    "cluster16_vecs2": CLUSTER16 + [
+        [_SUM_VECS, "constexpr int kSumVecs = 2;"]],
+    "vecs8": [[_SUM_VECS, "constexpr int kSumVecs = 8;"]],
+    "atomic_loop": ATOMIC,
+}
+#: one-segment lengths the digest must agree at: 1-5 words, a block's tile
+#: (8,192 words at 512 threads x 4 vectors) less, on and past it, past a
+#: cluster's trip (65,536 words at 8 blocks, 131,072 at 16), and the main
+#: path's chunk
+CHECKSUM_SIZES = (1, 3, 4, 5, 8191, 8192, 8193, 65_537, 131_075, 1 << 20)
+#: (words, words a segment): none; fewer words than a segment; one whole
+#: segment; a last segment shorter than a block's tile, with 3 trailing
+#: words; the main path's piece of 16 chunks, and 17 with a short last;
+#: 17 segments whose last is one word; segments one vector past a block's
+#: tile and past a cluster's trip at 16 blocks, with short last segments
+CHECKSUM_CASES = ((0, 1 << 20), (3, 1 << 20), (1003, 1 << 20),
+                  (1 << 20, 1 << 20), ((1 << 20) + 103, 1 << 20),
+                  (16 << 20, 1 << 20), ((16 << 20) + 1027, 1 << 20),
+                  (65_537, 4_096), (3 * 8_196 + 2, 8_196),
+                  (10 * 131_072 + 8_191, 131_076))
+#: the main path's calls: one 4 MiB chunk, one 64 MiB piece of 16 chunks
+CHUNK_WORDS, PIECE_WORDS = 1 << 20, 16 << 20
+
+
+def checksum_disagreement(torch):
+    """None if the loaded library's digest gives the plain versions'
+    digests at every check, else where not."""
+    from . import checksum as tc
+    from . import quantize as tq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for n in CHECKSUM_SIZES:
+        w, _ = _stream_inputs(torch, tq, n, gen)
+        got = int(tc.checksum_cuda(w).item()) & tc.U32_MASK
+        if got != tc.checksum_plain(w):
+            return f"checksum_u32 at {n} words"
+    for n, seg in CHECKSUM_CASES:
+        w, _ = _stream_inputs(torch, tq, n, gen)
+        if not torch.equal(tc.checksum_segments_cuda(w, seg),
+                           tc.checksum_segments_plain(w, seg)):
+            return f"checksum_u32 at {n} words in segments of {seg}"
+    # sliced at a 4-byte offset: the wrapper clones to 16-byte alignment
+    w, _ = _stream_inputs(torch, tq, 65_538, gen)
+    if not torch.equal(tc.checksum_segments_cuda(w[1:], 4_096),
+                       tc.checksum_segments_plain(w[1:], 4_096)):
+        return "checksum_u32 at a 4-byte offset"
+    torch.cuda.synchronize()
+    return None
+
+
+def checksum_main(args) -> None:
+    import torch
+
+    from . import checksum as tc
+    from . import quantize as tq
+    variants = json.loads(Path(args[0]).read_text()) if args \
+        else CHECKSUM_ABLATIONS
+    print(_smi_line(), flush=True)
+    libs = {}
+    for name, subs in variants.items():
+        try:
+            lib, ptxas = _build(name, subs, STREAM,
+                                ("checksum_segments_kernel",
+                                 "atomic_checksum_kernel"))
+        except build.KernelBuildError as exc:
+            print(f"{name}: BUILD FAILED\n{exc}", flush=True)
+            continue
+        build._lib = lib
+        try:
+            bad = checksum_disagreement(torch)
+        except RuntimeError as exc:   # a launch the card refused
+            bad = f"launch failed: {exc}"
+        print(f"{name}: {' | '.join(ptxas)}; "
+              f"{'bit-identical' if bad is None else 'DIFFERS: ' + bad}",
+              flush=True)
+        if name.startswith("x_") or bad is None:
+            libs[name] = lib
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    piece, _ = _stream_inputs(torch, tq, PIECE_WORDS, gen)
+    chunk = piece[:CHUNK_WORDS]
+    out = torch.empty(16, dtype=torch.int32, device="cuda")
+    calls = {"chunk": lambda: tc.checksum_cuda(chunk, out[:1]),
+             "piece": lambda: tc.checksum_segments_cuda(piece, CHUNK_WORDS,
+                                                        out)}
+    # device operations a call: the atomic loop adds a memset and launches
+    # once a segment
+    per_call = {"chunk": 2, "piece": 17}
+    bound = {k: 4 * n / HBM_BYTES_PER_S * 1e3
+             for k, n in (("chunk", CHUNK_WORDS), ("piece", PIECE_WORDS))}
+    times = {k: {n: {"ms": [], "device_ms": []} for n in libs}
+             for k in calls}
+    build._lib = None
+    shipped = build.library()
+    clocks = _sample_clocks()
+    try:
+        for _ in range(STREAM_ROUNDS):
+            for name, lib in libs.items():
+                build._lib = shipped
+                for fn in calls.values():
+                    _time_ms(torch, fn, STREAM_REPS)
+                build._lib = lib
+                ops = per_call if name == "atomic_loop" else {}
+                for k, fn in calls.items():
+                    t = times[k][name]
+                    t["ms"].append(_time_ms(torch, fn, STREAM_REPS))
+                    t["device_ms"].append(device_ms(
+                        torch, fn, DEVICE_REPS, per_call=ops.get(k, 1)))
+    finally:
+        build._lib = None
+        _print_clocks(clocks)
+    for k in calls:
+        print(f"checksum_u32 {k} (bound {bound[k]:.5f} ms; median of "
+              f"{STREAM_ROUNDS} rounds; ms wrapper / device, share of the "
+              f"bound by device time):", flush=True)
+        for name in libs:
+            t = times[k][name]
+            dev = statistics.median(t["device_ms"])
+            print(f"  {name:14s} {statistics.median(t['ms']):.4f} / "
+                  f"{dev:.4f}  {bound[k] / dev:.3f}", flush=True)
+    print(json.dumps({"bound_ms": bound, "times": times}), flush=True)
+
+
 def main(argv) -> None:
     import torch
 
@@ -484,6 +719,8 @@ def main(argv) -> None:
     args = argv[1:]
     if args and args[0] == "stream":
         stream_main(args[1:])
+    elif args and args[0] == "checksum":
+        checksum_main(args[1:])
     else:
         attention_main(args)
 

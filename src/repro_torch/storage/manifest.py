@@ -11,7 +11,8 @@ Checksums walk the file in fixed 4 MiB chunks, digest each chunk, and fold
 the chunk digests order-sensitively as ``sum((i+1) * digest_i) mod 2^32``,
 so block reorder or truncation within *and* across chunks is caught. The
 algorithm tag and the fold are the JAX package's, so either package
-verifies the other's steps.
+verifies the other's steps. On a card the file goes up in 64 MiB pieces,
+each digested chunk by chunk in one launch.
 
 The multi-rank rank and node manifests of the JAX package are not yet
 ported.
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import itertools
 import json
 import os
 import struct
@@ -43,31 +45,115 @@ class ManifestError(ValueError):
     committed."""
 
 
+#: chunks in one piece of :func:`file_checksum`: one upload, one launch
+#: and one read-back of 16 digests a 64 MiB piece at the default chunk
+PIECE_CHUNKS = 16
+
+
+def _read_full(f, view: memoryview) -> int:
+    n = 0
+    while n < len(view):
+        got = f.readinto(view[n:])
+        if not got:
+            break
+        n += got
+    return n
+
+
+class _Piece:
+    """One of :func:`file_checksum`'s two buffers: the piece's bytes on
+    the host (pinned on a card, from PyTorch's caching host allocator), its
+    copy on the device, and its chunk digests. On a card an event recorded
+    after the digests' read-back guards the buffer: :meth:`fold` waits on
+    it before the buffer is refilled."""
+
+    def __init__(self, nbytes: int, n_chunks: int, device: torch.device):
+        self.on_card = device.type == "cuda"
+        self.host = torch.empty(nbytes, dtype=torch.uint8,
+                                pin_memory=self.on_card)
+        self.view = memoryview(self.host.numpy())
+        self.dev = torch.empty(nbytes, dtype=torch.uint8, device=device) \
+            if self.on_card else self.host
+        self.dig = torch.empty(n_chunks, dtype=torch.int32, device=device)
+        self.dig_host = torch.empty(n_chunks, dtype=torch.int32,
+                                    pin_memory=True) \
+            if self.on_card else self.dig
+        self.done = torch.cuda.Event() if self.on_card else None
+        self.first = self.count = 0
+
+    def digest(self, n: int, first: int, chunk_bytes: int) -> None:
+        """Enqueue the digests of the ``n`` bytes read into the buffer,
+        chunks ``first`` on: the 0-3 bytes after a byte tail zeroed, then
+        upload, one launch and the digests' read-back."""
+        from repro_torch.kernels import ops
+
+        padded = n + (-n) % 4
+        self.host[n:padded] = 0
+        words = self.dev[:padded]
+        if self.on_card:
+            words.copy_(self.host[:padded], non_blocking=True)
+        self.first, self.count = first, -(-n // chunk_bytes)
+        dig = ops.checksum_segments(words.view(torch.int32),
+                                    chunk_bytes // 4,
+                                    out=self.dig[:self.count])
+        if self.on_card:
+            self.dig_host[:self.count].copy_(dig, non_blocking=True)
+            self.done.record()
+
+    def fold(self) -> int:
+        """``sum((i + 1) * digest_i)`` over the chunks the buffer holds
+        (0 if none), once their digests are on the host."""
+        if not self.count:
+            return 0
+        if self.done is not None:
+            self.done.synchronize()
+        digests = self.dig_host[:self.count].numpy().view(np.uint32)
+        total = sum((self.first + j + 1) * int(d)
+                    for j, d in enumerate(digests))
+        self.count = 0
+        return total
+
+
 def file_checksum(path: str, device: torch.device,
                   chunk_bytes: int = CHECKSUM_CHUNK_BYTES) -> int:
     """Position-weighted u32 checksum of a file's bytes, chunk digests
     computed on ``device`` (the checksum kernel on a card, its plain
     version on the CPU).
 
+    The file is read in pieces of :data:`PIECE_CHUNKS` chunks into two
+    buffers in turn; on a card each piece goes up with one asynchronous
+    copy and one launch digests its chunks, while the next piece is read
+    from disk into the other buffer. The buffers belong to the call, so
+    concurrent calls (the restoring thread and the commit lane) share
+    none. ``chunk_bytes`` is a multiple of 16, so every chunk starts at a
+    16-byte aligned word.
+
     The JAX package zero-pads the tail chunk to ``chunk_bytes``; zero words
     add nothing to a digest, so the tail is digested as read. The file
     length is recorded separately in the manifest, so zero padding is not a
     blind spot."""
-    from repro_torch.kernels import ops
-
+    if chunk_bytes <= 0 or chunk_bytes % 16:
+        raise ValueError(f"chunk_bytes must be a positive multiple of 16, "
+                         f"got {chunk_bytes}")
     device = torch.device(device)
-    buf = np.empty(chunk_bytes, dtype=np.uint8)
     total = 0
     with open(path, "rb") as f:
-        i = 0
-        while True:
-            n = f.readinto(memoryview(buf))
+        size = os.fstat(f.fileno()).st_size
+        n_chunks = max(1, min(PIECE_CHUNKS, -(-size // chunk_bytes)))
+        piece = n_chunks * chunk_bytes
+        pieces = [_Piece(piece, n_chunks, device)
+                  for _ in range(2 if size > piece else 1)]
+        chunk = 0
+        for buf in itertools.cycle(pieces):
+            total += buf.fold()
+            n = _read_full(f, buf.view)
             if not n:
                 break
-            digest = ops.host_checksum(buf[:n], device)
-            total = (total + (i + 1) * digest) % (1 << 32)
-            i += 1
-    return total
+            buf.digest(n, chunk, chunk_bytes)
+            chunk += -(-n // chunk_bytes)
+        for buf in pieces:
+            total += buf.fold()
+    return total % (1 << 32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,7 @@ import ml_dtypes
 import msgpack
 import numpy as np
 import pytest
+import torch
 
 from repro.core import codecs as jcodecs
 from repro.core import layout as jlayout
@@ -32,7 +33,7 @@ from repro_torch.core import msgpack_lite
 from repro_torch.core.reduction import _compress as t_compress
 from repro_torch.core.reduction import _decompress as t_decompress
 from repro_torch.storage.file_format import StreamingFileChecksum
-from repro_torch.storage.manifest import file_checksum
+from repro_torch.storage.manifest import PIECE_CHUNKS, file_checksum
 
 FOOTER_LIKE = {
     "version": 1,
@@ -88,12 +89,48 @@ def test_streaming_checksum_matches_reference(chunk):
     assert ours.value == theirs.value
 
 
-@pytest.mark.parametrize("size", [0, 1, 4 << 20, (4 << 20) + 3])
-def test_file_checksum_matches_reference(tmp_path, size):
+#: a piece of file_checksum at 4,096-byte chunks
+SMALL_PIECE = PIECE_CHUNKS * 4096
+
+
+@pytest.mark.parametrize("size,chunk", [
+    *(pytest.param(n, None, id=str(n)) for n in (0, 1, 4 << 20,
+                                                 (4 << 20) + 3)),
+    *(pytest.param(n, 4096, id=f"chunk4096-{n}")
+      for n in (0, 1, SMALL_PIECE, 3 * SMALL_PIECE + 5, SMALL_PIECE - 1,
+                SMALL_PIECE + 1))])
+def test_file_checksum_matches_reference(tmp_path, size, chunk):
+    """At the default 4 MiB chunk, and at 4,096-byte chunks around the
+    boundaries of the 16-chunk pieces the file is read in: one piece,
+    three and a byte tail, a piece less or more one byte."""
     p = tmp_path / "f.bin"
     p.write_bytes(np.random.default_rng(size).integers(
         0, 256, size, dtype=np.uint8).tobytes())
-    assert file_checksum(str(p), "cpu") == j_file_checksum(str(p))
+    kw = {} if chunk is None else {"chunk_bytes": chunk}
+    assert file_checksum(str(p), "cpu", **kw) == j_file_checksum(str(p), **kw)
+
+
+def test_file_checksum_takes_whole_words_of_chunks(tmp_path):
+    p = tmp_path / "f.bin"
+    p.write_bytes(b"abc")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        file_checksum(str(p), "cpu", chunk_bytes=4100)
+
+
+@pytest.mark.gpu
+def test_cuda_file_checksum_matches_cpu(tmp_path):
+    """Two pieces and a byte tail through the kernel, each piece one
+    launch, equal to the plain version's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.kernels import checksum as tchecksum
+    p = tmp_path / "f.bin"
+    p.write_bytes(np.random.default_rng(2).integers(
+        0, 256, 2 * SMALL_PIECE + 7, dtype=np.uint8).tobytes())
+    before = tchecksum.KERNEL.launches
+    got = file_checksum(str(p), "cuda", chunk_bytes=4096)
+    assert tchecksum.KERNEL.launches - before == 3
+    assert got == file_checksum(str(p), "cpu", chunk_bytes=4096)
 
 
 def test_compression_frames_read_across_packages():

@@ -101,6 +101,40 @@ def test_plain_versions_match_pallas_interpret(n_words):
         np.asarray(jops.delta_xor(cur, prev, interpret=True))[:n_words])
 
 
+@pytest.mark.parametrize("n_words,seg_words", [
+    (1024, 1024), (16 * 1024, 1024), (16 * 1024 + 5, 1024), (1003, 1024),
+    (0, 1024)])
+def test_plain_checksum_segments_match_reference(n_words, seg_words):
+    """One segment, 16, 17 with a short last one, fewer words than a
+    segment, none: each digest is the reference's of that segment alone,
+    through the plain version and the dispatch, into ``out`` too."""
+    words = np.random.default_rng(n_words).integers(
+        0, 2**32, n_words, dtype=np.uint32)
+    want = [jref.checksum_np(words[lo:lo + seg_words])
+            for lo in range(0, n_words, seg_words)]
+    t = torch.from_numpy(words.view(np.int32))
+    out = torch.empty(len(want), dtype=torch.int32)
+    for got in (checksum.checksum_segments_plain(t, seg_words),
+                tops.checksum_segments(t, seg_words),
+                tops.checksum_segments(t, seg_words, out=out)):
+        assert got.dtype == torch.int32
+        assert got.numpy().view(np.uint32).tolist() == want
+    assert tops.checksum_segments(t, seg_words, out=out) is out
+
+
+def test_checksum_segments_refuse_what_the_kernel_cannot_take():
+    w = torch.zeros(16, dtype=torch.int32)
+    for seg in (0, 6, -4, 1 << 31):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            tops.checksum_segments(w, seg)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            checksum.checksum_segments_cuda(w, seg)
+    with pytest.raises(ValueError, match="out must be"):
+        tops.checksum_segments(w, 8, out=torch.empty(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        checksum.checksum_segments_cuda(w, 8)
+
+
 def test_plain_checksum_masks_products_before_summing():
     """All-ones words at 2^20 positions: unmasked int64 products would
     overflow the sum; the masked sum must match the u64 oracle."""
@@ -180,11 +214,29 @@ def test_launch_counter_moves_only_on_success(monkeypatch):
     assert kern.launches == 1
 
 
+def test_both_digest_entries_count_on_one_kernel(monkeypatch):
+    """The one-chunk and the segmented entry launch the same kernel, so
+    one count covers both."""
+    called = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: called.append(name) or 0
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _FakeStream())
+    monkeypatch.setattr(build, "library", Lib)
+    before = checksum.KERNEL.launches
+    checksum.KERNEL.launch(0, 4, 0)
+    checksum.KERNEL.launch(0, 8, 4, 0, entry=checksum.SEGMENTS_ENTRY)
+    assert called == ["ckpt_checksum_u32", "ckpt_checksum_u32_segments"]
+    assert checksum.KERNEL.launches - before == 2
+
+
 def test_build_flags_are_fixed():
     flags = " ".join(build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags and "-O3" in flags
     assert set(build.SIGNATURES) == {"ckpt_checksum_u32",
+                                     "ckpt_checksum_u32_segments",
                                      "ckpt_xor_checksum_u32",
                                      "ckpt_xor_fold_checksum_u32",
                                      "ckpt_delta_xor",
@@ -240,16 +292,30 @@ def test_tile_words_match_the_streaming_core():
 
 
 def test_stream_kernels_share_one_core():
-    """``ckpt_delta_xor`` and ``ckpt_downcast_bf16`` launch the one
-    streaming template over their per-vector operations; the digest
-    kernels and ``delta_f32`` keep the grid-stride loop."""
+    """``ckpt_delta_xor``, ``ckpt_downcast_bf16`` and ``ckpt_delta_f32``
+    launch the one streaming template over their per-vector operations;
+    the digest is one cluster launch a call, its block sums meeting in
+    rank 0's shared memory, with no atomic and no zeroed word, and the
+    one-chunk entry is its one-segment case; the fused XOR digests keep
+    the grid-stride loop. The old digest and subtraction kernels are
+    gone."""
     src = (build.CSRC / "ckpt_kernels.cu").read_text()
     assert "return launch_stream<XorOp>(a, b, out, n, stream);" in src
     assert "return launch_stream<Bf16Op>(x, nullptr, out, n, stream);" in src
-    for kernel in ("checksum_kernel<<<blocks_for(n)",
-                   "xor_checksum_kernel<false><<<blocks_for(n)",
-                   "delta_f32_kernel<<<blocks_for(n)"):
+    assert "return launch_stream<F32SubOp>(a, b, out, n, stream);" in src
+    for kernel in ("xor_checksum_kernel<false><<<blocks_for(n)",
+                   "xor_checksum_kernel<true><<<blocks_for(n)"):
         assert kernel in src
+    digest = src[src.index("checksum_segments_kernel(const"):
+                 src.index("int launch_checksum(")]
+    for part in ("cluster.map_shared_rank(", "cluster.sync();",
+                 "cudaLaunchAttributeClusterDimension",
+                 "cudaLaunchKernelEx(", "out[seg] = sum;"):
+        assert part in digest
+    assert "atomic" not in digest
+    assert "return launch_checksum(x, n, n, 1, out, stream);" in src
+    for gone in ("checksum_kernel", "delta_f32_kernel"):
+        assert not re.search(rf"\b{gone}\b", src)
     assert "__float2bfloat16_rn(" not in src  # NaN bits differ
 
 
@@ -265,6 +331,22 @@ def test_stream_ablations_apply_to_the_kernel_source(name):
     assert out.count('extern "C" int ckpt_delta_xor(') == 1
     with pytest.raises(ValueError, match="not in ckpt_kernels.cu"):
         variants.variant_source([["no such text", ""]], variants.STREAM)
+
+
+@pytest.mark.parametrize("name", sorted(variants.CHECKSUM_ABLATIONS))
+def test_checksum_ablations_apply_to_the_kernel_source(name):
+    """Each variant of ``python -m repro_torch.kernels.variants checksum``
+    edits ``ckpt_kernels.cu``; only ``checksum`` is the shipped digest, and
+    both digest entries stay."""
+    src = (build.CSRC / variants.STREAM).read_text()
+    out = variants.variant_source(variants.CHECKSUM_ABLATIONS[name],
+                                  variants.STREAM)
+    assert (out == src) == (name == "checksum")
+    assert out.count('extern "C" int ckpt_checksum_u32(') == 1
+    assert out.count('extern "C" int ckpt_checksum_u32_segments(') == 1
+    # a cluster past the portable 8 blocks must be allowed before launch
+    big = "constexpr int kSumCluster = 16;" in out
+    assert big == ("cudaFuncAttributeNonPortableClusterSizeAllowed" in out)
 
 
 def _cuda_or_skip():
@@ -332,3 +414,68 @@ def test_cuda_host_paths_match_reference():
     assert dig == dig_ref
     np.testing.assert_array_equal(tops.host_delta_xor(cur, prev, "cuda"),
                                   np.bitwise_xor(cur, prev))
+
+
+def _words(n: int, seed: int) -> torch.Tensor:
+    """Seeded int32 words on the card with the edge words in front."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                      device="cuda", generator=g)
+    edge = _edge_words("cuda")
+    k = min(n, edge.numel())
+    w[:k] = edge[:k]
+    return w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_words,seg_words", variants.CHECKSUM_CASES)
+def test_cuda_checksum_segments_match_plain(n_words, seg_words):
+    """Segments around a block's tile and a cluster's trip, short last
+    segments, trailing words, no words, and the 64 MiB piece."""
+    _cuda_or_skip()
+    w = _words(n_words, n_words)
+    before = checksum.KERNEL.launches
+    got = tops.checksum_segments(w, seg_words)
+    assert checksum.KERNEL.launches - before == (1 if n_words else 0)
+    assert torch.equal(got, checksum.checksum_segments_plain(w, seg_words))
+
+
+@pytest.mark.gpu
+def test_cuda_checksum_writes_its_word_whole():
+    """Twice into the same ``out``: the same digest, so nothing is added
+    into it; no words write 0 over what was there."""
+    _cuda_or_skip()
+    w = _words(1 << 20, 3)
+    out = torch.full((1,), 12345, dtype=torch.int32, device="cuda")
+    first = int(checksum.checksum_cuda(w, out).item())
+    assert int(checksum.checksum_cuda(w, out).item()) == first
+    assert first & checksum.U32_MASK == checksum.checksum_plain(w)
+    empty = torch.empty(0, dtype=torch.int32, device="cuda")
+    assert int(checksum.checksum_cuda(empty, out).item()) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_checksum_on_two_lane_streams_at_once():
+    """Two lanes digesting different pieces at the same time, each on its
+    own stream: both come out right (the kernel keeps no state in device
+    memory between launches)."""
+    import threading
+    _cuda_or_skip()
+    pieces = [_words(16 << 20, seed) for seed in (5, 6)]
+    want = [checksum.checksum_segments_plain(p, 1 << 20) for p in pieces]
+    torch.cuda.synchronize()
+    got = [[], []]
+
+    def lane(i):
+        with tops.lane_stream("cuda") as stream:
+            for _ in range(20):
+                got[i].append(tops.checksum_segments(pieces[i], 1 << 20))
+            stream.synchronize()
+    threads = [threading.Thread(target=lane, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for i in (0, 1):
+        assert len(got[i]) == 20
+        assert all(torch.equal(d, want[i]) for d in got[i])

@@ -31,6 +31,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import build, delta, fused  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import quantize as tq  # noqa: E402
+from repro_torch.kernels import variants  # noqa: E402
 from test_torch_quantize import _rows  # noqa: E402
 
 F32 = np.float32
@@ -361,3 +362,23 @@ def test_cuda_elementwise_kernels_match_plain(n):
     f, dig = tops.fused_xor_fold(wa, wb)
     pf, pdig = fused.xor_fold_checksum_plain(wa, wb)
     assert torch.equal(f, pf) and dig == pdig
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", variants.STREAM_SIZES)
+def test_cuda_delta_f32_matches_plain_around_the_streaming_tiles(n):
+    """``delta_f32`` on the streaming core at the lengths around every
+    tile the variants probe, with the edge values (NaNs, infinities,
+    subnormals, ties) paired against others, on aligned values and on
+    values sliced at a 4-byte offset (the wrapper clones those)."""
+    _cuda_or_skip()
+    g = torch.Generator(device="cuda").manual_seed(n)
+    a, b = (torch.randint(-2**31, 2**31 - 1, (n + 1,), dtype=torch.int32,
+                          device="cuda", generator=g).view(torch.float32)
+            for _ in range(2))
+    edge = tq.edge_values("cuda")
+    k = min(n + 1, edge.numel())
+    a[:k], b[:k] = edge[:k], edge.roll(5)[:k]
+    for x, y in ((a[:n], b[:n]), (a[1:], b[1:])):
+        assert _same_bits(delta.delta_f32_cuda(x, y),
+                          delta.delta_f32_plain(x, y))
