@@ -45,7 +45,13 @@ Phases, any failure exits non-zero:
    words, the 64 MiB piece) and timed, wrapper and device, at one 4 MiB
    chunk and at one 64 MiB piece of 16 chunks (``file_checksum``'s call);
    a 4 MiB call must show one device record under the profiler, the
-   kernel's, and no fill.
+   kernel's, and no fill. The fused int8 pair likewise: its one-segment
+   entries at 1, 3, 257 and 4,096 rows, its segmented ones at every
+   layout of ``variants.INT8_CASES`` (tensors under one row, ragged
+   tails, 1-row and short segments, 16, 17 and 32 segments, the 64 MiB
+   piece) with NaN, inf, subnormal, zero and tie rows in the first and
+   last segment, one device record a 4 MiB call, timed at a 4 MiB chunk
+   and a 64 MiB piece of 16 chunks.
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
@@ -81,7 +87,9 @@ Phases, any failure exits non-zero:
    q is within one scale of the saved moment.
    Kernel launch counts are zeroed just before each of phases 4, 5, 6 and
    7 and read just after; each kernel of the phase must have run. Phases
-   4-6 log the digest's launches and each restore's chain-verify time.
+   4-6 log the digest's launches and each restore's chain-verify time;
+   phase 5 also the int8 pair's launches, the ``encode.int8`` span time a
+   save, the resume's read time and the peak device memory.
 8. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -401,67 +409,64 @@ def check_checksum_kernel(gen) -> dict:
         **{f"chunk_{k}": v for k, v in c.items()}}}
 
 
-def _int8_rows(n_rows: int, gen):
-    """Seeded fp32 rows (normal, times 10) with the edge rows of the int8
-    math in front: an all-zero row (scale 1.0); a row of amax 127 (scale
-    exactly 1.0) holding the half steps +-0.5, +-2.5, +-3.5, +-126.5; a
-    row with subnormals among normal values."""
-    import torch
-    x = torch.randn((n_rows, 256), generator=gen, device="cuda") * 10
-    edges = [torch.zeros(256), torch.zeros(256), x[-1].cpu()]
-    edges[1][:10] = torch.tensor([127, -127, 0.5, -0.5, 2.5, -2.5, 3.5,
-                                  -3.5, 126.5, -126.5])
-    edges[2][:3] = torch.tensor([1e-40, -3e-39, 1e-45])
-    for i, e in enumerate(edges[:n_rows]):
-        x[i] = e.cuda()
-    return x
-
-
 def check_int8_kernels(gen) -> dict:
-    """The fused int8 encode and decode against their plain versions:
-    payload body, digest and decoded values bit for bit at 1, 3, 257 rows
-    and at a 4 MiB chunk's 4,096 rows; then timed at 4,096 rows. No single
-    PyTorch call quantizes with a digest, so there is no library time."""
+    """The fused int8 encode and decode against their plain versions
+    (``variants.int8_disagreement``: the one-segment entries at
+    ``variants.INT8_ROWS`` rows, the segmented ones at every
+    ``variants.INT8_CASES`` layout, payloads, digests and decoded rows bit
+    for bit, with NaN, inf, subnormal, zero and tie rows in the first and
+    the last segment); one device record a 4 MiB call of each entry (the
+    kernel: no fill); then timed at one 4 MiB chunk and at one 64 MiB
+    piece of 16 chunks, wrapper and device, beside the plain version and
+    the bound (the valid raw bytes and the payloads over the memory rate).
+    No single PyTorch call quantizes with a digest, so there is no library
+    time. Each row's ``ms`` is the piece's."""
     import torch
-    from repro_torch.kernels import checksum, quantize as tq
-    mask = checksum.U32_MASK
-    for n_rows in (1, 3, 257, MAIN_ROWS):
-        x = _int8_rows(n_rows, gen)
-        body, dig = tq.quantize_checksum_cuda(x)
-        pbody, pdig = tq.quantize_checksum_plain(x)
-        out, odig = tq.dequantize_checksum_cuda(body, n_rows)
-        pout, podig = tq.dequantize_checksum_plain(body, n_rows)
-        torch.cuda.synchronize()
-        if not torch.equal(body, pbody) or (int(dig.item()) & mask) != pdig:
-            fail(f"quantize_checksum_int8 disagrees with its plain version "
-                 f"at {n_rows} rows")
-        if not torch.equal(out.view(torch.int32), pout.view(torch.int32)) \
-                or (int(odig.item()) & mask) != podig or podig != pdig:
-            fail(f"dequantize_checksum_int8 disagrees with its plain "
-                 f"version at {n_rows} rows")
+    from repro_torch.kernels import quantize as tq
+    from repro_torch.kernels import variants
+    bad = variants.int8_disagreement(torch)
+    if bad is not None:
+        fail(f"the fused int8 pair disagrees with its plain versions: {bad}")
+    calls, _ = variants.int8_calls(torch, gen)
     x = torch.randn((MAIN_ROWS, 256), generator=gen, device="cuda")
     body, _ = tq.quantize_checksum_cuda(x)
-    calls = {
-        "quantize_checksum_int8": (
-            lambda: tq.quantize_checksum_cuda(x),
-            lambda: tq.quantize_checksum_plain(x)),
-        "dequantize_checksum_int8": (
-            lambda: tq.dequantize_checksum_cuda(body, MAIN_ROWS),
-            lambda: tq.dequantize_checksum_plain(body, MAIN_ROWS))}
-    # 4 bytes in and 1 + 4/256 out per value, or the reverse
-    nbytes = MAIN_ROWS * (256 * 4 + tq.body_nbytes(1))
+    one_segment = {
+        "quantize_checksum_int8": lambda: tq.quantize_checksum_cuda(x),
+        "dequantize_checksum_int8":
+            lambda: tq.dequantize_checksum_cuda(body, MAIN_ROWS)}
+    kernel_name = {"quantize_checksum_int8": "quantize_segments_kernel",
+                   "dequantize_checksum_int8": "dequantize_segments_kernel"}
     rows = {}
-    for name, (kern, plain) in calls.items():
-        ms = _time_ms(kern, 200)
-        plain_ms = _time_ms(plain, 20)
+    for name in ("quantize_checksum_int8", "dequantize_checksum_int8"):
+        for fn in (calls[name, "chunk"][0], one_segment[name]):
+            names = _device_record_names(fn)
+            if len(names) != 1 or kernel_name[name] not in next(iter(names)):
+                fail(f"a 4 MiB {name} call recorded the device events "
+                     f"{sorted(names)}, not the kernel alone")
+        t = {}
+        for size, sizes, reps in (("chunk", variants.INT8_CHUNK, 200),
+                                  ("piece", variants.INT8_PIECE, 100)):
+            kern, plain = calls[name, size]
+            t[size] = {"ms": _time_ms(kern, reps),
+                       "device_ms": _device_ms(kern, 20),
+                       "plain_ms": _time_ms(plain, 5),
+                       "bound_ms": variants.int8_bound_ms(sizes)}
+        c, p = t["chunk"], t["piece"]
         rows[name] = {
-            "name": name, "rows": MAIN_ROWS, "max_abs_err": 0, "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": None}
-        log(f"kernel {name}: bit-identical at 1, 3, 257, {MAIN_ROWS} rows; "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{rows[name]['bound_ms']:.5f} ms)")
+            "name": name, "rows": 16 * MAIN_ROWS, "segments": 16,
+            "max_abs_err": 0, "ms": p["ms"], "plain_ms": p["plain_ms"],
+            "bound_ms": p["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "device_ms": p["device_ms"],
+            **{f"chunk_{k}": v for k, v in c.items()}}
+        log(f"kernel {name}: bit-identical at {variants.INT8_ROWS} rows "
+            f"(one segment) and in segments at the chunk sizes "
+            f"{[sorted(set(z)) for z in variants.INT8_CASES]}; one device "
+            f"record a 4 MiB call; 4 MiB chunk {c['ms']:.4f} ms, device "
+            f"{c['device_ms']:.4f} ms (plain {c['plain_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.5f} ms); 64 MiB piece of 16 chunks "
+            f"{p['ms']:.4f} ms, device {p['device_ms']:.4f} ms, "
+            f"{p['bound_ms'] / p['device_ms']:.3f} of the bound (plain "
+            f"{p['plain_ms']:.4f} ms, bound {p['bound_ms']:.5f} ms)")
     return rows
 
 
@@ -996,6 +1001,14 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         report["exit_drain_s"] = tr.exit_drain_s
         report["quantize_launches_per_save"] = \
             _launches()["quantize_checksum_int8"] / len(mgr.futures)
+        # the int8 encode of each save: one span a piece (a chunk before
+        # the pieces), from the enqueue of its upload to its read-back
+        enc = tracer.spans("encode.int8")
+        report["encode_int8"] = {
+            "spans": len(enc), "bytes": sum(e["args"]["bytes"] for e in enc),
+            "s": sum(e["t1"] - e["t0"] for e in enc),
+            "s_per_save": sum(e["t1"] - e["t0"] for e in enc)
+            / len(mgr.futures)}
         spans = {e["args"]["step"]: e
                  for e in tracer.spans("train.iteration")}
         for r in records:
@@ -1535,6 +1548,16 @@ def main() -> None:
                 fail(f"kernel {k} was never launched on the training path")
         log(f"training path: {train_s:.1f} s; launches "
             f"{json.dumps(launches)}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        enc = report["encode_int8"]
+        log(f"training path int8: quantize_checksum_int8 "
+            f"{launches['quantize_checksum_int8']} launches, "
+            f"dequantize_checksum_int8 "
+            f"{launches['dequantize_checksum_int8']} (resume "
+            f"{report['restore']['launches']['dequantize_checksum_int8']}); "
+            f"encode.int8 {enc['s_per_save']:.3f} s a save ({enc['spans']} "
+            f"spans, {enc['bytes']} bytes in all); resume read_s "
+            f"{report['restore']['read_s']:.3f}; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated()} bytes")
         log(f"training path digest: checksum_u32 {launches['checksum_u32']} "
             f"launches (resume of step {report['restore']['step']} "

@@ -456,9 +456,12 @@ class FileReader:
         """Raw (decoded) bytes of a *self-contained* encoded tensor
         (e.g. ``int8q+zstd`` quantized payloads), assembled in raw order
         and decoded on ``device``; chunks that carry a fused-encode digest
-        are verified in the same pass. Chained codecs (XOR deltas) must go
+        are verified in the same pass. The codec's decoder takes the
+        chunks a piece at a time (one upload and one launch for up to 16
+        chunks; on a card the next piece is read and decompressed while
+        the card decodes this one). Chained codecs (XOR deltas) must go
         through :meth:`read_encoded_delta` + chain replay instead."""
-        from .codecs import decode_chunk_payload, is_chained_codec
+        from .codecs import is_chained_codec, tensor_decoder
         from .reduction import _decompress
         e = self.tensors[name]
         if e.codec == "raw":
@@ -468,6 +471,7 @@ class FileReader:
                 f"{name!r} is {e.codec}-encoded (a differential delta); "
                 f"restore it through chain replay, not standalone decode")
         out = np.empty(e.nbytes, dtype=np.uint8)
+        decoder = tensor_decoder(e.codec, out, device)
         covered = 0
         with open(self.path, "rb") as f:
             for off, comp_nb, lo, hi, dig in sorted(e.enc_chunks or (),
@@ -475,10 +479,9 @@ class FileReader:
                 if lo != covered:
                     break
                 f.seek(off)
-                payload = _decompress(f.read(comp_nb))
-                # decode verifies the fused digest while dequantizing
-                out[lo:hi] = decode_chunk_payload(e.codec, payload, lo, hi,
-                                                 dig, device)
+                # the header is checked here; the digest is verified
+                # while the chunk's piece is dequantized
+                decoder.add(_decompress(f.read(comp_nb)), lo, hi, dig)
                 covered = hi
         if covered != e.nbytes:
             # without this, a gap in the chunk list would silently hand
@@ -486,6 +489,7 @@ class FileReader:
             raise ValueError(
                 f"{name!r}: encoded chunks cover {covered} of {e.nbytes} "
                 f"raw bytes — corrupt or truncated footer")
+        decoder.finish()
         return out
 
     def locate_corrupt_chunks(self, device: torch.device) -> List[str]:

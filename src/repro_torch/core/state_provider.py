@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import pickle
 import threading
+import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, \
     Tuple
 
@@ -47,8 +48,8 @@ from repro_torch.obs.metrics import metrics as obs_metrics
 
 from . import msgpack_lite
 from .codecs import (DELTA_CODEC, INT8_CODEC, INT8_ROW_BYTES,
-                     encode_delta_chunk, encode_int8_block,
-                     int8_encoded_nbytes, payload_digest)
+                     Int8EncodePiece, encode_delta_chunk,
+                     int8_encoded_nbytes, payload_digest, piece_groups)
 from .host_cache import HostCache, Reservation
 from .layout import FileLayout
 
@@ -104,6 +105,15 @@ class EncodeBudget:
             while self._used > 0 and self._used + nbytes > self.cap:
                 self._cond.wait(timeout=60.0)
             self._used += nbytes
+
+    def try_acquire(self, nbytes: int) -> bool:
+        """:meth:`acquire` if it would not wait; False (nothing taken)
+        otherwise."""
+        with self._cond:
+            if self._used > 0 and self._used + nbytes > self.cap:
+                return False
+            self._used += nbytes
+            return True
 
     def release(self, nbytes: int) -> None:
         with self._cond:
@@ -457,18 +467,46 @@ class DeltaStateProvider(TensorStateProvider):
             self._signal_stream_end()
 
 
+class _StartedPiece:
+    """A piece of :class:`QuantizedStateProvider` whose encode is under
+    way: its chunks' raw ranges and payload sizes (reserved in the encode
+    budget), the encode, and how many chunks were handed on."""
+
+    def __init__(self, spans, enc, piece: Int8EncodePiece, t0: float,
+                 budget: Optional[EncodeBudget]):
+        self.spans, self.enc, self.piece = spans, enc, piece
+        self.t0, self.budget = t0, budget
+        self.yielded = 0
+
+    def abandon(self) -> None:
+        """Credit back the chunks never handed on, once the device is done
+        reading the staged bytes."""
+        self.piece.wait()
+        if self.budget is not None:
+            self.budget.release(sum(self.enc[self.yielded:]))
+
+
 class QuantizedStateProvider(TensorStateProvider):
     """Compressed SP: per-row int8 quantization of fp32 state (4x).
 
     Each staged chunk is cut on quantization-row boundaries, quantized on
-    the engine's device with per-row symmetric scales (the fused
-    quantize+digest kernel on a card, :func:`~.codecs.encode_int8_block`)
-    and emitted as a self-contained ``codec="int8q+zstd"`` log-append
-    payload that the flush lanes compress. Like the delta path, encoded
-    tensors never occupy the fixed region; unlike it the payloads have no
-    chain base, so a quantized tensor restores standalone, selective
-    per-domain restores included, at a loss of at most half a
-    quantization step per value.
+    the engine's device with per-row symmetric scales and emitted as a
+    self-contained ``codec="int8q+zstd"`` log-append payload that the
+    flush lanes compress. Like the delta path, encoded tensors never
+    occupy the fixed region; unlike it the payloads have no chain base, so
+    a quantized tensor restores standalone, selective per-domain restores
+    included, at a loss of at most half a quantization step per value.
+
+    The chunks are encoded a piece at a time (:func:`~.codecs.piece_groups`:
+    up to 16 chunks, 64 MiB of raw bytes): once a piece is staged, its
+    payload bytes are reserved in the encode budget at once, and
+    :class:`~.codecs.Int8EncodePiece` uploads it from the pinned host
+    cache, encodes every chunk in one launch (the fused quantize+digest
+    kernel on a card) and reads the payloads back into one pinned buffer,
+    of which each chunk's payload is a view. While the flush lanes take
+    piece ``k``, piece ``k + 1`` is already enqueued on the card, where it
+    is staged and the budget admits it without waiting; so at most two
+    pieces are in flight.
 
     The natural routing target is optimizer state
     (``ProviderRule(domain="optimizer", dtype="float32",
@@ -499,47 +537,99 @@ class QuantizedStateProvider(TensorStateProvider):
     def fixed_offset(self) -> bool:
         return False
 
+    def _staged_bytes(self) -> torch.Tensor:
+        """The tensor's bytes as a flat uint8 host tensor: the pinned cache
+        reservation for a device tensor, the array itself otherwise."""
+        if self._host_array is not None:
+            from repro_torch.kernels import ops
+            return ops.bytes_on(np.ascontiguousarray(self._host_array)
+                                .reshape(-1).view(np.uint8),
+                                torch.device("cpu"))
+        assert self._reservation is not None, (
+            f"device tensor {self.name} streamed before staging was bound")
+        return self._reservation.tensor()
+
+    def _start(self, spans, src: torch.Tensor, wait: bool
+               ) -> Optional[_StartedPiece]:
+        """Enqueue the encode of one piece, once it is staged and its
+        payloads are reserved in the budget; with ``wait=False`` only if
+        neither has to wait (else None)."""
+        lo, hi = spans[0][0], spans[-1][1]
+        if self._host_array is None:
+            with self._cond:
+                if not wait and self._staged < hi:
+                    return None
+                while self._staged < hi:
+                    self._cond.wait()
+        # the payload sizes are known before encoding, so the piece's
+        # footprint is reserved once, before the encode allocates it
+        enc = [int8_encoded_nbytes(b - a) for a, b in spans]
+        budget = self.encode_budget
+        if budget is not None:
+            if wait:
+                budget.acquire(sum(enc))
+            elif not budget.try_acquire(sum(enc)):
+                return None
+        t0 = time.perf_counter()
+        try:
+            piece = Int8EncodePiece(src[lo:hi], [b - lo for _a, b in spans],
+                                    self.device)
+            obs_metrics.inc("engine.bytes_encode_read", hi - lo)
+        except BaseException:
+            # un-yielded chunks credit their own reservations back
+            if budget is not None:
+                budget.release(sum(enc))
+            raise
+        return _StartedPiece(spans, enc, piece, t0, budget)
+
+    def _emit(self, started: _StartedPiece) -> Iterator[Chunk]:
+        """The piece's chunks, once its encode is done."""
+        results = started.piece.result()
+        lo, hi = started.spans[0][0], started.spans[-1][1]
+        obs.add_span("encode.int8", started.t0, time.perf_counter(),
+                     tensor=self.name, bytes=hi - lo,
+                     chunks=len(started.spans), fused=True)
+        budget = started.budget
+        for (a, b), nb, (payload, digest) in zip(started.spans, started.enc,
+                                                 results):
+            if len(payload) != nb:
+                raise RuntimeError(
+                    f"{self.name}: int8q payload of {len(payload)} B, "
+                    f"expected {nb} B")
+            chunk = Chunk(name=self.name, kind="tensor", data=payload,
+                          offset=None, codec=self.enc_codec,
+                          raw_range=(a, b), last=b >= self.nbytes,
+                          digest=digest if self.checksum_chunks else None,
+                          on_flushed=None if budget is None else
+                          (lambda nb=nb: budget.release(nb)))
+            started.yielded += 1
+            yield chunk
+
     def chunks(self) -> Iterator[Chunk]:
         if self.capture_gate is not None:
             self.capture_gate.wait()
-        view = self._byte_view()
+        src = self._staged_bytes()
         n = self.nbytes
-        pos = 0
-        while pos < n:
-            end = min(pos + self.chunk_bytes, n)
-            if self._host_array is None:
-                with self._cond:
-                    while self._staged < end:
-                        self._cond.wait()
-            raw = np.frombuffer(view[pos:end], dtype=np.uint8)
-            # the payload size is known before encoding, so its footprint
-            # is reserved once per chunk before the encode allocates it
-            enc_nb = int8_encoded_nbytes(end - pos)
-            budget = self.encode_budget
-            on_flushed = None
-            if budget is not None:
-                budget.acquire(enc_nb)
-                on_flushed = (lambda b=budget, nb=enc_nb: b.release(nb))
-            try:
-                with obs.span("encode.int8", tensor=self.name,
-                              bytes=end - pos, fused=True):
-                    payload, digest = encode_int8_block(
-                        raw, self.checksum_chunks, self.device)
-                    obs_metrics.inc("engine.bytes_encode_read", end - pos)
-            except BaseException:
-                # an un-yielded chunk credits its own reservation back
-                if budget is not None:
-                    budget.release(enc_nb)
-                raise
-            if len(payload) != enc_nb:
-                raise RuntimeError(
-                    f"{self.name}: int8q payload of {len(payload)} B, "
-                    f"expected {enc_nb} B")
-            yield Chunk(name=self.name, kind="tensor", data=payload,
-                        offset=None, codec=self.enc_codec,
-                        raw_range=(pos, end), last=end >= n,
-                        digest=digest, on_flushed=on_flushed)
-            pos = end
+        pieces = list(piece_groups(
+            [(pos, min(pos + self.chunk_bytes, n))
+             for pos in range(0, n, self.chunk_bytes)]))
+        if not pieces:
+            return
+        live = [self._start(pieces[0], src, wait=True)]
+        try:
+            for k in range(len(pieces)):
+                nxt = pieces[k + 1] if k + 1 < len(pieces) else None
+                if nxt is not None:
+                    ahead = self._start(nxt, src, wait=False)
+                    if ahead is not None:
+                        live.append(ahead)
+                yield from self._emit(live[0])
+                live.pop(0)
+                if nxt is not None and not live:
+                    live.append(self._start(nxt, src, wait=True))
+        finally:
+            for started in live:
+                started.abandon()
 
 
 class ObjectStateProvider(StateProvider):

@@ -53,6 +53,10 @@ SIGNATURES = {
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
     "ckpt_quantize_checksum_int8": (_P, _N, _P, _P, _P),
     "ckpt_dequantize_checksum_int8": (_P, _N, _P, _P, _P),
+    # x, valid_bytes, row_start (host i64[n_segs + 1]), n_segs, out, dig /
+    # in, row_start, n_segs, out, dig
+    "ckpt_quantize_checksum_int8_segments": (_P, _N, _P, _N, _P, _P, _P),
+    "ckpt_dequantize_checksum_int8_segments": (_P, _P, _N, _P, _P, _P),
     # x, n_rows, q, scales / q, scales, n_rows, out
     "ckpt_quantize_int8": (_P, _N, _P, _P, _P),
     "ckpt_dequantize_int8": (_P, _P, _N, _P, _P),

@@ -15,10 +15,11 @@
 //   downcast_bf16             quantize.py
 //   delta_f32                 delta.py
 //
-// The int8 kernels, the offline reduction's kernels, the streaming core
-// (delta_xor, downcast_bf16 and delta_f32) and the segmented digest
-// (checksum_u32) have their own notes further down; what follows is about
-// the digest itself and the two fused XOR digests.
+// The int8 row math, the offline reduction's kernels, the streaming core
+// (delta_xor, downcast_bf16 and delta_f32), the segmented digest
+// (checksum_u32) and the segmented int8 pair have their own notes further
+// down; what follows is about the digest itself and the two fused XOR
+// digests.
 //
 // The digest is the position-weighted sum
 //     sum_i x[i] * (65599 + i mod 65521)   mod 2^32
@@ -38,22 +39,24 @@
 // written) for the two fused XOR kernels, N in words. The fused XOR
 // kernels run a grid-stride loop capped at 132 x 8 blocks with 16-byte
 // loads and stores and fold each block's sum into a zeroed output word
-// with one atomicAdd. The plain digest does not: at the main path's 4 MiB
-// chunk the device work is about a microsecond, and what a call cost was
-// on the host and around the kernel (a fill kernel to zero the output
-// word, a blocking upload, a stream sync per chunk, one launch per chunk
-// of every file checksummed). So checksum_u32 digests many chunks in one
-// launch, each chunk reduced inside one thread-block cluster that writes
-// its digest with a plain store (no zeroed word, no atomic), and
-// storage/manifest.py feeds it 64 MiB pinned pieces while it reads the
-// next piece from disk.
+// with one atomicAdd. The digest and the int8 pair do not: at the main
+// path's 4 MiB chunk the device work is a few microseconds, and what a
+// call cost was on the host and around the kernel (a fill kernel to zero
+// the output word, a blocking upload, a stream sync per chunk, one launch
+// per chunk). So checksum_u32 and the int8 pair each take many chunks in
+// one launch, each chunk (a segment) reduced inside one thread-block
+// cluster that writes its digest with a plain store (no zeroed word, no
+// atomic, one device function for the three: cluster_fold), and their
+// callers feed them 64 MiB pieces from pinned memory while they prepare
+// the next piece (storage/manifest.py reads it from disk, the quantized
+// provider stages it, the reader decompresses it).
 //
 // Where the data lives: the checkpoint path stages device state into pinned
 // host memory first, and these kernels are fed that host-staged data (the
-// wrapper copies host to device, launches, and copies back only the
-// outputs). That round trip over PCIe, about 3x the chunk for the XOR
-// kernels, is the known cost of this first version; moving the encode ahead
-// of the device-to-host copy is a later change.
+// caller copies host to device, launches, and copies back only the
+// outputs). For the XOR kernels that round trip over PCIe, about 3x the
+// chunk, is still one blocking upload and read-back a chunk; moving the
+// encode ahead of the device-to-host copy is a later change.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
 // point returns the launch's error or cudaGetLastError(), so a refused
@@ -95,6 +98,12 @@ __device__ __forceinline__ uint32_t weigh4(uint4 v, int64_t i) {
 
 __device__ __forceinline__ uint32_t weigh1(uint32_t x, int64_t i) {
   return x * (kWeightBase + static_cast<uint32_t>(i % kWeightMod));
+}
+
+// The same at a 32-bit position: a 32-bit modulo by a constant (a
+// multiply-high), not weigh1's 64-bit one.
+__device__ __forceinline__ uint32_t weigh_at(uint32_t x, uint32_t i) {
+  return x * (kWeightBase + i % kWeightMod);
 }
 
 // Block-wide sum of one u32 per thread of a kBlock-thread block; the sum
@@ -161,19 +170,12 @@ int blocks_for(int64_t n) {
 }
 
 // ------------------------------------------------------------------ int8q
-// quantize_checksum_int8    replaces repro/kernels/fused.py:quantize_checksum_int8
-// dequantize_checksum_int8  replaces repro/kernels/fused.py:dequantize_checksum_int8
+// The row math of the int8 kernels: the segmented int8 pair below
+// (quantize_checksum_int8, dequantize_checksum_int8) and the offline
+// reduction's quantize_int8 and dequantize_int8.
 //
 // Rows of 256 fp32 values, each with a symmetric scale:
 //     scale = amax > 0 ? amax / 127 : 1,  q = clip(rint(x / scale), +-127).
-// `body` is the int8q payload after its 8-byte header (core/codecs.py):
-//     f32 scales[n_rows] | i8 q[n_rows * 256]
-// so one device-to-host copy of `body` gives the stored payload. The digest
-// covers the body's words at their payload positions: the scale of row r at
-// word 2 + r, and q word w of row r (four int8 lanes packed little-endian)
-// at word 2 + n_rows + 64 r + w. The two header words are added on the
-// host. The Pallas kernels pad to 256-row tiles and mask padded scales;
-// here only the n_rows live rows are launched, so nothing is masked.
 //
 // Bit-exactness with jnp.round(x / scale) rests on IEEE division (the
 // library is built without --use_fast_math, so `/` is correctly rounded)
@@ -184,15 +186,10 @@ int blocks_for(int64_t n) {
 // nonzero values then store +-127), and a 0/0 quotient stores 0, as XLA's
 // NaN-to-int conversion does. Dequantize is one rounded product per value.
 //
-// Bound on the card: a 256-float row is 1 KiB in and 260 B out (or the
-// reverse), against about ten fp32 operations per value, so device memory
-// bounds both kernels: (1024 + 260) bytes per row over 3.35 TB/s. The
-// design answers that with one warp per row: each lane loads two float4
-// (the row's elements 4l..4l+3 and 128+4l..128+4l+3, so both loads of the
-// warp are contiguous 512-byte runs), the amax is a five-step
-// __shfl_xor_sync max, and each lane stores its two packed q words as
-// coalesced u32 stores. Warps walk rows in a grid-stride loop; the digest
-// is a per-lane u32 partial folded once per block by block_fold.
+// One warp handles one row: each lane holds two float4 (the row's
+// elements 4l..4l+3 and 128+4l..128+4l+3, so both loads of the warp are
+// contiguous 512-byte runs), the amax is a five-step __shfl_xor_sync max,
+// and each lane stores its two packed q words as coalesced u32 stores.
 
 constexpr int kRowElems = 256;
 constexpr int kRowWords = kRowElems / 4;   // packed q words per row
@@ -247,16 +244,12 @@ __device__ __forceinline__ float row_scale(float amax) {
   return s < kFltMin ? 0.0f : s;
 }
 
-// One warp quantizes one row: this lane's two packed q words (elements
-// 4l..4l+3 and 128+4l..128+4l+3) and the row's scale. Both the fused
-// encode and the plain quantize_int8 kernel call it, so the two cannot
-// drift apart.
-__device__ __forceinline__ float quantize_row(const float* __restrict__ x,
-                                              int64_t row, int lane,
-                                              uint32_t* wa, uint32_t* wb) {
-  const float4* xr = reinterpret_cast<const float4*>(x + row * kRowElems);
-  const float4 a = xr[lane];
-  const float4 b = xr[32 + lane];
+// One warp quantizes one row from the two float4 this lane holds: its
+// two packed q words and the row's scale. Every int8 encode calls it (the
+// segmented kernel after loading several rows, quantize_int8 through
+// quantize_row), so they cannot drift apart.
+__device__ __forceinline__ float quantize_vals(float4 a, float4 b,
+                                               uint32_t* wa, uint32_t* wb) {
   float m = nan_max(absmax4(a), absmax4(b));
   for (int off = 16; off > 0; off >>= 1)
     m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -266,59 +259,12 @@ __device__ __forceinline__ float quantize_row(const float* __restrict__ x,
   return scale;
 }
 
-__global__ void __launch_bounds__(kThreads)
-quantize_checksum_kernel(const float* __restrict__ x, int64_t n_rows,
-                         uint8_t* __restrict__ body,
-                         uint32_t* __restrict__ dig) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x) >> 5;
-  const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  float* __restrict__ scales = reinterpret_cast<float*>(body);
-  uint32_t* __restrict__ qw = reinterpret_cast<uint32_t*>(body + 4 * n_rows);
-  uint32_t acc = 0u;
-  for (int64_t row = warp; row < n_rows; row += n_warps) {
-    uint32_t wa, wb;
-    const float scale = quantize_row(x, row, lane, &wa, &wb);
-    const int64_t q0 = row * kRowWords;
-    qw[q0 + lane] = wa;
-    qw[q0 + 32 + lane] = wb;
-    const int64_t i0 = kPayloadHeaderWords + n_rows + q0;
-    acc += weigh1(wa, i0 + lane) + weigh1(wb, i0 + 32 + lane);
-    if (lane == 0) {
-      scales[row] = scale;
-      acc += weigh1(__float_as_uint(scale), kPayloadHeaderWords + row);
-    }
-  }
-  block_fold(acc, dig);
-}
-
-__global__ void __launch_bounds__(kThreads)
-dequantize_checksum_kernel(const uint8_t* __restrict__ body, int64_t n_rows,
-                           float* __restrict__ out,
-                           uint32_t* __restrict__ dig) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x) >> 5;
-  const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  const float* __restrict__ scales = reinterpret_cast<const float*>(body);
-  const uint32_t* __restrict__ qw =
-      reinterpret_cast<const uint32_t*>(body + 4 * n_rows);
-  uint32_t acc = 0u;
-  for (int64_t row = warp; row < n_rows; row += n_warps) {
-    const float scale = scales[row];
-    const int64_t q0 = row * kRowWords;
-    const uint32_t wa = qw[q0 + lane];
-    const uint32_t wb = qw[q0 + 32 + lane];
-    float4* orow = reinterpret_cast<float4*>(out + row * kRowElems);
-    orow[lane] = dequant4(wa, scale);
-    orow[32 + lane] = dequant4(wb, scale);
-    const int64_t i0 = kPayloadHeaderWords + n_rows + q0;
-    acc += weigh1(wa, i0 + lane) + weigh1(wb, i0 + 32 + lane);
-    if (lane == 0)
-      acc += weigh1(__float_as_uint(scale), kPayloadHeaderWords + row);
-  }
-  block_fold(acc, dig);
+// quantize_vals of row `row` of x, loaded by this lane.
+__device__ __forceinline__ float quantize_row(const float* __restrict__ x,
+                                              int64_t row, int lane,
+                                              uint32_t* wa, uint32_t* wb) {
+  const float4* xr = reinterpret_cast<const float4*>(x + row * kRowElems);
+  return quantize_vals(xr[lane], xr[32 + lane], wa, wb);
 }
 
 int row_blocks_for(int64_t n_rows) {
@@ -790,9 +736,10 @@ int launch_stream(const void* a, const void* b, void* out, int64_t n,
 //   its sum with warp shuffles (block_sum), writes it into rank 0's shared
 //   memory (distributed shared memory, map_shared_rank), and after a
 //   cluster barrier rank 0 adds the kSumCluster sums and stores out[seg]
-//   with a plain store. The flush lanes and the restore call the kernel
-//   at once on streams of their own, so scratch in device memory, or a
-//   ticket counter for a last-block reduction, would race between them.
+//   with a plain store (cluster_fold, which the int8 pair shares). The
+//   flush lanes and the restore call the kernel at once on streams of
+//   their own, so scratch in device memory, or a ticket counter for a
+//   last-block reduction, would race between them.
 // * Word positions are 32-bit inside a segment (seg_words < 2^31), so the
 //   weight needs a 32-bit modulo by a constant (a multiply-high), not the
 //   64-bit modulo of the fused kernels' weigh4.
@@ -810,14 +757,71 @@ constexpr int kSumVecs = 4;
 constexpr int kSumCluster = 8;
 constexpr int64_t kMaxSegWords = int64_t{1} << 31;
 
+// Every thread of a cluster arrives (relaxed) on entry: the wait in
+// cluster_fold then knows rank 0 has started before any block writes into
+// its shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// The sum of one u32 per thread over a cluster of kCluster blocks of
+// kBlock threads, stored by rank 0's thread 0 into *out with a plain
+// store. Each block reduces its sum (block_sum) and writes it into rank
+// 0's shared memory (map_shared_rank); the cluster.sync() after the writes
+// keeps rank 0 from reading, and every block from exiting, before all
+// sums are in. Every thread calls it, once, after cluster_arrive().
+template <int kBlock, int kCluster>
+__device__ __forceinline__ void cluster_fold(uint32_t acc, uint32_t* out) {
+  namespace cg = cooperative_groups;
+  __shared__ uint32_t cluster_sums[kCluster];
+  acc = block_sum<kBlock>(acc);
+  cg::cluster_group cluster = cg::this_cluster();
+  const uint32_t rank = cluster.block_rank();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (threadIdx.x == 0) cluster.map_shared_rank(cluster_sums, 0)[rank] = acc;
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    uint32_t sum = 0u;
+#pragma unroll
+    for (int k = 0; k < kCluster; ++k) sum += cluster_sums[k];
+    *out = sum;
+  }
+}
+
+// n_segs clusters of `cluster` blocks of `threads`, launched with the
+// cluster dimension as a launch attribute. A cluster past the portable 8
+// blocks (up to 16 on the H100) must be allowed for the kernel first.
+template <class... Params, class... Args>
+int launch_clusters(void (*kernel)(Params...), int64_t n_segs, int cluster,
+                    int threads, cudaStream_t st, Args... args) {
+  if (cluster > 8) {
+    const cudaError_t allowed = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_segs * cluster));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 __global__ void __launch_bounds__(kSumThreads)
 checksum_segments_kernel(const uint32_t* __restrict__ x, int64_t n,
                          int64_t seg_words, uint32_t* __restrict__ out) {
   namespace cg = cooperative_groups;
-  __shared__ uint32_t cluster_sums[kSumCluster];
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-  cg::cluster_group cluster = cg::this_cluster();
-  const uint32_t rank = cluster.block_rank();
+  cluster_arrive();
+  const uint32_t rank = cg::this_cluster().block_rank();
   const int64_t seg = blockIdx.x / kSumCluster;
   const int64_t lo = seg * seg_words;
   const uint32_t len =
@@ -843,40 +847,15 @@ checksum_segments_kernel(const uint32_t* __restrict__ x, int64_t n,
   }
   // the len mod 4 words after the last whole vector
   const uint32_t i = (n_vec << 2) + threadIdx.x;
-  if (rank == 0 && i < len) acc += x[lo + i] * (kWeightBase + i % kWeightMod);
-  acc = block_sum<kSumThreads>(acc);
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  if (threadIdx.x == 0) cluster.map_shared_rank(cluster_sums, 0)[rank] = acc;
-  cluster.sync();
-  if (rank == 0 && threadIdx.x == 0) {
-    uint32_t sum = 0u;
-#pragma unroll
-    for (int k = 0; k < kSumCluster; ++k) sum += cluster_sums[k];
-    out[seg] = sum;
-  }
+  if (rank == 0 && i < len) acc += weigh_at(x[lo + i], i);
+  cluster_fold<kSumThreads, kSumCluster>(acc, out + seg);
 }
 
-// n_segs clusters of kSumCluster blocks, launched with the cluster
-// dimension as a launch attribute.
 int launch_cluster_checksum(const void* x, int64_t n, int64_t seg_words,
                             int64_t n_segs, void* out, cudaStream_t st) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kSumCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n_segs * kSumCluster));
-  cfg.blockDim = dim3(kSumThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  const cudaError_t rc = cudaLaunchKernelEx(
-      &cfg, checksum_segments_kernel, static_cast<const uint32_t*>(x), n,
-      seg_words, static_cast<uint32_t*>(out));
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  return static_cast<int>(cudaGetLastError());
+  return launch_clusters(checksum_segments_kernel, n_segs, kSumCluster,
+                         kSumThreads, st, static_cast<const uint32_t*>(x), n,
+                         seg_words, static_cast<uint32_t*>(out));
 }
 
 int launch_checksum(const void* x, int64_t n, int64_t seg_words,
@@ -888,11 +867,305 @@ int launch_checksum(const void* x, int64_t n, int64_t seg_words,
                                  static_cast<cudaStream_t>(stream));
 }
 
+// ---------------------------------------------------- segmented int8 pair
+// quantize_checksum_int8    replaces repro/kernels/fused.py:quantize_checksum_int8
+// dequantize_checksum_int8  replaces repro/kernels/fused.py:dequantize_checksum_int8
+//
+// One launch encodes (or decodes) the consecutive chunks of a piece of
+// one tensor, each chunk a segment of whole rows described by its row
+// starts (SegRows, at most kMaxSegs segments, passed by value so the
+// launch uploads nothing). The payloads lie back to back, segment s's at
+// byte 8 s + 260 row_start[s], each the int8q payload of core/codecs.py:
+//     u32 n_rows | u32 raw_nbytes | f32 scales[n_rows] | i8 q[n_rows * 256]
+// so one device-to-host copy gives every payload of the piece. The raw
+// fp32 rows lie contiguously, segment s's from row row_start[s]. The
+// encode takes the piece's valid raw byte count: bytes past it (a
+// tensor's ragged tail) read as +0.0, so the host pads nothing. dig[s] is
+// the digest of segment s's payload words at their positions: the header
+// at words 0-1, the scale of row r at 2 + r, q word w of row r (four int8
+// lanes packed little-endian) at 2 + n_rows + 64 r + w; positions restart
+// in each segment. With header == 0 (the one-segment entries) there is
+// one segment, its payload has no header and its digest leaves the header
+// words out, as the codec's body digest did.
+//
+// Bound on the card: about ten fp32 operations a value against 1 KiB in
+// and 260 B out per row (or the reverse), so device memory bounds both:
+// (1024 + 260) bytes a row over 3.35 TB/s, 0.0251 ms for a 64 MiB piece
+// of 65,536 rows. What the design does about it:
+//
+// * One cluster a segment, a grid of n_segs clusters, where one launch a
+//   chunk (4,096 rows) left the card idle between launches and cost a
+//   fill and a sync each. The decode runs clusters of kDequantCluster
+//   (8) blocks: a piece of 16 chunks puts one block on 128 of the 132
+//   SMs, at 0.73 of the bound. The encode is bound by each SM's
+//   instruction rate, not by the bytes: its row math (an IEEE division a
+//   value, the clamp, the conversion, the amax's shuffles) is most of its
+//   time. So it runs clusters of kQuantCluster (16, the non-portable
+//   size) blocks, two blocks an SM, at 0.56 of the bound; in clusters of
+//   8 it ran at 0.41 (python -m repro_torch.kernels.variants int8;
+//   PERF.md).
+// * Each warp issues the loads of kQuantRows (encode) or kDequantRows
+//   (decode) rows, two 16-byte loads a lane a row, before it reduces
+//   any; one row for the encode, whose loop is then the shortest code
+//   (2 and 4 rows run 12 % slower), two for the decode (1 row 10 %
+//   slower). Loads bypass L1 (ld.global.nc.L1::no_allocate) and stores
+//   stream (st.global.cs), as in the streaming core.
+// * No atomics, no zeroed output, no global scratch: each segment's
+//   digest is met in its cluster (cluster_fold) and stored once.
+// * Positions are 32-bit: a segment holds at most kMaxSegRows rows, so
+//   2 + 65 n_rows stays below 2^32.
+// The row math is quantize_vals and dequant4 above, unchanged.
+
+// rows a warp loads before it reduces any: the encode's and the decode's
+constexpr int kQuantRows = 1;
+constexpr int kDequantRows = 2;
+constexpr int kQuantThreads = 512;
+// blocks a segment: the encode's and the decode's (8 is the largest
+// portable cluster, 16 the H100's largest)
+constexpr int kQuantCluster = 16;
+constexpr int kDequantCluster = 8;
+constexpr int kMaxSegs = 32;
+constexpr int64_t kRowBytes = kRowElems * 4;
+constexpr int64_t kPayloadRowBytes = 4 + kRowElems;  // a scale, 256 q
+constexpr int64_t kHeaderBytes = 4 * kPayloadHeaderWords;
+constexpr int64_t kMaxSegRows = int64_t{1} << 25;
+
+// Segment s is rows [start[s], start[s + 1]) of the piece.
+struct SegRows {
+  int32_t n;
+  int32_t start[kMaxSegs + 1];
+};
+
+__device__ __forceinline__ uint32_t load_nc_u32(const uint32_t* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// The u32 word at byte `at` of x; bytes at or past `valid` read as 0.
+__device__ __forceinline__ uint32_t raw_word(const uint8_t* __restrict__ x,
+                                             int64_t at, int64_t valid) {
+  if (at + 4 <= valid) return *reinterpret_cast<const uint32_t*>(x + at);
+  uint32_t w = 0u;
+  for (int k = 0; k < 4 && at + k < valid; ++k)
+    w |= static_cast<uint32_t>(x[at + k]) << (8 * k);
+  return w;
+}
+
+__device__ __forceinline__ float4 as_float4(uint4 u) {
+  return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
+                     __uint_as_float(u.z), __uint_as_float(u.w));
+}
+
+__device__ __forceinline__ float4 raw_float4(const uint8_t* __restrict__ x,
+                                             int64_t at, int64_t valid) {
+  return as_float4(make_uint4(raw_word(x, at, valid),
+                              raw_word(x, at + 4, valid),
+                              raw_word(x, at + 8, valid),
+                              raw_word(x, at + 12, valid)));
+}
+
+struct RowPair {
+  float4 a, b;
+};
+
+// load_row of a row that `valid` cuts, out of line: inlined and unrolled
+// into the row loop, its byte loads made the encode about 4,000
+// instructions long (1,056 out of line) and 23 % slower at 64 MiB
+// (python -m repro_torch.kernels.variants int8: tail_inline).
+__device__ __noinline__ RowPair load_cut_row(const uint8_t* __restrict__ x,
+                                            int64_t at, int64_t valid,
+                                            int lane) {
+  return {raw_float4(x, at + 16 * lane, valid),
+          raw_float4(x, at + 512 + 16 * lane, valid)};
+}
+
+// This lane's two float4 of row `row` of x (16-byte aligned), as
+// quantize_row loads them; bytes at or past `valid` read as +0.0.
+__device__ __forceinline__ void load_row(const uint8_t* __restrict__ x,
+                                         int64_t row, int64_t valid,
+                                         int lane, float4* a, float4* b) {
+  const int64_t at = row * kRowBytes;
+  if (at + kRowBytes <= valid) {
+    const uint4* p = reinterpret_cast<const uint4*>(x + at);
+    *a = as_float4(stream_load<1>(p + lane));
+    *b = as_float4(stream_load<1>(p + 32 + lane));
+  } else {
+    const RowPair r = load_cut_row(x, at, valid, lane);
+    *a = r.a;
+    *b = r.b;
+  }
+}
+
+// The digest terms of a payload's two header words.
+__device__ __forceinline__ uint32_t header_terms(uint32_t n_rows,
+                                                 uint32_t raw_nbytes) {
+  return weigh_at(n_rows, 0) + weigh_at(raw_nbytes, 1);
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kQuantThreads)
+quantize_segments_kernel(const uint8_t* __restrict__ x, int64_t valid,
+                         uint8_t* __restrict__ out,
+                         uint32_t* __restrict__ dig, SegRows seg,
+                         int header) {
+  namespace cg = cooperative_groups;
+  cluster_arrive();
+  const uint32_t rank = cg::this_cluster().block_rank();
+  const int s = blockIdx.x / kQuantCluster;
+  const int64_t r0 = seg.start[s];
+  const uint32_t n = static_cast<uint32_t>(seg.start[s + 1] - r0);
+  const int64_t hdr = header ? kHeaderBytes : 0;
+  uint8_t* pay = out + hdr * s + kPayloadRowBytes * r0;
+  float* scales = reinterpret_cast<float*>(pay + hdr);
+  uint32_t* qw = reinterpret_cast<uint32_t*>(scales + n);
+  const uint8_t* xs = x + kRowBytes * r0;
+  const int64_t left = valid - kRowBytes * r0;  // raw bytes from row r0 on
+  const int lane = threadIdx.x & 31;
+  constexpr uint32_t kWarps = kQuantCluster * (kQuantThreads / 32);
+  const uint32_t warp = rank * (kQuantThreads / 32) + (threadIdx.x >> 5);
+  uint32_t acc = 0u;
+  for (uint32_t r = warp * kRows; r < n; r += kWarps * kRows) {
+    float4 a[kRows], b[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      a[k] = b[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r + k < n) load_row(xs, r + k, left, lane, &a[k], &b[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (r + k < n) {
+        uint32_t wa, wb;
+        const float scale = quantize_vals(a[k], b[k], &wa, &wb);
+        const uint32_t q0 = (r + k) * kRowWords;
+        __stcs(qw + q0 + lane, wa);
+        __stcs(qw + q0 + 32 + lane, wb);
+        const uint32_t i0 = kPayloadHeaderWords + n + q0;
+        acc += weigh_at(wa, i0 + lane) + weigh_at(wb, i0 + 32 + lane);
+        if (lane == 0) {
+          __stcs(scales + r + k, scale);
+          acc += weigh_at(__float_as_uint(scale), kPayloadHeaderWords + r + k);
+        }
+      }
+    }
+  }
+  if (header && rank == 0 && threadIdx.x == 0) {
+    const int64_t rows_bytes = kRowBytes * n;
+    const uint32_t raw =
+        static_cast<uint32_t>(left < rows_bytes ? left : rows_bytes);
+    uint32_t* h = reinterpret_cast<uint32_t*>(pay);
+    h[0] = n;
+    h[1] = raw;
+    acc += header_terms(n, raw);
+  }
+  cluster_fold<kQuantThreads, kQuantCluster>(acc, dig + s);
+}
+
+template <int kRows>
+__global__ void __launch_bounds__(kQuantThreads)
+dequantize_segments_kernel(const uint8_t* __restrict__ in,
+                           float* __restrict__ out,
+                           uint32_t* __restrict__ dig, SegRows seg,
+                           int header) {
+  namespace cg = cooperative_groups;
+  cluster_arrive();
+  const uint32_t rank = cg::this_cluster().block_rank();
+  const int s = blockIdx.x / kDequantCluster;
+  const int64_t r0 = seg.start[s];
+  const uint32_t n = static_cast<uint32_t>(seg.start[s + 1] - r0);
+  const int64_t hdr = header ? kHeaderBytes : 0;
+  const uint8_t* pay = in + hdr * s + kPayloadRowBytes * r0;
+  const uint32_t* sw = reinterpret_cast<const uint32_t*>(pay + hdr);
+  const uint32_t* qw = sw + n;
+  float* orows = out + int64_t{kRowElems} * r0;
+  const int lane = threadIdx.x & 31;
+  constexpr uint32_t kWarps = kDequantCluster * (kQuantThreads / 32);
+  const uint32_t warp = rank * (kQuantThreads / 32) + (threadIdx.x >> 5);
+  uint32_t acc = 0u;
+  for (uint32_t r = warp * kRows; r < n; r += kWarps * kRows) {
+    uint32_t sb[kRows], wa[kRows], wb[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      sb[k] = wa[k] = wb[k] = 0u;
+      if (r + k < n) {
+        const uint32_t q0 = (r + k) * kRowWords;
+        sb[k] = load_nc_u32(sw + r + k);
+        wa[k] = load_nc_u32(qw + q0 + lane);
+        wb[k] = load_nc_u32(qw + q0 + 32 + lane);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+      if (r + k < n) {
+        const float scale = __uint_as_float(sb[k]);
+        float4* orow =
+            reinterpret_cast<float4*>(orows + int64_t{r + k} * kRowElems);
+        __stcs(orow + lane, dequant4(wa[k], scale));
+        __stcs(orow + 32 + lane, dequant4(wb[k], scale));
+        const uint32_t i0 = kPayloadHeaderWords + n + (r + k) * kRowWords;
+        acc += weigh_at(wa[k], i0 + lane) + weigh_at(wb[k], i0 + 32 + lane);
+        if (lane == 0) acc += weigh_at(sb[k], kPayloadHeaderWords + r + k);
+      }
+    }
+  }
+  if (header && rank == 0 && threadIdx.x == 0) {
+    const uint32_t* h = reinterpret_cast<const uint32_t*>(pay);
+    acc += header_terms(h[0], h[1]);
+  }
+  cluster_fold<kQuantThreads, kDequantCluster>(acc, dig + s);
+}
+
+template <bool kEncode>
+int launch_int8_clusters(const void* src, int64_t valid, const SegRows& t,
+                         void* dst, void* dig, int header, cudaStream_t st) {
+  if constexpr (kEncode) {
+    return launch_clusters(quantize_segments_kernel<kQuantRows>, t.n,
+                           kQuantCluster, kQuantThreads, st,
+                           static_cast<const uint8_t*>(src), valid,
+                           static_cast<uint8_t*>(dst),
+                           static_cast<uint32_t*>(dig), t, header);
+  } else {
+    return launch_clusters(dequantize_segments_kernel<kDequantRows>, t.n,
+                           kDequantCluster, kQuantThreads, st,
+                           static_cast<const uint8_t*>(src),
+                           static_cast<float*>(dst),
+                           static_cast<uint32_t*>(dig), t, header);
+  }
+}
+
+// The segment table checked and passed by value: row_start[0] == 0, rows
+// increasing, at most kMaxSegRows a segment, fewer than 2^31 in all; for
+// the encode, `valid` ends inside the last row. header == 0 takes one
+// segment. The piece's int8 launch.
+template <bool kEncode>
+int launch_int8(const void* src, int64_t valid, const int64_t* row_start,
+                int64_t n_segs, void* dst, void* dig, int header,
+                void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (n_segs < 1 || n_segs > kMaxSegs || row_start == nullptr ||
+      row_start[0] != 0 || (header == 0 && n_segs != 1))
+    return bad;
+  SegRows t = {};
+  t.n = static_cast<int32_t>(n_segs);
+  for (int64_t s = 1; s <= n_segs; ++s) {
+    const int64_t rows = row_start[s] - row_start[s - 1];
+    if (rows < 1 || rows > kMaxSegRows || row_start[s] >= (int64_t{1} << 31))
+      return bad;
+    t.start[s] = static_cast<int32_t>(row_start[s]);
+  }
+  const int64_t rows = row_start[n_segs];
+  if (kEncode && (valid <= kRowBytes * (rows - 1) || valid > kRowBytes * rows))
+    return bad;
+  return launch_int8_clusters<kEncode>(src, valid, t, dst, dig, header,
+                                       static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
-// All pointers are device pointers to 16-byte aligned buffers of n u32
-// words; `out`/`dig` must not alias the inputs. `dig` of the fused XOR
-// kernels is accumulated into, so the caller zeroes it first.
+// All pointers are device pointers (but the int8 pair's host row_start)
+// to 16-byte aligned buffers of n u32 words unless said otherwise;
+// `out`/`dig` must not alias the inputs. `dig` of the fused XOR kernels
+// is accumulated into, so the caller zeroes it first.
 
 // out: one u32, written whole (0 for n == 0); n < 2^31.
 extern "C" int ckpt_checksum_u32(const void* x, int64_t n, void* out,
@@ -937,28 +1210,50 @@ extern "C" int ckpt_delta_xor(const void* a, const void* b, void* out,
   return launch_stream<XorOp>(a, b, out, n, stream);
 }
 
-// x: 16-byte aligned f32[n_rows * 256]; body: 4-byte aligned
-// u8[n_rows * 260], written whole; dig: one zeroed u32, accumulated into.
+// The one-segment case of the segmented int8 pair, on a payload body (no
+// header). x: 16-byte aligned f32[n_rows * 256]; body: 4-byte aligned
+// u8[n_rows * 260], written whole; dig: one u32, written whole (the
+// body's digest, header words left out); 1 <= n_rows <= 2^25.
 extern "C" int ckpt_quantize_checksum_int8(const void* x, int64_t n_rows,
                                            void* body, void* dig,
                                            void* stream) {
-  quantize_checksum_kernel<<<row_blocks_for(n_rows), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), n_rows, static_cast<uint8_t*>(body),
-      static_cast<uint32_t*>(dig));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t row_start[2] = {0, n_rows};
+  return launch_int8<true>(x, n_rows * kRowBytes, row_start, 1, body, dig, 0,
+                           stream);
 }
 
 // body: 4-byte aligned u8[n_rows * 260]; out: 16-byte aligned
-// f32[n_rows * 256]; dig: one zeroed u32, accumulated into.
+// f32[n_rows * 256]; dig: one u32; all written whole.
 extern "C" int ckpt_dequantize_checksum_int8(const void* body, int64_t n_rows,
                                              void* out, void* dig,
                                              void* stream) {
-  dequantize_checksum_kernel<<<row_blocks_for(n_rows), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(body), n_rows, static_cast<float*>(out),
-      static_cast<uint32_t*>(dig));
-  return static_cast<int>(cudaGetLastError());
+  const int64_t row_start[2] = {0, n_rows};
+  return launch_int8<false>(body, 0, row_start, 1, out, dig, 0, stream);
+}
+
+// One launch over the n_segs chunks of a piece (1 <= n_segs <= 32).
+// row_start: host i64[n_segs + 1], 0 first, increasing (segment s is rows
+// [row_start[s], row_start[s + 1])). x: 16-byte aligned, its first
+// valid_bytes bytes the raw fp32 data, 256 * 4 * (row_start[n_segs] - 1)
+// < valid_bytes <= 256 * 4 * row_start[n_segs]; out: 4-byte aligned
+// u8[8 n_segs + 260 row_start[n_segs]], the payloads back to back;
+// dig: u32[n_segs], each payload's digest. Both written whole.
+extern "C" int ckpt_quantize_checksum_int8_segments(
+    const void* x, int64_t valid_bytes, const void* row_start,
+    int64_t n_segs, void* out, void* dig, void* stream) {
+  return launch_int8<true>(x, valid_bytes,
+                           static_cast<const int64_t*>(row_start), n_segs,
+                           out, dig, 1, stream);
+}
+
+// The inverse: in holds the payloads as the encode writes them (4-byte
+// aligned; headers as the host checked them), out: 16-byte aligned
+// f32[256 row_start[n_segs]], the rows contiguously; dig as above.
+extern "C" int ckpt_dequantize_checksum_int8_segments(
+    const void* in, const void* row_start, int64_t n_segs, void* out,
+    void* dig, void* stream) {
+  return launch_int8<false>(in, 0, static_cast<const int64_t*>(row_start),
+                            n_segs, out, dig, 1, stream);
 }
 
 // x: 16-byte aligned f32[n]; out: 16-byte aligned bf16[n], written whole.

@@ -6,7 +6,8 @@ launch raises — nothing falls back. The ``host_*`` helpers take
 host-staged bytes (numpy arrays, ``bytes``, memoryviews) and a device:
 they move the bytes there, run the kernel, and bring back only the
 outputs (the repro package feeds its kernels host-staged chunks the same
-way, ``core/codecs.py:247`` and ``core/restore.py:837-840``).
+way, ``core/codecs.py:247`` and ``core/restore.py:837-840``); the int8
+codec feeds its pair whole pieces itself (``core/codecs.py``).
 Background lanes call them inside :func:`lane_stream`.
 
 Every kernel of ``repro/kernels/ops.py`` has its wrapper here:
@@ -15,8 +16,10 @@ digests many chunks in one launch), ``xor_checksum``
 (``fused_xor_checksum``, ``:108``), ``fused_xor_fold`` (``:119``),
 ``delta_xor`` (``:90``), ``delta_f32`` (``:99``), ``downcast_bf16``
 (``:72``), ``quantize_int8`` (``:78``), ``dequantize_int8`` (``:84``),
-``fused_quantize_int8`` (``:131``), ``fused_dequantize_int8``
-(``:140``) and ``flash_attention`` (``:151``). The reference pads the
+``fused_quantize_int8`` (``:131``; ``fused_quantize_int8_segments``
+encodes many chunks in one launch), ``fused_dequantize_int8``
+(``:140``; ``fused_dequantize_int8_segments``) and ``flash_attention``
+(``:151``). The reference pads the
 u32 and f32 wrappers' inputs to 65,536-word blocks; these take any
 length, and the offline reducer pads where the reference's bytes on disk
 depend on it (``core/reduction.py``).
@@ -25,7 +28,7 @@ depend on it (``core/reduction.py``).
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -158,6 +161,37 @@ def fused_dequantize_int8(body: torch.Tensor, n_rows: int
     return out, int(dig.item()) & U32_MASK
 
 
+def fused_quantize_int8_segments(x: torch.Tensor, valid_bytes: int,
+                                 row_starts: Sequence[int],
+                                 out: Optional[torch.Tensor] = None,
+                                 dig: Optional[torch.Tensor] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(int8q payloads back to back, their digests as u32 bits in int32)``
+    of the segments ``row_starts`` of raw fp32 bytes ``x``, the first
+    ``valid_bytes`` of which are data (:mod:`.quantize`), on ``x``'s
+    device (into ``out`` / ``dig`` if given). On a card this only
+    enqueues: nothing waits for the kernel."""
+    if _kind(x) == "cpu":
+        return _quant.quantize_checksum_segments_plain(x, valid_bytes,
+                                                       row_starts, out, dig)
+    return _quant.quantize_checksum_segments_cuda(x, valid_bytes,
+                                                  row_starts, out, dig)
+
+
+def fused_dequantize_int8_segments(payloads: torch.Tensor,
+                                   row_starts: Sequence[int],
+                                   out: Optional[torch.Tensor] = None,
+                                   dig: Optional[torch.Tensor] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(float32 rows, digests)`` of back-to-back int8q payloads; on a
+    card this only enqueues."""
+    if _kind(payloads) == "cpu":
+        return _quant.dequantize_checksum_segments_plain(payloads,
+                                                         row_starts, out, dig)
+    return _quant.dequantize_checksum_segments_cuda(payloads, row_starts,
+                                                    out, dig)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kind: str = "full", window: int = 0, chunk: int = 0,
                     kv_block: int = 1024) -> torch.Tensor:
@@ -234,24 +268,3 @@ def host_delta_xor(cur, prev, device: torch.device) -> np.ndarray:
                       _words_on(prev[lo:hi], device))
         out[lo:hi] = _to_host(d, hi - lo)
     return out
-
-
-def host_fused_quantize_int8(rows, device: torch.device
-                             ) -> Tuple[np.ndarray, int]:
-    """``(payload body as a fresh uint8 array, its digest)`` of host bytes
-    holding whole float32 rows of 256, quantized on ``device``: the rows
-    go up (4 bytes a value), the body comes back (about 1 byte a value)."""
-    b = host_u8(rows)
-    x = bytes_on(b, torch.device(device)).view(torch.float32) \
-        .reshape(-1, _quant.ROW_ELEMS)
-    body, dig = fused_quantize_int8(x)
-    return body.cpu().numpy(), dig
-
-
-def host_fused_dequantize_int8(body, n_rows: int, device: torch.device
-                               ) -> Tuple[np.ndarray, int]:
-    """``(float32 rows' bytes as a fresh uint8 array, digest)`` of a host
-    payload body, decoded on ``device``."""
-    t = bytes_on(host_u8(body), torch.device(device))
-    out, dig = fused_dequantize_int8(t, n_rows)
-    return out.cpu().numpy().reshape(-1).view(np.uint8), dig

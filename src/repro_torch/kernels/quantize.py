@@ -6,19 +6,32 @@
 
 Rows of :data:`ROW_ELEMS` fp32 values, each with a symmetric scale:
 ``scale = amax / 127`` (``1.0`` for an all-zero row) and
-``q = clip(round_half_even(x / scale), -127, 127)``. Both directions work
-on the int8q payload *body*, the payload after its 8-byte header
-(``core/codecs.py``)::
+``q = clip(round_half_even(x / scale), -127, 127)``. The pair works on
+int8q payloads (``core/codecs.py``)::
 
-    f32 scales[n_rows] | i8 q[n_rows * 256]
+    u32 n_rows | u32 raw_nbytes | f32 scales[n_rows] | i8 q[n_rows * 256]
 
-and return the digest of the body's words at their payload positions
-(word ``2 + row`` for a scale, ``2 + n_rows + 64 * row + w`` for the
-little-endian packed q words); the two header words are added by the
-codec. The CUDA kernels are ``ckpt_quantize_checksum_int8`` and
-``ckpt_dequantize_checksum_int8`` in ``csrc/ckpt_kernels.cu``;
-:func:`quantize_checksum_plain` and :func:`dequantize_checksum_plain` are
-their plain PyTorch versions, the counterparts of
+and returns the digest of a payload's words at their positions (words
+0-1 the header, ``2 + row`` a scale, ``2 + n_rows + 64 * row + w`` the
+little-endian packed q words).
+
+One launch takes the consecutive chunks of a piece, each a *segment* of
+whole rows given by its row starts (``row_starts[0] == 0``, at most
+:data:`MAX_SEGMENTS` segments): :func:`quantize_checksum_segments_cuda`
+writes the segments' payloads back to back (segment ``s`` at byte
+``8 * s + 260 * row_starts[s]``, :func:`segment_offsets`) and one digest a
+segment, from raw bytes of which only the first ``valid_bytes`` are data
+(the rest of the last row reads as zeros);
+:func:`dequantize_checksum_segments_cuda` reads that layout back into
+contiguous rows. The CUDA entries are
+``ckpt_quantize_checksum_int8_segments`` and
+``ckpt_dequantize_checksum_int8_segments`` in ``csrc/ckpt_kernels.cu``;
+``ckpt_quantize_checksum_int8`` and ``ckpt_dequantize_checksum_int8``
+are their one-segment case on a payload *body* (the payload after its
+8-byte header, with the header words left out of the digest), what
+:func:`quantize_checksum_cuda` and :func:`dequantize_checksum_cuda`
+launch. The ``*_plain`` functions are the plain PyTorch versions (the
+segmented ones a loop of the body ones), the counterparts of
 ``repro.kernels.ref.fused_quantize_checksum_ref`` and
 ``fused_dequantize_checksum_ref``. As in the reference, a NaN in a row
 makes its scale 1.0 (and stores 0 for the NaN), and an infinity makes
@@ -33,7 +46,8 @@ subnormal is zero (the row's nonzero values then store ``+-127``), and a
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,11 +58,21 @@ from .checksum import U32_MASK, WEIGHT_BASE, WEIGHT_MOD, aligned
 ROW_ELEMS = 256
 #: the int8q payload header is two u32 words: n_rows, raw_nbytes
 PAYLOAD_HEADER_WORDS = 2
+PAYLOAD_HEADER_BYTES = 4 * PAYLOAD_HEADER_WORDS
+#: raw fp32 bytes a row
+ROW_BYTES = 4 * ROW_ELEMS
+#: segments one launch takes (the kernel's table travels by value)
+MAX_SEGMENTS = 32
+#: rows a segment holds at most (its digest positions are 32-bit)
+MAX_SEGMENT_ROWS = 1 << 25
 #: the least normal float32; anything smaller in magnitude is flushed
 FLT_MIN = torch.finfo(torch.float32).tiny
 
+#: each launch count covers the one-segment entry and the segmented one
 QUANT_KERNEL = CudaKernel("ckpt_quantize_checksum_int8")
 DEQUANT_KERNEL = CudaKernel("ckpt_dequantize_checksum_int8")
+QUANT_SEGMENTS_ENTRY = "ckpt_quantize_checksum_int8_segments"
+DEQUANT_SEGMENTS_ENTRY = "ckpt_dequantize_checksum_int8_segments"
 DOWNCAST_BF16_KERNEL = CudaKernel("ckpt_downcast_bf16")
 QUANT_INT8_KERNEL = CudaKernel("ckpt_quantize_int8")
 DEQUANT_INT8_KERNEL = CudaKernel("ckpt_dequantize_int8")
@@ -57,6 +81,12 @@ DEQUANT_INT8_KERNEL = CudaKernel("ckpt_dequantize_int8")
 def body_nbytes(n_rows: int) -> int:
     """Bytes of a payload body: one f32 scale and 256 int8 per row."""
     return n_rows * (4 + ROW_ELEMS)
+
+
+def header_digest(n_rows: int, raw_nbytes: int) -> int:
+    """Digest terms of a payload's two header words (words 0 and 1)."""
+    return (n_rows * WEIGHT_BASE + raw_nbytes * (WEIGHT_BASE + 1)) \
+        & U32_MASK
 
 
 def body_digest(body: torch.Tensor) -> int:
@@ -132,13 +162,14 @@ def dequantize_checksum_plain(body: torch.Tensor, n_rows: int
 def quantize_checksum_cuda(x: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel; returns ``(body, digest)`` with the digest as a
-    1-element int32 tensor on the card."""
+    1-element int32 tensor on the card (the kernel writes it whole)."""
     n_rows = _check_rows(x)
     _need_cuda(x)
+    _check_segment_rows(n_rows)
     x = aligned(x.reshape(-1))
     body = torch.empty(body_nbytes(n_rows), dtype=torch.uint8,
                        device=x.device)
-    dig = torch.zeros(1, dtype=torch.int32, device=x.device)
+    dig = torch.empty(1, dtype=torch.int32, device=x.device)
     QUANT_KERNEL.launch(x.data_ptr(), n_rows, body.data_ptr(),
                         dig.data_ptr())
     return body, dig
@@ -150,12 +181,205 @@ def dequantize_checksum_cuda(body: torch.Tensor, n_rows: int
     digest as a 1-element int32 tensor on the card."""
     _check_body(body, n_rows)
     _need_cuda(body)
+    _check_segment_rows(n_rows)
     body = aligned(body)
     out = torch.empty((n_rows, ROW_ELEMS), dtype=torch.float32,
                       device=body.device)
-    dig = torch.zeros(1, dtype=torch.int32, device=body.device)
+    dig = torch.empty(1, dtype=torch.int32, device=body.device)
     DEQUANT_KERNEL.launch(body.data_ptr(), n_rows, out.data_ptr(),
                           dig.data_ptr())
+    return out, dig
+
+
+# ------------------------------------------------------------- segments
+def _check_segment_rows(n_rows: int) -> None:
+    if not 1 <= n_rows <= MAX_SEGMENT_ROWS:
+        raise ValueError(f"a segment holds 1 to {MAX_SEGMENT_ROWS} rows, "
+                         f"got {n_rows}")
+
+
+def check_row_starts(row_starts: Sequence[int]) -> List[int]:
+    """The segment table as a list: 0 first, then increasing, 1 to
+    :data:`MAX_SEGMENTS` segments of 1 to :data:`MAX_SEGMENT_ROWS` rows,
+    fewer than 2^31 rows in all."""
+    starts = [int(r) for r in row_starts]
+    if not 2 <= len(starts) <= MAX_SEGMENTS + 1 or starts[0] != 0 \
+            or starts[-1] >= 1 << 31:
+        raise ValueError(f"row_starts must be 0 then 1 to {MAX_SEGMENTS} "
+                         f"increasing row starts, got {starts}")
+    for lo, hi in zip(starts, starts[1:]):
+        _check_segment_rows(hi - lo)
+    return starts
+
+
+def segment_offsets(row_starts: Sequence[int]) -> List[int]:
+    """Byte offset of each segment's payload in the back-to-back layout,
+    and the layout's end: ``8 * s + 260 * row_starts[s]``."""
+    return [PAYLOAD_HEADER_BYTES * s + body_nbytes(r)
+            for s, r in enumerate(row_starts)]
+
+
+def _check_valid(valid_bytes: int, starts: List[int]) -> int:
+    """The valid raw bytes end inside the last row, so every segment's
+    row count is the codec's ``ceil(raw_nbytes / 1024)``."""
+    valid = int(valid_bytes)
+    if not ROW_BYTES * (starts[-1] - 1) < valid <= ROW_BYTES * starts[-1]:
+        raise ValueError(
+            f"valid_bytes {valid} does not end inside the last of "
+            f"{starts[-1]} rows")
+    return valid
+
+
+def _flat_u8(t: torch.Tensor) -> torch.Tensor:
+    t = t.reshape(-1)
+    return t if t.dtype == torch.uint8 else t.view(torch.uint8)
+
+
+def _segments_out(t: Optional[torch.Tensor], shape, dtype,
+                  device: torch.device, what: str) -> torch.Tensor:
+    """``t`` checked to be a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``, 16-byte aligned, or a fresh uninitialised one: the kernels
+    write every output whole, so nothing is zeroed first."""
+    if t is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
+            or t.device != device or not t.is_contiguous() \
+            or (device.type == "cuda" and t.data_ptr() % 16):
+        raise ValueError(
+            f"{what} must be a contiguous, 16-byte aligned {dtype} tensor "
+            f"of shape {tuple(shape)} on {device}, got {t.dtype}"
+            f"{tuple(t.shape)} on {t.device}")
+    return t
+
+
+def _i32(u: int) -> int:
+    return u - (1 << 32) if u >= 1 << 31 else u
+
+
+def quantize_checksum_segments_plain(
+        x: torch.Tensor, valid_bytes: int, row_starts: Sequence[int],
+        out: Optional[torch.Tensor] = None,
+        dig: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(payloads, digests)`` of the segments of raw fp32 bytes ``x``
+    (any dtype, flat, holding at least ``valid_bytes``): the header, then
+    :func:`quantize_checksum_plain` of the segment's rows, the bytes past
+    ``valid_bytes`` read as zeros. ``digests`` is int32 holding u32 bits;
+    both on ``x``'s device (into ``out`` / ``dig`` if given)."""
+    starts = check_row_starts(row_starts)
+    valid = _check_valid(valid_bytes, starts)
+    raw = _flat_u8(x)
+    if raw.numel() < valid:
+        raise ValueError(f"x holds {raw.numel()} bytes, valid_bytes is "
+                         f"{valid}")
+    offs = segment_offsets(starts)
+    out = _segments_out(out, (offs[-1],), torch.uint8, raw.device,
+                        "payloads")
+    digests = []
+    for s, (r0, r1) in enumerate(zip(starts, starts[1:])):
+        lo, hi = ROW_BYTES * r0, min(valid, ROW_BYTES * r1)
+        rows = torch.zeros(ROW_BYTES * (r1 - r0), dtype=torch.uint8,
+                           device=raw.device)
+        rows[:hi - lo] = raw[lo:hi]
+        body, area = quantize_checksum_plain(
+            rows.view(torch.float32).reshape(-1, ROW_ELEMS))
+        out[offs[s]:offs[s] + PAYLOAD_HEADER_BYTES] = torch.tensor(
+            [r1 - r0, hi - lo], dtype=torch.int32).view(torch.uint8)
+        out[offs[s] + PAYLOAD_HEADER_BYTES:offs[s + 1]] = body
+        digests.append(_i32((header_digest(r1 - r0, hi - lo) + area)
+                            & U32_MASK))
+    d = _segments_out(dig, (len(digests),), torch.int32, raw.device,
+                      "dig")
+    return out, d.copy_(torch.tensor(digests, dtype=torch.int32))
+
+
+def dequantize_checksum_segments_plain(
+        payloads: torch.Tensor, row_starts: Sequence[int],
+        out: Optional[torch.Tensor] = None,
+        dig: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(float32 rows (row_starts[-1], 256), digests)`` of back-to-back
+    payloads: :func:`dequantize_checksum_plain` of each body, the digest
+    adding the header words as the payload holds them."""
+    starts = check_row_starts(row_starts)
+    offs = segment_offsets(starts)
+    data = _flat_u8(payloads)
+    if data.numel() != offs[-1]:
+        raise ValueError(f"expected {offs[-1]} payload bytes for the "
+                         f"segments {starts}, got {data.numel()}")
+    out = _segments_out(out, (starts[-1], ROW_ELEMS), torch.float32,
+                        data.device, "out")
+    digests = []
+    for s, (r0, r1) in enumerate(zip(starts, starts[1:])):
+        pay = data[offs[s]:offs[s + 1]]
+        if pay.storage_offset() % 4:
+            pay = pay.clone()
+        n_rows, raw_nbytes = (int(v) for v in
+                              pay[:PAYLOAD_HEADER_BYTES].cpu().numpy()
+                              .view("<u4"))
+        rows, area = dequantize_checksum_plain(pay[PAYLOAD_HEADER_BYTES:],
+                                               r1 - r0)
+        out[r0:r1] = rows
+        digests.append(_i32((header_digest(n_rows, raw_nbytes) + area)
+                            & U32_MASK))
+    d = _segments_out(dig, (len(digests),), torch.int32, data.device,
+                      "dig")
+    return out, d.copy_(torch.tensor(digests, dtype=torch.int32))
+
+
+def _starts_arg(starts: List[int]) -> ctypes.Array:
+    """The segment table as the host i64 array the C entry reads."""
+    return (ctypes.c_int64 * len(starts))(*starts)
+
+
+def quantize_checksum_segments_cuda(
+        x: torch.Tensor, valid_bytes: int, row_starts: Sequence[int],
+        out: Optional[torch.Tensor] = None,
+        dig: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch over the segments; returns ``(payloads, digests)`` on the
+    card (``out`` / ``dig`` if given). It only enqueues: nothing waits."""
+    starts = check_row_starts(row_starts)
+    valid = _check_valid(valid_bytes, starts)
+    _need_cuda(x)
+    raw = _flat_u8(x)
+    if raw.numel() < valid:
+        raise ValueError(f"x holds {raw.numel()} bytes, valid_bytes is "
+                         f"{valid}")
+    raw = aligned(raw)
+    offs = segment_offsets(starts)
+    out = _segments_out(out, (offs[-1],), torch.uint8, raw.device,
+                        "payloads")
+    dig = _segments_out(dig, (len(starts) - 1,), torch.int32, raw.device,
+                        "dig")
+    QUANT_KERNEL.launch(raw.data_ptr(), valid, _starts_arg(starts),
+                        len(starts) - 1, out.data_ptr(), dig.data_ptr(),
+                        entry=QUANT_SEGMENTS_ENTRY)
+    return out, dig
+
+
+def dequantize_checksum_segments_cuda(
+        payloads: torch.Tensor, row_starts: Sequence[int],
+        out: Optional[torch.Tensor] = None,
+        dig: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch over the segments' payloads; returns ``(float32 rows,
+    digests)`` on the card. The headers are the caller's to check (the
+    codec does, before the upload). It only enqueues."""
+    starts = check_row_starts(row_starts)
+    _need_cuda(payloads)
+    offs = segment_offsets(starts)
+    data = aligned(_flat_u8(payloads))
+    if data.numel() != offs[-1]:
+        raise ValueError(f"expected {offs[-1]} payload bytes for the "
+                         f"segments {starts}, got {data.numel()}")
+    out = _segments_out(out, (starts[-1], ROW_ELEMS), torch.float32,
+                        data.device, "out")
+    dig = _segments_out(dig, (len(starts) - 1,), torch.int32, data.device,
+                        "dig")
+    DEQUANT_KERNEL.launch(data.data_ptr(), _starts_arg(starts),
+                          len(starts) - 1, out.data_ptr(), dig.data_ptr(),
+                          entry=DEQUANT_SEGMENTS_ENTRY)
     return out, dig
 
 

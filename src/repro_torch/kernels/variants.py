@@ -3,6 +3,8 @@
     python -m repro_torch.kernels.variants [variants.json]
     python -m repro_torch.kernels.variants stream [variants.json]
     python -m repro_torch.kernels.variants checksum [variants.json]
+    python -m repro_torch.kernels.variants int8 [variants.json]
+    python -m repro_torch.kernels.variants int8path CHECKOUT [CHECKOUT ...]
 
 A variant is a list of ``[old, new]`` text substitutions applied to one
 source under ``csrc/`` (each ``old`` must occur in it). Each variant is
@@ -52,6 +54,35 @@ clusters of 16 blocks against 8, 2 and 8 loads in flight a thread
 against 4, and ``atomic_loop``, the design it replaced (per segment one
 launch of a grid-stride loop with an atomic a block, after a memset of
 the digests).
+
+``int8``: variants of the segmented int8 pair
+(``ckpt_quantize_checksum_int8_segments``,
+``ckpt_dequantize_checksum_int8_segments`` and their one-segment entries),
+checked bit for bit against the plain versions (payloads, digests and
+decoded rows) at :data:`INT8_CASES`, with :data:`.quantize.EDGE_BITS`,
+an all-zero row and a row of rounding ties in the first and the last
+segment, and the one-segment entries at :data:`INT8_ROWS`; then timed as
+``checksum`` times, at one 4 MiB chunk (4,096 rows) and one 64 MiB piece
+of 16 chunks. No PyTorch call quantizes with a digest. Without a file it
+runs :data:`INT8_ABLATIONS`: the encode with 2 and 4 rows a warp in
+flight against 1, the decode with 1 and 4 against 2, 256 and 1,024
+threads a block against 512, encode clusters of 8 blocks
+against 16 and decode clusters of 16 against 8, ``tail_inline`` (the
+loader of a row the valid bytes cut, inlined into the row loop), and
+``atomic_loop``, the design it replaced (a memset of the digests, then
+per segment one launch of a grid-stride loop, one warp a row, one atomic
+a block).
+
+``int8path``: the int8q save and resume path end to end, for checkouts
+of this repository (directories holding ``chip_smoke.py`` and
+``src/repro_torch``; another commit goes there through ``git archive``)
+in turns, each run in a process of its own that imports only that
+checkout: ``chip_smoke.py``'s training phase (6 steps of llama3.2-1b at
+full width, 2 layers, saves at 2, 4 and 6 with the fp32 optimizer state
+quantized to int8, then the resume of step 6). A line ``int8path`` with
+a JSON object per run: the phase's wall time, the summed ``encode.int8``
+span time a save, the resume's read time, the peak device memory and
+the int8 pair's launches.
 """
 
 from __future__ import annotations
@@ -572,16 +603,9 @@ ATOMIC = [
      "                                 static_cast<cudaStream_t>(stream));",
      "  return launch_atomic_checksum(x, n, seg_words, n_segs, out,\n"
      "                                static_cast<cudaStream_t>(stream));"]]
-#: clusters of 16 blocks, past the portable 8: the size and the attribute
-#: that allows it, set once a process (it stays with the function)
-CLUSTER16 = [
-    [_CLUSTER, "constexpr int kSumCluster = 16;"],
-    ["  cudaLaunchAttribute attr;\n",
-     "  static const cudaError_t allowed = cudaFuncSetAttribute(\n"
-     "      checksum_segments_kernel,\n"
-     "      cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n"
-     "  if (allowed != cudaSuccess) return static_cast<int>(allowed);\n"
-     "  cudaLaunchAttribute attr;\n"]]
+#: the digest in clusters of 16 blocks, past the portable 8 (the launch
+#: allows the size)
+CLUSTER16 = [[_CLUSTER, "constexpr int kSumCluster = 16;"]]
 #: the shipped digest (clusters of 8 blocks, 4 loads in flight a thread),
 #: variants of it, and the design it replaced
 CHECKSUM_ABLATIONS = {
@@ -711,6 +735,388 @@ def checksum_main(args) -> None:
     print(json.dumps({"bound_ms": bound, "times": times}), flush=True)
 
 
+# ------------------------------------------------- segmented int8 pair
+_QROWS = "constexpr int kQuantRows = 1;"
+_DQROWS = "constexpr int kDequantRows = 2;"
+_QTHREADS = "constexpr int kQuantThreads = 512;"
+_QCLUSTER = "constexpr int kQuantCluster = 16;"
+_DQCLUSTER = "constexpr int kDequantCluster = 8;"
+_INT8_MARK = "// The segment table checked and passed by value"
+#: the int8 design the segmented one replaced (per segment one launch of a
+#: grid-stride loop over at most 132 x 8 blocks of 256 threads, one warp a
+#: row, plain loads and stores, one atomicAdd a block into a zeroed word),
+#: put back in its place after a memset of the digests, as the wrapper's
+#: torch.zeros and the loop over chunks did; it reads and writes the
+#: segmented layout, so it is checked as the shipped kernels are
+ATOMIC_INT8_KERNELS = """template <bool kEncode>
+__global__ void __launch_bounds__(kThreads)
+atomic_int8_kernel(const uint8_t* __restrict__ src, int64_t valid,
+                   void* __restrict__ dst, uint32_t* __restrict__ dig,
+                   int s, int64_t r0, uint32_t n, int header) {
+  const int64_t hdr = header ? kHeaderBytes : 0;
+  const int64_t pay_off = hdr * s + kPayloadRowBytes * r0;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp = (static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x) >> 5;
+  const int64_t n_warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  uint32_t acc = 0u;
+  if constexpr (kEncode) {
+    uint8_t* pay = static_cast<uint8_t*>(dst) + pay_off;
+    float* scales = reinterpret_cast<float*>(pay + hdr);
+    uint32_t* qw = reinterpret_cast<uint32_t*>(scales + n);
+    const int64_t left = valid - kRowBytes * r0;
+    for (int64_t r = warp; r < n; r += n_warps) {
+      float4 a, b;
+      load_row(src + kRowBytes * r0, r, left, lane, &a, &b);
+      uint32_t wa, wb;
+      const float scale = quantize_vals(a, b, &wa, &wb);
+      qw[r * kRowWords + lane] = wa;
+      qw[r * kRowWords + 32 + lane] = wb;
+      const uint32_t i0 = kPayloadHeaderWords + n + r * kRowWords;
+      acc += weigh_at(wa, i0 + lane) + weigh_at(wb, i0 + 32 + lane);
+      if (lane == 0) {
+        scales[r] = scale;
+        acc += weigh_at(__float_as_uint(scale), kPayloadHeaderWords + r);
+      }
+    }
+    if (header && blockIdx.x == 0 && threadIdx.x == 0) {
+      const int64_t rows_bytes = kRowBytes * n;
+      const uint32_t raw = left < rows_bytes ? left : rows_bytes;
+      uint32_t* h = reinterpret_cast<uint32_t*>(pay);
+      h[0] = n;
+      h[1] = raw;
+      acc += header_terms(n, raw);
+    }
+  } else {
+    const uint8_t* pay = src + pay_off;
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(pay + hdr);
+    const uint32_t* qw = sw + n;
+    float* orows = static_cast<float*>(dst) + int64_t{kRowElems} * r0;
+    for (int64_t r = warp; r < n; r += n_warps) {
+      const uint32_t sb = sw[r];
+      const uint32_t wa = qw[r * kRowWords + lane];
+      const uint32_t wb = qw[r * kRowWords + 32 + lane];
+      float4* orow = reinterpret_cast<float4*>(orows + r * kRowElems);
+      orow[lane] = dequant4(wa, __uint_as_float(sb));
+      orow[32 + lane] = dequant4(wb, __uint_as_float(sb));
+      const uint32_t i0 = kPayloadHeaderWords + n + r * kRowWords;
+      acc += weigh_at(wa, i0 + lane) + weigh_at(wb, i0 + 32 + lane);
+      if (lane == 0) acc += weigh_at(sb, kPayloadHeaderWords + r);
+    }
+    if (header && blockIdx.x == 0 && threadIdx.x == 0) {
+      const uint32_t* h = reinterpret_cast<const uint32_t*>(pay);
+      acc += header_terms(h[0], h[1]);
+    }
+  }
+  block_fold(acc, dig + s);
+}
+
+template <bool kEncode>
+int launch_int8_atomic(const void* src, int64_t valid, const SegRows& t,
+                       void* dst, void* dig, int header, cudaStream_t st) {
+  const cudaError_t rc = cudaMemsetAsync(dig, 0, 4 * t.n, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  for (int s = 0; s < t.n; ++s) {
+    const uint32_t n = t.start[s + 1] - t.start[s];
+    atomic_int8_kernel<kEncode><<<row_blocks_for(n), kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(src), valid, dst,
+        static_cast<uint32_t*>(dig), s, t.start[s], n, header);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+""" + _INT8_MARK
+ATOMIC_INT8 = [
+    [_INT8_MARK, ATOMIC_INT8_KERNELS],
+    ["  return launch_int8_clusters<kEncode>(src, valid, t, dst, dig, header,",
+     "  return launch_int8_atomic<kEncode>(src, valid, t, dst, dig, header,"]]
+#: the shipped pair (512 threads; the encode 1 row a warp in flight and
+#: clusters of 16 blocks, the decode 2 rows and clusters of 8), variants
+#: of it, and the design it replaced
+INT8_ABLATIONS = {
+    "int8": [],
+    "encode_rows2": [[_QROWS, "constexpr int kQuantRows = 2;"]],
+    "encode_rows4": [[_QROWS, "constexpr int kQuantRows = 4;"]],
+    "decode_rows1": [[_DQROWS, "constexpr int kDequantRows = 1;"]],
+    "decode_rows4": [[_DQROWS, "constexpr int kDequantRows = 4;"]],
+    "threads256": [[_QTHREADS, "constexpr int kQuantThreads = 256;"]],
+    "threads1024": [[_QTHREADS, "constexpr int kQuantThreads = 1024;"]],
+    "encode_cluster8": [[_QCLUSTER, "constexpr int kQuantCluster = 8;"]],
+    "decode_cluster16": [[_DQCLUSTER,
+                          "constexpr int kDequantCluster = 16;"]],
+    "tail_inline": [["__device__ __noinline__ RowPair load_cut_row(",
+                     "__device__ __forceinline__ RowPair load_cut_row("]],
+    "atomic_loop": ATOMIC_INT8,
+}
+#: rows of the one-segment entries' checks
+INT8_ROWS = (1, 3, 257, 4096)
+#: chunks' raw bytes of each piece the pair must agree at: a tensor of
+#: 4 bytes, of 1,020 and of 1,022 (not whole words), one short row; one
+#: row; one 4 MiB chunk; the 64 MiB piece of 16 chunks; 16 chunks and a
+#: 1-row seventeenth; 16 with a ragged last; segments shorter than a
+#: cluster's share of rows (3, 1, 5, 2 rows); unequal sizes from a table
+#: with a ragged last; 32 segments, the most one launch takes
+INT8_CASES = ((4,), (1020,), (1022,), (1024,), (4 << 20,),
+              (4 << 20,) * 16, (4 << 20,) * 16 + (1024,),
+              (4 << 20,) * 15 + ((4 << 20) - 1000,),
+              (3 * 1024, 1024, 5 * 1024, 2 * 1024 - 12),
+              (7 * 1024, 300 * 1024, 1024, 4097 * 1024, 64 * 1024 - 36),
+              tuple(1024 * (1 + 37 * k % 11) for k in range(31)) + (520,))
+#: the main path's calls: one 4 MiB chunk, one 64 MiB piece of 16 chunks
+INT8_CHUNK, INT8_PIECE = (4 << 20,), (4 << 20,) * 16
+
+
+def int8_layout(sizes):
+    """``(row_starts, valid_bytes)`` of a piece of chunks of ``sizes`` raw
+    bytes, every one but the last a whole number of rows."""
+    from . import quantize as tq
+    starts, pos = [0], 0
+    for n in sizes:
+        pos += n
+        starts.append(-(-pos // tq.ROW_BYTES))
+    return starts, pos
+
+
+def int8_inputs(torch, sizes, gen):
+    """Seeded raw fp32 bytes of a piece of chunks of ``sizes`` (normal,
+    times 10), with :data:`.quantize.EDGE_BITS`, an all-zero row and a row
+    of rounding ties (amax 127, so the scale is 1.0: +-0.5, +-2.5, +-3.5,
+    +-126.5) in the first and in the last segment, rows permitting."""
+    from . import quantize as tq
+    starts, valid = int8_layout(sizes)
+    x = torch.randn(starts[-1] * tq.ROW_ELEMS, device="cuda",
+                    generator=gen) * 10
+    rows = x.view(-1, tq.ROW_ELEMS)
+    edge = tq.edge_values("cuda")
+    ties = torch.tensor([127, -127, 0.5, -0.5, 2.5, -2.5, 3.5, -3.5, 126.5,
+                         -126.5], device="cuda")
+    for r0, r1 in {(starts[0], starts[1]), (starts[-2], starts[-1])}:
+        rows[r0, :edge.numel()] = edge
+        if r1 - r0 >= 3:
+            rows[r0 + 1] = 0
+            rows[r0 + 2] = 0
+            rows[r0 + 2, :ties.numel()] = ties
+    return x.view(torch.uint8)[:valid], starts, valid
+
+
+def int8_disagreement(torch):
+    """None if the loaded library's int8 pair gives the plain versions'
+    payloads, digests and rows at every check, else where not."""
+    from . import quantize as tq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(
+            a.view(torch.int32) if a.dtype == torch.float32 else a,
+            b.view(torch.int32) if b.dtype == torch.float32 else b)
+    for n_rows in INT8_ROWS:
+        x, _, _ = int8_inputs(torch, (n_rows * tq.ROW_BYTES,), gen)
+        x = x.view(torch.float32).view(-1, tq.ROW_ELEMS)
+        body, dig = tq.quantize_checksum_cuda(x)
+        pbody, pdig = tq.quantize_checksum_plain(x)
+        out, odig = tq.dequantize_checksum_cuda(body, n_rows)
+        pout, podig = tq.dequantize_checksum_plain(body, n_rows)
+        if not same(body, pbody) or int(dig.item()) & tq.U32_MASK != pdig:
+            return f"quantize_checksum_int8 at {n_rows} rows"
+        if not same(out, pout) or int(odig.item()) & tq.U32_MASK != podig:
+            return f"dequantize_checksum_int8 at {n_rows} rows"
+    for sizes in INT8_CASES:
+        what = f"{len(sizes)} segments of {sorted(set(sizes))} bytes"
+        x, starts, valid = int8_inputs(torch, sizes, gen)
+        pay, dig = tq.quantize_checksum_segments_cuda(x, valid, starts)
+        ppay, pdig = tq.quantize_checksum_segments_plain(x, valid, starts)
+        if not same(pay, ppay) or not same(dig, pdig):
+            return f"quantize_checksum_int8 at {what}"
+        out, odig = tq.dequantize_checksum_segments_cuda(pay, starts)
+        pout, podig = tq.dequantize_checksum_segments_plain(pay, starts)
+        if not same(out, pout) or not same(odig, podig) \
+                or not same(odig, dig):
+            return f"dequantize_checksum_int8 at {what}"
+    torch.cuda.synchronize()
+    return None
+
+
+def int8_bound_ms(sizes) -> float:
+    """Bytes the pair moves over the memory rate: the valid raw bytes and
+    the payloads (one read, the other written)."""
+    from . import quantize as tq
+    starts, valid = int8_layout(sizes)
+    return (valid + tq.segment_offsets(starts)[-1]) / HBM_BYTES_PER_S * 1e3
+
+
+def int8_calls(torch, gen):
+    """``{(kernel, size): (wrapper call, plain call)}`` at the main path's
+    chunk and piece, the wrappers into preallocated outputs, and the
+    device operations a call of the atomic loop makes (a memset, a launch
+    a segment)."""
+    from . import quantize as tq
+    x, starts, valid = int8_inputs(torch, INT8_PIECE, gen)
+    pay, dig = tq.quantize_checksum_segments_cuda(x, valid, starts)
+    rows = torch.empty((starts[-1], tq.ROW_ELEMS), device="cuda")
+    calls, per_call = {}, {}
+    for size, sizes in (("chunk", INT8_CHUNK), ("piece", INT8_PIECE)):
+        st, v = int8_layout(sizes)
+        n = tq.segment_offsets(st)[-1]
+        p, d, r, xv = pay[:n], dig[:len(sizes)], rows[:st[-1]], x[:v]
+        calls["quantize_checksum_int8", size] = (
+            lambda xv=xv, v=v, st=st, p=p, d=d:
+            tq.quantize_checksum_segments_cuda(xv, v, st, p, d),
+            lambda xv=xv, v=v, st=st:
+            tq.quantize_checksum_segments_plain(xv, v, st))
+        calls["dequantize_checksum_int8", size] = (
+            lambda st=st, p=p, d=d, r=r:
+            tq.dequantize_checksum_segments_cuda(p, st, r, d),
+            lambda st=st, p=p: tq.dequantize_checksum_segments_plain(p, st))
+        per_call[size] = 1 + len(sizes)
+    return calls, per_call
+
+
+def int8_main(args) -> None:
+    import torch
+
+    variants = json.loads(Path(args[0]).read_text()) if args \
+        else INT8_ABLATIONS
+    print(_smi_line(), flush=True)
+    libs = {}
+    for name, subs in variants.items():
+        try:
+            lib, ptxas = _build(name, subs, STREAM,
+                                ("quantize_segments_kernel",
+                                 "dequantize_segments_kernel",
+                                 "atomic_int8_kernel"))
+        except build.KernelBuildError as exc:
+            print(f"{name}: BUILD FAILED\n{exc}", flush=True)
+            continue
+        build._lib = lib
+        try:
+            bad = int8_disagreement(torch)
+        except RuntimeError as exc:   # a launch the card refused
+            bad = f"launch failed: {exc}"
+        print(f"{name}: {' | '.join(ptxas)}; "
+              f"{'bit-identical' if bad is None else 'DIFFERS: ' + bad}",
+              flush=True)
+        if name.startswith("x_") or bad is None:
+            libs[name] = lib
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    calls, per_call = int8_calls(torch, gen)
+    bound = {size: int8_bound_ms(sizes) for size, sizes in
+             (("chunk", INT8_CHUNK), ("piece", INT8_PIECE))}
+    times = {f"{k} {size}": {n: {"ms": [], "device_ms": []} for n in libs}
+             for k, size in calls}
+    build._lib = None
+    shipped = build.library()
+    clocks = _sample_clocks()
+    try:
+        for _ in range(STREAM_ROUNDS):
+            for name, lib in libs.items():
+                build._lib = shipped
+                for fn, _plain in calls.values():
+                    _time_ms(torch, fn, STREAM_REPS)
+                build._lib = lib
+                for (k, size), (fn, _plain) in calls.items():
+                    t = times[f"{k} {size}"][name]
+                    t["ms"].append(_time_ms(torch, fn, STREAM_REPS))
+                    try:
+                        dev = device_ms(
+                            torch, fn, DEVICE_REPS,
+                            per_call=per_call[size] if name == "atomic_loop"
+                            else 1)
+                    except RuntimeError as exc:  # the profiler kept nothing
+                        print(f"{name} {k} {size}: {exc}", flush=True)
+                        dev = float("nan")
+                    t["device_ms"].append(dev)
+    finally:
+        build._lib = None
+        _print_clocks(clocks)
+    for key in times:
+        b = bound[key.split()[1]]
+        print(f"{key} (bound {b:.5f} ms; median of {STREAM_ROUNDS} rounds; "
+              f"ms wrapper / device, share of the bound by device time):",
+              flush=True)
+        for name in libs:
+            t = times[key][name]
+            kept = [x for x in t["device_ms"] if x == x]
+            dev = statistics.median(kept) if kept else float("nan")
+            print(f"  {name:14s} {statistics.median(t['ms']):.4f} / "
+                  f"{dev:.4f}  {b / dev:.3f}", flush=True)
+    print(json.dumps({"bound_ms": bound, "times": times}), flush=True)
+
+
+# ------------------------------------------------------- int8 path
+#: one run of ``int8path``, in the checkout it is started in
+INT8_PATH_RUN = """
+import contextlib, json, os, shutil, sys, time
+root = os.getcwd()
+sys.path[:0] = [os.path.join(root, "src"), root]
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config, uniform_groups
+from repro_torch.kernels import build
+from repro_torch.obs import trace as obs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build.library()
+kept = []
+tracing = obs.tracing
+
+@contextlib.contextmanager
+def keep(*a, **k):
+    with tracing(*a, **k) as t:
+        yield t
+    kept.append(t)
+
+obs.tracing = keep
+cfg = get_config("llama3.2-1b", n_layers=2,
+                 layer_groups=uniform_groups("full", 2))
+workdir = os.path.join(root, "build", "int8path_ckpt")
+shutil.rmtree(workdir, ignore_errors=True)
+torch.cuda.reset_peak_memory_stats()
+cs._zero_launches()
+t0 = time.perf_counter()
+try:
+    report, _ = cs.run_train_path("cuda", cfg, workdir, cs.HOST_CACHE_BYTES,
+                                  8, batch=cs.TRAIN_BATCH,
+                                  seq_len=cs.TRAIN_SEQ)
+finally:
+    shutil.rmtree(workdir, ignore_errors=True)
+wall = time.perf_counter() - t0
+enc = kept[0].spans("encode.int8")
+n = cs._launches()
+print("int8path " + json.dumps({
+    "checkout": root, "phase_s": wall, "run_s": report["run_s"],
+    "encode_int8_s_per_save": sum(e["t1"] - e["t0"] for e in enc)
+    / len(report["saves"]), "encode_int8_spans": len(enc),
+    "persist_s": [r["persist_s"] for r in report["saves"]],
+    "resume_s": report["restore"]["total_s"],
+    "read_s": report["restore"]["read_s"],
+    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    "launches": {k: n[k] for k in ("quantize_checksum_int8",
+                                   "dequantize_checksum_int8")},
+    "resume_launches": {k: report["restore"]["launches"][k] for k in (
+        "quantize_checksum_int8", "dequantize_checksum_int8")}}),
+    flush=True)
+"""
+
+
+def int8path_main(args) -> None:
+    """Each checkout's run in turns: the order given, then reversed."""
+    if not args:
+        sys.exit("int8path: name one or more checkouts")
+    print(_smi_line(), flush=True)
+    for checkout in [*args, *reversed(args)]:
+        proc = subprocess.run([sys.executable, "-c", INT8_PATH_RUN],
+                              cwd=checkout, capture_output=True, text=True)
+        lines = [x for x in proc.stdout.splitlines()
+                 if x.startswith(("int8path ", "resume ", "save "))]
+        print("\n".join(lines), flush=True)
+        if proc.returncode != 0:
+            print(f"int8path: {checkout} failed ({proc.returncode}):\n"
+                  f"{proc.stderr[-4000:]}", flush=True)
+
+
 def main(argv) -> None:
     import torch
 
@@ -721,6 +1127,10 @@ def main(argv) -> None:
         stream_main(args[1:])
     elif args and args[0] == "checksum":
         checksum_main(args[1:])
+    elif args and args[0] == "int8":
+        int8_main(args[1:])
+    elif args and args[0] == "int8path":
+        int8path_main(args[1:])
     else:
         attention_main(args)
 

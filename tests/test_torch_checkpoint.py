@@ -426,6 +426,138 @@ def test_quantized_steps_cross_packages(tmp_path, states, writer):
         tm.close()
 
 
+def _int8_leaf(n_values: int, seed: int) -> np.ndarray:
+    """Seeded fp32 values (normal, times 10) with, where there are 3 rows,
+    a zero second row and a third holding rounding ties."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(n_values) * 10).astype(np.float32)
+    if n_values >= 768:
+        x[256:768] = 0
+        x[512:522] = [127, -127, 0.5, -0.5, 2.5, -2.5, 3.5, -3.5, 126.5,
+                      -126.5]
+    return x
+
+
+@pytest.mark.parametrize("cap", [1, 1 << 30])
+def test_quantized_provider_encodes_in_pieces(cap):
+    """``QuantizedStateProvider`` on the CPU, 2 KiB chunks, a tensor of 35
+    chunks with a ragged tail, so it crosses three pieces: every chunk's
+    payload, digest and raw range are ``repro``'s ``encode_int8_block``
+    of that chunk alone, under an encode budget that admits a piece ahead
+    (``1 << 30``) or only one piece at a time (``1``); every reservation
+    comes back."""
+    from repro_torch.core.state_provider import (EncodeBudget,
+                                                 QuantizedStateProvider)
+    x = _int8_leaf(34 * 512 + 250, seed=cap % 7)
+    raw = x.view(np.uint8)
+    p = QuantizedStateProvider("m", dtype="float32", shape=x.shape,
+                               nbytes=x.nbytes, device="cpu", host_array=x,
+                               chunk_bytes=2048)
+    p.checksum_chunks = True
+    p.encode_budget = budget = EncodeBudget(cap)
+    got = []
+    for c in p.chunks():
+        got.append(c)
+        c.on_flushed()   # a flush lane writes it at once
+    assert [c.raw_range for c in got] == \
+        [(lo, min(lo + 2048, raw.size)) for lo in range(0, raw.size, 2048)]
+    assert [c.last for c in got] == [False] * 34 + [True]
+    for c in got:
+        lo, hi = c.raw_range
+        jpay, jdig = jcodecs.encode_int8_block(raw[lo:hi], with_digest=True)
+        assert bytes(c.data) == jpay and c.digest == jdig
+        assert c.codec == "int8q+zstd" and c.offset is None
+    assert budget._used == 0
+
+
+def test_quantized_provider_returns_unflushed_reservations():
+    """A stream closed in the middle of a piece credits back every chunk
+    it never handed on; the chunks handed on keep theirs."""
+    from repro_torch.core.state_provider import (EncodeBudget,
+                                                 QuantizedStateProvider)
+    x = _int8_leaf(40 * 256, seed=1)
+    p = QuantizedStateProvider("m", dtype="float32", shape=x.shape,
+                               nbytes=x.nbytes, device="cpu", host_array=x,
+                               chunk_bytes=1024)
+    p.encode_budget = budget = EncodeBudget(1 << 30)
+    stream = p.chunks()
+    first = [next(stream) for _ in range(3)]
+    stream.close()
+    assert budget._used == sum(len(c.data) for c in first)
+    for c in first:
+        c.on_flushed()
+    assert budget._used == 0
+
+
+def test_port_reads_repro_quantized_step_in_pieces(tmp_path):
+    """A quantized step written by ``repro`` with 1 KiB chunks (a leaf of
+    41 chunks, three pieces, the last chunk ragged): ``read_encoded_tensor``
+    on the CPU decodes every quantized tensor bit for bit as ``repro``'s
+    reader does."""
+    policy = J.CheckpointPolicy(
+        engine=J.EnginePolicy(host_cache_bytes=16 << 20, chunk_bytes=1024),
+        providers=(J.StateProviderRegistry()
+                   .add_rule(provider="quantized", domain="optimizer",
+                             dtype="float32")
+                   .add_rule(provider="auto")))
+    state = {"model": {"w": jnp.asarray(_int8_leaf(300, seed=2))},
+             "optimizer": {"m": jnp.asarray(_int8_leaf(40 * 256 + 77, 3)),
+                           "v": jnp.asarray(_int8_leaf(5 * 256, 4))}}
+    jm = J.CheckpointManager.from_policy(str(tmp_path), policy)
+    jm.save(1, state)
+    jm.wait_for_persist()
+    jm.wait_for_commit()
+    jm.close()
+    from repro.core.layout import FileReader as JReader
+    from repro_torch.core.layout import FileReader as TReader
+    step = JRepository(str(tmp_path)).step_dir(1)
+    paths = [os.path.join(step, f) for f in sorted(os.listdir(step))
+             if f.endswith(".dsllm")]
+    seen = 0
+    for path in paths:
+        tr, jr = TReader(path), JReader(path)
+        for name, e in tr.tensors.items():
+            if e.codec == "raw":
+                continue
+            seen += 1
+            np.testing.assert_array_equal(tr.read_encoded_tensor(name, "cpu"),
+                                          jr.read_encoded_tensor(name))
+            if e.nbytes > 40 * 1024:
+                assert len(e.enc_chunks) == 41
+    assert seen == 2
+
+
+def test_flipped_byte_in_a_piece_names_its_chunk(tmp_path):
+    """20 chunks of one int8q tensor, the third holding a validly
+    compressed payload with one byte flipped, stored against its original
+    digest: ``read_encoded_tensor`` raises ``CodecError`` naming that
+    chunk, and ``locate_corrupt_chunks`` names it alone."""
+    from repro_torch.core import codecs as tcodecs
+    from repro_torch.core.layout import FileLayout, FileReader, FileWriter
+    from repro_torch.core.reduction import _compress
+    x = _int8_leaf(20 * 512, seed=5)
+    raw = x.view(np.uint8)
+    path = str(tmp_path / "q.dsllm")
+    w = FileWriter(path, FileLayout.plan([]))
+    w.declare_encoded_tensor("t", dtype="float32", shape=x.shape,
+                             nbytes=raw.size, codec=tcodecs.INT8_CODEC)
+    for k, lo in enumerate(range(0, raw.size, 2048)):
+        payload, dig = jcodecs.encode_int8_block(raw[lo:lo + 2048],
+                                                 with_digest=True)
+        if k == 2:
+            bad = bytearray(payload)
+            bad[8 + 4 * 2 + 300] ^= 0x10
+            payload = bytes(bad)
+        w.append_encoded_chunk("t", _compress(payload), lo, lo + 2048,
+                               digest=dig)
+    w.finalize()
+    r = FileReader(path)
+    with pytest.raises(tcodecs.CodecError,
+                       match=r"digest mismatch.*chunk \[4096:6144\)"):
+        r.read_encoded_tensor("t", "cpu")
+    assert r.locate_corrupt_chunks("cpu") == ["t int8q+zstd chunk [4096:6144)"]
+
+
 def test_quantized_optimizer_restores_by_domain(tmp_path, states):
     """``domains=("optimizer",)`` on a delta step of the mixed policy:
     the quantized leaves decode standalone, the delta-routed count

@@ -243,6 +243,8 @@ def test_build_flags_are_fixed():
                                      "ckpt_delta_f32",
                                      "ckpt_quantize_checksum_int8",
                                      "ckpt_dequantize_checksum_int8",
+                                     "ckpt_quantize_checksum_int8_segments",
+                                     "ckpt_dequantize_checksum_int8_segments",
                                      "ckpt_quantize_int8",
                                      "ckpt_dequantize_int8",
                                      "ckpt_downcast_bf16",
@@ -294,10 +296,11 @@ def test_tile_words_match_the_streaming_core():
 def test_stream_kernels_share_one_core():
     """``ckpt_delta_xor``, ``ckpt_downcast_bf16`` and ``ckpt_delta_f32``
     launch the one streaming template over their per-vector operations;
-    the digest is one cluster launch a call, its block sums meeting in
-    rank 0's shared memory, with no atomic and no zeroed word, and the
-    one-chunk entry is its one-segment case; the fused XOR digests keep
-    the grid-stride loop. The old digest and subtraction kernels are
+    the digest and the int8 pair are one cluster launch a call, each
+    segment's block sums meeting in rank 0's shared memory through one
+    shared fold, with no atomic and no zeroed word, and the one-chunk
+    entries are their one-segment case; the fused XOR digests keep the
+    grid-stride loop. The old digest, int8 and subtraction kernels are
     gone."""
     src = (build.CSRC / "ckpt_kernels.cu").read_text()
     assert "return launch_stream<XorOp>(a, b, out, n, stream);" in src
@@ -306,15 +309,32 @@ def test_stream_kernels_share_one_core():
     for kernel in ("xor_checksum_kernel<false><<<blocks_for(n)",
                    "xor_checksum_kernel<true><<<blocks_for(n)"):
         assert kernel in src
-    digest = src[src.index("checksum_segments_kernel(const"):
-                 src.index("int launch_checksum(")]
+    fold = src[src.index("__device__ __forceinline__ void cluster_fold("):
+               src.index("checksum_segments_kernel(const")]
     for part in ("cluster.map_shared_rank(", "cluster.sync();",
                  "cudaLaunchAttributeClusterDimension",
-                 "cudaLaunchKernelEx(", "out[seg] = sum;"):
-        assert part in digest
-    assert "atomic" not in digest
+                 "cudaLaunchKernelEx(", "*out = sum;"):
+        assert part in fold
+    segmented = src[src.index("checksum_segments_kernel(const"):
+                    src.index("}  // namespace")]
+    assert not re.search(r"\batomic\w*\s*\(", fold + segmented)
+    for kernel in ("checksum_segments_kernel(const",
+                   "quantize_segments_kernel(const",
+                   "dequantize_segments_kernel(const"):
+        body = segmented[segmented.index(kernel):]
+        body = body[:body.index("\n}\n")]
+        assert "cluster_arrive();" in body and "cluster_fold<" in body
     assert "return launch_checksum(x, n, n, 1, out, stream);" in src
-    for gone in ("checksum_kernel", "delta_f32_kernel"):
+    for entry, call in (("ckpt_quantize_checksum_int8(",
+                         "launch_int8<true>(x, n_rows * kRowBytes, "
+                         "row_start, 1, body, dig, 0,"),
+                        ("ckpt_dequantize_checksum_int8(",
+                         "launch_int8<false>(body, 0, row_start, 1, out, "
+                         "dig, 0, stream);")):
+        body = src[src.index(f'extern "C" int {entry}'):]
+        assert call in body[:body.index("\n}\n")]
+    for gone in ("checksum_kernel", "delta_f32_kernel",
+                 "quantize_checksum_kernel", "dequantize_checksum_kernel"):
         assert not re.search(rf"\b{gone}\b", src)
     assert "__float2bfloat16_rn(" not in src  # NaN bits differ
 
@@ -344,9 +364,11 @@ def test_checksum_ablations_apply_to_the_kernel_source(name):
     assert (out == src) == (name == "checksum")
     assert out.count('extern "C" int ckpt_checksum_u32(') == 1
     assert out.count('extern "C" int ckpt_checksum_u32_segments(') == 1
-    # a cluster past the portable 8 blocks must be allowed before launch
-    big = "constexpr int kSumCluster = 16;" in out
-    assert big == ("cudaFuncAttributeNonPortableClusterSizeAllowed" in out)
+    # a cluster past the portable 8 blocks is allowed before its launch
+    helper = out[out.index("int launch_clusters("):]
+    helper = helper[:helper.index("\n}\n")]
+    assert "if (cluster > 8)" in helper
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in helper
 
 
 def _cuda_or_skip():

@@ -9,9 +9,15 @@ the JAX package.
 * The port's ``encode_int8_block`` payload and digest are byte-identical
   to ``repro.core.codecs.encode_int8_block``'s, each package decodes the
   other's payload, and a corrupted payload raises ``CodecError`` in both.
+* The segmented plain versions (what a CPU tensor dispatches to on the
+  piece-fed path) give, for every segment of a piece, the payload and
+  digest of ``repro``'s ``encode_int8_block`` of that chunk alone, and
+  decode it as ``repro``'s ``decode_int8_block`` does.
 * ``gpu``-marked tests hold the CUDA kernels against the plain versions
   on a card; they skip inside the test on a host without one.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from repro_torch.core import codecs as tcodecs
 from repro_torch.kernels import build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import quantize as tq
+from repro_torch.kernels import variants
 
 FLT_MIN = np.float32(2.0 ** -126)
 
@@ -225,3 +232,189 @@ def test_cuda_codec_matches_reference():
     np.testing.assert_array_equal(
         tcodecs.decode_int8_block(jpay, 0, raw.size, jdig, "cuda"),
         jcodecs.decode_int8_block(jpay, 0, raw.size, expect_digest=jdig))
+
+
+#: chunks' raw bytes of a piece: one chunk; 16; 16 and a 17th of one row;
+#: a 1-row last segment; a ragged raw tail; unequal sizes; a tensor
+#: smaller than one row (4 and 1,020 bytes)
+SEGMENT_CASES = {
+    "one": (3 * 1024,), "sixteen": (2 * 1024,) * 16,
+    "seventeen": (2 * 1024,) * 16 + (1024,),
+    "one_row_last": (2 * 1024,) * 3 + (1024,),
+    "ragged_tail": (2 * 1024, 2 * 1024, 1000),
+    "unequal": (1024, 5 * 1024, 2 * 1024, 3 * 1024 - 20),
+    "tiny": (4,), "short_row": (1020,)}
+
+
+def _piece(sizes, seed):
+    """Seeded raw bytes of a piece of chunks of ``sizes``, the edge rows of
+    :func:`_rows` in them, and its layout."""
+    starts, valid = variants.int8_layout(sizes)
+    raw = _rows(starts[-1], seed).reshape(-1).view(np.uint8)[:valid]
+    return raw, starts, valid
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_plain_segments_match_reference(case):
+    """Each segment's payload and digest are ``repro``'s encode of that
+    chunk alone; the segmented decode gives ``repro``'s decode of each
+    payload and the same digests."""
+    sizes = SEGMENT_CASES[case]
+    raw, starts, valid = _piece(sizes, seed=len(sizes))
+    pay, dig = tops.fused_quantize_int8_segments(torch.from_numpy(raw),
+                                                 valid, starts)
+    offs = tq.segment_offsets(starts)
+    assert pay.numel() == offs[-1] and dig.numel() == len(sizes)
+    digs = dig.numpy().view(np.uint32)
+    rows, odig = tops.fused_dequantize_int8_segments(pay, starts)
+    out = rows.numpy().reshape(-1).view(np.uint8)
+    lo = 0
+    for s, n in enumerate(sizes):
+        jpay, jdig = jcodecs.encode_int8_block(raw[lo:lo + n],
+                                               with_digest=True)
+        assert pay[offs[s]:offs[s + 1]].numpy().tobytes() == jpay
+        assert digs[s] == jdig
+        np.testing.assert_array_equal(
+            out[1024 * starts[s]:1024 * starts[s] + n],
+            jcodecs.decode_int8_block(jpay, lo, lo + n, expect_digest=jdig))
+        lo += n
+    assert torch.equal(odig, dig)
+
+
+@pytest.mark.parametrize("starts,valid", [
+    ([1, 2], 1024), ([0, 0, 1], 1024), ([0, 2, 1], 1024),
+    (list(range(34)), 33 * 1024), ([0, 2], 1024), ([0, 2], 2049),
+    ([0], 0)])
+def test_segment_tables_are_checked(starts, valid):
+    """A table not starting at 0, an empty or backward segment, more than
+    32 segments, valid bytes that do not end in the last row, no segment:
+    refused before any launch, on every device."""
+    x = torch.zeros(4096, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        tq.quantize_checksum_segments_plain(x, valid, starts)
+    with pytest.raises(ValueError):
+        tq.quantize_checksum_segments_cuda(x, valid, starts)
+
+
+def test_segmented_wrappers_write_into_given_outputs():
+    raw, starts, valid = _piece((1024, 2048, 100), seed=5)
+    x = torch.from_numpy(raw)
+    offs = tq.segment_offsets(starts)
+    out = torch.empty(offs[-1], dtype=torch.uint8)
+    dig = torch.empty(3, dtype=torch.int32)
+    pay, d = tops.fused_quantize_int8_segments(x, valid, starts, out, dig)
+    assert pay is out and d is dig
+    rows = torch.empty((starts[-1], 256))
+    got, d2 = tops.fused_dequantize_int8_segments(out, starts, rows)
+    assert got is rows and torch.equal(d2, dig)
+    with pytest.raises(ValueError, match="payloads"):
+        tops.fused_quantize_int8_segments(x, valid, starts, out[1:])
+    with pytest.raises(ValueError, match="CUDA"):
+        tq.dequantize_checksum_segments_cuda(out, starts)
+
+
+@pytest.mark.parametrize("name", sorted(variants.INT8_ABLATIONS))
+def test_int8_ablations_apply_to_the_kernel_source(name):
+    """Each variant of ``python -m repro_torch.kernels.variants int8``
+    edits ``ckpt_kernels.cu``; only ``int8`` is the shipped pair, and all
+    four int8 entries stay."""
+    src = (build.CSRC / variants.STREAM).read_text()
+    out = variants.variant_source(variants.INT8_ABLATIONS[name],
+                                  variants.STREAM)
+    assert (out == src) == (name == "int8")
+    for sym in ("ckpt_quantize_checksum_int8",
+                "ckpt_dequantize_checksum_int8",
+                "ckpt_quantize_checksum_int8_segments",
+                "ckpt_dequantize_checksum_int8_segments"):
+        assert out.count(f'extern "C" int {sym}(') == 1
+    # clusters of at most 16 blocks: the launch allows those past 8
+    for sym in ("kQuantCluster", "kDequantCluster"):
+        assert re.search(rf"constexpr int {sym} = (8|16);", out)
+    pair = out[out.index("// -------------------------------------------"
+                         "--------- segmented int8 pair"):
+               out.index("}  // namespace")]
+    assert ("block_fold(" in pair) == (name == "atomic_loop")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sizes", variants.INT8_CASES,
+                         ids=lambda t: f"{len(t)}x{sorted(set(t))}")
+def test_cuda_segments_match_plain(sizes):
+    """Payloads, digests and rows bit for bit at every layout the tool
+    checks (the 64 MiB piece included), with the edge values, zero rows
+    and ties in the first and the last segment."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(sizes))
+    x, starts, valid = variants.int8_inputs(torch, sizes, gen)
+    pay, dig = tops.fused_quantize_int8_segments(x, valid, starts)
+    ppay, pdig = tq.quantize_checksum_segments_plain(x, valid, starts)
+    assert torch.equal(pay, ppay) and torch.equal(dig, pdig)
+    rows, odig = tops.fused_dequantize_int8_segments(pay, starts)
+    prows, podig = tq.dequantize_checksum_segments_plain(pay, starts)
+    assert torch.equal(rows.view(torch.int32), prows.view(torch.int32))
+    assert torch.equal(odig, podig) and torch.equal(odig, dig)
+
+
+@pytest.mark.gpu
+def test_cuda_segments_write_digests_whole():
+    """Two calls into the same outputs give the same digests: nothing is
+    accumulated, so nothing needs zeroing."""
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    x, starts, valid = variants.int8_inputs(torch, (8192,) * 5 + (300,), gen)
+    pay, dig = tq.quantize_checksum_segments_cuda(x, valid, starts)
+    first = dig.clone()
+    tq.quantize_checksum_segments_cuda(x, valid, starts, pay, dig)
+    assert torch.equal(dig, first)
+    rows, odig = tq.dequantize_checksum_segments_cuda(pay, starts)
+    tq.dequantize_checksum_segments_cuda(pay, starts, rows, odig)
+    assert torch.equal(odig, first)
+
+
+@pytest.mark.gpu
+def test_cuda_segments_on_two_lane_streams():
+    """Two lanes encoding different pieces at once, each on its own
+    stream, both come out right."""
+    import threading
+    _cuda_or_skip()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    inputs = [variants.int8_inputs(torch, (4 << 20,) * k + (5000,), gen)
+              for k in (16, 9)]
+    torch.cuda.synchronize()
+    got = [None, None]
+
+    def lane(i):
+        x, starts, valid = inputs[i]
+        with tops.lane_stream(x.device) as st:
+            for _ in range(5):
+                pay, dig = tops.fused_quantize_int8_segments(x, valid, starts)
+            st.synchronize()
+        got[i] = (pay, dig)
+
+    threads = [threading.Thread(target=lane, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for (x, starts, valid), (pay, dig) in zip(inputs, got):
+        ppay, pdig = tq.quantize_checksum_segments_plain(x, valid, starts)
+        assert torch.equal(pay, ppay) and torch.equal(dig, pdig)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bytes", [4, 1022, 9 * 1024 - 20, 4 << 20])
+def test_cuda_codec_matches_cpu(n_bytes):
+    """``encode_int8_block`` on the card equals it on the CPU byte for
+    byte, and each decodes the other's payload to the same bytes."""
+    _cuda_or_skip()
+    raw = _rows(-(-n_bytes // 1024), seed=n_bytes).reshape(-1) \
+        .view(np.uint8)[:n_bytes]
+    cpay, cdig = tcodecs.encode_int8_block(raw, True, "cpu")
+    gpay, gdig = tcodecs.encode_int8_block(raw, True, "cuda")
+    assert bytes(gpay) == bytes(cpay) and gdig == cdig
+    np.testing.assert_array_equal(
+        tcodecs.decode_int8_block(cpay, 0, n_bytes, cdig, "cuda"),
+        tcodecs.decode_int8_block(gpay, 0, n_bytes, gdig, "cpu"))
