@@ -45,7 +45,13 @@ Phases, any failure exits non-zero:
    words, the 64 MiB piece) and timed, wrapper and device, at one 4 MiB
    chunk and at one 64 MiB piece of 16 chunks (``file_checksum``'s call);
    a 4 MiB call must show one device record under the profiler, the
-   kernel's, and no fill. The fused int8 pair likewise: its one-segment
+   kernel's, and no fill. The fused XOR digest likewise: its one-segment
+   entry at ``variants.XOR_SIZES`` words, its segmented one at every
+   layout of ``variants.XOR_CASES`` (no words, short last segments, byte
+   tails of 1 and 3 bytes, 4, 5, 16 and 17 segments, the 64 MiB piece) and
+   at a 4-byte offset, one device record a 4 MiB call, timed at a 4 MiB
+   chunk, the delta provider's 32 MiB piece of 8 chunks and a 64 MiB
+   piece of 16. The fused int8 pair likewise: its one-segment
    entries at 1, 3, 257 and 4,096 rows, its segmented ones at every
    layout of ``variants.INT8_CASES`` (tensors under one row, ragged
    tails, 1-row and short segments, 16, 17 and 32 segments, the 64 MiB
@@ -88,8 +94,10 @@ Phases, any failure exits non-zero:
    Kernel launch counts are zeroed just before each of phases 4, 5, 6 and
    7 and read just after; each kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
-   phase 5 also the int8 pair's launches, the ``encode.int8`` span time a
-   save, the resume's read time and the peak device memory.
+   phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
+   and span count of each delta save, the persist times and the peak
+   device memory; phase 5 also the int8 pair's launches, the
+   ``encode.int8`` span time a save and the resume's read time.
 8. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -117,10 +125,10 @@ HBM_BYTES_PER_S = 3.35e12
 #: products are bf16 at the serving shape
 BF16_FLOP_PER_S = 989e12
 HOST_CACHE_BYTES = 12 << 30
-#: words per call on the main path: 4 MiB chunks for the encode, 64 MiB
-#: pieces for the restore fold (the digest's chunks and pieces are
-#: ``variants.CHUNK_WORDS`` and ``PIECE_WORDS``)
-MAIN_WORDS = {"xor_checksum_u32": 1 << 20, "delta_xor": 1 << 24}
+#: words per call on the main path: 64 MiB pieces for the restore fold
+#: (the digest's chunks and pieces are ``variants.CHUNK_WORDS`` and
+#: ``PIECE_WORDS``, the XOR digest's ``variants.XOR_CALLS``)
+MAIN_WORDS = {"delta_xor": 1 << 24}
 #: quantization rows per call on the main path: one 4 MiB chunk
 MAIN_ROWS = 4096
 #: the training phase: tokens per batch row (the longest sequence on the
@@ -204,19 +212,10 @@ def _random_words(n: int, gen):
                          device="cuda", generator=gen)
 
 
-def _calls(name: str, a, b):
-    """(kernel call, plain call, compare) for one kernel on inputs a, b."""
+def _calls(a, b):
+    """(kernel call, plain call, compare) of ``delta_xor`` on a, b."""
     import torch
-    from repro_torch.kernels import checksum, delta, fused
-    mask = checksum.U32_MASK
-    if name == "xor_checksum_u32":
-        def cmp():
-            d, dig = fused.xor_checksum_cuda(a, b)
-            dp, digp = fused.xor_checksum_plain(a, b)
-            err = (d.to(torch.int64) - dp.to(torch.int64)).abs().max()
-            return max(int(err.item()), abs((int(dig.item()) & mask) - digp))
-        return (lambda: fused.xor_checksum_cuda(a, b),
-                lambda: fused.xor_checksum_plain(a, b), cmp)
+    from repro_torch.kernels import delta
 
     def cmp():
         d = delta.delta_xor_cuda(a, b)
@@ -283,54 +282,42 @@ def check_kernels():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = check_checksum_kernel(gen)
-    for name in ("xor_checksum_u32", "delta_xor"):
-        n_main = MAIN_WORDS[name]
-        sizes = _xor_sizes(n_main) if name == "delta_xor" \
-            else (1, 3, 65_537, n_main)
-        worst = 0
-        for n in sizes:
-            a, b = _random_words(n, gen), _random_words(n, gen)
-            err = _calls(name, a, b)[2]()
-            torch.cuda.synchronize()
-            if err != 0:
-                fail(f"{name} disagrees with its plain version at {n} "
-                     f"words: max |diff| {err}")
-            worst = max(worst, err)
-        if name == "delta_xor":
-            # sliced at a 4-byte offset, so the wrapper's `aligned` clones
-            a, b = _random_words(4098, gen)[1:], _random_words(4098, gen)[1:]
-            if a.data_ptr() % 16 == 0 or _calls(name, a, b)[2]() != 0:
-                fail("delta_xor disagrees with its plain version on words "
-                     "at a 4-byte offset")
-        a, b = _random_words(n_main, gen), _random_words(n_main, gen)
-        kern, plain, _ = _calls(name, a, b)
-        reps = 200 if n_main <= (1 << 20) else 30
-        library_ms, device = None, {}
-        if name == "delta_xor":
-            lib = lambda: torch.bitwise_xor(a, b)  # noqa: E731
-            ms, library_ms = _time_turns(kern, lib, reps)
-            dev, lib_dev = _time_turns(kern, lib, reps, _device_ms)
-            device = {"device_ms": dev, "library_device_ms": lib_dev}
-        else:
-            ms = _time_ms(kern, reps)
-        plain_ms = _time_ms(plain, max(5, reps // 10))
-        # each input read once, each output written once: 12N for the
-        # XOR kernels
-        nbytes = 12 * n_main
-        rows[name] = {
-            "name": name, "words": n_main, "max_abs_err": worst,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes",
-            "library_ms": library_ms, **device}
-        log(f"kernel {name}: bit-identical at {', '.join(map(str, sizes))} "
-            f"words{' and at a 4-byte offset' if device else ''}; "
-            f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-            f"{rows[name]['bound_ms']:.4f} ms"
-            + (f", torch.bitwise_xor {library_ms:.4f} ms; device alone "
-               f"{device['device_ms']:.4f} ms, torch.bitwise_xor "
-               f"{device['library_device_ms']:.4f} ms)"
-               if device else ")"))
+    rows.update(check_xor_kernel(gen))
+    name, n_main = "delta_xor", MAIN_WORDS["delta_xor"]
+    sizes = _xor_sizes(n_main)
+    worst = 0
+    for n in sizes:
+        a, b = _random_words(n, gen), _random_words(n, gen)
+        err = _calls(a, b)[2]()
+        torch.cuda.synchronize()
+        if err != 0:
+            fail(f"{name} disagrees with its plain version at {n} words: "
+                 f"max |diff| {err}")
+        worst = max(worst, err)
+    # sliced at a 4-byte offset, so the wrapper's `aligned` clones
+    a, b = _random_words(4098, gen)[1:], _random_words(4098, gen)[1:]
+    if a.data_ptr() % 16 == 0 or _calls(a, b)[2]() != 0:
+        fail("delta_xor disagrees with its plain version on words at a "
+             "4-byte offset")
+    a, b = _random_words(n_main, gen), _random_words(n_main, gen)
+    kern, plain, _ = _calls(a, b)
+    reps = 30
+    lib = lambda: torch.bitwise_xor(a, b)  # noqa: E731
+    ms, library_ms = _time_turns(kern, lib, reps)
+    dev, lib_dev = _time_turns(kern, lib, reps, _device_ms)
+    plain_ms = _time_ms(plain, max(5, reps // 10))
+    # each input read once, each output written once: 12N
+    rows[name] = {
+        "name": name, "words": n_main, "max_abs_err": worst,
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 12 * n_main / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes", "library_ms": library_ms, "device_ms": dev,
+        "library_device_ms": lib_dev}
+    log(f"kernel {name}: bit-identical at {', '.join(map(str, sizes))} "
+        f"words and at a 4-byte offset; {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, bound {rows[name]['bound_ms']:.4f} ms, "
+        f"torch.bitwise_xor {library_ms:.4f} ms; device alone {dev:.4f} "
+        f"ms, torch.bitwise_xor {lib_dev:.4f} ms)")
     rows.update(check_int8_kernels(gen))
     rows.update(check_flash_kernel(gen))
     rows.update(check_reduction_kernels(gen))
@@ -407,6 +394,57 @@ def check_checksum_kernel(gen) -> dict:
         "bound_by": "bytes", "library_ms": None,
         "device_ms": p["device_ms"],
         **{f"chunk_{k}": v for k, v in c.items()}}}
+
+
+def check_xor_kernel(gen) -> dict:
+    """The fused XOR digest against its plain versions
+    (``variants.xor_disagreement``: the one-segment entry at
+    ``variants.XOR_SIZES`` words, the segmented one at every
+    ``variants.XOR_CASES`` layout and at a 4-byte offset, deltas and each
+    segment's digest bit for bit); one device record a 4 MiB call, the
+    kernel (no fill); then timed at one 4 MiB chunk, the delta provider's
+    piece of 8 chunks and a 64 MiB piece of 16 (``variants.XOR_CALLS``),
+    wrapper and device, beside the plain version and the bound (12 bytes
+    a word over the memory rate). No PyTorch call computes the XOR with a
+    digest. The row's ``ms`` is the provider's piece's."""
+    import torch
+    from repro_torch.kernels import variants
+    bad = variants.xor_disagreement(torch)
+    if bad is not None:
+        fail(f"xor_checksum_u32 disagrees with its plain version: {bad}")
+    calls, _ = variants.xor_calls(torch, gen)
+    names = _device_record_names(calls["chunk"][0])
+    if len(names) != 1 \
+            or "xor_checksum_segments_kernel" not in next(iter(names)):
+        fail(f"a 4 MiB xor_checksum_u32 call recorded the device events "
+             f"{sorted(names)}, not the kernel alone")
+    t = {}
+    for k, (kern, plain) in calls.items():
+        n_bytes, n_segs = variants.XOR_CALLS[k]
+        t[k] = {"ms": _time_ms(kern, 200 if n_segs == 1 else 100),
+                "device_ms": _device_ms(kern, 20),
+                "plain_ms": _time_ms(plain, 5),
+                "bound_ms": variants.xor_bound_ms(n_bytes)}
+    desc = {"chunk": "4 MiB chunk", "piece": "32 MiB piece of 8 chunks",
+            "piece64": "64 MiB piece of 16 chunks"}
+    log("kernel xor_checksum_u32: bit-identical at "
+        f"{', '.join(map(str, variants.XOR_SIZES))} words, in segments at "
+        f"(bytes, bytes a segment) {variants.XOR_CASES} and at a 4-byte "
+        f"offset; one device record a call ({next(iter(names))}); "
+        + "; ".join(
+            f"{desc[k]} {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms, "
+            f"{v['bound_ms'] / v['device_ms']:.3f} of the bound (plain "
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.5f} ms)"
+            for k, v in t.items()))
+    p = t["piece"]
+    return {"xor_checksum_u32": {
+        "name": "xor_checksum_u32", "bytes": variants.XOR_CALLS["piece"][0],
+        "segments": variants.XOR_CALLS["piece"][1], "max_abs_err": 0,
+        "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "device_ms": p["device_ms"],
+        **{f"{size}_{k}": v for size in ("chunk", "piece64")
+           for k, v in t[size].items()}}}
 
 
 def check_int8_kernels(gen) -> dict:
@@ -803,15 +841,40 @@ def _assert_equal(got, want: list, what: str) -> None:
                  f"{a.device} vs {b.dtype}{tuple(b.shape)}@{b.device})")
 
 
+def _encode_per_save(spans: list, n_saves: int) -> list:
+    """Each save's ``{"s", "spans", "bytes"}`` of the ``encode.delta``
+    spans of ``n_saves`` delta saves: they stream one after the other (a
+    delta save waits for the last one's streams to end) and encode the
+    same tensors, so the spans in time order fall into runs of equal
+    bytes."""
+    spans = sorted(spans, key=lambda e: e["t0"])
+    per_save = sum(e["args"]["bytes"] for e in spans) // max(1, n_saves)
+    saves, group = [], []
+    for e in spans:
+        group.append(e)
+        if sum(g["args"]["bytes"] for g in group) >= per_save:
+            saves.append(group)
+            group = []
+    return [{"s": sum(e["t1"] - e["t0"] for e in g), "spans": len(g),
+             "bytes": sum(e["args"]["bytes"] for e in g)} for g in saves]
+
+
+def _encode_text(saves: list) -> str:
+    return ", ".join(f"{e['s']:.3f} s ({e['spans']} spans, {e['bytes']} "
+                     f"bytes)" for e in saves)
+
+
 def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                   flush_threads: int) -> dict:
     """Three steps of the two-phase loop with saves K, delta, delta; then
-    restore steps 3 and 1 onto ``device`` and compare bit for bit."""
+    restore steps 3 and 1 onto ``device`` and compare bit for bit. The
+    saves run under tracing, for the ``encode.delta`` time of each."""
     import torch
     from repro_torch.core import (CheckpointManager, CheckpointPolicy,
                                   DeltaPolicy, EnginePolicy)
     from repro_torch.core.tree import flatten_with_path
     from repro_torch.models.model import init_params
+    from repro_torch.obs import trace as obs
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          init_opt_state)
 
@@ -842,23 +905,24 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         futures = []
         step1 = None
         stall = 0.0
-        for step in (1, 2, 3):
-            grads = unflatten([
-                (torch.randn(t.shape, generator=gen, device=device)
-                 * 1e-2).to(t.dtype) for _p, t in flat])
-            stall = mgr.wait_for_capture()
-            if futures:
-                futures[-1][1]["capture_stall_s"] = stall
-            apply_updates(params, opt, grads, hp)
-            del grads
-            t0 = time.perf_counter()
-            fut = mgr.save(step, state(step))
-            row = {"step": step, "prologue_s": time.perf_counter() - t0}
-            futures.append((fut, row))
-            if step == 1:
-                step1 = [t.clone() for t in _tensors(state(1))]
-        futures[-1][1]["capture_stall_s"] = mgr.wait_for_capture()
-        mgr.wait_for_persist()
+        with obs.tracing() as tracer:
+            for step in (1, 2, 3):
+                grads = unflatten([
+                    (torch.randn(t.shape, generator=gen, device=device)
+                     * 1e-2).to(t.dtype) for _p, t in flat])
+                stall = mgr.wait_for_capture()
+                if futures:
+                    futures[-1][1]["capture_stall_s"] = stall
+                apply_updates(params, opt, grads, hp)
+                del grads
+                t0 = time.perf_counter()
+                fut = mgr.save(step, state(step))
+                row = {"step": step, "prologue_s": time.perf_counter() - t0}
+                futures.append((fut, row))
+                if step == 1:
+                    step1 = [t.clone() for t in _tensors(state(1))]
+            futures[-1][1]["capture_stall_s"] = mgr.wait_for_capture()
+            mgr.wait_for_persist()
         mgr.wait_for_commit()
         if mgr.commit_errors:
             fail(f"commit errors: {mgr.commit_errors}")
@@ -877,6 +941,9 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                 f"{row['persist_s']:.3f} s, commit {row['commit_s']:.3f} s, "
                 f"{row['bytes_written']} bytes written")
         report["launches_save"] = _launches()
+        report["encode_delta"] = _encode_per_save(
+            tracer.spans("encode.delta"),
+            sum(r["kind"] == "delta" for r in report["steps"]))
         for step, want in ((3, _tensors(state(3))), (1, step1)):
             before = _launches()
             t0 = time.perf_counter()
@@ -1009,6 +1076,9 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             "s": sum(e["t1"] - e["t0"] for e in enc),
             "s_per_save": sum(e["t1"] - e["t0"] for e in enc)
             / len(mgr.futures)}
+        report["encode_delta"] = _encode_per_save(
+            tracer.spans("encode.delta"),
+            sum(not f.stats.extra["delta"]["keyframe"] for f in mgr.futures))
         spans = {e["args"]["step"]: e
                  for e in tracer.spans("train.iteration")}
         for r in records:
@@ -1519,6 +1589,13 @@ def main() -> None:
         f"(saves {json.dumps(report['launches_save'])}); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
         f"pinned host cache {report['pinned_bytes']} bytes")
+    persist = ", ".join(f"{r['persist_s']:.3f}" for r in report["steps"])
+    log(f"checkpoint path delta encode: xor_checksum_u32 "
+        f"{launches['xor_checksum_u32']} launches (saves "
+        f"{report['launches_save']['xor_checksum_u32']}); encode.delta a "
+        f"delta save {_encode_text(report['encode_delta'])}; persist "
+        f"{persist} s; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
     log(f"checkpoint path digest: checksum_u32 {launches['checksum_u32']} "
         f"launches (saves {report['launches_save']['checksum_u32']}; "
         + "; ".join(f"restore of step {r['step']} "
@@ -1558,6 +1635,12 @@ def main() -> None:
             f"encode.int8 {enc['s_per_save']:.3f} s a save ({enc['spans']} "
             f"spans, {enc['bytes']} bytes in all); resume read_s "
             f"{report['restore']['read_s']:.3f}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        log(f"training path delta encode: xor_checksum_u32 "
+            f"{launches['xor_checksum_u32']} launches; encode.delta a delta "
+            f"save {_encode_text(report['encode_delta'])}; persist "
+            + ", ".join(f"{r['persist_s']:.3f}" for r in report["saves"])
+            + f" s; max_memory_allocated "
             f"{torch.cuda.max_memory_allocated()} bytes")
         log(f"training path digest: checksum_u32 {launches['checksum_u32']} "
             f"launches (resume of step {report['restore']['step']} "
@@ -1625,7 +1708,9 @@ def main() -> None:
         **{x: r[x] for x in ("tflops", "bound_share", "device_ms",
                              "library_device_ms", "chunk_ms",
                              "chunk_device_ms", "chunk_plain_ms",
-                             "chunk_bound_ms") if x in r}}
+                             "chunk_bound_ms", "piece64_ms",
+                             "piece64_device_ms", "piece64_plain_ms",
+                             "piece64_bound_ms") if x in r}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

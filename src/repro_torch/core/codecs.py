@@ -34,7 +34,11 @@ one upload, one launch and one read-back (:class:`Int8EncodePiece`,
 :class:`Int8Decoder`); on a card each piece's copies and launch are only
 enqueued, so the caller prepares the next piece while the card works.
 :func:`encode_int8_block` and :func:`decode_int8_block` are the
-one-chunk case of the same code.
+one-chunk case of the same code. The delta encode runs pieces too
+(:class:`DeltaEncodePiece`: the chunks and their chain base uploaded,
+one launch, the deltas and digests read back), sized by its caller to
+the encode budget, since a delta payload is as large as its raw bytes;
+:func:`encode_delta_chunk` is the reference's one-chunk call.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.checksum import as_words
+from repro_torch.kernels.fused import segment_digests
 from repro_torch.kernels.quantize import (MAX_SEGMENT_ROWS, ROW_ELEMS,
                                           body_nbytes, segment_offsets)
 
@@ -95,14 +101,17 @@ def int8_encoded_nbytes(raw_nbytes: int) -> int:
     return _INT8_HEADER.size + body_nbytes(n_rows)
 
 
-def piece_groups(spans: Sequence[Tuple[int, int]]
+def piece_groups(spans: Sequence[Tuple[int, int]],
+                 max_chunks: int = PIECE_CHUNKS,
+                 max_bytes: int = PIECE_BYTES
                  ) -> Iterator[List[Tuple[int, int]]]:
     """Consecutive chunks ``(lo, hi)`` grouped into pieces of at most
-    :data:`PIECE_CHUNKS` chunks and :data:`PIECE_BYTES` raw bytes."""
+    ``max_chunks`` chunks and ``max_bytes`` raw bytes (a larger chunk
+    alone)."""
     piece: List[Tuple[int, int]] = []
     for lo, hi in spans:
-        if piece and (len(piece) == PIECE_CHUNKS
-                      or hi - piece[0][0] > PIECE_BYTES):
+        if piece and (len(piece) == max_chunks
+                      or hi - piece[0][0] > max_bytes):
             yield piece
             piece = []
         piece.append((lo, hi))
@@ -310,11 +319,97 @@ def decode_int8_block(payload, raw_lo: int, raw_hi: int, expect_digest,
 
 # --------------------------------------------------------------------- delta
 
+class DeltaEncodePiece:
+    """The XOR deltas of consecutive chunks of one tensor against their
+    chain base, and each chunk's digest, from one launch on ``device``.
+
+    ``cur`` and ``prev`` are flat uint8 host tensors of one length, the
+    piece's staged bytes and its base (pinned on a card, so the uploads
+    are asynchronous), cut into chunks of ``chunk_bytes`` (the last may be
+    short). A piece of more than one chunk needs ``chunk_bytes`` a
+    multiple of 16, so that every chunk is a whole segment of 16-byte
+    vectors. With ``with_digest`` the fused XOR digest runs
+    (``xor_checksum_segments``), else ``delta_xor``. On a card the
+    constructor only enqueues, on the current stream, the two uploads, the
+    launch and the read-back of the deltas and the digests' partials into
+    pinned memory, and records an event; :meth:`result` waits for it.
+    ``cur`` and ``prev`` are read until then, so their owner keeps them,
+    and leaves ``prev`` unchanged, until :meth:`wait`. On the CPU the
+    plain version runs at once."""
+
+    def __init__(self, cur: torch.Tensor, prev: torch.Tensor,
+                 chunk_bytes: int, with_digest: bool,
+                 device: torch.device):
+        device = torch.device(device)
+        nb = int(cur.numel())
+        if nb < 1 or prev.numel() != nb:
+            raise ValueError(f"a delta piece of {nb} bytes against a base "
+                             f"of {prev.numel()}")
+        self.ends = list(range(chunk_bytes, nb, chunk_bytes)) + [nb]
+        if len(self.ends) > 1 and chunk_bytes % 16:
+            raise ValueError(f"chunks of {chunk_bytes} bytes are not whole "
+                             f"16-byte vectors: one chunk a piece")
+        # one segment a chunk; a lone chunk is one segment of any length
+        self._seg_words = chunk_bytes // 4 if len(self.ends) > 1 \
+            else -(-nb // 16) * 4
+        self._with_digest = with_digest
+        self.done: Optional[torch.cuda.Event] = None
+        self.partials: Optional[torch.Tensor] = None
+        if device.type != "cuda":
+            delta, self.partials = self._launch(as_words(cur), as_words(prev))
+            self.delta = delta.view(torch.uint8)[:nb]
+            return
+        n_words = -(-nb // 4)
+        a, b = (torch.empty(4 * n_words, dtype=torch.uint8, device=device)
+                for _ in range(2))
+        a[:nb].copy_(cur, non_blocking=True)
+        b[:nb].copy_(prev, non_blocking=True)
+        if nb % 4:
+            # the byte tail reads as zeros, as in the plain version
+            a[nb:].zero_()
+            b[nb:].zero_()
+        delta, partials = self._launch(a.view(torch.int32),
+                                       b.view(torch.int32))
+        self.delta = torch.empty(nb, dtype=torch.uint8, pin_memory=True)
+        self.delta.copy_(delta.view(torch.uint8)[:nb], non_blocking=True)
+        if partials is not None:
+            self.partials = torch.empty(partials.shape, dtype=torch.int32,
+                                        pin_memory=True)
+            self.partials.copy_(partials, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def _launch(self, a: torch.Tensor, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self._with_digest:
+            return ops.xor_checksum_segments(a, b, self._seg_words)
+        return ops.delta_xor(a, b), None
+
+    def wait(self) -> None:
+        """Block until the piece's device work is done (a no-op on the
+        CPU); ``cur`` and ``prev`` are free after it."""
+        if self.done is not None:
+            self.done.synchronize()
+            self.done = None
+
+    def result(self) -> List[Tuple[np.ndarray, Optional[int]]]:
+        """``(delta, digest|None)`` of each chunk, once the piece is done:
+        the deltas are views of one buffer (pinned on a card), which lives
+        as long as any of them."""
+        self.wait()
+        buf = self.delta.numpy()
+        digs = [None] * len(self.ends) if self.partials is None \
+            else [int(d) for d in segment_digests(self.partials)]
+        return [(buf[lo:hi], d)
+                for lo, hi, d in zip([0, *self.ends], self.ends, digs)]
+
+
 def encode_delta_chunk(cur: np.ndarray, prev: np.ndarray,
                        with_digest: bool, device: torch.device
                        ) -> Tuple[np.ndarray, Optional[int]]:
     """XOR-delta one chunk: ``(delta_bytes_u8, digest|None)`` in one pass
-    over ``cur`` on ``device``."""
+    over ``cur`` on ``device``, blocking (the delta provider encodes
+    pieces with :class:`DeltaEncodePiece` instead)."""
     if with_digest:
         return ops.host_xor_checksum(cur, prev, device)
     return ops.host_delta_xor(cur, prev, device), None

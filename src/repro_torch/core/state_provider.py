@@ -26,8 +26,9 @@ engine stays agnostic to heterogeneity and only optimizes multi-tier I/O.
   :class:`SnapshotCache` (inside the same pinned host-cache budget), and
   emits ``codec="xor+zstd"`` chunks that the engine's flush lanes compress
   and log-append. The XOR and its digest run on the engine's device (the
-  fused CUDA kernel on a card). Keyframe saves stream raw (fixed-offset) chunks while
-  refreshing the snapshot cache, so the chain can restart at any time.
+  fused CUDA kernel on a card), a piece of chunks a launch. Keyframe
+  saves stream raw (fixed-offset) chunks while refreshing the snapshot
+  cache, so the chain can restart at any time.
 """
 
 from __future__ import annotations
@@ -47,13 +48,23 @@ from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import metrics as obs_metrics
 
 from . import msgpack_lite
-from .codecs import (DELTA_CODEC, INT8_CODEC, INT8_ROW_BYTES,
-                     Int8EncodePiece, encode_delta_chunk,
+from .codecs import (DELTA_CODEC, INT8_CODEC, INT8_ROW_BYTES, PIECE_BYTES,
+                     PIECE_CHUNKS, DeltaEncodePiece, Int8EncodePiece,
                      int8_encoded_nbytes, payload_digest, piece_groups)
 from .host_cache import HostCache, Reservation
 from .layout import FileLayout
 
 DEFAULT_CHUNK_BYTES = 16 * 1024 * 1024
+#: a delta piece takes at most 1/DELTA_BUDGET_SHARE of the encode budget:
+#: a delta payload is as large as its raw bytes, and a piece that took the
+#: whole budget would hold the next one back until every chunk had
+#: flushed. Half (32 MiB, 8 chunks of 4 MiB, of the engine's 64 MiB) gave
+#: the shortest delta encode in turns against a quarter and an eighth,
+#: with persist times within their spread (python -m
+#: repro_torch.kernels.variants deltapath; PERF.md)
+DELTA_BUDGET_SHARE = 2
+#: a delta piece's raw bytes where no budget is set
+DELTA_PIECE_BYTES = 32 << 20
 
 
 @dataclasses.dataclass
@@ -173,14 +184,16 @@ class SnapshotCache:
             res = self._entries.get(name)
         return None if res is None else res.view
 
-    def ensure(self, name: str, nbytes: int) -> memoryview:
+    def ensure(self, name: str, nbytes: int) -> torch.Tensor:
         """Reservation for ``name`` sized ``nbytes`` (re-reserved on size
-        change). Raises :class:`~.host_cache.CacheFullError` rather than
-        deadlocking when the pool cannot hold it."""
+        change), as a flat uint8 tensor over the cache (pinned when the
+        cache is, so the delta encode uploads it asynchronously). Raises
+        :class:`~.host_cache.CacheFullError` rather than deadlocking when
+        the pool cannot hold it."""
         with self._lock:
             res = self._entries.get(name)
             if res is not None and res.nbytes == nbytes:
-                return res.view
+                return res.tensor()
             if res is not None:
                 del self._entries[name]
         if res is not None:
@@ -188,7 +201,7 @@ class SnapshotCache:
         res = self._cache.reserve(nbytes, timeout=self._timeout)
         with self._lock:
             self._entries[name] = res
-        return res.view
+        return res.tensor()
 
     def retain_only(self, names: Sequence[str]) -> None:
         """Drop entries for tensors no longer in the shard set (elastic
@@ -299,6 +312,18 @@ class TensorStateProvider(StateProvider):
             f"device tensor {self.name} streamed before staging was bound")
         return self._reservation.view
 
+    def _staged_bytes(self) -> torch.Tensor:
+        """The tensor's bytes as a flat uint8 host tensor: the pinned cache
+        reservation for a device tensor, the array itself otherwise."""
+        if self._host_array is not None:
+            from repro_torch.kernels import ops
+            return ops.bytes_on(np.ascontiguousarray(self._host_array)
+                                .reshape(-1).view(np.uint8),
+                                torch.device("cpu"))
+        assert self._reservation is not None, (
+            f"device tensor {self.name} streamed before staging was bound")
+        return self._reservation.tensor()
+
     def chunks(self) -> Iterator[Chunk]:
         view = self._byte_view()
         n = self.nbytes
@@ -338,7 +363,132 @@ def xor_bytes(cur: np.ndarray, prev: np.ndarray,
     return ops.host_delta_xor(cur, prev, device)
 
 
-class DeltaStateProvider(TensorStateProvider):
+class _StartedPiece:
+    """A piece of an encoded provider whose encode is under way: its
+    chunks' raw ranges and payload sizes (reserved in the encode budget),
+    the encode, and how many chunks were handed on."""
+
+    def __init__(self, spans, enc, piece, t0: float,
+                 budget: Optional[EncodeBudget]):
+        self.spans, self.enc, self.piece = spans, enc, piece
+        self.t0, self.budget = t0, budget
+        self.yielded = 0
+
+    def abandon(self) -> None:
+        """Credit back the chunks never handed on, once the device is done
+        reading the staged bytes."""
+        self.piece.wait()
+        if self.budget is not None:
+            self.budget.release(sum(self.enc[self.yielded:]))
+
+
+class _PieceEncoder:
+    """What the delta and the quantized providers share: a tensor's chunks
+    encoded a piece at a time (:func:`~.codecs.piece_groups`). Once a piece
+    is staged, its payload bytes are reserved in the encode budget at
+    once, and one launch encodes every chunk of it on the engine's device
+    from the staged bytes; its payloads are views of one buffer (pinned on
+    a card) read back by the same enqueue. While the flush lanes take
+    piece ``k``, piece ``k + 1`` is already enqueued on the card, where it
+    is staged and the budget admits it without waiting; so at most two
+    pieces are in flight. A subclass gives the payload sizes
+    (:meth:`_payload_nbytes`), the encode (:meth:`_encode`, an object with
+    ``wait()`` and ``result()``) and what each chunk needs before it is
+    handed on (:meth:`_check`)."""
+
+    encode_span = ""
+
+    def _payload_nbytes(self, spans) -> List[int]:
+        raise NotImplementedError
+
+    def _encode(self, src: torch.Tensor, lo: int, hi: int, spans):
+        raise NotImplementedError
+
+    def _check(self, a: int, b: int, nb: int, payload) -> None:
+        raise NotImplementedError
+
+    def _start(self, spans, src: torch.Tensor, wait: bool
+               ) -> Optional[_StartedPiece]:
+        """Enqueue the encode of one piece, once it is staged and its
+        payloads are reserved in the budget; with ``wait=False`` only if
+        neither has to wait (else None)."""
+        lo, hi = spans[0][0], spans[-1][1]
+        if self._host_array is None:
+            with self._cond:
+                if not wait and self._staged < hi:
+                    return None
+                while self._staged < hi:
+                    self._cond.wait()
+        # the payload sizes are known before encoding, so the piece's
+        # footprint is reserved once, before the encode allocates it
+        enc = self._payload_nbytes(spans)
+        budget = self.encode_budget
+        if budget is not None:
+            if wait:
+                budget.acquire(sum(enc))
+            elif not budget.try_acquire(sum(enc)):
+                return None
+        t0 = time.perf_counter()
+        try:
+            piece = self._encode(src, lo, hi, spans)
+            obs_metrics.inc("engine.bytes_encode_read", hi - lo)
+        except BaseException:
+            # un-yielded chunks credit their own reservations back
+            if budget is not None:
+                budget.release(sum(enc))
+            raise
+        return _StartedPiece(spans, enc, piece, t0, budget)
+
+    def _emit(self, started: _StartedPiece) -> Iterator[Chunk]:
+        """The piece's chunks, once its encode is done."""
+        results = started.piece.result()
+        lo, hi = started.spans[0][0], started.spans[-1][1]
+        obs.add_span(self.encode_span, started.t0, time.perf_counter(),
+                     tensor=self.name, bytes=hi - lo,
+                     chunks=len(started.spans), fused=True)
+        budget = started.budget
+        for (a, b), nb, (payload, digest) in zip(started.spans, started.enc,
+                                                 results):
+            self._check(a, b, nb, payload)
+            chunk = Chunk(name=self.name, kind="tensor", data=payload,
+                          offset=None, codec=self.enc_codec,
+                          raw_range=(a, b), last=b >= self.nbytes,
+                          digest=digest if self.checksum_chunks else None,
+                          on_flushed=None if budget is None else
+                          (lambda nb=nb: budget.release(nb)))
+            started.yielded += 1
+            yield chunk
+
+    def _piece_chunks(self, max_chunks: int, max_bytes: int
+                      ) -> Iterator[Chunk]:
+        """Every chunk of the tensor, encoded in pieces of at most
+        ``max_chunks`` chunks and ``max_bytes`` raw bytes."""
+        src = self._staged_bytes()
+        n = self.nbytes
+        pieces = list(piece_groups(
+            [(pos, min(pos + self.chunk_bytes, n))
+             for pos in range(0, n, self.chunk_bytes)],
+            max_chunks, max_bytes))
+        if not pieces:
+            return
+        live = [self._start(pieces[0], src, wait=True)]
+        try:
+            for k in range(len(pieces)):
+                nxt = pieces[k + 1] if k + 1 < len(pieces) else None
+                if nxt is not None:
+                    ahead = self._start(nxt, src, wait=False)
+                    if ahead is not None:
+                        live.append(ahead)
+                yield from self._emit(live[0])
+                live.pop(0)
+                if nxt is not None and not live:
+                    live.append(self._start(nxt, src, wait=True))
+        finally:
+            for started in live:
+                started.abandon()
+
+
+class DeltaStateProvider(_PieceEncoder, TensorStateProvider):
     """Differential SP: streams XOR deltas against the previous snapshot.
 
     Two modes, chosen per save by the manager's chain tracker
@@ -355,17 +505,33 @@ class DeltaStateProvider(TensorStateProvider):
       happens downstream on the engine's flush lanes, keeping capture and
       producer latency flat.
 
+    The delta mode encodes a piece of chunks at a time
+    (:class:`_PieceEncoder`, :class:`~.codecs.DeltaEncodePiece`): the
+    piece's staged bytes and its snapshot base are uploaded from the
+    pinned host cache, one launch of the fused XOR digest (``delta_xor``
+    when checksums are off) encodes every chunk, and the deltas are read
+    back into one pinned buffer. A piece holds at most
+    1/:data:`DELTA_BUDGET_SHARE` of the encode budget; chunks that are not
+    whole 16-byte vectors go one a piece. Each chunk's snapshot bytes are
+    advanced from its delta (``base ^ delta == cur``) just before the
+    chunk is handed on, so the staged bytes are read once, by the upload.
+
     XOR is associative and order-insensitive, so restore may fold a chain
     of deltas onto the keyframe in any order (``RestoreEngine.restore_chain``).
     """
 
-    def __init__(self, name: str, *, prev: memoryview, keyframe: bool,
+    encode_span = "encode.delta"
+
+    def __init__(self, name: str, *, prev, keyframe: bool,
                  codec: str = DELTA_CODEC, **kw):
         super().__init__(name, **kw)
         self.keyframe = keyframe
         self.delta_codec = codec
         self.enc_codec = codec  # uniform encoded-provider attribute
-        self._prev = prev
+        # the snapshot base: the pinned cache reservation's tensor (or any
+        # writable buffer, viewed as one)
+        self._prev = prev if isinstance(prev, torch.Tensor) \
+            else torch.from_numpy(np.frombuffer(prev, dtype=np.uint8))
         # set by the engine: fired exactly once when this provider's chunk
         # stream ends (exhausted, closed, or abandoned by a failed
         # producer) — the signal that its snapshot-cache entry is settled
@@ -388,8 +554,8 @@ class DeltaStateProvider(TensorStateProvider):
         self.encode_budget: Optional[EncodeBudget] = None
         # checksum_chunks (inherited) additionally makes the fused encoder
         # emit a per-chunk payload digest in the same pass as the delta.
-        assert len(prev) == self.nbytes, (
-            f"snapshot cache entry for {name} is {len(prev)} B, "
+        assert self._prev.numel() == self.nbytes, (
+            f"snapshot cache entry for {name} is {self._prev.numel()} B, "
             f"tensor is {self.nbytes} B")
 
     @property
@@ -407,86 +573,57 @@ class DeltaStateProvider(TensorStateProvider):
         try:
             if self.capture_gate is not None:
                 self.capture_gate.wait()
-            view = self._byte_view()
-            prev = np.frombuffer(self._prev, dtype=np.uint8)
-            n = self.nbytes
-            pos = 0
-            while pos < n:
-                end = min(pos + self.chunk_bytes, n)
-                if self._host_array is None:
-                    with self._cond:
-                        while self._staged < end:
-                            self._cond.wait()
-                cur = np.frombuffer(view[pos:end], dtype=np.uint8)
-                if self.keyframe:
-                    # refresh the snapshot, stream the raw bytes; the
-                    # per-chunk digest rides the same pass while the bytes
-                    # are hot from the snapshot memcpy, closing the
-                    # keyframe half of the verify-localization story
-                    prev[pos:end] = cur
-                    yield Chunk(name=self.name, kind="tensor",
-                                data=view[pos:end],
-                                offset=self.offset + pos
-                                if self.offset is not None else None,
-                                raw_range=(pos, end), last=end >= n,
-                                digest=self._raw_digest(view[pos:end]))
-                else:
-                    nb = end - pos
-                    budget = self.encode_budget
-                    on_flushed = None
-                    if budget is not None:
-                        budget.acquire(nb)
-                        on_flushed = (lambda b=budget, nb=nb: b.release(nb))
-                    try:
-                        with obs.span("encode.delta", tensor=self.name,
-                                      bytes=nb, fused=True):
-                            base = prev[pos:end]
-                            delta, digest = encode_delta_chunk(
-                                cur, base, self.checksum_chunks,
-                                self.device)
-                            # advance the chain base without touching the
-                            # staged bytes again: base ^ delta == cur bit-
-                            # exactly, and delta is already in cache — the
-                            # fused pass above is the chunk's only read of
-                            # cur
-                            np.bitwise_xor(base, delta, out=base)
-                            obs_metrics.inc("engine.bytes_encode_read", nb)
-                    except BaseException:
-                        # the chunk will never reach a flush lane, so
-                        # nobody else can credit the budget back — a leak
-                        # here would shrink every later save's headroom
-                        if budget is not None:
-                            budget.release(nb)
-                        raise
-                    yield Chunk(name=self.name, kind="tensor", data=delta,
-                                offset=None, codec=self.delta_codec,
-                                raw_range=(pos, end), last=end >= n,
-                                digest=digest, on_flushed=on_flushed)
-                pos = end
+            if self.keyframe:
+                yield from self._keyframe_chunks()
+                return
+            budget = self.encode_budget
+            max_bytes = DELTA_PIECE_BYTES if budget is None \
+                else budget.cap // DELTA_BUDGET_SHARE
+            # the kernel takes any number of segments: only the bytes
+            # bound a piece, unless its chunks cannot be segments
+            max_chunks = 1 if self.chunk_bytes % 16 else self.nbytes
+            yield from self._piece_chunks(max_chunks, max_bytes)
         finally:
             self._signal_stream_end()
 
+    def _keyframe_chunks(self) -> Iterator[Chunk]:
+        """Raw chunks, each copied into the snapshot as it is staged; the
+        per-chunk digest rides the same pass while the bytes are hot from
+        the snapshot memcpy, closing the keyframe half of the
+        verify-localization story."""
+        view = self._byte_view()
+        prev = self._prev.numpy()
+        n = self.nbytes
+        for pos in range(0, n, self.chunk_bytes):
+            end = min(pos + self.chunk_bytes, n)
+            if self._host_array is None:
+                with self._cond:
+                    while self._staged < end:
+                        self._cond.wait()
+            prev[pos:end] = np.frombuffer(view[pos:end], dtype=np.uint8)
+            yield Chunk(name=self.name, kind="tensor", data=view[pos:end],
+                        offset=self.offset + pos
+                        if self.offset is not None else None,
+                        raw_range=(pos, end), last=end >= n,
+                        digest=self._raw_digest(view[pos:end]))
 
-class _StartedPiece:
-    """A piece of :class:`QuantizedStateProvider` whose encode is under
-    way: its chunks' raw ranges and payload sizes (reserved in the encode
-    budget), the encode, and how many chunks were handed on."""
+    def _payload_nbytes(self, spans) -> List[int]:
+        return [b - a for a, b in spans]
 
-    def __init__(self, spans, enc, piece: Int8EncodePiece, t0: float,
-                 budget: Optional[EncodeBudget]):
-        self.spans, self.enc, self.piece = spans, enc, piece
-        self.t0, self.budget = t0, budget
-        self.yielded = 0
+    def _encode(self, src: torch.Tensor, lo: int, hi: int, spans
+                ) -> DeltaEncodePiece:
+        return DeltaEncodePiece(src[lo:hi], self._prev[lo:hi],
+                                self.chunk_bytes, self.checksum_chunks,
+                                self.device)
 
-    def abandon(self) -> None:
-        """Credit back the chunks never handed on, once the device is done
-        reading the staged bytes."""
-        self.piece.wait()
-        if self.budget is not None:
-            self.budget.release(sum(self.enc[self.yielded:]))
+    def _check(self, a: int, b: int, nb: int, payload) -> None:
+        # advance the chain base without touching the staged bytes again:
+        # base ^ delta == cur bit-exactly
+        base = self._prev.numpy()[a:b]
+        np.bitwise_xor(base, payload, out=base)
 
 
-class QuantizedStateProvider(TensorStateProvider):
+class QuantizedStateProvider(_PieceEncoder, TensorStateProvider):
     """Compressed SP: per-row int8 quantization of fp32 state (4x).
 
     Each staged chunk is cut on quantization-row boundaries, quantized on
@@ -497,22 +634,19 @@ class QuantizedStateProvider(TensorStateProvider):
     a quantized tensor restores standalone, selective per-domain restores
     included, at a loss of at most half a quantization step per value.
 
-    The chunks are encoded a piece at a time (:func:`~.codecs.piece_groups`:
-    up to 16 chunks, 64 MiB of raw bytes): once a piece is staged, its
-    payload bytes are reserved in the encode budget at once, and
-    :class:`~.codecs.Int8EncodePiece` uploads it from the pinned host
-    cache, encodes every chunk in one launch (the fused quantize+digest
-    kernel on a card) and reads the payloads back into one pinned buffer,
-    of which each chunk's payload is a view. While the flush lanes take
-    piece ``k``, piece ``k + 1`` is already enqueued on the card, where it
-    is staged and the budget admits it without waiting; so at most two
-    pieces are in flight.
+    The chunks are encoded a piece at a time (:class:`_PieceEncoder`: up
+    to 16 chunks, 64 MiB of raw bytes): :class:`~.codecs.Int8EncodePiece`
+    uploads a piece from the pinned host cache, encodes every chunk in one
+    launch (the fused quantize+digest kernel on a card) and reads the
+    payloads back into one pinned buffer.
 
     The natural routing target is optimizer state
     (``ProviderRule(domain="optimizer", dtype="float32",
     provider="quantized")``) while params stay raw or delta-encoded; a
     non-fp32 leaf routed here is an error at construction.
     """
+
+    encode_span = "encode.int8"
 
     def __init__(self, name: str, *, codec: str = INT8_CODEC, **kw):
         super().__init__(name, **kw)
@@ -537,99 +671,24 @@ class QuantizedStateProvider(TensorStateProvider):
     def fixed_offset(self) -> bool:
         return False
 
-    def _staged_bytes(self) -> torch.Tensor:
-        """The tensor's bytes as a flat uint8 host tensor: the pinned cache
-        reservation for a device tensor, the array itself otherwise."""
-        if self._host_array is not None:
-            from repro_torch.kernels import ops
-            return ops.bytes_on(np.ascontiguousarray(self._host_array)
-                                .reshape(-1).view(np.uint8),
-                                torch.device("cpu"))
-        assert self._reservation is not None, (
-            f"device tensor {self.name} streamed before staging was bound")
-        return self._reservation.tensor()
+    def _payload_nbytes(self, spans) -> List[int]:
+        return [int8_encoded_nbytes(b - a) for a, b in spans]
 
-    def _start(self, spans, src: torch.Tensor, wait: bool
-               ) -> Optional[_StartedPiece]:
-        """Enqueue the encode of one piece, once it is staged and its
-        payloads are reserved in the budget; with ``wait=False`` only if
-        neither has to wait (else None)."""
-        lo, hi = spans[0][0], spans[-1][1]
-        if self._host_array is None:
-            with self._cond:
-                if not wait and self._staged < hi:
-                    return None
-                while self._staged < hi:
-                    self._cond.wait()
-        # the payload sizes are known before encoding, so the piece's
-        # footprint is reserved once, before the encode allocates it
-        enc = [int8_encoded_nbytes(b - a) for a, b in spans]
-        budget = self.encode_budget
-        if budget is not None:
-            if wait:
-                budget.acquire(sum(enc))
-            elif not budget.try_acquire(sum(enc)):
-                return None
-        t0 = time.perf_counter()
-        try:
-            piece = Int8EncodePiece(src[lo:hi], [b - lo for _a, b in spans],
-                                    self.device)
-            obs_metrics.inc("engine.bytes_encode_read", hi - lo)
-        except BaseException:
-            # un-yielded chunks credit their own reservations back
-            if budget is not None:
-                budget.release(sum(enc))
-            raise
-        return _StartedPiece(spans, enc, piece, t0, budget)
+    def _encode(self, src: torch.Tensor, lo: int, hi: int, spans
+                ) -> Int8EncodePiece:
+        return Int8EncodePiece(src[lo:hi], [b - lo for _a, b in spans],
+                               self.device)
 
-    def _emit(self, started: _StartedPiece) -> Iterator[Chunk]:
-        """The piece's chunks, once its encode is done."""
-        results = started.piece.result()
-        lo, hi = started.spans[0][0], started.spans[-1][1]
-        obs.add_span("encode.int8", started.t0, time.perf_counter(),
-                     tensor=self.name, bytes=hi - lo,
-                     chunks=len(started.spans), fused=True)
-        budget = started.budget
-        for (a, b), nb, (payload, digest) in zip(started.spans, started.enc,
-                                                 results):
-            if len(payload) != nb:
-                raise RuntimeError(
-                    f"{self.name}: int8q payload of {len(payload)} B, "
-                    f"expected {nb} B")
-            chunk = Chunk(name=self.name, kind="tensor", data=payload,
-                          offset=None, codec=self.enc_codec,
-                          raw_range=(a, b), last=b >= self.nbytes,
-                          digest=digest if self.checksum_chunks else None,
-                          on_flushed=None if budget is None else
-                          (lambda nb=nb: budget.release(nb)))
-            started.yielded += 1
-            yield chunk
+    def _check(self, a: int, b: int, nb: int, payload) -> None:
+        if len(payload) != nb:
+            raise RuntimeError(
+                f"{self.name}: int8q payload of {len(payload)} B, "
+                f"expected {nb} B")
 
     def chunks(self) -> Iterator[Chunk]:
         if self.capture_gate is not None:
             self.capture_gate.wait()
-        src = self._staged_bytes()
-        n = self.nbytes
-        pieces = list(piece_groups(
-            [(pos, min(pos + self.chunk_bytes, n))
-             for pos in range(0, n, self.chunk_bytes)]))
-        if not pieces:
-            return
-        live = [self._start(pieces[0], src, wait=True)]
-        try:
-            for k in range(len(pieces)):
-                nxt = pieces[k + 1] if k + 1 < len(pieces) else None
-                if nxt is not None:
-                    ahead = self._start(nxt, src, wait=False)
-                    if ahead is not None:
-                        live.append(ahead)
-                yield from self._emit(live[0])
-                live.pop(0)
-                if nxt is not None and not live:
-                    live.append(self._start(nxt, src, wait=True))
-        finally:
-            for started in live:
-                started.abandon()
+        yield from self._piece_chunks(PIECE_CHUNKS, PIECE_BYTES)
 
 
 class ObjectStateProvider(StateProvider):

@@ -49,6 +49,8 @@ SIGNATURES = {
     # x, n_words, seg_words, out
     "ckpt_checksum_u32_segments": (_P, _N, _N, _P, _P),
     "ckpt_xor_checksum_u32": (_P, _P, _P, _N, _P, _P),
+    # a, b, out, n_words, seg_words, part
+    "ckpt_xor_checksum_u32_segments": (_P, _P, _P, _N, _N, _P, _P),
     "ckpt_xor_fold_checksum_u32": (_P, _P, _P, _N, _P, _P),
     "ckpt_delta_xor": (_P, _P, _P, _N, _P),
     "ckpt_quantize_checksum_int8": (_P, _N, _P, _P, _P),

@@ -36,6 +36,8 @@ def as_words(data: torch.Tensor) -> torch.Tensor:
     whole u32 word (``repro.kernels.ops.as_u32``). Int32 stands in for u32:
     ``torch.uint32`` supports almost no arithmetic."""
     b = data.reshape(-1)
+    if b.numel() == 0:   # numpy's empty arrays come with stride 0
+        return torch.empty(0, dtype=torch.int32, device=b.device)
     if b.dtype != torch.uint8:
         b = b.view(torch.uint8)
     pad = (-b.numel()) % 4

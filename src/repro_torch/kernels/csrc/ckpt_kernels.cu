@@ -17,9 +17,9 @@
 //
 // The int8 row math, the offline reduction's kernels, the streaming core
 // (delta_xor, downcast_bf16 and delta_f32), the segmented digest
-// (checksum_u32) and the segmented int8 pair have their own notes further
-// down; what follows is about the digest itself and the two fused XOR
-// digests.
+// (checksum_u32), the segmented XOR digest (xor_checksum_u32) and the
+// segmented int8 pair have their own notes further down; what follows is
+// about the digest itself and the fused chain-replay decode.
 //
 // The digest is the position-weighted sum
 //     sum_i x[i] * (65599 + i mod 65521)   mod 2^32
@@ -36,27 +36,27 @@
 // operations per word and is limited by device memory: the least time is
 // the bytes moved over 3.35 TB/s (the H100 SXM data sheet's HBM3 rate),
 // 4N bytes for checksum_u32 and 12N bytes (two inputs read, one output
-// written) for the two fused XOR kernels, N in words. The fused XOR
-// kernels run a grid-stride loop capped at 132 x 8 blocks with 16-byte
-// loads and stores and fold each block's sum into a zeroed output word
-// with one atomicAdd. The digest and the int8 pair do not: at the main
-// path's 4 MiB chunk the device work is a few microseconds, and what a
-// call cost was on the host and around the kernel (a fill kernel to zero
-// the output word, a blocking upload, a stream sync per chunk, one launch
-// per chunk). So checksum_u32 and the int8 pair each take many chunks in
-// one launch, each chunk (a segment) reduced inside one thread-block
-// cluster that writes its digest with a plain store (no zeroed word, no
-// atomic, one device function for the three: cluster_fold), and their
-// callers feed them 64 MiB pieces from pinned memory while they prepare
-// the next piece (storage/manifest.py reads it from disk, the quantized
-// provider stages it, the reader decompresses it).
+// written) for the two fused XOR kernels, N in words. At the main path's
+// 4 MiB chunk the device work is a few microseconds, and what a call cost
+// was on the host and around the kernel (a fill kernel to zero the output
+// word, a blocking upload, a stream sync per chunk, one launch per chunk).
+// So the digest, the delta-route encode (xor_checksum_u32) and the int8
+// pair each take many chunks in one launch, each chunk (a segment) reduced
+// inside thread-block clusters that write their sums with plain stores (no
+// zeroed word, no atomic, one device function for all: cluster_fold), and
+// their callers feed them pieces from pinned memory while they prepare the
+// next piece (storage/manifest.py reads it from disk, the delta and the
+// quantized providers stage it, the reader decompresses it). Only the
+// fused chain-replay decode (xor_fold_checksum_u32, which no path
+// launches) still runs a grid-stride loop capped at 132 x 8 blocks that
+// folds each block's sum into a zeroed word with one atomicAdd.
 //
 // Where the data lives: the checkpoint path stages device state into pinned
 // host memory first, and these kernels are fed that host-staged data (the
 // caller copies host to device, launches, and copies back only the
-// outputs). For the XOR kernels that round trip over PCIe, about 3x the
-// chunk, is still one blocking upload and read-back a chunk; moving the
-// encode ahead of the device-to-host copy is a later change.
+// outputs, all enqueued without a wait). For the XOR encode that round
+// trip over PCIe is about 3x the piece; moving the encode ahead of the
+// device-to-host copy is a later change.
 //
 // Kernels launch on the caller's stream and allocate nothing; each entry
 // point returns the launch's error or cudaGetLastError(), so a refused
@@ -131,9 +131,11 @@ __device__ __forceinline__ void block_fold(uint32_t acc, uint32_t* out) {
   if (threadIdx.x == 0 && acc != 0u) atomicAdd(out, acc);
 }
 
-// out = a ^ b with the digest of the words written (the delta-route
-// encode), or, with kDigestB, of the words of b (the fused chain-replay
-// decode: base ^ delta, verifying the stored delta as it is applied).
+// out = a ^ b with the digest of the words of b, kDigestB (the fused
+// chain-replay decode: base ^ delta, verifying the stored delta as it is
+// applied), or of the words written (the delta-route encode as it was
+// before the segmented XOR digest below; the variants tool's atomic_loop
+// puts it back).
 template <bool kDigestB>
 __global__ void __launch_bounds__(kThreads)
 xor_checksum_kernel(const uint32_t* __restrict__ a,
@@ -867,6 +869,155 @@ int launch_checksum(const void* x, int64_t n, int64_t seg_words,
                                  static_cast<cudaStream_t>(stream));
 }
 
+// ------------------------------------------------- segmented XOR digest
+// xor_checksum_u32  replaces repro/kernels/fused.py:xor_checksum_u32
+//
+// One launch computes out = a ^ b over the consecutive seg_words-word
+// segments of two buffers (the last may be short) and the digest of each
+// segment's words written, its position weights restarting at 0: the
+// delta-route encode of the chunks of a piece (core/codecs.py
+// DeltaEncodePiece). One buffer's encode is the one-segment case.
+//
+// Bound on the card: 12 bytes a word over 3.35 TB/s, 0.0300 ms for a
+// 32 MiB piece of 8 chunks, 0.0601 ms for 64 MiB. What the design does
+// about it:
+//
+// * Spread over the card whatever the piece. The delta provider's pieces
+//   are few segments (8 chunks of 4 MiB), and one cluster of 8 blocks a
+//   segment would leave 68 of 132 SMs idle (a piece of 4: 100; 0.51 of
+//   the bound at 16 MiB against 0.84). So a segment gets `groups`
+//   clusters, ceil(kXorLaunchClusters / n_segs), no more than its vectors
+//   fill (one tile a block) and at most kXorMaxGroups: 16 clusters of 8
+//   blocks (128 SMs) for a 4 MiB call, 2 a segment for a piece of 8, one
+//   for a piece of 16 or more. 8 or 32 clusters a launch, clusters of
+//   16 blocks, and 1 or 4 loads in flight ran no faster (python -m
+//   repro_torch.kernels.variants xor; PERF.md). Cluster g of a segment takes its tiles
+//   g, g + groups, ... (each kXorCluster x kXorThreads x kXorVecs
+//   vectors), so what is in flight stays a window of the segment.
+// * No atomics, no zeroed output, no global scratch. Each cluster meets
+//   its blocks' sums in rank 0's shared memory (cluster_fold, shared with
+//   the digest and the int8 pair) and stores one partial with a plain
+//   store: part[seg * kXorMaxGroups + g]. The slots past `groups` are
+//   written 0 in the same launch, so a segment's digest is the sum of its
+//   kXorMaxGroups partials mod 2^32, exact in any order; the host adds
+//   them after the read-back it makes anyway (fused.py). The flush lanes
+//   call the kernel at once on streams of their own, so scratch in device
+//   memory, or a ticket counter for a last-block reduction, would race
+//   between them.
+// * The streaming core's memory habits: each thread issues its kXorVecs
+//   16-byte loads of both inputs (ld.global.nc.L1::no_allocate) before it
+//   computes, and stores the delta streaming (st.global.cs). Word
+//   positions are 32-bit inside a segment (seg_words < 2^31): weigh4_r
+//   and weigh_at, a 32-bit modulo by a constant.
+
+constexpr int kXorThreads = 512;
+// 16-byte loads of each input a thread issues before it computes
+constexpr int kXorVecs = 2;
+// blocks a cluster (8 is the largest portable size; 16 needs the launch's
+// permission, which launch_clusters asks for)
+constexpr int kXorCluster = 8;
+// clusters a launch aims at, spread over its segments
+constexpr int64_t kXorLaunchClusters = 16;
+// partial sums a segment (the wrappers' fused.MAX_GROUPS)
+constexpr int kXorMaxGroups = 32;
+
+__global__ void __launch_bounds__(kXorThreads)
+xor_checksum_segments_kernel(const uint32_t* __restrict__ a,
+                             const uint32_t* __restrict__ b,
+                             uint32_t* __restrict__ out, int64_t n,
+                             int64_t seg_words, int groups,
+                             uint32_t* __restrict__ part) {
+  namespace cg = cooperative_groups;
+  cluster_arrive();
+  const uint32_t rank = cg::this_cluster().block_rank();
+  const int64_t cl = blockIdx.x / kXorCluster;
+  const int64_t seg = cl / groups;
+  const uint32_t g = static_cast<uint32_t>(cl % groups);
+  const int64_t lo = seg * seg_words;
+  const uint32_t len =
+      static_cast<uint32_t>(n - lo < seg_words ? n - lo : seg_words);
+  const uint32_t n_vec = len >> 2;
+  const uint4* __restrict__ a4 = reinterpret_cast<const uint4*>(a + lo);
+  const uint4* __restrict__ b4 = reinterpret_cast<const uint4*>(b + lo);
+  uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out + lo);
+  constexpr uint32_t kTile = kXorThreads * kXorVecs;
+  const uint32_t step = static_cast<uint32_t>(groups) * kXorCluster * kTile;
+  uint32_t acc = 0u;
+  for (uint32_t t = (g * kXorCluster + rank) * kTile; t < n_vec; t += step) {
+    if (n_vec - t >= kTile) {
+      uint4 va[kXorVecs], vb[kXorVecs];
+#pragma unroll
+      for (int u = 0; u < kXorVecs; ++u) {
+        const uint32_t j = t + u * kXorThreads + threadIdx.x;
+        va[u] = stream_load<1>(a4 + j);
+        vb[u] = stream_load<1>(b4 + j);
+      }
+#pragma unroll
+      for (int u = 0; u < kXorVecs; ++u) {
+        const uint32_t j = t + u * kXorThreads + threadIdx.x;
+        const uint4 d = XorOp::vec(va[u], vb[u]);
+        stream_store<1>(o4 + j, d);
+        acc += weigh4_r(d, (j << 2) % kWeightMod);
+      }
+    } else {
+      for (uint32_t j = t + threadIdx.x; j < n_vec; j += kXorThreads) {
+        const uint4 d =
+            XorOp::vec(stream_load<1>(a4 + j), stream_load<1>(b4 + j));
+        stream_store<1>(o4 + j, d);
+        acc += weigh4_r(d, (j << 2) % kWeightMod);
+      }
+    }
+  }
+  if (g == 0 && rank == 0) {
+    // the len mod 4 words after the last whole vector
+    const uint32_t i = (n_vec << 2) + threadIdx.x;
+    if (i < len) {
+      const uint32_t d = a[lo + i] ^ b[lo + i];
+      out[lo + i] = d;
+      acc += weigh_at(d, i);
+    }
+    // the slots of the groups this launch does not run read 0
+    if (threadIdx.x >= static_cast<uint32_t>(groups) &&
+        threadIdx.x < kXorMaxGroups)
+      part[seg * kXorMaxGroups + threadIdx.x] = 0u;
+  }
+  cluster_fold<kXorThreads, kXorCluster>(acc, part + seg * kXorMaxGroups + g);
+}
+
+// Clusters a segment: kXorLaunchClusters over the launch's segments, no
+// more than a segment's vectors fill at one tile a block, at most
+// kXorMaxGroups, at least one.
+int xor_groups(int64_t n_segs, int64_t seg_words) {
+  constexpr int64_t kClusterVecs =
+      int64_t{kXorCluster} * kXorThreads * kXorVecs;
+  int64_t g = (kXorLaunchClusters + n_segs - 1) / n_segs;
+  const int64_t fill = ((seg_words >> 2) + kClusterVecs - 1) / kClusterVecs;
+  if (g > fill) g = fill;
+  if (g > kXorMaxGroups) g = kXorMaxGroups;
+  return static_cast<int>(g < 1 ? 1 : g);
+}
+
+int launch_xor_clusters(const void* a, const void* b, void* out, int64_t n,
+                        int64_t seg_words, int64_t n_segs, void* part,
+                        cudaStream_t st) {
+  const int groups = xor_groups(n_segs, seg_words);
+  return launch_clusters(xor_checksum_segments_kernel, n_segs * groups,
+                         kXorCluster, kXorThreads, st,
+                         static_cast<const uint32_t*>(a),
+                         static_cast<const uint32_t*>(b),
+                         static_cast<uint32_t*>(out), n, seg_words, groups,
+                         static_cast<uint32_t*>(part));
+}
+
+int launch_xor(const void* a, const void* b, void* out, int64_t n,
+               int64_t seg_words, int64_t n_segs, void* part, void* stream) {
+  if (n < 0 || seg_words < 0 || seg_words >= kMaxSegWords || n_segs < 1 ||
+      n_segs > ((int64_t{1} << 31) / kXorCluster - 1) / kXorMaxGroups)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_xor_clusters(a, b, out, n, seg_words, n_segs, part,
+                             static_cast<cudaStream_t>(stream));
+}
+
 // ---------------------------------------------------- segmented int8 pair
 // quantize_checksum_int8    replaces repro/kernels/fused.py:quantize_checksum_int8
 // dequantize_checksum_int8  replaces repro/kernels/fused.py:dequantize_checksum_int8
@@ -1164,8 +1315,7 @@ int launch_int8(const void* src, int64_t valid, const int64_t* row_start,
 
 // All pointers are device pointers (but the int8 pair's host row_start)
 // to 16-byte aligned buffers of n u32 words unless said otherwise;
-// `out`/`dig` must not alias the inputs. `dig` of the fused XOR kernels
-// is accumulated into, so the caller zeroes it first.
+// `out`/`dig`/`part` must not alias the inputs.
 
 // out: one u32, written whole (0 for n == 0); n < 2^31.
 extern "C" int ckpt_checksum_u32(const void* x, int64_t n, void* out,
@@ -1186,15 +1336,30 @@ extern "C" int ckpt_checksum_u32_segments(const void* x, int64_t n_words,
                          (n_words + seg_words - 1) / seg_words, out, stream);
 }
 
+// out: u32[n], a ^ b; part: u32[32] (kXorMaxGroups), written whole, the
+// digest of out the sum of its words mod 2^32; n < 2^31.
 extern "C" int ckpt_xor_checksum_u32(const void* a, const void* b, void* out,
-                                     int64_t n, void* dig, void* stream) {
-  xor_checksum_kernel<false><<<blocks_for(n), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-      static_cast<uint32_t*>(out), n, static_cast<uint32_t*>(dig));
-  return static_cast<int>(cudaGetLastError());
+                                     int64_t n, void* part, void* stream) {
+  return launch_xor(a, b, out, n, n, 1, part, stream);
 }
 
+// out: u32[n_words], a ^ b; part: u32[n_segs][32], n_segs =
+// ceil(n_words / seg_words), written whole, segment s's digest the sum of
+// row s mod 2^32; seg_words a positive multiple of 4 below 2^31, so every
+// segment starts 16-byte aligned. n_words == 0 launches nothing.
+extern "C" int ckpt_xor_checksum_u32_segments(const void* a, const void* b,
+                                              void* out, int64_t n_words,
+                                              int64_t seg_words, void* part,
+                                              void* stream) {
+  if (seg_words <= 0 || seg_words % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_words == 0) return 0;
+  return launch_xor(a, b, out, n_words, seg_words,
+                    (n_words + seg_words - 1) / seg_words, part, stream);
+}
+
+// dig: one u32 the digest of delta is added into, so the caller zeroes it
+// first.
 extern "C" int ckpt_xor_fold_checksum_u32(const void* base, const void* delta,
                                           void* out, int64_t n, void* dig,
                                           void* stream) {

@@ -5,15 +5,19 @@ on a CUDA device goes to the hand-written kernel, and a failed build or
 launch raises — nothing falls back. The ``host_*`` helpers take
 host-staged bytes (numpy arrays, ``bytes``, memoryviews) and a device:
 they move the bytes there, run the kernel, and bring back only the
-outputs (the repro package feeds its kernels host-staged chunks the same
-way, ``core/codecs.py:247`` and ``core/restore.py:837-840``); the int8
-codec feeds its pair whole pieces itself (``core/codecs.py``).
-Background lanes call them inside :func:`lane_stream`.
+outputs, one chunk a call (the repro package feeds its kernels
+host-staged chunks the same way, ``core/codecs.py:247`` and
+``core/restore.py:837-840``). The checkpoint path feeds the segmented
+kernels whole pieces itself, uploads from pinned memory and read-backs
+enqueued without a wait: the digest (``storage/manifest.py``), the delta
+encode and the int8 pair (``core/codecs.py``). Background lanes call them
+inside :func:`lane_stream`.
 
 Every kernel of ``repro/kernels/ops.py`` has its wrapper here:
 ``checksum`` (``tensor_checksum``, ``:63``; ``checksum_segments``
 digests many chunks in one launch), ``xor_checksum``
-(``fused_xor_checksum``, ``:108``), ``fused_xor_fold`` (``:119``),
+(``fused_xor_checksum``, ``:108``; ``xor_checksum_segments`` encodes
+many chunks in one launch), ``fused_xor_fold`` (``:119``),
 ``delta_xor`` (``:90``), ``delta_f32`` (``:99``), ``downcast_bf16``
 (``:72``), ``quantize_int8`` (``:78``), ``dequantize_int8`` (``:84``),
 ``fused_quantize_int8`` (``:131``; ``fused_quantize_int8_segments``
@@ -91,8 +95,19 @@ def xor_checksum(a: torch.Tensor, b: torch.Tensor
     if _kind(a) == "cpu":
         _delta.check_pair(a, b, "cpu")
         return _fused.xor_checksum_plain(a, b)
-    delta, dig = _fused.xor_checksum_cuda(a, b)
-    return delta, int(dig.item()) & U32_MASK
+    delta, partials = _fused.xor_checksum_cuda(a, b)
+    return delta, int(_fused.segment_digests(partials)[0])
+
+
+def xor_checksum_segments(a: torch.Tensor, b: torch.Tensor, seg_words: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(a ^ b, partials)`` over the consecutive ``seg_words``-word
+    segments of int32 word tensors, on their device: each row of
+    ``partials`` sums to its segment's digest (``fused.segment_digests``).
+    On a card this only enqueues: nothing waits for the kernel."""
+    if _kind(a) == "cpu":
+        return _fused.xor_checksum_segments_plain(a, b, seg_words)
+    return _fused.xor_checksum_segments_cuda(a, b, seg_words)
 
 
 def delta_xor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,8 @@
     python -m repro_torch.kernels.variants checksum [variants.json]
     python -m repro_torch.kernels.variants int8 [variants.json]
     python -m repro_torch.kernels.variants int8path CHECKOUT [CHECKOUT ...]
+    python -m repro_torch.kernels.variants xor [variants.json]
+    python -m repro_torch.kernels.variants deltapath CHECKOUT[:SHARE] ...
 
 A variant is a list of ``[old, new]`` text substitutions applied to one
 source under ``csrc/`` (each ``old`` must occur in it). Each variant is
@@ -83,6 +85,29 @@ quantized to int8, then the resume of step 6). A line ``int8path`` with
 a JSON object per run: the phase's wall time, the summed ``encode.int8``
 span time a save, the resume's read time, the peak device memory and
 the int8 pair's launches.
+
+``xor``: variants of the segmented XOR digest (``ckpt_xor_checksum_u32``,
+``ckpt_xor_checksum_u32_segments``), checked bit for bit (deltas and each
+segment's digest) against the plain versions at :data:`XOR_SIZES` (one
+segment) and :data:`XOR_CASES` (segments, byte tails), then timed as
+``checksum`` times at one 4 MiB chunk, the delta provider's piece of 8
+chunks and a 64 MiB piece of 16. No PyTorch call computes the XOR with a
+digest. Without a file it runs :data:`XOR_ABLATIONS`: clusters a launch
+aims at (1 a segment, 8, 32 against 16), clusters of 16 blocks against 8,
+1 and 4 loads in flight a thread and input against 2, and
+``atomic_loop``, the design it replaced (a memset of the digests, then
+per segment one launch of the grid-stride loop with an atomic a block).
+
+``deltapath``: the checkpoint phase of ``chip_smoke.py`` (K, Δ, Δ saves of
+llama3.2-1b at full width, 2 layers, then the restores of steps 3 and 1)
+for checkouts of this repository in turns, as ``int8path`` runs them,
+each in a process of its own. ``CHECKOUT:SHARE`` sets the delta
+provider's ``DELTA_BUDGET_SHARE`` there first (a piece takes at most
+1/SHARE of the encode budget: 2, 4 or 8 gives 8, 4 or 2 chunks of
+4 MiB). A line ``deltapath`` with a JSON object per run: the
+``encode.delta`` span time and span count of each delta save, its persist
+time, the phase's wall time, the launches of the XOR digest,
+``delta_xor`` and the digest, and the peak device memory.
 """
 
 from __future__ import annotations
@@ -1117,6 +1142,319 @@ def int8path_main(args) -> None:
                   f"{proc.stderr[-4000:]}", flush=True)
 
 
+# ---------------------------------------------- segmented XOR digest
+_XCLUSTER = "constexpr int kXorCluster = 8;"
+_XVECS = "constexpr int kXorVecs = 2;"
+_XLAUNCH = "constexpr int64_t kXorLaunchClusters = 16;"
+_XOR_LAUNCH = ("  return launch_xor_clusters(a, b, out, n, seg_words, n_segs, "
+               "part,\n                             "
+               "static_cast<cudaStream_t>(stream));")
+#: the XOR digest the segmented one replaced (a grid-stride loop over at
+#: most 132 x 8 blocks of 256 threads, 64-bit positions, one atomicAdd a
+#: block into a zeroed word), put back in its place: a memset of the
+#: partials, as the wrapper's torch.zeros did, then one launch a segment,
+#: as the loop over chunks did
+ATOMIC_XOR = [[_XOR_LAUNCH, """\
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      cudaMemsetAsync(part, 0, 4 * kXorMaxGroups * n_segs, st);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  for (int64_t s = 0; s < n_segs; ++s) {
+    const int64_t lo = s * seg_words;
+    const int64_t len = n - lo < seg_words ? n - lo : seg_words;
+    xor_checksum_kernel<false><<<blocks_for(len), kThreads, 0, st>>>(
+        static_cast<const uint32_t*>(a) + lo,
+        static_cast<const uint32_t*>(b) + lo,
+        static_cast<uint32_t*>(out) + lo, len,
+        static_cast<uint32_t*>(part) + s * kXorMaxGroups);
+  }
+  return static_cast<int>(cudaGetLastError());"""]]
+
+
+def _xlaunch(k: int):
+    return [[_XLAUNCH, f"constexpr int64_t kXorLaunchClusters = {k};"]]
+
+
+#: the shipped XOR digest (16 clusters of 8 blocks a launch, 2 loads in
+#: flight a thread and input), variants of it, and the design it replaced
+XOR_ABLATIONS = {
+    "xor": [],
+    "one_cluster_a_segment": _xlaunch(1),
+    "launch8": _xlaunch(8),
+    "launch32": _xlaunch(32),
+    "cluster16": [[_XCLUSTER, "constexpr int kXorCluster = 16;"]],
+    "cluster16_launch8": [[_XCLUSTER, "constexpr int kXorCluster = 16;"]]
+    + _xlaunch(8),
+    "vecs1": [[_XVECS, "constexpr int kXorVecs = 1;"]],
+    "vecs4": [[_XVECS, "constexpr int kXorVecs = 4;"]],
+    "atomic_loop": ATOMIC_XOR,
+}
+#: one-segment lengths (words) the XOR digest must agree at: 1-5 words, a
+#: block's tile (4,096 words) less, on and past it, past a cluster's trip
+#: (32,768 words), and the main path's chunk with and without a tail
+XOR_SIZES = (1, 3, 4, 5, 4095, 4096, 4097, 32_769, 65_537, 1 << 20,
+             (1 << 20) + 3)
+#: the delta path's chunk (the engine's 4 MiB)
+XOR_CHUNK = 4 << 20
+#: (bytes, bytes a segment) the XOR digest must agree at, the bytes
+#: zero-padded to a whole word as the codec pads them: none; one segment;
+#: a short last segment; byte tails of 1 and 3 bytes; 4 segments, and 5
+#: with a short fifth; the delta path's piece of 8 chunks; 16 segments,
+#: and 17 whose
+#: last is one word; segments of 4 MiB and 48 bytes, whose clusters end
+#: in partial tiles; the 64 MiB piece of 16 chunks (:data:`XOR_CARD_ONLY`)
+XOR_CASES = ((0, XOR_CHUNK), (XOR_CHUNK, XOR_CHUNK),
+             (3 * 16_384 + 1000, 16_384), (2 * 16_384 + 401, 16_384),
+             (2 * 16_384 + 403, 16_384), (4 * XOR_CHUNK, XOR_CHUNK),
+             (4 * XOR_CHUNK + 5000, XOR_CHUNK), (8 * XOR_CHUNK, XOR_CHUNK),
+             (16 * 65_536, 65_536),
+             (16 * 65_536 + 4, 65_536),
+             (2 * (XOR_CHUNK + 48) + 4099, XOR_CHUNK + 48),
+             (16 * XOR_CHUNK, XOR_CHUNK))
+#: the cases the CPU tests leave to the card
+XOR_CARD_ONLY = ((16 * XOR_CHUNK, XOR_CHUNK),)
+#: the main path's calls: one 4 MiB chunk, the delta provider's piece of
+#: 8 chunks, a 64 MiB piece of 16 (bytes, segments)
+XOR_CALLS = {"chunk": (XOR_CHUNK, 1), "piece": (8 * XOR_CHUNK, 8),
+             "piece64": (16 * XOR_CHUNK, 16)}
+
+
+def xor_inputs(torch, n_bytes: int, gen):
+    """Two seeded int32 word tensors on the card holding ``n_bytes`` bytes
+    each, with :data:`.quantize.EDGE_BITS` in front, the byte tail
+    zero-padded to a whole word."""
+    from . import checksum as tc
+    from . import quantize as tq
+    a, b = _stream_inputs(torch, tq, -(-n_bytes // 4), gen)
+    return (tc.as_words(a.view(torch.uint8)[:n_bytes]),
+            tc.as_words(b.view(torch.uint8)[:n_bytes]))
+
+
+def xor_disagreement(torch):
+    """None if the loaded library's XOR digest gives the plain versions'
+    deltas and digests at every check, else where not."""
+    from . import fused as tf
+    from . import quantize as tq
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and (
+            tf.segment_digests(got[1]).tolist()
+            == tf.segment_digests(want[1]).tolist())
+    for n in XOR_SIZES:
+        a, b = _stream_inputs(torch, tq, n, gen)
+        if not same(tf.xor_checksum_cuda(a, b),
+                    tf.xor_checksum_segments_plain(a, b, -(-n // 4) * 4)):
+            return f"xor_checksum_u32 at {n} words"
+    for n_bytes, seg_bytes in XOR_CASES:
+        a, b = xor_inputs(torch, n_bytes, gen)
+        seg = seg_bytes // 4
+        if not same(tf.xor_checksum_segments_cuda(a, b, seg),
+                    tf.xor_checksum_segments_plain(a, b, seg)):
+            return f"xor_checksum_u32 at {n_bytes} bytes in {seg_bytes}"
+    # sliced at a 4-byte offset: the wrapper clones to 16-byte alignment
+    a, b = _stream_inputs(torch, tq, 65_538, gen)
+    if not same(tf.xor_checksum_segments_cuda(a[1:], b[1:], 4_096),
+                tf.xor_checksum_segments_plain(a[1:], b[1:], 4_096)):
+        return "xor_checksum_u32 at a 4-byte offset"
+    torch.cuda.synchronize()
+    return None
+
+
+def xor_bound_ms(n_bytes: int) -> float:
+    """Two inputs read and one output written over the memory rate."""
+    return 3 * n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def xor_calls(torch, gen):
+    """``{size: (wrapper call, plain call)}`` at :data:`XOR_CALLS`, the
+    wrappers into preallocated outputs, and the device operations a call
+    of the atomic loop makes (a memset, a launch a segment)."""
+    from . import fused as tf
+    from . import quantize as tq
+    a, b = _stream_inputs(torch, tq, XOR_CALLS["piece64"][0] // 4, gen)
+    out = torch.empty_like(a)
+    dig = torch.empty((16, tf.MAX_GROUPS), dtype=torch.int32, device="cuda")
+    seg = XOR_CHUNK // 4
+    calls, per_call = {}, {}
+    for size, (n_bytes, n_segs) in XOR_CALLS.items():
+        n = n_bytes // 4
+        x, y, o, d = a[:n], b[:n], out[:n], dig[:n_segs]
+        if n_segs == 1:
+            calls[size] = (lambda x=x, y=y, o=o, d=d:
+                           tf.xor_checksum_cuda(x, y, o, d),
+                           lambda x=x, y=y: tf.xor_checksum_plain(x, y))
+        else:
+            calls[size] = (lambda x=x, y=y, o=o, d=d:
+                           tf.xor_checksum_segments_cuda(x, y, seg, o, d),
+                           lambda x=x, y=y:
+                           tf.xor_checksum_segments_plain(x, y, seg))
+        per_call[size] = 1 + n_segs
+    return calls, per_call
+
+
+def xor_main(args) -> None:
+    import torch
+
+    variants = json.loads(Path(args[0]).read_text()) if args \
+        else XOR_ABLATIONS
+    print(_smi_line(), flush=True)
+    libs = {}
+    for name, subs in variants.items():
+        try:
+            lib, ptxas = _build(name, subs, STREAM,
+                                ("xor_checksum_segments_kernel",
+                                 "xor_checksum_kernel"))
+        except build.KernelBuildError as exc:
+            print(f"{name}: BUILD FAILED\n{exc}", flush=True)
+            continue
+        build._lib = lib
+        try:
+            bad = xor_disagreement(torch)
+        except RuntimeError as exc:   # a launch the card refused
+            bad = f"launch failed: {exc}"
+        print(f"{name}: {' | '.join(ptxas)}; "
+              f"{'bit-identical' if bad is None else 'DIFFERS: ' + bad}",
+              flush=True)
+        if name.startswith("x_") or bad is None:
+            libs[name] = lib
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    calls, per_call = xor_calls(torch, gen)
+    bound = {k: xor_bound_ms(n) for k, (n, _s) in XOR_CALLS.items()}
+    times = {k: {n: {"ms": [], "device_ms": []} for n in libs}
+             for k in calls}
+    build._lib = None
+    shipped = build.library()
+    clocks = _sample_clocks()
+    try:
+        for _ in range(STREAM_ROUNDS):
+            for name, lib in libs.items():
+                build._lib = shipped
+                for fn, _plain in calls.values():
+                    _time_ms(torch, fn, STREAM_REPS)
+                build._lib = lib
+                for k, (fn, _plain) in calls.items():
+                    t = times[k][name]
+                    t["ms"].append(_time_ms(torch, fn, STREAM_REPS))
+                    try:
+                        dev = device_ms(
+                            torch, fn, DEVICE_REPS,
+                            per_call=per_call[k] if name == "atomic_loop"
+                            else 1)
+                    except RuntimeError as exc:  # the profiler kept nothing
+                        print(f"{name} {k}: {exc}", flush=True)
+                        dev = float("nan")
+                    t["device_ms"].append(dev)
+    finally:
+        build._lib = None
+        _print_clocks(clocks)
+    for k in calls:
+        print(f"xor_checksum_u32 {k} (bound {bound[k]:.5f} ms; median of "
+              f"{STREAM_ROUNDS} rounds; ms wrapper / device, share of the "
+              f"bound by device time):", flush=True)
+        for name in libs:
+            t = times[k][name]
+            kept = [x for x in t["device_ms"] if x == x]
+            dev = statistics.median(kept) if kept else float("nan")
+            print(f"  {name:22s} {statistics.median(t['ms']):.4f} / "
+                  f"{dev:.4f}  {bound[k] / dev:.3f}", flush=True)
+    print(json.dumps({"bound_ms": bound, "times": times}), flush=True)
+
+
+# ------------------------------------------------------- delta path
+#: one run of ``deltapath``, in the checkout it is started in; its one
+#: argument, if not empty, is the delta provider's DELTA_BUDGET_SHARE
+DELTA_PATH_RUN = """
+import contextlib, json, os, shutil, sys, time
+root = os.getcwd()
+sys.path[:0] = [os.path.join(root, "src"), root]
+share = sys.argv[1] if len(sys.argv) > 1 else ""
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+import torch
+import chip_smoke as cs
+from repro_torch.configs import get_config, uniform_groups
+from repro_torch.core import state_provider
+from repro_torch.kernels import build
+from repro_torch.obs import trace as obs
+if share:
+    state_provider.DELTA_BUDGET_SHARE = int(share)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+build.library()
+kept = []
+tracing = obs.tracing
+
+@contextlib.contextmanager
+def keep(*a, **k):
+    with tracing(*a, **k) as t:
+        yield t
+    kept.append(t)
+
+obs.tracing = keep
+cfg = get_config("llama3.2-1b", n_layers=2,
+                 layer_groups=uniform_groups("full", 2))
+workdir = os.path.join(root, "build", "deltapath_ckpt")
+shutil.rmtree(workdir, ignore_errors=True)
+torch.cuda.reset_peak_memory_stats()
+cs._zero_launches()
+t0 = time.perf_counter()
+try:
+    with tracing() as outer:
+        report = cs.run_main_path("cuda", cfg, workdir, cs.HOST_CACHE_BYTES,
+                                  8)
+finally:
+    shutil.rmtree(workdir, ignore_errors=True)
+wall = time.perf_counter() - t0
+# the delta saves stream one after the other (each waits for the last
+# one's streams to end) and encode the same tensors, so the spans in time
+# order fall into saves of equal bytes
+spans = sorted((e for t in [outer, *kept] for e in t.spans("encode.delta")),
+               key=lambda e: e["t0"])
+deltas = [r for r in report["steps"] if r["kind"] == "delta"]
+per_save = sum(e["args"]["bytes"] for e in spans) // max(1, len(deltas))
+saves, group, nbytes = [], [], 0
+for e in spans:
+    group.append(e)
+    nbytes += e["args"]["bytes"]
+    if nbytes >= per_save:
+        saves.append(group)
+        group, nbytes = [], 0
+n = cs._launches()
+names = ("xor_checksum_u32", "delta_xor", "checksum_u32")
+print("deltapath " + json.dumps({
+    "checkout": root, "share": share, "phase_s": wall,
+    "encode_delta_s": [sum(e["t1"] - e["t0"] for e in g) for g in saves],
+    "encode_delta_spans": [len(g) for g in saves],
+    "persist_s": [r["persist_s"] for r in report["steps"]],
+    "prologue_s": [r["prologue_s"] for r in report["steps"]],
+    "restore_s": [r["total_s"] for r in report["restores"]],
+    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+    "launches": {k: n[k] for k in names},
+    "save_launches": {k: report["launches_save"][k] for k in names}}),
+    flush=True)
+"""
+
+
+def deltapath_main(args) -> None:
+    """Each checkout's run in turns: the order given, then reversed."""
+    if not args:
+        sys.exit("deltapath: name one or more checkouts")
+    print(_smi_line(), flush=True)
+    for arg in [*args, *reversed(args)]:
+        checkout, _, share = arg.partition(":")
+        proc = subprocess.run([sys.executable, "-c", DELTA_PATH_RUN, share],
+                              cwd=checkout, capture_output=True, text=True)
+        lines = [x for x in proc.stdout.splitlines()
+                 if x.startswith(("deltapath ", "restore ", "save "))]
+        print("\n".join(lines), flush=True)
+        if proc.returncode != 0:
+            print(f"deltapath: {arg} failed ({proc.returncode}):\n"
+                  f"{proc.stderr[-4000:]}", flush=True)
+
+
 def main(argv) -> None:
     import torch
 
@@ -1131,6 +1469,10 @@ def main(argv) -> None:
         int8_main(args[1:])
     elif args and args[0] == "int8path":
         int8path_main(args[1:])
+    elif args and args[0] == "xor":
+        xor_main(args[1:])
+    elif args and args[0] == "deltapath":
+        deltapath_main(args[1:])
     else:
         attention_main(args)
 

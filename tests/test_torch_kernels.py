@@ -238,6 +238,7 @@ def test_build_flags_are_fixed():
     assert set(build.SIGNATURES) == {"ckpt_checksum_u32",
                                      "ckpt_checksum_u32_segments",
                                      "ckpt_xor_checksum_u32",
+                                     "ckpt_xor_checksum_u32_segments",
                                      "ckpt_xor_fold_checksum_u32",
                                      "ckpt_delta_xor",
                                      "ckpt_delta_f32",
@@ -296,19 +297,18 @@ def test_tile_words_match_the_streaming_core():
 def test_stream_kernels_share_one_core():
     """``ckpt_delta_xor``, ``ckpt_downcast_bf16`` and ``ckpt_delta_f32``
     launch the one streaming template over their per-vector operations;
-    the digest and the int8 pair are one cluster launch a call, each
-    segment's block sums meeting in rank 0's shared memory through one
-    shared fold, with no atomic and no zeroed word, and the one-chunk
-    entries are their one-segment case; the fused XOR digests keep the
-    grid-stride loop. The old digest, int8 and subtraction kernels are
-    gone."""
+    the digest, the XOR digest and the int8 pair are one cluster launch a
+    call, each cluster's block sums meeting in rank 0's shared memory
+    through one shared fold, with no atomic and no zeroed word, and the
+    one-chunk entries are their one-segment case; only the fused
+    chain-replay decode keeps the grid-stride loop. The old digest, XOR
+    digest, int8 and subtraction kernels are gone."""
     src = (build.CSRC / "ckpt_kernels.cu").read_text()
     assert "return launch_stream<XorOp>(a, b, out, n, stream);" in src
     assert "return launch_stream<Bf16Op>(x, nullptr, out, n, stream);" in src
     assert "return launch_stream<F32SubOp>(a, b, out, n, stream);" in src
-    for kernel in ("xor_checksum_kernel<false><<<blocks_for(n)",
-                   "xor_checksum_kernel<true><<<blocks_for(n)"):
-        assert kernel in src
+    assert "xor_checksum_kernel<true><<<blocks_for(n)" in src
+    assert "xor_checksum_kernel<false>" not in src
     fold = src[src.index("__device__ __forceinline__ void cluster_fold("):
                src.index("checksum_segments_kernel(const")]
     for part in ("cluster.map_shared_rank(", "cluster.sync();",
@@ -319,12 +319,15 @@ def test_stream_kernels_share_one_core():
                     src.index("}  // namespace")]
     assert not re.search(r"\batomic\w*\s*\(", fold + segmented)
     for kernel in ("checksum_segments_kernel(const",
+                   "xor_checksum_segments_kernel(const",
                    "quantize_segments_kernel(const",
                    "dequantize_segments_kernel(const"):
         body = segmented[segmented.index(kernel):]
         body = body[:body.index("\n}\n")]
         assert "cluster_arrive();" in body and "cluster_fold<" in body
     assert "return launch_checksum(x, n, n, 1, out, stream);" in src
+    assert "return launch_xor(a, b, out, n, n, 1, part, stream);" in src
+    assert "cudaMemset" not in segmented
     for entry, call in (("ckpt_quantize_checksum_int8(",
                          "launch_int8<true>(x, n_rows * kRowBytes, "
                          "row_start, 1, body, dig, 0,"),
