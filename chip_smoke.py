@@ -91,14 +91,28 @@ Phases, any failure exits non-zero:
    and must equal, bit for bit, the working arrays the plain versions give
    on the card; then the ``dequantize_int8`` kernel on step 3's restored
    q is within one scale of the saved moment.
-   Kernel launch counts are zeroed just before each of phases 4, 5, 6 and
-   7 and read just after; each kernel of the phase must have run. Phases
+8. Engines (slice 10): the four engines the paper compares, in its order
+   (``sync``, ``snapshot``, ``datastates-old``, ``datastates``), each from
+   the same seed under a raw policy (the baselines refuse delta and
+   quantized routes): ``Trainer`` at 4 x 2048 tokens takes 3 steps saving
+   at 2 and waits for the commit; a fresh manager verifies step 2 (every
+   file hashed on the card) and a fresh trainer resumes it: params and
+   optimizer state equal, bit for bit, device copies taken as the save
+   was requested and the first mode's, and step 3's loss equals the
+   first trainer's bit for bit. Each mode's directory is removed after
+   its check. One ``engines`` JSON line: per mode the stall per save,
+   step 3's iteration beside the save and alone, persist and commit
+   times, bytes and files written, restore time (the verify, and the
+   resume: index, reads, assembly), bytes read and ``checksum_u32``
+   launches at save and commit and at restore (verify and resume).
+   Kernel launch counts are zeroed just before each of phases 4, 5, 6, 7
+   and 8 and read just after; each kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
    phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
    and span count of each delta save, the persist times and the peak
    device memory; phase 5 also the int8 pair's launches, the
    ``encode.int8`` span time a save and the resume's read time.
-8. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+9. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -134,6 +148,11 @@ MAIN_ROWS = 4096
 #: the training phase: tokens per batch row (the longest sequence on the
 #: direct attention path), batch rows, steps and the save interval
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_INTERVAL = 2048, 4, 6, 2
+#: the engines phase: the four engines the paper compares, in its order
+#: (``benchmarks/common.py``), each training this many steps with a save
+#: at the second
+ENGINE_ORDER = ("sync", "snapshot", "datastates-old", "datastates")
+ENGINE_STEPS, ENGINE_SAVE_AT = 3, 2
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
@@ -1373,6 +1392,154 @@ def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
     return report
 
 
+def _engine_mode(mode: str, device: str, cfg, workdir: str,
+                 host_cache_bytes: int, flush_threads: int, batch: int,
+                 seq_len: int, reference) -> tuple:
+    """One engine of the four: a ``Trainer`` takes 3 steps saving at 2
+    under a raw policy, then a fresh manager verifies step 2 and a fresh
+    trainer resumes it and takes step 3. Restored state must equal the
+    device copies taken as the save was requested (and ``reference``, the
+    first mode's copies, if given), step 3's loss the first
+    trainer's bit for bit. Returns ``(row, the copies)``: the restored
+    state equals them, and the step after resume changes it in place."""
+    import torch
+    from repro_torch.core import (CheckpointManager, CheckpointPolicy,
+                                  EnginePolicy)
+    from repro_torch.training.loop import Trainer
+
+    class CopyingManager(CheckpointManager):
+        """The manager, keeping each save's future and a device copy of
+        its state taken before the save's own clock starts."""
+
+        def save(self, step, state, blocking=False):
+            self.copies = [t.detach().clone() for t in _tensors(state)]
+            fut = super().save(step, state, blocking)
+            self.futures.append(fut)
+            return fut
+
+    policy = CheckpointPolicy(engine=EnginePolicy(
+        mode=mode, host_cache_bytes=host_cache_bytes,
+        flush_threads=flush_threads))
+    mdir = os.path.join(workdir, mode)
+    mgr = CopyingManager.from_policy(mdir, policy, device=device)
+    mgr.futures = []
+    l0 = _launches()
+    try:
+        tr = Trainer(cfg, batch=batch, seq_len=seq_len, manager=mgr,
+                     seed=SEED, device=device)
+        recs = tr.run(ENGINE_STEPS, ckpt_interval=ENGINE_SAVE_AT)
+        l1 = _launches()
+        if mgr.commit_errors:
+            fail(f"engine {mode}: commit errors {mgr.commit_errors}")
+        fut, = mgr.futures
+        manifest = mgr.repository.manifest(fut.step)
+        saved, last, drain_s = mgr.copies, recs[-1], tr.exit_drain_s
+    finally:
+        mgr.close()
+    tr.manager = None
+    del mgr, tr
+    gc.collect()
+
+    mgr2 = CheckpointManager.from_policy(mdir, policy, device=device)
+    try:
+        l2 = _launches()
+        t0 = time.perf_counter()
+        res = mgr2.repository.verify_step(fut.step)
+        verify_s = time.perf_counter() - t0
+        if not res.ok:
+            fail(f"engine {mode}: step {fut.step} fails verify: "
+                 f"{res.problems}")
+        tr2 = Trainer(cfg, batch=batch, seq_len=seq_len, manager=mgr2,
+                      seed=SEED + 1, device=device)
+        t0 = time.perf_counter()
+        step = tr2.resume(step=fut.step)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        l3 = _launches()
+        st = tr2.last_resume_stats
+        if step != fut.step:
+            fail(f"engine {mode}: resume gave step {step}")
+        _assert_equal(tr2.state(), saved, f"engine {mode}: resume")
+        if reference is not None:
+            _assert_equal(tr2.state(), reference,
+                          f"engine {mode}: resume against the first mode")
+        again = tr2.run(1)[-1]
+    finally:
+        mgr2.close()
+    if not (math.isfinite(last.loss) and again.loss == last.loss):
+        fail(f"engine {mode}: step {last.step} after resume: loss "
+             f"{again.loss!r}, the first trainer's {last.loss!r}")
+    st_f = fut.stats
+    row = {
+        "mode": mode,
+        # the save's own prologue plus the capture barrier before step
+        # 3's update (the end-of-run drain is not a stall of the save)
+        "stall_s": st_f.blocking_s + last.ckpt_stall_s - drain_s,
+        "barrier_s": last.ckpt_stall_s - drain_s, "drain_s": drain_s,
+        "prologue_s": st_f.blocking_s,
+        "capture_s": st_f.capture_latency_s,
+        "iter_beside_save_s": last.iter_s,
+        "grad_beside_save_s": last.grad_s,
+        "iter_alone_s": again.iter_s, "grad_alone_s": again.grad_s,
+        "iter_first_s": recs[0].iter_s,
+        "persist_s": st_f.persist_latency_s,
+        "commit_s": st_f.commit_latency_s,
+        "commit_build_s": st_f.commit_s,
+        "serialize_s": st_f.serialize_s, "stage_s": st_f.stage_s,
+        "bytes_written": manifest.total_bytes,
+        "files_written": len(manifest.files),
+        # the restore: the step's files hashed again, then the resume
+        # (index — a sync step's whole-graph unpickle —, plan, ranged
+        # reads, assembly onto the card)
+        "restore_s": verify_s + resume_s, "verify_s": verify_s,
+        "resume_s": resume_s, "index_s": st.index_s, "read_s": st.read_s,
+        "assemble_s": st.assemble_s,
+        "bytes_read": st.bytes_read, "n_ranges": st.n_ranges,
+        "checksum_launches_save": l1["checksum_u32"] - l0["checksum_u32"],
+        "checksum_launches_restore":
+            l3["checksum_u32"] - l2["checksum_u32"],
+        "loss": last.loss, "resumed_loss": again.loss}
+    log(f"engine {mode}: stall {row['stall_s']:.4f} s (prologue "
+        f"{row['prologue_s']:.4f} s); step {last.step} {last.iter_s:.4f} s "
+        f"beside the save, {again.iter_s:.4f} s alone; persist "
+        f"{row['persist_s']:.3f} s, commit {row['commit_s']:.3f} s; "
+        f"{row['bytes_written']} bytes in {row['files_written']} files; "
+        f"restore {row['restore_s']:.3f} s (verify {verify_s:.3f} s, resume "
+        f"{resume_s:.3f} s: index {st.index_s:.3f} s, read {st.read_s:.3f} "
+        f"s), {st.bytes_read} bytes read; checksum_u32 "
+        f"{row['checksum_launches_save']} launches at save and commit, "
+        f"{row['checksum_launches_restore']} at restore; step "
+        f"{last.step}'s loss {last.loss!r} from both trainers")
+    return row, saved
+
+
+def run_engines_path(device: str, cfg, workdir: str, host_cache_bytes: int,
+                     flush_threads: int, batch: int, seq_len: int) -> list:
+    """The four engines the paper compares, one after the other from the
+    same seed (:func:`_engine_mode`); each mode's directory is removed
+    after its check. Every mode's restored state must equal the first
+    mode's (its copies at the save, which its restore equalled) bit for
+    bit. Returns one row a mode."""
+    rows, reference = [], None
+    for mode in ENGINE_ORDER:
+        try:
+            row, saved = _engine_mode(
+                mode, device, cfg, workdir, host_cache_bytes, flush_threads,
+                batch, seq_len, reference)
+        finally:
+            shutil.rmtree(os.path.join(workdir, mode), ignore_errors=True)
+        if reference is None:
+            reference = saved
+        del saved
+        rows.append(row)
+        gc.collect()
+        if device == "cuda":
+            import torch
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _fold_2d(t):
     """A stacked leaf ``(count, rows, cols)`` as ``(count * rows, cols)``;
     1-D and 2-D leaves as they are."""
@@ -1389,15 +1556,15 @@ def _plain_work(t, quant: str):
     choice of quantizer, made by the kernels' plain versions on ``t``'s
     device), as a host array."""
     import torch
-    from repro_torch.core import reduction as R
+    from repro_torch.core.dtypes import host_copy
     from repro_torch.kernels import quantize as tq
     rows = t.dtype == torch.float32 and t.dim() == 2 \
         and t.shape[0] % tq.TILE == 0
     if quant == "bf16" and rows and t.shape[1] % tq.TILE == 0:
-        return R._host(tq.downcast_bf16_plain(t))
+        return host_copy(tq.downcast_bf16_plain(t))
     if quant == "int8" and rows and t.shape[1] == tq.ROW_ELEMS:
-        return R._host(tq.quantize_int8_plain(t)[0])
-    return R._host(t)
+        return host_copy(tq.quantize_int8_plain(t)[0])
+    return host_copy(t)
 
 
 def run_reduction_path(device: str, cfg, workdir: str,
@@ -1696,8 +1863,32 @@ def main() -> None:
         f"{json.dumps(launches)}; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
     log("reduce report " + json.dumps(report))
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    # launches: summed over the four paths, each counted from zero
+    # -- phase 8: the four engines the paper compares (slice 10) ----------
+    engines_dir = os.path.join(ROOT, "build", "chip_smoke_engines")
+    shutil.rmtree(engines_dir, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        rows_engines = run_engines_path(
+            "cuda", cfg, engines_dir, HOST_CACHE_BYTES, flush_threads=8,
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        launches = path_launches["engines"] = _launches()
+        engines_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(engines_dir, ignore_errors=True)
+    if launches["checksum_u32"] == 0:
+        fail("kernel checksum_u32 was never launched on the engines path")
+    log(f"engines path: {engines_s:.1f} s; launches {json.dumps(launches)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
+    log(json.dumps({"engines": rows_engines, "seconds": engines_s,
+                    "launches": launches}))
+
+    # launches: summed over the five paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k],

@@ -17,7 +17,10 @@ from .state_provider import (Chunk, CompositeStateProvider, DeltaSaveSpec,
                              DeltaStateProvider, ObjectStateProvider,
                              QuantizedStateProvider, SnapshotCache, StateProvider,
                              TensorStateProvider)
-from .baselines import BaseCheckpointEngine, DataStatesEngine
+from .baselines import (BaseCheckpointEngine, DataStatesEngine,
+                        DataStatesOldEngine, SnapshotThenFlushEngine,
+                        SyncSerializedEngine, load_snapshot_rank,
+                        load_sync_rank)
 from .distributed import (ShardRecord, group_by_rank, plan_shards,
                           state_domain)
 
@@ -37,7 +40,9 @@ __all__ = [
     "Chunk", "CompositeStateProvider", "DeltaSaveSpec", "DeltaStateProvider",
     "ObjectStateProvider", "QuantizedStateProvider", "SnapshotCache", "StateProvider",
     "TensorStateProvider",
-    "BaseCheckpointEngine", "DataStatesEngine",
+    "BaseCheckpointEngine", "DataStatesEngine", "DataStatesOldEngine",
+    "SnapshotThenFlushEngine", "SyncSerializedEngine",
+    "load_snapshot_rank", "load_sync_rank",
     "ShardRecord", "group_by_rank", "plan_shards",
     "state_domain",
 ]

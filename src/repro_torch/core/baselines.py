@@ -1,25 +1,50 @@
-"""The DataStates-LLM checkpoint engine (paper §V), behind the engine
-interface the manager builds from.
+"""Checkpoint engines: DataStates-LLM and the paper's three baselines (§VI-B).
 
-:class:`DataStatesEngine` composes state providers (zero-copy tensors, lazy
-object serialization overlapped with bulk I/O, XOR deltas against a
-retained snapshot, int8-quantized fp32 state) over the streamlined :class:`DataMovementEngine`. The
-paper's three baselines of the JAX package (``datastates-old``,
-``snapshot``, ``sync``) are not yet ported.
+All engines implement :class:`BaseCheckpointEngine` and fill the same
+:class:`~repro_torch.core.engine.CheckpointStats`, so the four can be
+compared head to head as the paper's figures do. Names and on-disk
+formats are the JAX package's, so either package restores the other's
+steps.
+
+* :class:`SyncSerializedEngine` — "DeepSpeed default": blocking,
+  type-agnostic serialization of the full object graph (tensors copied to
+  the host and through the pickler), one synchronous write per rank
+  file. (Fig 6(a))
+* :class:`SnapshotThenFlushEngine` — "TorchSnapshot": blocking up-front
+  object serialization, a blocking device-to-host copy of *all* shards
+  into freshly allocated pageable host memory (never the pinned cache),
+  then background multi-threaded writes of one file per 64 MiB chunk.
+  (Fig 6(b))
+* :class:`DataStatesOldEngine` — HPDC'24 prior work: the pinned cache, lazy
+  capture and async flush, but objects are serialized in a blocking
+  prologue and a tensor flushes only once it is wholly staged (no
+  intra-tensor streaming). (Fig 6(c))
+* :class:`DataStatesEngine` — this paper: composable state providers
+  (zero-copy tensors, lazy object serialization overlapped with bulk I/O,
+  XOR deltas against a retained snapshot, int8-quantized fp32 state) over
+  the streamlined :class:`DataMovementEngine`, with intra-tensor
+  stage/flush streaming. (Fig 6(d))
 """
 
 from __future__ import annotations
 
 import os
+import pickle
+import queue
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.storage.backend import atomic_write
+
+from . import dtypes, pickle_compat
 from .distributed import ShardRecord
 from .engine import CheckpointError, CheckpointFuture, DataMovementEngine, \
-    FilePlan
+    FilePlan, join_lanes
+from .layout import maybe_fsync
 from .state_provider import (CompositeStateProvider, DeltaSaveSpec,
                              DeltaStateProvider, EncodeBudget,
                              ObjectStateProvider, QuantizedStateProvider,
@@ -64,6 +89,31 @@ def merge_domains_meta(dst: Dict[str, Dict[str, List[str]]],
     return dst
 
 
+def _reject_encoded_routes(by_rank, engine_name: str) -> None:
+    """Baseline (non-DataMovementEngine) engines stream raw only — a
+    registry route to an encoding provider must fail loudly, not be
+    silently dropped."""
+    for recs in by_rank.values():
+        for r in recs:
+            if r.route is not None \
+                    and r.route.provider not in ("auto", "tensor"):
+                raise ValueError(
+                    f"engine {engine_name!r} cannot honor provider route "
+                    f"{r.route.provider!r} for {r.tensor_name!r}; "
+                    f"registry-routed delta/quantized/custom providers "
+                    f"require a DataMovementEngine mode "
+                    f"(datastates / datastates-old)")
+
+
+def _host_array(data) -> np.ndarray:
+    """A fresh host copy of a shard's values in its storage dtype,
+    bfloat16 as :data:`~.dtypes.BF16_HOST` (a blocking copy into pageable
+    memory for a CUDA tensor)."""
+    if isinstance(data, torch.Tensor):
+        return dtypes.host_copy(data.detach())
+    return np.array(data, copy=True)
+
+
 def rank_file(directory: str, rank: int, ext: str = "dsllm") -> str:
     return os.path.join(directory, f"rank{rank:05d}.{ext}")
 
@@ -103,12 +153,22 @@ class BaseCheckpointEngine:
     def close(self) -> None:
         pass
 
+    # shared helper: simulate limited storage bandwidth if configured
+    def _throttle(self, nbytes: int, t0: float) -> None:
+        if self.throttle_mbps:
+            target = nbytes / (self.throttle_mbps * 1e6)
+            elapsed = time.perf_counter() - t0
+            if target > elapsed:
+                time.sleep(target - elapsed)
+
 
 # --------------------------------------------------------------------------
 class DataStatesEngine(BaseCheckpointEngine):
     """This paper's engine: state providers + streamlined multi-tier flush."""
 
     name = "datastates"
+    _stream_intra_tensor = True
+    _blocking_object_serialization = False
 
     def __init__(self, **kw):
         super().__init__(**kw)
@@ -132,13 +192,23 @@ class DataStatesEngine(BaseCheckpointEngine):
     def host_cache(self):
         return self._engine.host_cache
 
-    @staticmethod
-    def _object_providers(objects: Dict[str, Any]
+    def _object_providers(self, objects: Dict[str, Any],
+                          future: CheckpointFuture
                           ) -> List[ObjectStateProvider]:
-        # lazy: serialization happens on the producer lane, overlapped
-        # with bulk tensor I/O (§V-A5).
-        return [ObjectStateProvider(name, obj)
-                for name, obj in objects.items()]
+        if not self._blocking_object_serialization:
+            # lazy: serialization happens on the producer lane, overlapped
+            # with bulk tensor I/O (§V-A5).
+            return [ObjectStateProvider(name, obj)
+                    for name, obj in objects.items()]
+        # legacy engines: serialize everything up front, blocking (§IV-D).
+        provs = []
+        t0 = time.perf_counter()
+        for name, obj in objects.items():
+            payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+            provs.append(ObjectStateProvider(name, obj,
+                                             preserialized=payload))
+        future.stats.serialize_s += time.perf_counter() - t0
+        return provs
 
     # -- differential-save plumbing -----------------------------------------
     def _await_delta_turn(self) -> None:
@@ -249,7 +319,8 @@ class DataStatesEngine(BaseCheckpointEngine):
                     device=self.device,
                     host_array=None if rec.device_resident else rec.data,
                     global_shape=rec.global_shape, index=rec.index,
-                    chunk_bytes=self.chunk_bytes)
+                    chunk_bytes=self.chunk_bytes,
+                    stream_intra_tensor=self._stream_intra_tensor)
                 if factory is not None:
                     tp = factory(rec, **kw)
                     if not isinstance(tp, TensorStateProvider):
@@ -288,7 +359,7 @@ class DataStatesEngine(BaseCheckpointEngine):
                 if rec.device_resident:
                     capture_items.append((tp, rec.data))
             if rank == obj_rank:
-                provs.extend(self._object_providers(objects))
+                provs.extend(self._object_providers(objects, future))
                 for key in objects:
                     dom = _object_domain(key)
                     if dom is not None:
@@ -305,7 +376,7 @@ class DataStatesEngine(BaseCheckpointEngine):
                                   CompositeStateProvider(f"rank{rank}", provs),
                                   meta=meta))
         if not by_rank:  # objects only
-            provs = self._object_providers(objects)
+            provs = self._object_providers(objects, future)
             meta = {"rank": 0}
             if delta is not None:
                 meta["delta"] = delta.manifest_meta()
@@ -349,3 +420,213 @@ class DataStatesEngine(BaseCheckpointEngine):
 
     def close(self) -> None:
         self._engine.close()
+
+
+class DataStatesOldEngine(DataStatesEngine):
+    """HPDC'24 engine: lazy capture + async flush, but blocking up-front
+    object serialization and tensor-granular (non-streamed) staging."""
+
+    name = "datastates-old"
+    _stream_intra_tensor = False
+    _blocking_object_serialization = True
+
+
+# --------------------------------------------------------------------------
+class SnapshotThenFlushEngine(BaseCheckpointEngine):
+    """TorchSnapshot-style: blocking snapshot of everything, then async
+    multi-threaded chunk-file flush (one *file per chunk*)."""
+
+    name = "snapshot"
+
+    CHUNK_FILE_BYTES = 64 << 20
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self._q: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        self._threads = [threading.Thread(target=self._worker, daemon=True,
+                                          name=f"snapshot-flush-{i}")
+                         for i in range(self.flush_threads)]
+        for t in self._threads:
+            t.start()
+
+    def save(self, directory, by_rank, objects, future, delta=None) -> None:
+        if delta is not None:
+            raise ValueError(
+                "differential checkpointing requires a DataMovementEngine "
+                "mode; the snapshot baseline cannot encode deltas")
+        _reject_encoded_routes(by_rank, self.name)
+        stats = future.stats
+        # (1) blocking: metadata/object serialization first (precompute the
+        # layout manifest up front — §IV-D's "do the opposite" pattern).
+        t0 = time.perf_counter()
+        obj_payload = pickle.dumps(objects, protocol=pickle.HIGHEST_PROTOCOL)
+        stats.serialize_s += time.perf_counter() - t0
+        stats.bytes_objects += len(obj_payload)
+
+        # (2) blocking D2H snapshot: fresh (pageable) allocations each time.
+        t0 = time.perf_counter()
+        snapshots: Dict[int, List[tuple]] = {}
+        for rank, records in sorted(by_rank.items()):
+            for rec in records:
+                flat = _host_array(rec.data).reshape(-1).view(np.uint8)
+                snapshots.setdefault(rank, []).append((rec, flat))
+                stats.bytes_tensors += rec.nbytes
+                stats.n_tensors += 1
+        stats.stage_s += time.perf_counter() - t0
+        future._set_captured()
+
+        # (3) async: chunk-file writes + per-rank manifest.
+        pending = {"n": 0}
+        lock = threading.Lock()
+
+        def done_one():
+            with lock:
+                pending["n"] -= 1
+                last = pending["n"] == 0
+            if last:
+                future._set_persisted()
+
+        jobs = []
+        for rank, snaps in snapshots.items():
+            manifest = {"tensors": [], "objects": None}
+            for rec, flat in snaps:
+                n_chunks = max(1, -(-rec.nbytes // self.CHUNK_FILE_BYTES))
+                chunk_paths = []
+                for ci in range(n_chunks):
+                    lo = ci * self.CHUNK_FILE_BYTES
+                    hi = min(lo + self.CHUNK_FILE_BYTES, rec.nbytes)
+                    safe = rec.tensor_name.replace("/", "_").replace("@", "_")
+                    cpath = os.path.join(
+                        directory, f"r{rank:03d}_{safe}_c{ci:04d}.bin")
+                    chunk_paths.append((cpath, lo, hi))
+                    jobs.append((cpath, flat[lo:hi], future))
+                manifest["tensors"].append({
+                    "name": rec.tensor_name, "dtype": rec.dtype,
+                    "shape": rec.shape, "global_shape": rec.global_shape,
+                    "index": rec.index,
+                    "chunks": [(p, lo, hi) for p, lo, hi in chunk_paths]})
+            mpath = os.path.join(directory, f"manifest_rank{rank:05d}.pkl")
+            payload = pickle.dumps(manifest)
+            jobs.append((mpath, payload, future))
+        if min(by_rank, default=0) in snapshots or not by_rank:
+            opath = os.path.join(directory, "objects.pkl")
+            jobs.append((opath, obj_payload, future))
+        # one job == one file (chunk files + manifests + objects.pkl)
+        stats.n_files = len(jobs)
+        with lock:
+            pending["n"] = len(jobs)
+        if not jobs:
+            future._set_persisted()
+        for path, data, fut in jobs:
+            self._q.put((path, data, fut, done_one))
+
+    def _worker(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                self._q.task_done()
+                return
+            path, data, future, done_one = item
+            try:
+                t0 = time.perf_counter()
+                with open(path, "wb") as f:
+                    f.write(data)
+                    f.flush()
+                    maybe_fsync(f.fileno())
+                nb = len(data) if isinstance(data, bytes) else data.nbytes
+                self._throttle(nb, t0)
+                future.stats.flush_s += time.perf_counter() - t0
+                done_one()
+            except BaseException as exc:  # noqa: BLE001
+                future._set_error(exc)
+            finally:
+                self._q.task_done()
+
+    def drain(self) -> None:
+        self._q.join()
+
+    def close(self) -> None:
+        for _ in self._threads:
+            self._q.put(None)
+        join_lanes(self._threads)
+
+
+# --------------------------------------------------------------------------
+class SyncSerializedEngine(BaseCheckpointEngine):
+    """DeepSpeed-default / torch.save analogue: fully blocking, type-agnostic
+    serialization of the whole object graph (tensor payloads copied to the
+    host and through the pickler), single synchronous write per rank file.
+    The graph is the JAX package's: each leaf a numpy array, bfloat16 as
+    an ``ml_dtypes.bfloat16`` array (:mod:`~.pickle_compat`)."""
+
+    name = "sync"
+
+    def save(self, directory, by_rank, objects, future, delta=None) -> None:
+        if delta is not None:
+            raise ValueError(
+                "differential checkpointing requires a DataMovementEngine "
+                "mode; the sync baseline cannot encode deltas")
+        _reject_encoded_routes(by_rank, self.name)
+        stats = future.stats
+        obj_rank = min(by_rank) if by_rank else 0
+        ranks = sorted(by_rank) if by_rank else [0]
+        for rank in ranks:
+            records = by_rank.get(rank, [])
+            t0 = time.perf_counter()
+            graph: Dict[str, Any] = {}
+            for rec in records:
+                # device-to-host copy + deep copy through the pickler
+                graph[rec.tensor_name] = {
+                    "data": _host_array(rec.data), "dtype": rec.dtype,
+                    "shape": rec.shape, "global_shape": rec.global_shape,
+                    "index": rec.index}
+                stats.bytes_tensors += rec.nbytes
+                stats.n_tensors += 1
+            if rank == obj_rank:
+                graph["__objects__"] = objects
+            payload = pickle_compat.dumps(graph)
+            del graph
+            stats.serialize_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            # One blocking whole-graph write (torch.save analogue), made
+            # through the repository's atomic helper: a crash leaves no
+            # partial rank pickle, and the rename costs nothing beside
+            # the write and its fsync.
+            atomic_write(rank_file(directory, rank, ext="pkl"), payload,
+                         fsync=maybe_fsync)
+            self._throttle(len(payload), t0)
+            stats.flush_s += time.perf_counter() - t0
+            stats.n_files += 1
+        future._set_captured()
+        future._set_persisted()
+
+
+# --------------------------------------------------------------------------
+# Loaders for the non-native baseline formats (used by tests/benchmarks).
+
+def load_sync_rank(path: str) -> Dict[str, Any]:
+    """One rank's pickled graph, of either package: each leaf's
+    ``"data"`` a numpy array, bfloat16 as :data:`~.dtypes.BF16_HOST`."""
+    with open(path, "rb") as f:
+        return pickle_compat.load(f)
+
+
+def load_snapshot_rank(directory: str, rank: int
+                       ) -> Dict[str, torch.Tensor]:
+    """One rank's tensors of a snapshot step, of either package, as CPU
+    tensors (numpy has no bfloat16 without ``ml_dtypes``)."""
+    mpath = os.path.join(directory, f"manifest_rank{rank:05d}.pkl")
+    with open(mpath, "rb") as f:
+        manifest = pickle_compat.load(f)
+    out = {}
+    for t in manifest["tensors"]:
+        dt = dtypes.lookup(t["dtype"])
+        nbytes = int(np.prod(t["shape"], dtype=np.int64)) * dt.itemsize \
+            if t["shape"] else dt.itemsize
+        buf = np.empty(nbytes, dtype=np.uint8)
+        for cpath, lo, hi in t["chunks"]:
+            with open(cpath, "rb") as f:
+                buf[lo:hi] = np.frombuffer(f.read(), dtype=np.uint8)
+        out[t["name"]] = dtypes.host_to_tensor(
+            buf.view(dt.storage).reshape(t["shape"]), t["dtype"], "cpu")
+    return out

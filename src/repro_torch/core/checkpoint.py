@@ -27,9 +27,12 @@ checksums) and is passed down to the engine, the codecs, the
 verify. ``device="cuda"`` on a host without a card raises: nothing falls
 back to the CPU unless the caller asks for it.
 
+``EnginePolicy.mode`` picks one of the four engines the paper compares
+(:data:`ENGINES`: ``sync``, ``snapshot``, ``datastates-old``,
+``datastates``); a restore reads the steps of any of them.
+
 Not yet ported: the multi-rank coordinator (``DistPolicy.world > 1``),
-remote tiers and retention, the baseline engines, and the legacy
-flat-kwarg constructor.
+remote tiers and retention, and the legacy flat-kwarg constructor.
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ from repro_torch.storage.backend import BackendError
 from repro_torch.storage.repository import (CheckpointRepository,
                                             committed_steps)
 
-from .baselines import BaseCheckpointEngine, DataStatesEngine
+from .baselines import (BaseCheckpointEngine, DataStatesEngine,
+                        DataStatesOldEngine, SnapshotThenFlushEngine,
+                        SyncSerializedEngine)
 from .distributed import group_by_rank, plan_shards
 from .engine import CheckpointError, CheckpointFuture
 from .policy import CheckpointPolicy, DeltaPolicy
@@ -59,17 +64,11 @@ from .restore import RestoreEngine, RestoreError, RestoreStats
 from .state_provider import DeltaSaveSpec
 
 
-def _not_yet_ported(mode: str):
-    def build(**_kw) -> BaseCheckpointEngine:
-        raise NotImplementedError(f"engine mode {mode!r} is not yet ported")
-    return build
-
-
 ENGINES = {
-    "datastates": DataStatesEngine,                       # this paper
-    "datastates-old": _not_yet_ported("datastates-old"),  # HPDC'24
-    "snapshot": _not_yet_ported("snapshot"),              # TorchSnapshot
-    "sync": _not_yet_ported("sync"),                      # torch.save
+    "datastates": DataStatesEngine,          # this paper
+    "datastates-old": DataStatesOldEngine,   # HPDC'24 prior work
+    "snapshot": SnapshotThenFlushEngine,     # TorchSnapshot-style
+    "sync": SyncSerializedEngine,            # DeepSpeed default (torch.save)
 }
 
 
@@ -284,6 +283,12 @@ class CheckpointManager:
         if ep.mode not in ENGINES:
             raise ValueError(f"unknown engine mode {ep.mode!r}; "
                              f"choose from {sorted(ENGINES)}")
+        delta = policy.delta
+        if delta is not None and ep.mode not in ("datastates",
+                                                 "datastates-old"):
+            raise ValueError(
+                f"differential checkpointing requires a DataMovementEngine "
+                f"mode (datastates / datastates-old), got {ep.mode!r}")
         if dp.coordinator is not None or (dp.world or 1) > 1:
             raise NotImplementedError(
                 "multi-rank saves (DistPolicy.world > 1 or a coordinator) "
@@ -291,7 +296,6 @@ class CheckpointManager:
         if sp.tiers or sp.retention is not None:
             raise NotImplementedError(
                 "remote storage tiers and retention are not yet ported")
-        delta = policy.delta
         self.policy = policy
         self.registry = policy.providers
         self.delta_policy = delta
@@ -549,8 +553,10 @@ class CheckpointManager:
         is indexed once, the shard/target intersections are planned up
         front, and only the intersecting byte ranges are read — ranged
         positional reads fanned out over a thread pool — into preallocated
-        host buffers. Per-restore timings and I/O counts are left in
-        :attr:`last_restore_stats`."""
+        host buffers. Restore is format-universal (native ``.dsllm``,
+        snapshot chunk manifests, sync pickle graphs), so a run can also
+        switch engines between save and resume. Per-restore timings and
+        I/O counts are left in :attr:`last_restore_stats`."""
         # Saves requested through this manager may have persisted but not
         # yet committed their manifest; settle the catalog before reading
         # it so a just-finished step is eligible.

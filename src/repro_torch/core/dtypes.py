@@ -91,3 +91,40 @@ def host_to_tensor(buf: np.ndarray, name: str,
     flat = np.ascontiguousarray(buf).reshape(-1).view(np.uint8)
     t = torch.from_numpy(flat).view(lookup(name).torch).reshape(shape)
     return t.to(device) if torch.device(device).type != "cpu" else t
+
+
+def host_copy(t: torch.Tensor) -> np.ndarray:
+    """A copy of a tensor's values as a host array (never a view: tensors
+    are updated in place); bfloat16 as :data:`BF16_HOST`. From a card it
+    is one blocking copy into pageable memory."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).to("cpu", copy=True).numpy() \
+            .view(BF16_HOST)
+    return t.to("cpu", copy=True).numpy()
+
+
+def cast_host(a: np.ndarray, src: str, dst: str) -> np.ndarray:
+    """The values of ``a`` (storage of dtype ``src``) cast to dtype ``dst``,
+    as storage of ``dst``, bit for bit as numpy with ``ml_dtypes`` casts
+    them (the JAX package's dtype-converting restore). Between numpy
+    dtypes that is numpy's cast. bfloat16 goes through float32 both ways:
+    widened exactly, narrowed to nearest even, a NaN made the quiet NaN of
+    its sign (``0x7fc0``), and a bfloat16 NaN becomes float16's quiet NaN
+    of its sign (``0x7e00``)."""
+    if src == dst:
+        return a
+    if src == "bfloat16":
+        words = np.asarray(a).view(np.uint16)
+        f = (words.astype(np.uint32) << 16).view(np.float32)
+        if dst != "float16":
+            return f.astype(lookup(dst).storage)
+        return np.where(np.isnan(f),
+                        ((words & 0x8000) | 0x7e00).view(np.float16),
+                        f.astype(np.float16))
+    if dst == "bfloat16":
+        u = np.asarray(a).astype(np.float32).view(np.uint32)
+        rne = (u + np.uint32(0x7FFF) + ((u >> 16) & 1)) >> 16
+        nan = (u & 0x7FFFFFFF) > 0x7F800000
+        out = np.where(nan, ((u >> 16) & 0x8000) | 0x7FC0, rne)
+        return out.astype(np.uint16)
+    return np.asarray(a).astype(lookup(dst).storage)

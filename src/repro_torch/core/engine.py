@@ -195,6 +195,21 @@ class _FileState:
             self.on_done()
 
 
+#: how long ``close`` waits for a lane to take its stop sentinel
+LANE_JOIN_TIMEOUT_S = 60.0
+
+
+def join_lanes(threads: Sequence[threading.Thread]) -> None:
+    """Wait for lanes that were sent their stop sentinel. A daemon lane
+    that has run PyTorch code and is still alive when the interpreter
+    finalizes (woken by its sentinel a moment too late) is torn down
+    inside PyTorch's C++ frames, which aborts the process ("terminate
+    called without an active exception"); so an owner joins its lanes
+    before it returns from ``close``."""
+    for t in threads:
+        t.join(timeout=LANE_JOIN_TIMEOUT_S)
+
+
 class DataMovementEngine:
     """The full DataStates-LLM engine (lazy capture + streamlined flush)."""
 
@@ -369,6 +384,8 @@ class DataMovementEngine:
         self._stage_q.put(None)
         for _ in self._flush_threads:
             self._flush_q.put(None)
+        join_lanes((*self._producer_threads, self._stage_thread,
+                    *self._flush_threads))
 
     # ------------------------------------------------------------ workers
     def _in_lane(self, worker: Callable[[], None]) -> Callable[[], None]:
@@ -393,10 +410,14 @@ class DataMovementEngine:
             try:
                 t0 = time.perf_counter()
                 n = provider.nbytes
+                # a legacy provider flushes only once the whole tensor is
+                # staged: it hears of it once, below
+                stream = provider.stream_intra_tensor
                 if events is not None:
                     for end, ev in events:
                         ev.synchronize()
-                        provider.notify_staged(end)
+                        if stream:
+                            provider.notify_staged(end)
                 else:
                     src = arr.detach().reshape(-1).view(torch.uint8) \
                         .numpy() if isinstance(arr, torch.Tensor) \
@@ -406,7 +427,8 @@ class DataMovementEngine:
                     for pos in range(0, n, step):
                         end = min(pos + step, n)
                         dst[pos:end] = src[pos:end]
-                        provider.notify_staged(end)  # flush the head
+                        if stream:
+                            provider.notify_staged(end)  # flush the head
                 provider.notify_staged(n)
                 t1 = time.perf_counter()
                 future.stats.stage_s += t1 - t0

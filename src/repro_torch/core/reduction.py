@@ -116,16 +116,6 @@ def load_record(path: str) -> Dict[str, Any]:
         return _RecordUnpickler(fh).load()
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A copy of a tensor's values as a host array (never a view: tensors
-    are updated in place, the reference's arrays are not); bfloat16 as
-    :data:`BF16_HOST`."""
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).to("cpu", copy=True).numpy() \
-            .view(dtypes.BF16_HOST)
-    return t.to("cpu", copy=True).numpy()
-
-
 def _padded_words(t: torch.Tensor) -> torch.Tensor:
     w = as_words(t)
     pad = (-w.numel()) % DELTA_BLOCK_WORDS
@@ -148,17 +138,17 @@ def encode_tensor(t: torch.Tensor, *, prev: Optional[np.ndarray] = None,
         work_t = ops.downcast_bf16(t)
     elif quant == "int8" and rows and t.shape[1] == ROW_ELEMS:
         work_t, s = ops.quantize_int8(t)
-        scales = _compress(_host(s).tobytes())
+        scales = _compress(dtypes.host_copy(s).tobytes())
     else:
         quant = "none"
         work_t = t
-    work = _host(work_t)
+    work = dtypes.host_copy(work_t)
     if prev is not None and prev.shape == work.shape \
             and dtypes.host_name(prev) == dtypes.host_name(work):
         delta = ops.delta_xor(
             _padded_words(work_t),
             _padded_words(ops.bytes_on(ops.host_u8(prev), t.device)))
-        payload = _compress(_host(delta).tobytes())
+        payload = _compress(dtypes.host_copy(delta).tobytes())
         codec = "delta-xor"
     else:
         payload = _compress(np.ascontiguousarray(work).tobytes())

@@ -23,9 +23,16 @@ like raw ones: decoded once per restore on the engine's device (the
 dequantize kernel on a card, digest-verified), in plain, chain and
 selective ``domains=`` restores alike.
 
-Not yet ported: the TorchSnapshot-style and sync-pickle formats, and
-elastic re-sharding onto a different device layout (DeviceMesh/DTensor
-templates).
+Every engine's format restores (native ``.dsllm``, the snapshot engine's
+chunk files under per-rank manifests, the sync engine's pickled graphs;
+:mod:`~.pickle_compat` reads the JAX package's bfloat16 leaves), so a run
+can switch engines between save and resume. A template dtype other than
+the stored one casts values as the JAX package does
+(:func:`~.dtypes.cast_host`). ``throttle_mbps`` emulates per-stream
+storage bandwidth on the reads, as the save-side engines do.
+
+Not yet ported: elastic re-sharding onto a different device layout
+(DeviceMesh/DTensor templates).
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ import torch
 from repro_torch.kernels.ops import lane_stream
 from repro_torch.obs import trace as obs
 
-from . import dtypes
+from . import dtypes, pickle_compat
 from .codecs import is_chained_codec
 from .layout import FileReader
 from .tree import flatten_with_path, path_str
@@ -190,7 +197,11 @@ class _ShardSource:
 
     def byte_ranges(self, local_region: Region):
         """(file_path, file_offset, nbytes) pieces for ``local_region``,
-        in C order of the region."""
+        in C order of the region. None for non-byte-addressable formats."""
+        raise NotImplementedError
+
+    def read_fallback(self, local_region: Region) -> np.ndarray:
+        """Materialize ``local_region`` without ranged reads."""
         raise NotImplementedError
 
 
@@ -212,6 +223,27 @@ class _DsllmShard(_ShardSource):
             yield self.path, self.offset + off, nb
 
 
+class _SnapshotShard(_ShardSource):
+    """One tensor spread over TorchSnapshot-style chunk files."""
+
+    __slots__ = ("chunks",)
+
+    def __init__(self, index: Region, shape, dtype: str,
+                 chunks: Sequence[Tuple[str, int, int]]):
+        super().__init__(index, shape, dtype)
+        # (path, lo, hi): byte interval of the flattened tensor per file
+        self.chunks = sorted(chunks, key=lambda c: c[1])
+
+    def byte_ranges(self, local_region: Region):
+        for off, nb in _contiguous_runs(local_region, self.shape,
+                                        self.dtype.itemsize):
+            run_lo, run_hi = off, off + nb
+            for path, lo, hi in self.chunks:
+                a, b = max(run_lo, lo), min(run_hi, hi)
+                if a < b:
+                    yield path, a - lo, b - a
+
+
 class _EncodedShard(_ShardSource):
     """A self-contained encoded tensor (e.g. an int8-quantized optimizer
     moment) in a native file: its compressed log chunks decode without a
@@ -230,6 +262,26 @@ class _EncodedShard(_ShardSource):
 
     def read_fallback(self, local_region: Region) -> np.ndarray:
         arr = self.loader()
+        return arr[tuple(slice(lo, hi) for lo, hi in local_region)]
+
+
+class _GraphShard(_ShardSource):
+    """A shard inside a pickled object graph (sync format): the graph is
+    loaded at most once per restore; slicing happens in memory."""
+
+    __slots__ = ("loader", "name")
+
+    def __init__(self, index: Region, shape, dtype: str,
+                 loader: Callable[[], Dict[str, Any]], name: str):
+        super().__init__(index, shape, dtype)
+        self.loader = loader
+        self.name = name
+
+    def byte_ranges(self, local_region: Region):
+        return None
+
+    def read_fallback(self, local_region: Region) -> np.ndarray:
+        arr = np.asarray(self.loader()[self.name]["data"])
         return arr[tuple(slice(lo, hi) for lo, hi in local_region)]
 
 
@@ -295,40 +347,66 @@ def _leaf_dtype_name(leaf) -> str:
 
 
 class RestoreEngine:
-    """Plans and executes parallel ranged restores of ``.dsllm`` steps.
+    """Plans and executes parallel ranged restores from any engine format.
 
     ``device`` runs the chain replay's digest checks and XOR folds and
     the int8 decodes.
     ``threads`` is the ranged-read fan-out width (``1`` gives a serial
-    engine with identical results). ``read_chunk_bytes`` caps a single
-    ``preadv`` so large tensors split across the pool instead of
-    serializing behind one thread.
+    engine with identical results). ``throttle_mbps`` emulates per-stream
+    storage bandwidth exactly like the save-side engines do.
+    ``read_chunk_bytes`` caps a single ``preadv`` so large tensors split
+    across the pool instead of serializing behind one thread.
     """
 
     def __init__(self, device: torch.device, threads: Optional[int] = None,
+                 throttle_mbps: Optional[float] = None,
                  read_chunk_bytes: int = 16 << 20):
         # where delta payload digests are verified and XOR folds run
         self.device = torch.device(device)
         if threads is None:
             threads = min(16, 4 * (os.cpu_count() or 1))
         self.threads = max(1, int(threads))
+        self.throttle_mbps = throttle_mbps
         self.read_chunk_bytes = int(read_chunk_bytes)
+
+    def _throttle(self, nbytes: int, t0: float) -> None:
+        """Emulate per-stream storage bandwidth: a read of ``nbytes``
+        begun at ``t0`` ends no sooner than ``nbytes / throttle_mbps``."""
+        if self.throttle_mbps and nbytes:
+            target = nbytes / (self.throttle_mbps * 1e6)
+            elapsed = time.perf_counter() - t0
+            if target > elapsed:
+                time.sleep(target - elapsed)
 
     # ------------------------------------------------------------- indexing
     def index(self, sdir: str, stats: Optional[RestoreStats] = None,
               stats_lock: Optional[threading.Lock] = None) -> RestoreIndex:
-        """One pass over ``sdir``: build the shard directory of its native
-        ``.dsllm`` files."""
+        """One pass over ``sdir``: build the shard directory for whatever
+        checkpoint format lives there (same precedence as the writers:
+        native ``.dsllm``, then snapshot manifests, then sync pickles)."""
         stats = stats if stats is not None else RestoreStats()
         stats_lock = stats_lock or threading.Lock()
         idx = RestoreIndex(sdir)
         dsllm = sorted(glob.glob(os.path.join(sdir, "*.dsllm")))
-        if not dsllm:
-            if glob.glob(os.path.join(sdir, "*.pkl")):
-                raise RestoreError(
-                    f"{sdir!r} holds a snapshot or sync format step, which "
-                    f"is not yet ported")
-            raise FileNotFoundError(f"no checkpoint files in {sdir}")
+        if dsllm:
+            self._index_dsllm(idx, dsllm, stats, stats_lock)
+            return idx
+        manifests = sorted(glob.glob(os.path.join(sdir,
+                                                  "manifest_rank*.pkl")))
+        snapshot_objects = os.path.join(sdir, "objects.pkl")
+        if manifests or os.path.exists(snapshot_objects):
+            self._index_snapshot(idx, manifests, snapshot_objects, stats,
+                                 stats_lock)
+            return idx
+        pkls = sorted(glob.glob(os.path.join(sdir, "*.pkl")))
+        if pkls:
+            self._index_sync(idx, pkls, stats, stats_lock)
+            return idx
+        raise FileNotFoundError(f"no checkpoint files in {sdir}")
+
+    def _index_dsllm(self, idx: RestoreIndex, dsllm: List[str],
+                     stats: RestoreStats,
+                     stats_lock: threading.Lock) -> None:
         for p in dsllm:
             try:
                 rd = FileReader(p)
@@ -364,7 +442,82 @@ class RestoreEngine:
                 idx.objects[oname] = _OnceLoader(
                     (lambda r=rd, n=oname: r.read_object(n)),
                     oe.nbytes, stats, stats_lock)
-        return idx
+
+    @staticmethod
+    def _index_snapshot(idx: RestoreIndex, manifests: List[str],
+                        snapshot_objects: str, stats: RestoreStats,
+                        stats_lock: threading.Lock) -> None:
+        sdir = idx.sdir
+        for mpath in manifests:
+            try:
+                with open(mpath, "rb") as f:
+                    manifest = pickle_compat.load(f)
+            except Exception as exc:
+                raise RestoreError(
+                    f"corrupt or truncated manifest {mpath!r}: {exc}"
+                ) from exc
+            idx.n_files += 1
+            for t in manifest["tensors"]:
+                base = t["name"].split("@[", 1)[0]
+                chunks = []
+                for cpath, lo, hi in t["chunks"]:
+                    if not os.path.exists(cpath):  # step dir was moved
+                        cpath = os.path.join(sdir, os.path.basename(cpath))
+                    chunks.append((cpath, lo, hi))
+                    idx.n_files += 1
+                index = t["index"] if t["index"] is not None \
+                    else tuple((0, d) for d in t["shape"])
+                idx.tensors.setdefault(base, []).append(_SnapshotShard(
+                    tuple(map(tuple, index)), t["shape"], t["dtype"],
+                    chunks))
+        if os.path.exists(snapshot_objects):
+            idx.n_files += 1
+            nb = os.path.getsize(snapshot_objects)
+            try:
+                with open(snapshot_objects, "rb") as f:
+                    objs = pickle_compat.load(f)
+            except Exception as exc:
+                raise RestoreError(
+                    f"corrupt or truncated object file "
+                    f"{snapshot_objects!r}: {exc}") from exc
+            with stats_lock:
+                stats.bytes_read += nb
+                stats.n_ranges += 1
+            for oname, val in objs.items():
+                idx.objects[oname] = (lambda v=val: v)
+
+    @staticmethod
+    def _index_sync(idx: RestoreIndex, pkls: List[str],
+                    stats: RestoreStats,
+                    stats_lock: threading.Lock) -> None:
+        for p in pkls:
+            try:
+                with open(p, "rb") as f:
+                    graph = pickle_compat.load(f)
+            except Exception as exc:
+                raise RestoreError(
+                    f"corrupt or truncated checkpoint file {p!r}: {exc}"
+                ) from exc
+            nb = os.path.getsize(p)
+            idx.n_files += 1
+            # count the (unavoidable) whole-graph load once, at index
+            # time — the graph is then sliced in memory, never re-read.
+            with stats_lock:
+                stats.bytes_read += nb
+                stats.n_ranges += 1
+            loader = (lambda g=graph: g)
+            for name, rec in graph.items():
+                if name == "__objects__":
+                    for oname, val in rec.items():
+                        idx.objects[oname] = (lambda v=val: v)
+                    continue
+                base = name.split("@[", 1)[0]
+                arr = np.asarray(rec["data"])
+                index = rec["index"] if rec["index"] is not None \
+                    else tuple((0, d) for d in arr.shape)
+                idx.tensors.setdefault(base, []).append(_GraphShard(
+                    tuple(map(tuple, index)), arr.shape,
+                    dtypes.host_name(arr), loader, name))
 
     # ------------------------------------------------------------- planning
     @staticmethod
@@ -377,9 +530,10 @@ class RestoreEngine:
     def _plan_region(self, run: _Run, sources: List[_ShardSource],
                      region: Region, buf: np.ndarray,
                      tasks: List[Callable[[], Tuple[int, int]]],
-                     leaf_name: str) -> None:
+                     leaf_name: str, dtype_name: str) -> None:
         """Intersect ``region`` with the stored shards; append read tasks
-        that fill ``buf`` (shaped like ``region``) in place."""
+        that fill ``buf`` (shaped like ``region``, storage of
+        ``dtype_name``) in place."""
         covered = 0
         for src in sources:
             inter = tuple((max(a, c), min(b, d))
@@ -392,7 +546,8 @@ class RestoreEngine:
             dst_sl = tuple(slice(lo - a, hi - a)
                            for (lo, hi), (a, _b) in zip(inter, region))
             dst_view = buf[dst_sl] if dst_sl else buf[...]
-            self._emit_tasks(run, src, src_local, dst_view, tasks)
+            self._emit_tasks(run, src, src_local, dst_view, dtype_name,
+                             tasks)
         if covered < _volume(region):
             raise RestoreError(
                 f"checkpoint does not cover requested region {region} of "
@@ -401,31 +556,23 @@ class RestoreEngine:
                 f"partially written checkpoint?)")
 
     def _emit_tasks(self, run: _Run, src: _ShardSource, src_local: Region,
-                    dst_view: np.ndarray,
+                    dst_view: np.ndarray, dtype_name: str,
                     tasks: List[Callable[[], Tuple[int, int]]]) -> None:
         ranges = src.byte_ranges(src_local)
-        if ranges is None:
-            # a decoded (not byte-addressable) source: its loader decodes
-            # once and accounts the bytes it read
-            def decode_task(src=src, src_local=src_local,
-                            dst_view=dst_view):
-                dst_view[...] = src.read_fallback(src_local)
-                return 0, 0
-            tasks.append(decode_task)
-            return
-        if not dst_view.flags["C_CONTIGUOUS"]:
-            # a stored shard covering part of the leaf (a multi-device
-            # save by the JAX package): read its runs into a scratch
-            # buffer, then place it; the dtype was checked at plan time
-            def copy_task(ranges=list(ranges), dst_view=dst_view):
-                tmp = np.empty(dst_view.shape, dst_view.dtype)
-                flat = memoryview(tmp.reshape(-1).view(np.uint8))
-                pos = 0
-                for path, off, nb in ranges:
-                    _preadv_full(run.fds.get(path), flat[pos:pos + nb], off)
-                    pos += nb
-                dst_view[...] = tmp
-                return pos, len(ranges)
+        if ranges is None or src.dtype_name != dtype_name \
+                or not dst_view.flags["C_CONTIGUOUS"]:
+            # Non-byte-addressable source (decoded or a pickled graph), a
+            # dtype-converting restore (template dtype != stored dtype —
+            # raw bytes must not land in the destination; values are cast
+            # as the JAX package casts them), or a destination view whose
+            # memory layout differs from the C order of the ranges (a
+            # stored shard covering part of the leaf): read through a
+            # scratch intersection buffer.
+            def copy_task(src=src, src_local=src_local, dst_view=dst_view):
+                arr = self._read_intersection(run, src, src_local)
+                dst_view[...] = dtypes.cast_host(arr, src.dtype_name,
+                                                 dtype_name)
+                return 0, 0  # byte accounting happens inside the source
             tasks.append(copy_task)
             return
         out = dst_view.reshape(-1).view(np.uint8)
@@ -441,9 +588,35 @@ class RestoreEngine:
     def _make_pread_task(self, run: _Run, path: str, offset: int,
                          mv: memoryview) -> Callable[[], Tuple[int, int]]:
         def task():
+            t0 = time.perf_counter()
             _preadv_full(run.fds.get(path), mv, offset)
+            self._throttle(len(mv), t0)
             return len(mv), 1
         return task
+
+    def _read_intersection(self, run: _Run, src: _ShardSource,
+                           src_local: Region) -> np.ndarray:
+        """Scratch-buffer path: ``src_local`` of ``src`` in its stored
+        dtype, by ranged reads where the source has them."""
+        shape = tuple(hi - lo for lo, hi in src_local)
+        ranges = src.byte_ranges(src_local)
+        if ranges is None:
+            return src.read_fallback(src_local)
+        tmp = np.empty(shape, dtype=src.dtype)
+        out = tmp.reshape(-1).view(np.uint8)
+        pos = 0
+        n = 0
+        t0 = time.perf_counter()
+        for path, off, nb in ranges:
+            _preadv_full(run.fds.get(path), memoryview(out[pos:pos + nb]),
+                         off)
+            pos += nb
+            n += 1
+        with run.lock:
+            run.stats.bytes_read += pos
+            run.stats.n_ranges += n
+        self._throttle(pos, t0)
+        return tmp
 
     # ------------------------------------------------------------- restore
     def _run_tasks(self, run: _Run,
@@ -459,18 +632,21 @@ class RestoreEngine:
             # off the stream of the caller's device work
             with lane_stream(self.device):
                 return task()
+
+        def account(nb: int, nr: int) -> None:
+            # the sources' loaders count under the same lock
+            with run.lock:
+                stats.bytes_read += nb
+                stats.n_ranges += nr
         if tasks:
             if self.threads == 1:
                 for t in tasks:
-                    nb, nr = in_lane(t)
-                    stats.bytes_read += nb
-                    stats.n_ranges += nr
+                    account(*in_lane(t))
             else:
                 with concurrent.futures.ThreadPoolExecutor(
                         self.threads) as pool:
                     for nb, nr in pool.map(in_lane, tasks):
-                        stats.bytes_read += nb
-                        stats.n_ranges += nr
+                        account(nb, nr)
         t1 = time.perf_counter()
         setattr(stats, f"{phase}_s", getattr(stats, f"{phase}_s") + t1 - t0)
         if tasks:
@@ -512,12 +688,6 @@ class RestoreEngine:
                 stats.n_leaves += 1
                 regions, kind = self._leaf_regions(leaf)
                 name = _leaf_dtype_name(leaf)
-                stored = {src.dtype_name for src in idx.tensors[pstr]}
-                if stored != {name}:
-                    raise RestoreError(
-                        f"{pstr!r}: template dtype {name} != stored dtype "
-                        f"{sorted(stored)} — dtype-converting restore is "
-                        f"not yet ported")
                 dtype = dtypes.lookup(name).storage
                 buffers: Dict[Region, np.ndarray] = {}
                 for region in regions:
@@ -525,7 +695,7 @@ class RestoreEngine:
                         tuple(hi - lo for lo, hi in region), dtype)
                     buffers[region] = buf
                     self._plan_region(run, idx.tensors[pstr], region,
-                                      buf, tasks, pstr)
+                                      buf, tasks, pstr, name)
                 assembled.append((kind, leaf, buffers, pstr))
             else:
                 assembled.append(("object", leaf, None, pstr))
@@ -644,7 +814,8 @@ class RestoreEngine:
                 # mixed raw/encoded steps stay deterministic
                 for region, buf in aux.items():
                     self._plan_region(run, list(raw), region, buf,
-                                      raw_tasks, pstr)
+                                      raw_tasks, pstr,
+                                      _leaf_dtype_name(leaf))
         t1 = time.perf_counter()
         stats.plan_s += t1 - t0
         obs.add_span("restore.plan", t0, t1, delta=True, flow=run.flow)

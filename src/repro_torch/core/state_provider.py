@@ -247,7 +247,8 @@ class TensorStateProvider(StateProvider):
                  host_array: Optional[np.ndarray] = None,
                  global_shape: Optional[Tuple[int, ...]] = None,
                  index: Optional[Tuple[Tuple[int, int], ...]] = None,
-                 chunk_bytes: int = DEFAULT_CHUNK_BYTES):
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES,
+                 stream_intra_tensor: bool = True):
         self.name = name
         self.dtype = dtype
         self.shape = tuple(shape)
@@ -257,6 +258,8 @@ class TensorStateProvider(StateProvider):
         # where digests and encodes of the staged bytes run
         self.device = torch.device(device)
         self.chunk_bytes = chunk_bytes
+        # False = legacy engines: flush only once the whole tensor is staged.
+        self.stream_intra_tensor = stream_intra_tensor
         self.offset: Optional[int] = None  # assigned by composite layout plan
         # host-resident path
         self._host_array = host_array

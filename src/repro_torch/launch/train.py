@@ -2,8 +2,9 @@
 
 Runs a (reduced or full) config with the two-phase lazy-checkpoint loop
 on ``--device`` (``cuda`` by default; ``cpu`` only when asked for, as the
-tests do). The flags are the JAX launcher's; only the ``datastates``
-engine is ported.
+tests do). The flags are the JAX launcher's; ``--engine`` picks any of the
+four engines the paper compares (``sync``, ``snapshot``,
+``datastates-old``, ``datastates``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --steps 20 --ckpt-interval 5 --ckpt-dir /tmp/ckpt
@@ -40,9 +41,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the model and the checkpoint kernels run")
     args = ap.parse_args(argv)
-    if args.engine != "datastates":
-        raise NotImplementedError(
-            f"engine mode {args.engine!r} is not yet ported")
 
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.core import (CheckpointManager, CheckpointPolicy,

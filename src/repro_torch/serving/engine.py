@@ -37,6 +37,7 @@ def _device_of(tree: Any) -> torch.device:
 def load_params_for_serving(directory: str, params_template: Any,
                             step: Optional[int] = None,
                             threads: Optional[int] = None,
+                            throttle_mbps: Optional[float] = None,
                             repository: Optional[CheckpointRepository] = None,
                             fleet: Optional[Any] = None
                             ) -> Tuple[Any, RestoreStats]:
@@ -50,7 +51,9 @@ def load_params_for_serving(directory: str, params_template: Any,
     chain after verifying it, and ``step=None`` takes the newest committed
     step that restores. The params come back on the device of
     ``params_template``'s tensors (their shapes and dtypes must match the
-    saved ones), and the chain verify and fold run there too.
+    saved ones), and the chain verify and fold run there too. Any
+    engine's format restores; ``throttle_mbps`` emulates per-stream
+    storage bandwidth on the reads (:class:`RestoreEngine`).
 
     ``repository`` may be the port's :class:`CheckpointRepository` of
     ``directory`` (local tier). Remote tiers (``repro``'s tiered
@@ -71,7 +74,8 @@ def load_params_for_serving(directory: str, params_template: Any,
         raise NotImplementedError(
             f"repository={type(repo).__name__}: only the port's local-tier "
             f"CheckpointRepository is ported; remote tiers are not")
-    engine = RestoreEngine(device, threads=threads)
+    engine = RestoreEngine(device, threads=threads,
+                           throttle_mbps=throttle_mbps)
     tree, stats, _step = restore_from_repository(
         repo, {"model": params_template}, step=step, engine=engine,
         domains=("model",))

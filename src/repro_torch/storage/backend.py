@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 import uuid
-from typing import List
+from typing import Callable, List, Optional
 
 
 class BackendError(RuntimeError):
@@ -49,6 +49,26 @@ class StorageBackend:
         pass
 
 
+def atomic_write(path: str, data,
+                 fsync: Optional[Callable[[int], None]] = None) -> None:
+    """Write ``data`` (any buffer) to ``path`` whole or not at all: into a
+    temp file, flushed (and passed to ``fsync`` if given), then moved
+    over ``path`` by ``os.replace``. The temp file is a hidden sibling
+    (``.<name>.tmp-<pid>-<hex>``) whose name does not start with the
+    object's, so one left by a writer that died is never taken for the
+    object by a listing that matches names by prefix (the offline
+    reducer's ``diff_*``, a step's ``*.pkl``)."""
+    head, name = os.path.split(path)
+    tmp = os.path.join(
+        head, f".{name}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        if fsync is not None:
+            fsync(f.fileno())
+    os.replace(tmp, path)
+
+
 # ---------------------------------------------------------------------------
 class LocalBackend(StorageBackend):
     """POSIX directory tier: keys map to paths under ``root``."""
@@ -66,18 +86,9 @@ class LocalBackend(StorageBackend):
         return path
 
     def put(self, key: str, data: bytes) -> None:
-        """The temp file is a hidden sibling (``.<name>.tmp-<pid>-<hex>``)
-        whose name does not start with the object's, so one left by a
-        writer that died is never taken for the object by a listing that
-        matches names by prefix (the offline reducer's ``diff_*``)."""
         path = self._path(key)
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        head, name = os.path.split(path)
-        tmp = os.path.join(
-            head, f".{name}.tmp-{os.getpid()}-{uuid.uuid4().hex[:8]}")
-        with open(tmp, "wb") as f:
-            f.write(data)
-        os.replace(tmp, path)
+        atomic_write(path, data)
 
     def get(self, key: str) -> bytes:
         try:

@@ -26,8 +26,9 @@ import itertools
 import json
 import os
 import struct
+import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -307,13 +308,90 @@ def _dsllm_trailer_ok(path: str) -> bool:
         return False
 
 
+# Probe results keyed by the directory's stat fingerprint (per-file name,
+# size, mtime): the probe only ever runs on legacy pre-repository
+# directories and crash victims, both effectively immutable — anything
+# written through the repository carries a marker or a manifest and is
+# classified without probing. A stat sweep is metadata-only, so the cache
+# removes the expensive part (parsing multi-GB legacy pickles) from the
+# committer thread, which re-scans the catalog after every commit.
+# Bounded: one entry per step directory.
+_probe_cache: Dict[str, Tuple[tuple, bool]] = {}
+_probe_lock = threading.Lock()
+
+
+def _dir_fingerprint(sdir: str) -> tuple:
+    entries = []
+    with os.scandir(sdir) as it:
+        for e in it:
+            try:
+                st = e.stat()
+            except OSError:
+                continue
+            entries.append((e.name, st.st_size, st.st_mtime_ns))
+    return tuple(sorted(entries))
+
+
 def probe_step_complete(sdir: str) -> bool:
-    """Completeness check for a manifest-less (legacy) step directory:
-    every ``*.dsllm`` file must end in a valid footer trailer (the engine
-    writes footers last, so a crash victim fails this). The snapshot and
-    sync formats are not yet ported, so their directories never count as
-    complete here."""
+    """Best-effort completeness check for a manifest-less step directory.
+
+    * native: every ``*.dsllm`` file must end in a valid footer trailer
+      (the engine writes footers last, so a crash victim fails this);
+    * snapshot: every chunk referenced by every rank manifest must exist
+      with the advertised size;
+    * sync: every pickle must parse.
+
+    Results are cached per directory stat fingerprint — ``committed_steps``
+    runs after every commit, and re-parsing multi-GB legacy pickles each
+    time would put the whole legacy directory's I/O on the committer
+    thread.
+    """
     if not os.path.isdir(sdir):
         return False
+    path = os.path.abspath(sdir)
+    try:
+        fp = _dir_fingerprint(path)
+    except OSError:
+        return False
+    with _probe_lock:
+        cached = _probe_cache.get(path)
+    if cached is not None and cached[0] == fp:
+        return cached[1]
+    result = _probe_step_complete_uncached(sdir)
+    with _probe_lock:
+        _probe_cache[path] = (fp, result)
+    return result
+
+
+def _probe_step_complete_uncached(sdir: str) -> bool:
+    from repro_torch.core import pickle_compat
     dsllm = glob.glob(os.path.join(sdir, "*.dsllm"))
-    return bool(dsllm) and all(_dsllm_trailer_ok(p) for p in dsllm)
+    if dsllm:
+        return all(_dsllm_trailer_ok(p) for p in dsllm)
+    manifests = glob.glob(os.path.join(sdir, "manifest_rank*.pkl"))
+    if manifests:
+        try:
+            for mpath in manifests:
+                with open(mpath, "rb") as f:
+                    manifest = pickle_compat.load(f)
+                for t in manifest["tensors"]:
+                    for cpath, lo, hi in t["chunks"]:
+                        if not os.path.exists(cpath):
+                            cpath = os.path.join(
+                                sdir, os.path.basename(cpath))
+                        if not os.path.isfile(cpath) \
+                                or os.path.getsize(cpath) != hi - lo:
+                            return False
+            return True
+        except Exception:  # noqa: BLE001 — any unreadable manifest
+            return False
+    pkls = glob.glob(os.path.join(sdir, "*.pkl"))
+    if pkls:
+        for p in pkls:
+            try:
+                with open(p, "rb") as f:
+                    pickle_compat.load(f)
+            except Exception:  # noqa: BLE001 — any unparsable pickle
+                return False
+        return True
+    return False

@@ -12,7 +12,9 @@ made by the JAX package from seeded numpy gradients. Under
   restored output.
 * The port's own two-phase loop resumes bit-exactly.
 * Import discipline, the explicit device, and the parts not yet ported
-  (each refused, never silently ignored).
+  (the multi-rank coordinator and remote tiers; each refused, never
+  silently ignored). The baseline engines are held against the JAX
+  package in ``tests/test_torch_baselines.py``.
 """
 
 import os
@@ -274,15 +276,27 @@ def test_corrupt_chain_member_refuses_replay(tmp_path, states):
 
 
 def test_dtype_converting_restore_is_refused(tmp_path):
-    mgr = T.CheckpointManager.from_policy(str(tmp_path), device="cpu")
+    """A delta chain refuses a template of another dtype, as the
+    reference does; a raw step (the keyframe) restores into one with its
+    values cast (``tests/test_torch_baselines.py`` holds the bits against
+    ``repro``)."""
+    mgr = T.CheckpointManager.from_policy(str(tmp_path), T.CheckpointPolicy(
+        engine=T.EnginePolicy(host_cache_bytes=1 << 20),
+        delta=T.DeltaPolicy(keyframe_every=3)), device="cpu")
     try:
         mgr.save(1, {"w": torch.ones(4, dtype=torch.bfloat16)},
                  blocking=True)
+        mgr.save(2, {"w": torch.full((4,), 2.0, dtype=torch.bfloat16)},
+                 blocking=True)
         with pytest.raises(T.RestoreError, match="dtype"):
-            mgr.restore({"w": torch.ones(4, dtype=torch.float32)}, step=1)
-        out = mgr.restore({"w": torch.zeros(4, dtype=torch.bfloat16)},
+            mgr.restore({"w": torch.ones(4, dtype=torch.float32)}, step=2)
+        out = mgr.restore({"w": torch.zeros(4, dtype=torch.float32)},
                           step=1)
-        assert torch.equal(out["w"], torch.ones(4, dtype=torch.bfloat16))
+        assert torch.equal(out["w"], torch.ones(4, dtype=torch.float32))
+        out = mgr.restore({"w": torch.zeros(4, dtype=torch.bfloat16)},
+                          step=2)
+        assert torch.equal(out["w"],
+                           torch.full((4,), 2.0, dtype=torch.bfloat16))
     finally:
         mgr.close()
 
@@ -317,9 +331,6 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 @pytest.mark.parametrize("policy,match", [
     (T.CheckpointPolicy(dist=T.DistPolicy(world=2)), "multi-rank"),
     (T.CheckpointPolicy(storage=T.StoragePolicy(tiers=("peer",))), "tiers"),
-    (T.CheckpointPolicy(engine=T.EnginePolicy(mode="sync")), "sync"),
-    (T.CheckpointPolicy(engine=T.EnginePolicy(mode="snapshot")),
-     "snapshot"),
 ])
 def test_unported_configurations_are_refused(tmp_path, policy, match):
     with pytest.raises(NotImplementedError, match=match):
