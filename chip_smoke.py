@@ -82,8 +82,8 @@ Phases, any failure exits non-zero:
    of the prefill and decode steps, one prefill and one decode step under
    ``torch.profiler``, and layer 0's real q/k/v through the kernel and its
    plain version.
-7. Offline reduction path (slice 4): the same model's state made on the
-   card from a seeded generator, three in-place AdamW steps on seeded
+7. Offline reduction path (slice 4): the same model's state at one layer
+   (full width) made on the card from a seeded generator, three in-place AdamW steps on seeded
    gradients, each followed by saves of two ``DifferentialCheckpointer``
    streams (keyframe every 3: K, delta, delta): ``quant="bf16"`` of the
    fp32 master (stacked leaves folded to 2-D) and ``quant="int8"`` of the
@@ -105,14 +105,33 @@ Phases, any failure exits non-zero:
    times, bytes and files written, restore time (the verify, and the
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
-   Kernel launch counts are zeroed just before each of phases 4, 5, 6, 7
-   and 8 and read just after; each kernel of the phase must have run. Phases
+   Kernel launch counts are zeroed just before each of phases 4, 5, 6, 7,
+   8, 9a and 9b and read just after; each kernel of the phase must have
+   run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
    phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
    and span count of each delta save, the persist times and the peak
    device memory; phase 5 also the int8 pair's launches, the
    ``encode.int8`` span time a save and the resume's read time.
-9. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+9. Multi-rank saves (slice 11), at the same width. (a) Phase 4's path
+   through four writer ranks of the thread runtime in two nodes of the
+   commit tree (``DistPolicy(world=4, node_size=2)``; the state's plain
+   tensors all on one card take ``partition_records``' byte balance):
+   saves K, delta, delta; each step must hold four rank files, four rank
+   manifests and two node manifests; a fresh world-1 manager restores
+   steps 3 and 1 bit for bit; per save the stall, persist and commit
+   times, each rank's bytes and persist time and the max/min bytes.
+   (b) A ``Trainer`` takes 2 steps; its state, laid out ``tp_zero1`` on a
+   (data 2 x model 4) mesh of virtual devices by ``shard_tree``, is saved
+   raw by four spawned writer processes on the card (after a tiny step-0
+   save that waits out their start-up): every rank writes and votes,
+   bytes written equal the state's unique bytes; a fresh world-1 manager
+   restores it onto a (data 4 x model 2) mesh and, through a fresh
+   trainer, onto unsharded tensors, both bit for bit, and the resumed
+   trainer's next loss equals the uninterrupted one bit for bit. Logs the
+   ship time (device-to-host copy and pipe), stall, persist and commit,
+   and the children's peak device memory.
+10. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -139,6 +158,9 @@ HBM_BYTES_PER_S = 3.35e12
 #: products are bf16 at the serving shape
 BF16_FLOP_PER_S = 989e12
 HOST_CACHE_BYTES = 12 << 30
+#: the process ranks' pinned caches in all (their shards arrive in host
+#: memory, so the cache stages nothing)
+DIST_PROCESS_CACHE_BYTES = 4 << 30
 #: words per call on the main path: 64 MiB pieces for the restore fold
 #: (the digest's chunks and pieces are ``variants.CHUNK_WORDS`` and
 #: ``PIECE_WORDS``, the XOR digest's ``variants.XOR_CALLS``)
@@ -153,6 +175,9 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_INTERVAL = 2048, 4, 6, 2
 #: at the second
 ENGINE_ORDER = ("sync", "snapshot", "datastates-old", "datastates")
 ENGINE_STEPS, ENGINE_SAVE_AT = 3, 2
+#: the multi-rank phase: writer ranks, ranks a node of the commit tree,
+#: and the steps its trainer takes before the process ranks' save
+DIST_WORLD, DIST_NODE_SIZE, DIST_TRAIN_STEPS = 4, 2, 2
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
@@ -173,6 +198,8 @@ INT8_ROWS = 128_256 * 2048 // 256
 #: the reducer phase: keyframe every 3 saves, so steps 1-3 save K, delta,
 #: delta
 REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 3, 3
+#: the reducer phase's depth (full width)
+REDUCE_LAYERS = 1
 SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
            for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
                      "quantize_checksum_int8", "dequantize_checksum_int8",
@@ -884,13 +911,17 @@ def _encode_text(saves: list) -> str:
 
 
 def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
-                  flush_threads: int) -> dict:
+                  flush_threads: int, dist=None) -> dict:
     """Three steps of the two-phase loop with saves K, delta, delta; then
     restore steps 3 and 1 onto ``device`` and compare bit for bit. The
-    saves run under tracing, for the ``encode.delta`` time of each."""
+    saves run under tracing, for the ``encode.delta`` time of each.
+
+    With ``dist`` (a ``DistPolicy``) the saves go through its writer ranks
+    (:func:`_rank_report` reads each step's votes and each rank's spans),
+    and a fresh world-1 manager restores."""
     import torch
     from repro_torch.core import (CheckpointManager, CheckpointPolicy,
-                                  DeltaPolicy, EnginePolicy)
+                                  DeltaPolicy, DistPolicy, EnginePolicy)
     from repro_torch.core.tree import flatten_with_path
     from repro_torch.models.model import init_params
     from repro_torch.obs import trace as obs
@@ -917,7 +948,7 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
     policy = CheckpointPolicy(
         engine=EnginePolicy(host_cache_bytes=host_cache_bytes,
                             flush_threads=flush_threads),
-        delta=DeltaPolicy(keyframe_every=3))
+        dist=dist or DistPolicy(), delta=DeltaPolicy(keyframe_every=3))
     mgr = CheckpointManager.from_policy(workdir, policy, device=device)
     report = {"n_params": n_params, "state_bytes": state_bytes, "steps": []}
     try:
@@ -963,6 +994,21 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         report["encode_delta"] = _encode_per_save(
             tracer.spans("encode.delta"),
             sum(r["kind"] == "delta" for r in report["steps"]))
+        report["span_s"] = _span_seconds(tracer)
+        if dist is None:
+            report["pinned_bytes"] = mgr.engine.host_cache.capacity \
+                if mgr.engine.host_cache.pinned else 0
+        else:
+            report["ranks"] = _rank_report(workdir, tracer, report["steps"])
+            report["pinned_bytes"] = sum(
+                rt.host_cache.capacity for rt in mgr.coordinator.ranks
+                if rt.host_cache.pinned)
+            # restores through a fresh world-1 manager (a small engine:
+            # a restore stages nothing)
+            mgr.close()
+            mgr = CheckpointManager.from_policy(workdir, CheckpointPolicy(
+                engine=EnginePolicy(host_cache_bytes=64 << 20,
+                                    flush_threads=1)), device=device)
         for step, want in ((3, _tensors(state(3))), (1, step1)):
             before = _launches()
             t0 = time.perf_counter()
@@ -990,11 +1036,54 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             res = mgr.repository.verify_step(s, check_checksums=False)
             if not res.ok:
                 fail(f"step {s} incomplete on disk: {res.problems}")
-        report["pinned_bytes"] = mgr.engine.host_cache.capacity \
-            if mgr.engine.host_cache.pinned else 0
     finally:
         mgr.close()
     return report
+
+
+def _span_seconds(tracer) -> dict:
+    """Thread-seconds of the save lanes' spans over a run, by name (the
+    lanes overlap, so the sums exceed the wall time)."""
+    out: dict = {}
+    for e in tracer.spans():
+        if e["name"].split(".")[0] in ("flush", "encode", "file", "produce",
+                                       "host_cache", "rank", "vote", "node"):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"]
+    return out
+
+
+def _rank_report(workdir: str, tracer, steps: list) -> list:
+    """Per save of a multi-rank run: each rank's bytes on disk (its file,
+    from its vote), its persist time (its ``rank.capture_wait`` span's
+    start to its ``rank.persist_wait`` span's end: its engine's staging,
+    encode and flush), the files and votes in the step. Fails unless every
+    rank of the world wrote a file and voted and every node voted."""
+    from repro_torch.storage.manifest import (read_node_manifests,
+                                              read_rank_manifests)
+    t0 = {(e["args"]["step"], e["args"]["rank"]): e["t0"]
+          for e in tracer.spans("rank.capture_wait")}
+    t1 = {(e["args"]["step"], e["args"]["rank"]): e["t1"]
+          for e in tracer.spans("rank.persist_wait")}
+    out = []
+    for row in steps:
+        step = row["step"]
+        sdir = os.path.join(workdir, f"global_step{step}")
+        votes, nodes = read_rank_manifests(sdir), read_node_manifests(sdir)
+        files = sorted(n for n in os.listdir(sdir) if n.endswith(".dsllm"))
+        if sorted(votes) != list(range(DIST_WORLD)) \
+                or len(files) != DIST_WORLD \
+                or len(nodes) != DIST_WORLD // DIST_NODE_SIZE:
+            fail(f"step {step}: {len(files)} rank files, votes of ranks "
+                 f"{sorted(votes)}, node manifests {sorted(nodes)}")
+        nbytes = {r: sum(f.nbytes for f in v.files) for r, v in votes.items()}
+        out.append({"step": step, "rank_files": len(files),
+                    "rank_manifests": len(votes), "node_manifests": len(nodes),
+                    "rank_bytes": nbytes,
+                    "rank_persist_s": {r: t1[step, r] - t0[step, r]
+                                       for r in votes},
+                    "max_min_bytes": max(nbytes.values())
+                    / max(1, min(nbytes.values()))})
+    return out
 
 
 def _mixed_policy(host_cache_bytes: int, flush_threads: int):
@@ -1540,6 +1629,136 @@ def run_engines_path(device: str, cfg, workdir: str, host_cache_bytes: int,
     return rows
 
 
+def run_dist_process_path(device: str, cfg, workdir: str,
+                          host_cache_bytes: int, flush_threads: int,
+                          batch: int, seq_len: int) -> dict:
+    """Phase 9b: a ``Trainer`` takes :data:`DIST_TRAIN_STEPS` steps; its
+    state, laid out ``tp_zero1`` on a (data 2 x model 4) mesh of virtual
+    devices by ``shard_tree``, is saved once, raw, by four spawned writer
+    ranks on the card (after a tiny step-0 save that waits out their
+    start-up). Bytes written must equal the state's unique bytes (params
+    replicated over ``data`` written once), every rank must write and
+    vote. A fresh world-1 manager then restores the step onto a (data 4 x
+    model 2) mesh and, through a fresh trainer, onto its unsharded
+    tensors, both bit for bit; the resumed trainer's next step must give
+    the uninterrupted trainer's loss bit for bit."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core import (CheckpointManager, CheckpointPolicy,
+                                  DistPolicy, EnginePolicy)
+    from repro_torch.core.tree import map_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.obs import trace as obs
+    from repro_torch.sharding import (opt_pspecs, param_pspecs, shard_tree,
+                                      unshard)
+    from repro_torch.training.loop import Trainer
+
+    cfg = dataclasses.replace(cfg, sharding_mode="tp_zero1")
+
+    def specs(tree, mesh):
+        return {"model": param_pspecs(cfg, tree["model"], mesh),
+                "optimizer": opt_pspecs(cfg, tree["model"], mesh)}
+
+    tr = Trainer(cfg, batch=batch, seq_len=seq_len, seed=SEED, device=device)
+    tr.run(DIST_TRAIN_STEPS)
+    step = tr.step
+    log(f"process ranks: trained {step} steps")
+    saved_tree = map_leaves(lambda x: x.detach().clone()
+                            if isinstance(x, torch.Tensor) else x, tr.state())
+    saved = _tensors(saved_tree)
+    unique = sum(t.numel() * t.element_size() for t in saved)
+    mesh_a = make_mesh((2, 4), ("data", "model"), device)
+    sharded = shard_tree(tr.state(), specs(tr.state(), mesh_a), mesh_a)
+    policy = CheckpointPolicy(
+        engine=EnginePolicy(host_cache_bytes=host_cache_bytes,
+                            flush_threads=flush_threads),
+        dist=DistPolicy(world=DIST_WORLD, node_size=DIST_NODE_SIZE,
+                        runtime="process"))
+    t0 = time.perf_counter()
+    mgr = CheckpointManager.from_policy(workdir, policy, device=device)
+    try:
+        mgr.save(0, {"warm": torch.zeros(4, device=device)}, blocking=True)
+        start_s = time.perf_counter() - t0
+        log(f"process ranks: started and saved step 0 in {start_s:.3f} s")
+        with obs.tracing() as tracer:
+            t0 = time.perf_counter()
+            fut = mgr.save(step, sharded)
+            prologue_s = time.perf_counter() - t0
+            stall_s = mgr.wait_for_capture()
+            fut.wait_persisted()
+            mgr.wait_for_commit(step)
+        if mgr.commit_errors:
+            fail(f"process ranks: commit errors {mgr.commit_errors}")
+        meta = mgr.repository.manifest(step).meta
+        man = mgr.repository.manifest(step)
+    finally:
+        mgr.close()
+    st = fut.stats
+    peak = st.extra.get("device_peak_bytes", {})
+    on_card = sorted(peak) == list(range(DIST_WORLD))
+    if meta.get("world") != DIST_WORLD or "writers" in meta \
+            or on_card != (device == "cuda"):
+        fail(f"process ranks: world {meta.get('world')}, writers "
+             f"{meta.get('writers', 'all')}, ranks that reported from the "
+             f"card {sorted(peak)}")
+    if st.bytes_tensors != unique:
+        fail(f"process ranks wrote {st.bytes_tensors} tensor bytes, the "
+             f"state holds {unique} unique bytes")
+    ships = tracer.spans("rank.ship")
+    log(f"process ranks: saved step {step}")
+    del sharded
+    again = tr.run(1)[-1]
+    tr = None
+    gc.collect()
+
+    rpolicy = CheckpointPolicy(engine=EnginePolicy(
+        host_cache_bytes=64 << 20, flush_threads=1))
+    rmgr = CheckpointManager.from_policy(workdir, rpolicy, device=device)
+    try:
+        mesh_b = make_mesh((4, 2), ("data", "model"), device)
+        zeros = map_leaves(lambda x: torch.zeros_like(x)
+                           if isinstance(x, torch.Tensor) else x, saved_tree)
+        template = shard_tree(zeros, specs(zeros, mesh_b), mesh_b)
+        del zeros
+        t0 = time.perf_counter()
+        got = rmgr.restore(template, step=step)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        elastic_s = time.perf_counter() - t0
+        if got["optimizer"]["m"]["embed"]["embed"].mesh != mesh_b:
+            fail("the elastic restore did not land on the (4 x 2) mesh")
+        _assert_equal(unshard(got), saved, "restore onto the (4 x 2) mesh")
+        del got, template
+        gc.collect()
+        tr2 = Trainer(cfg, batch=batch, seq_len=seq_len, manager=rmgr,
+                      seed=SEED + 1, device=device)
+        t0 = time.perf_counter()
+        if tr2.resume(step=step) != step:
+            fail("the resume from the world-4 step gave another step")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        _assert_equal(tr2.state(), saved, "resume onto unsharded tensors")
+        again2 = tr2.run(1)[-1]
+    finally:
+        rmgr.close()
+    if not (math.isfinite(again.loss) and again2.loss == again.loss):
+        fail(f"step {again.step} after the elastic resume: loss "
+             f"{again2.loss!r}, the uninterrupted trainer's {again.loss!r}")
+    return {"world": DIST_WORLD, "node_size": DIST_NODE_SIZE,
+            "start_s": start_s, "prologue_s": prologue_s, "stall_s": stall_s,
+            "ship_s": {e["args"]["rank"]: e["dur"] for e in ships},
+            "ship_bytes": st.bytes_tensors,
+            "persist_s": st.persist_latency_s,
+            "commit_s": st.commit_latency_s, "commit_build_s": st.commit_s,
+            "bytes_written": man.total_bytes, "unique_bytes": unique,
+            "files": len(man.files), "child_peak_bytes": peak,
+            "child_launches": st.extra.get("kernel_launches", {}),
+            "elastic_restore_s": elastic_s, "resume_s": resume_s,
+            "loss": again.loss, "resumed_loss": again2.loss}
+
+
 def _fold_2d(t):
     """A stacked leaf ``(count, rows, cols)`` as ``(count * rows, cols)``;
     1-D and 2-D leaves as they are."""
@@ -1690,7 +1909,102 @@ def run_reduction_path(device: str, cfg, workdir: str,
     return report
 
 
+def run_dist_phase(cfg, path_launches: dict) -> None:
+    """Phase 9 on the card: 9a (:func:`run_main_path` through four thread
+    ranks) and 9b (:func:`run_dist_process_path`), each with the launch
+    counts zeroed just before and read into ``path_launches`` just after;
+    fails unless each ran its kernels."""
+    import torch
+    from repro_torch.core import DistPolicy
+    dist_dir = os.path.join(ROOT, "build", "chip_smoke_dist")
+    shutil.rmtree(dist_dir, ignore_errors=True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_main_path(
+            "cuda", cfg, dist_dir, HOST_CACHE_BYTES, flush_threads=8,
+            dist=DistPolicy(world=DIST_WORLD, node_size=DIST_NODE_SIZE))
+        launches = path_launches["dist_thread"] = _launches()
+        thread_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(dist_dir, ignore_errors=True)
+    for k in ("checksum_u32", "xor_checksum_u32", "delta_xor"):
+        if launches[k] == 0:
+            fail(f"kernel {k} was never launched on the thread ranks' path")
+    log(f"multi-rank thread path: {thread_s:.1f} s; world {DIST_WORLD}, "
+        f"node_size {DIST_NODE_SIZE}; launches {json.dumps(launches)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes; "
+        f"pinned host caches {report['pinned_bytes']} bytes")
+    for row, ranks in zip(report["steps"], report["ranks"]):
+        log(f"multi-rank save step {row['step']} ({row['kind']}): stall "
+            f"{row['capture_stall_s']:.4f} s (prologue "
+            f"{row['prologue_s']:.4f} s), persist {row['persist_s']:.3f} s, "
+            f"commit {row['commit_s']:.3f} s; {ranks['rank_files']} rank "
+            f"files, {ranks['rank_manifests']} rank manifests, "
+            f"{ranks['node_manifests']} node manifests; rank bytes "
+            + ", ".join(f"{r}: {b}" for r, b in ranks["rank_bytes"].items())
+            + f" (max/min {ranks['max_min_bytes']:.4f}); rank persist "
+            + ", ".join(f"{r}: {t:.3f}"
+                        for r, t in ranks["rank_persist_s"].items()) + " s")
+    log("dist thread report " + json.dumps(report))
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_dist_process_path(
+            "cuda", cfg, dist_dir, DIST_PROCESS_CACHE_BYTES, flush_threads=8,
+            batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        parent = _launches()
+        process_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(dist_dir, ignore_errors=True)
+    # the ranks' own launches in the timed save, counted in each child
+    names = {k.symbol: name for name, k in _kernels().items()}
+    child = {r: {names[s]: n for s, n in counts.items() if s in names}
+             for r, counts in report["child_launches"].items()}
+    launches = path_launches["dist_process"] = {
+        k: parent[k] + sum(c.get(k, 0) for c in child.values())
+        for k in parent}
+    if parent["checksum_u32"] == 0:
+        fail("kernel checksum_u32 was never launched by the process ranks' "
+             "parent (restores, commit)")
+    if sorted(child) != list(range(DIST_WORLD)) \
+            or any(c.get("checksum_u32", 0) == 0 for c in child.values()):
+        fail("kernel checksum_u32 was not launched by every process rank: "
+             + json.dumps({r: c.get("checksum_u32", 0)
+                           for r, c in child.items()}))
+    log(f"multi-rank process path: {process_s:.1f} s; children start "
+        f"{report['start_s']:.3f} s; ship "
+        + ", ".join(f"{r}: {t:.3f}" for r, t in report["ship_s"].items())
+        + f" s ({report['ship_bytes']} bytes); stall "
+        f"{report['stall_s']:.4f} s; persist {report['persist_s']:.3f} s; "
+        f"commit {report['commit_s']:.3f} s; {report['bytes_written']} "
+        f"bytes in {report['files']} files, {report['unique_bytes']} unique "
+        f"tensor bytes; children's peak device memory "
+        + ", ".join(f"{r}: {b}" for r, b in
+                    report["child_peak_bytes"].items())
+        + f" bytes; restore onto (4 x 2) {report['elastic_restore_s']:.3f} "
+        f"s, resume {report['resume_s']:.3f} s, bit-exact; step "
+        f"{DIST_TRAIN_STEPS + 1}'s loss {report['loss']!r} from both "
+        f"trainers; launches {json.dumps(launches)} (the ranks' checksum_u32 "
+        + ", ".join(f"{r}: {c.get('checksum_u32', 0)}"
+                    for r, c in child.items())
+        + f"); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    log("dist process report " + json.dumps(report))
+    del report
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     # before CUDA starts: cuBLAS picks its workspace once per handle
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
@@ -1845,12 +2159,16 @@ def main() -> None:
 
     # -- phase 7: the offline reduction path (slice 4) --------------------
     reduce_dir = os.path.join(ROOT, "build", "chip_smoke_reduce")
+    # one layer: the run's time goes to phase 9 (PERF.md)
+    reduce_cfg = get_config("llama3.2-1b", n_layers=REDUCE_LAYERS,
+                            layer_groups=uniform_groups("full",
+                                                        REDUCE_LAYERS))
     shutil.rmtree(reduce_dir, ignore_errors=True)
     try:
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         t0 = time.perf_counter()
-        report = run_reduction_path("cuda", cfg, reduce_dir)
+        report = run_reduction_path("cuda", reduce_cfg, reduce_dir)
         launches = path_launches["reduction"] = _launches()
         reduce_s = time.perf_counter() - t0
     finally:
@@ -1888,7 +2206,12 @@ def main() -> None:
     log(json.dumps({"engines": rows_engines, "seconds": engines_s,
                     "launches": launches}))
 
-    # launches: summed over the five paths, each counted from zero
+    # -- phase 9: multi-rank saves (slice 11) ------------------------------
+    run_dist_phase(cfg, path_launches)
+
+    log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
+        f"end of phase 9")
+    # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
         "replaces": REPLACES[k],

@@ -9,12 +9,17 @@ rank is *strictly greater* than every lock it already holds, so the
 acquisition order over the whole system is a DAG by construction.
 
 The declared hierarchy of the port's save path, outermost (lowest rank)
-to innermost (the multi-rank and fleet locks of the JAX package join when
-those modules are ported, at the same ranks):
+to innermost (the fleet locks of the JAX package join when that module is
+ported, at the same ranks):
 
 ======  =====================  ==========================================
 rank    lock                   owner
 ======  =====================  ==========================================
+10      coordinator.job        ``dist.coordinator._SaveJob.lock``
+12      coordinator.dead       ``dist.coordinator.Coordinator._dead_lock``
+15      coordinator.node       ``dist.coordinator._NodeCommit.lock``
+16      ipc.proc               ``dist.process_runtime.ProcessRankRuntime._lock``
+20      barrier.cond           ``dist.barrier.CollectiveBarrier._cond``
 30      manager.delta_tracker  ``core.checkpoint._DeltaChainTracker._lock``
 40      repository.state       ``storage.repository.CheckpointRepository._lock``
 50      engine.save_progress   per-save closure lock in ``DataMovementEngine.submit``

@@ -1,9 +1,10 @@
 """The dense-transformer subset of ``repro/configs/base.py``'s
 ``ModelConfig``: the fields that decide the parameter tree (and so the
 checkpointed state) and those the dense forward reads (``rope_theta``,
-``tie_embeddings``, ``norm``, ``act``, ``dtype``), and the two the
-serving path reads (``attn_kv_block``, ``max_decode_len``); none of the
-mesh, remat or analysis flags."""
+``tie_embeddings``, ``norm``, ``act``, ``dtype``), the two the
+serving path reads (``attn_kv_block``, ``max_decode_len``) and the one
+the partition rules read (``sharding_mode``); none of the remat or
+analysis flags."""
 
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ class ModelConfig:
     act: str = "silu"                # silu (gated) | gelu (gated) | gelu_mlp
     source: str = ""
     dtype: str = "bfloat16"
+    sharding_mode: str = "2d"        # "2d" (beyond-paper) | "tp_zero1" (paper)
     attn_kv_block: int = 1024        # KV block size for blocked attention
     max_decode_len: int = 0          # decode-cache headroom after prefill
 

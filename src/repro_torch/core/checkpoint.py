@@ -31,8 +31,15 @@ back to the CPU unless the caller asks for it.
 (:data:`ENGINES`: ``sync``, ``snapshot``, ``datastates-old``,
 ``datastates``); a restore reads the steps of any of them.
 
-Not yet ported: the multi-rank coordinator (``DistPolicy.world > 1``),
-remote tiers and retention, and the legacy flat-kwarg constructor.
+``DistPolicy.world = N`` (or an explicit coordinator) saves through N
+writer ranks of a :class:`~repro_torch.dist.Coordinator`, threads or
+spawned processes, under the hierarchical two-phase commit; a step becomes
+visible only once every rank and node voted. Restore is elastic: an
+N-rank step restores onto any mesh and any world (plain tensors or
+:class:`~repro_torch.sharding.ShardedTensor` templates).
+
+Not yet ported: remote tiers and retention, and the legacy flat-kwarg
+constructor.
 """
 
 from __future__ import annotations
@@ -274,7 +281,8 @@ def restore_from_repository(
 
 
 class CheckpointManager:
-    """Single-writer checkpoint manager; build it with :meth:`from_policy`."""
+    """Checkpoint manager (one writer, or N ranks through a coordinator);
+    build it with :meth:`from_policy`."""
 
     def __init__(self, directory: str, policy: CheckpointPolicy,
                  device: torch.device):
@@ -289,10 +297,6 @@ class CheckpointManager:
             raise ValueError(
                 f"differential checkpointing requires a DataMovementEngine "
                 f"mode (datastates / datastates-old), got {ep.mode!r}")
-        if dp.coordinator is not None or (dp.world or 1) > 1:
-            raise NotImplementedError(
-                "multi-rank saves (DistPolicy.world > 1 or a coordinator) "
-                "are not yet ported")
         if sp.tiers or sp.retention is not None:
             raise NotImplementedError(
                 "remote storage tiers and retention are not yet ported")
@@ -301,18 +305,59 @@ class CheckpointManager:
         self.delta_policy = delta
         self._delta_tracker = _DeltaChainTracker(delta) \
             if delta is not None else None
+        # last save's surviving writer set (multi-rank): a change means
+        # shard slices moved between rank engines, so every per-rank
+        # delta base is stale and the next save must keyframe
+        self._last_writers: Optional[tuple] = None
         self.directory = directory
         self.mode = ep.mode
         os.makedirs(directory, exist_ok=True)
         self.repository = CheckpointRepository(
             directory, device=self.device, checksum=sp.manifest_checksums)
-        self.engine: BaseCheckpointEngine = ENGINES[ep.mode](
-            device=self.device,
-            host_cache_bytes=ep.host_cache_bytes,
-            flush_threads=ep.flush_threads,
-            chunk_bytes=ep.chunk_bytes,
-            throttle_mbps=ep.throttle_mbps,
-            checksum_files=sp.manifest_checksums)
+        coordinator = dp.coordinator
+        if coordinator is None and dp.world is not None and dp.world > 1:
+            from repro_torch.dist.coordinator import Coordinator
+
+            # ``world=N`` (N > 1) switches saves onto the multi-rank path:
+            # N writer ranks, each with its own engine + host-cache lane,
+            # drain a balanced partition of the shards concurrently; the
+            # step becomes visible only after every rank acks and the
+            # global manifest commits. host_cache_bytes and flush_threads
+            # stay *node totals*: divided across the ranks, so world=N
+            # neither multiplies the pinned budget nor loosens
+            # back-pressure (a coordinator built by hand takes per-rank
+            # values instead).
+            coordinator = Coordinator(
+                dp.world, device=self.device, mode=ep.mode,
+                runtime=dp.runtime, node_size=dp.node_size,
+                host_cache_bytes=max(1, ep.host_cache_bytes // dp.world),
+                flush_threads=max(1, ep.flush_threads // dp.world),
+                chunk_bytes=ep.chunk_bytes,
+                throttle_mbps=ep.throttle_mbps,
+                checksum_files=sp.manifest_checksums,
+                ack_timeout_s=dp.ack_timeout_s)
+        if coordinator is not None:
+            if dp.world is not None and coordinator.world != dp.world:
+                raise ValueError(
+                    f"world={dp.world} does not match the provided "
+                    f"coordinator's world={coordinator.world}")
+            if coordinator.device != self.device:
+                raise ValueError(
+                    f"the coordinator runs on {coordinator.device}, the "
+                    f"manager on {self.device}")
+        self.coordinator = coordinator
+        # Multi-rank managers save through the coordinator's per-rank
+        # engines; a single-writer engine too would pin a host cache and
+        # idle flush threads for a lane that never runs.
+        self.engine: Optional[BaseCheckpointEngine] = None
+        if coordinator is None:
+            self.engine = ENGINES[ep.mode](
+                device=self.device,
+                host_cache_bytes=ep.host_cache_bytes,
+                flush_threads=ep.flush_threads,
+                chunk_bytes=ep.chunk_bytes,
+                throttle_mbps=ep.throttle_mbps,
+                checksum_files=sp.manifest_checksums)
         self.restore_engine = RestoreEngine(self.device,
                                             threads=ep.restore_threads)
         self.last_restore_stats: Optional[RestoreStats] = None
@@ -356,11 +401,21 @@ class CheckpointManager:
         self.wait_for_commit(step)
         records, objects = plan_shards(state, group="state",
                                        registry=self.registry)
+        world = self.coordinator.world if self.coordinator is not None else 1
         objects["__checkpoint_meta__"] = {"step": step, "mode": self.mode,
                                           "n_shards": len(records),
-                                          "world": 1}
+                                          "world": world}
         delta_spec = None
         if self._delta_tracker is not None:
+            if self.coordinator is not None:
+                # a rank death reassigns its shard slice to survivors
+                # whose engines hold no snapshot of it: force a keyframe
+                # whenever the writer set changed since the last save
+                writers_now = self.coordinator.active_writers()
+                if self._last_writers is not None \
+                        and writers_now != self._last_writers:
+                    self._delta_tracker.invalidate()
+                self._last_writers = writers_now
             delta_spec = self._delta_tracker.plan(step, records)
             future.stats.extra["delta"] = delta_spec.manifest_meta()
         # (the engines fill stats.extra["domains"] — the step-level
@@ -371,9 +426,20 @@ class CheckpointManager:
         self.repository.begin_step(step)
         os.makedirs(future.directory, exist_ok=True)
         try:
-            by_rank = group_by_rank(records)
-            self.engine.save(future.directory, by_rank, objects, future,
-                             delta=delta_spec)
+            if self.coordinator is not None:
+                future.stats.extra["world"] = world
+                # the commit topology of *this* save (surviving writers +
+                # node membership) rides the future so phase 2 validates
+                # exactly the votes the save was built to cast
+                info = self.coordinator.submit(step, future.directory,
+                                               records, objects, future,
+                                               delta=delta_spec)
+                future.stats.extra["writers"] = info["writers"]
+                future.stats.extra["nodes"] = info["nodes"]
+            else:
+                by_rank = group_by_rank(records)
+                self.engine.save(future.directory, by_rank, objects,
+                                 future, delta=delta_spec)
         except BaseException:
             # A synchronous prologue failure (e.g. payload exceeds the
             # host cache) never reaches the committer: retract the active
@@ -499,8 +565,16 @@ class CheckpointManager:
                     fsums = future.stats.extra.get("file_checksums")
                     if fsums:
                         meta["file_checksums"] = fsums
+                    # Multi-rank saves commit with their full topology:
+                    # the phase-2 gate re-validates every surviving
+                    # rank's vote and every node manifest before the
+                    # step becomes visible.
                     self.repository.commit_step(
-                        future.step, engine_mode=self.mode, meta=meta)
+                        future.step, engine_mode=self.mode,
+                        expect_ranks=future.stats.extra.get("world"),
+                        writers=future.stats.extra.get("writers"),
+                        nodes=future.stats.extra.get("nodes"),
+                        meta=meta)
                     tc1 = time.perf_counter()
                     future.stats.commit_s = tc1 - tc0
                     future.stats.t_committed = tc1
@@ -534,7 +608,11 @@ class CheckpointManager:
         """Rebuild ``template``-shaped state from a stored checkpoint.
 
         ``template`` tensor leaves give each restored leaf its shape, dtype
-        and device: a CUDA template restores onto the card.
+        and device: a CUDA template restores onto the card. A
+        :class:`~repro_torch.sharding.ShardedTensor` leaf is reassembled
+        shard by shard onto its mesh (elastic — the target layout need not
+        match the stored one, so a run can resume onto a different mesh
+        or world).
 
         ``domains`` selects named state domains (top-level template keys):
         ``restore(state, domains=("model",))`` plans and reads *only* the
@@ -578,7 +656,10 @@ class CheckpointManager:
         # wait_for_persist/wait_for_capture and commit_errors)
         for f in self._inflight:
             f._persisted.wait()
-        self.engine.drain()
+        if self.engine is not None:
+            self.engine.drain()
+        if self.coordinator is not None:
+            self.coordinator.drain()
         self._commit_q.join()
         self.repository.drain()
 
@@ -586,7 +667,10 @@ class CheckpointManager:
         self.drain()
         self._commit_q.put(None)
         self._committer.join(timeout=60)
-        self.engine.close()
+        if self.engine is not None:
+            self.engine.close()
+        if self.coordinator is not None:
+            self.coordinator.close()
         self.repository.close()
 
     def __enter__(self):

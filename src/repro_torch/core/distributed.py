@@ -3,9 +3,13 @@
 Reproduces the checkpoint composition of Fig 1(c,d): every device ("rank")
 owns the shards resident on it; replicated shards would be written once
 each, balanced over their replica group by byte count
-(:func:`assign_replica_writers`). In this single-writer slice every torch
-tensor is one shard owned by its device's index; DeviceMesh/DTensor local
-shards join the replica path when the multi-rank runtimes are ported.
+(:func:`assign_replica_writers`). A
+:class:`~repro_torch.sharding.ShardedTensor` leaf gives one shard per
+virtual device of its mesh, read exactly as the JAX package reads a
+``jax.Array``'s ``addressable_shards`` (replicas deduplicated, writers
+balanced, the owning rank the virtual device id); a plain torch tensor is
+one shard owned by its device's index. The shard boundaries are whatever
+the training layout dictates — the planner never reshards (paper §IV-C).
 
 Leaf paths, tensor names (``"{group}/{path}@[lo:hi,...]"``) and dtype
 names (numpy-style, ``"bfloat16"`` included) match the JAX package's
@@ -19,6 +23,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.sharded import ShardedTensor
 
 from . import dtypes
 from .tree import flatten_with_path, path_str
@@ -49,6 +55,16 @@ class ShardRecord:
     device_resident: bool
     domain: str = "state"
     route: Optional[Any] = None  # ProviderRoute | None
+
+
+def normalize_index(index, shape) -> Tuple[Tuple[int, int], ...]:
+    """Convert a shard's tuple-of-slices index into ((start, stop), ...)."""
+    out = []
+    for sl, dim in zip(index, shape):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = dim if sl.stop is None else int(sl.stop)
+        out.append((start, stop))
+    return tuple(out)
 
 
 def assign_replica_writers(
@@ -97,10 +113,14 @@ def plan_shards(tree, group: str, registry=None
                 ) -> Tuple[List[ShardRecord], Dict[str, Any]]:
     """Flatten ``tree``; return shard records for arrays + dict of host objects.
 
-    A ``torch.Tensor`` leaf is a device shard (``device_resident=True``,
-    owned by ``tensor.device.index or 0``) whose bytes the engine stages
-    into the host cache; a numpy array is host-resident and streams from
-    its own buffer; anything else is an object leaf. With ``registry`` (a
+    A :class:`~repro_torch.sharding.ShardedTensor` leaf gives one device
+    shard per virtual device (owned by that device's id); replicated
+    shards are deduplicated, each unique shard written exactly once, with
+    writers balanced across replica groups by byte count (see
+    :func:`assign_replica_writers`). A ``torch.Tensor`` leaf is one device
+    shard (owned by ``tensor.device.index or 0``). Device shards are staged
+    into the host cache by the engine; a numpy array is host-resident and
+    streams from its own buffer; anything else is an object leaf. With ``registry`` (a
     :class:`~repro_torch.core.registry.StateProviderRegistry`) every leaf is
     routed through the ordered rules here, at plan time, and tensor shards
     carry their resolved route on the record.
@@ -115,7 +135,15 @@ def plan_shards(tree, group: str, registry=None
         p = path_str(path)
         pstr = f"{group}/{p}"
         domain = state_domain(p, group)
-        if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, ShardedTensor):
+            shapes[pstr] = tuple(leaf.shape)
+            dtype_names[pstr] = dtypes.BY_TORCH[leaf.dtype].name
+            domains[pstr] = domain
+            for shard in leaf.addressable_shards:
+                idx = normalize_index(shard.index, leaf.shape)
+                replicas.setdefault((pstr, idx), {})[shard.device] = \
+                    shard.data
+        elif isinstance(leaf, torch.Tensor):
             shapes[pstr] = tuple(leaf.shape)
             dtype_names[pstr] = dtypes.of_tensor(leaf).name
             domains[pstr] = domain

@@ -6,26 +6,34 @@ rebuilds the dtype as ``numpy.dtype(ml_dtypes.bfloat16, False, True)``
 and sets that dtype's state before the array's. The port imports neither
 ``ml_dtypes`` nor ``repro``, and the card's host has no ``ml_dtypes``.
 
-* :func:`load` / :func:`loads` read a pickle of either package. The global
-  ``ml_dtypes.bfloat16`` is mapped to a stand-in, so a bfloat16 array
-  arrives as its 2-byte words in :data:`~.dtypes.BF16_HOST` storage
-  (``uint16`` that carries the name ``bfloat16``).
+* :func:`load` / :func:`loads` read a pickle of either package with C's
+  unpickler. Its ``find_class`` maps the global ``ml_dtypes.bfloat16`` to
+  a stand-in, ``numpy.dtype`` of that stand-in to a placeholder whose
+  ``BUILD`` does nothing (numpy's own dtype would drop the name numpy
+  keeps in its metadata), and ``numpy.ndarray`` to :class:`_Array`, which
+  takes the placeholder for :data:`~.dtypes.BF16_HOST` when the array's
+  state is set. So a bfloat16 array arrives as its 2-byte words in
+  ``BF16_HOST`` storage (``uint16`` that carries the name ``bfloat16``).
+  Only arrays numpy pickles through ``_reconstruct`` (a dtype numpy does
+  not know, an object or strided array) come back as :class:`_Array`, an
+  ``ndarray`` subclass that pickles again as a plain ``ndarray``.
 * :func:`dumps` writes a :data:`~.dtypes.BF16_HOST` array as the JAX
   package's pickle of an ``ml_dtypes.bfloat16`` array: the same
   ``_reconstruct`` call, the same dtype state, and the global named
   without importing its module. Every other object pickles as
-  :func:`pickle.dumps` would pickle it.
-
-Both are the pure-Python pickler and unpickler of :mod:`pickle`: only
-they let a subclass write a named global and skip one ``BUILD``. A sync
-pickle holds few objects and large byte strings, which they copy in one
-piece, so they cost little beside the bytes.
+  :func:`pickle.dumps` would pickle it. C's pickler cannot write that
+  global: it imports the named module to check the object, and the card's
+  host has no ``ml_dtypes``. So :func:`dumps` is the pure-Python pickler,
+  with one change that keeps its bytes: an array's memory handed over as a
+  ``PickleBuffer`` is written in place, where the base class copies it out
+  first.
 """
 
 from __future__ import annotations
 
 import io
 import pickle
+import struct
 from typing import Any, BinaryIO
 
 import numpy as np
@@ -83,6 +91,23 @@ class _Pickler(pickle._Pickler):
 
     dispatch[_Global] = _save_named_global
 
+    def _save_picklebuffer(self, obj: pickle.PickleBuffer) -> None:
+        # the base class writes ``m.tobytes()``, a copy; the same opcodes
+        # with the memory itself (C's pickler does so too)
+        with obj.raw() as m:
+            direct = self.proto >= 5 and m.contiguous and not m.readonly \
+                and self._buffer_callback is None \
+                and m.nbytes >= self.framer._FRAME_SIZE_TARGET
+            if direct:
+                self._write_large_bytes(
+                    pickle.BYTEARRAY8 + struct.pack("<Q", m.nbytes), m)
+        if not direct:
+            pickle._Pickler.save_picklebuffer(self, obj)
+            return
+        self.memoize(obj)
+
+    dispatch[pickle.PickleBuffer] = _save_picklebuffer
+
     def reducer_override(self, obj):
         if not _is_bf16_host(obj):
             return NotImplemented
@@ -105,31 +130,43 @@ class _Bf16Name:
     """Stands in for the class ``ml_dtypes.bfloat16``."""
 
 
+class _Bf16Dtype:
+    """What ``numpy.dtype(ml_dtypes.bfloat16)`` unpickles to: its
+    ``BUILD`` sets nothing, and :class:`_Array` reads it as
+    :data:`~.dtypes.BF16_HOST`."""
+
+    def __setstate__(self, state) -> None:
+        pass
+
+
 def _dtype(obj, align=False, copy=False):
     if obj is _Bf16Name:
-        return dtypes.BF16_HOST
+        return _Bf16Dtype()
     return np.dtype(obj, align, copy)
 
 
-class _Unpickler(pickle._Unpickler):
-    dispatch = dict(pickle._Unpickler.dispatch)
+class _Array(np.ndarray):
+    """An array unpickled through numpy's ``_reconstruct``; a bfloat16
+    one gets :data:`~.dtypes.BF16_HOST` storage."""
 
+    def __setstate__(self, state) -> None:
+        if isinstance(state[2], _Bf16Dtype):
+            state = state[:2] + (dtypes.BF16_HOST,) + state[3:]
+        super().__setstate__(state)
+
+    def __reduce_ex__(self, protocol):
+        return self.view(np.ndarray).__reduce_ex__(protocol)
+
+
+class _Unpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if (module, name) == ("ml_dtypes", "bfloat16"):
             return _Bf16Name
         if (module, name) == ("numpy", "dtype"):
             return _dtype
+        if (module, name) == ("numpy", "ndarray"):
+            return _Array
         return super().find_class(module, name)
-
-    def _load_build(self) -> None:
-        # numpy would set the bfloat16 dtype's state on the stand-in,
-        # clearing its name: the stand-in needs none
-        if self.stack[-2] is dtypes.BF16_HOST:
-            self.stack.pop()
-            return
-        pickle._Unpickler.load_build(self)
-
-    dispatch[pickle.BUILD[0]] = _load_build
 
 
 def load(f: BinaryIO) -> Any:

@@ -11,9 +11,9 @@ One frozen config object per subsystem, composed into one
 * a :class:`~repro_torch.core.registry.StateProviderRegistry` routing each
   state leaf to its provider.
 
-Fields and defaults are the JAX package's. What this slice does not run
-yet is refused by the manager, not ignored: a multi-rank ``world``,
-remote ``tiers`` and ``retention`` raise "not yet ported".
+Fields and defaults are the JAX package's. What the port does not run
+yet is refused by the manager, not ignored: remote ``tiers`` and
+``retention`` raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -59,7 +59,10 @@ class StoragePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class DistPolicy:
-    """Multi-rank writer world (only ``world`` of 1 is ported)."""
+    """Multi-rank writer world: ``world`` writer ranks (or a ready
+    ``coordinator``), run as threads or spawned processes (``runtime``),
+    committing through nodes of ``node_size`` ranks; ``ack_timeout_s``
+    arms the watchdog that fails a save whose ranks do not all ack."""
 
     world: Optional[int] = None
     coordinator: Optional[Any] = None

@@ -12,6 +12,11 @@
    directly into preallocated host buffers.
 4. **Assemble** — each tensor leaf is built on its *template leaf's
    device* (a CUDA template gets a CUDA tensor); numpy leaves stay numpy.
+   A :class:`~repro_torch.sharding.ShardedTensor` template is planned as
+   one target region per unique shard of its own mesh and spec, and
+   assembled as a sharded tensor on that mesh — so a step written by N
+   ranks on one layout restores onto any other layout and world (elastic
+   re-sharding, chain steps too).
 
 Differential steps replay as a chain (:meth:`RestoreEngine.restore_chain`):
 the keyframe restores like a full snapshot, then each delta step's payloads
@@ -30,9 +35,6 @@ can switch engines between save and resume. A template dtype other than
 the stored one casts values as the JAX package does
 (:func:`~.dtypes.cast_host`). ``throttle_mbps`` emulates per-stream
 storage bandwidth on the reads, as the save-side engines do.
-
-Not yet ported: elastic re-sharding onto a different device layout
-(DeviceMesh/DTensor templates).
 """
 
 from __future__ import annotations
@@ -51,9 +53,11 @@ import torch
 
 from repro_torch.kernels.ops import lane_stream
 from repro_torch.obs import trace as obs
+from repro_torch.sharding.sharded import ShardedTensor
 
 from . import dtypes, pickle_compat
 from .codecs import is_chained_codec
+from .distributed import normalize_index
 from .layout import FileReader
 from .tree import flatten_with_path, path_str
 
@@ -145,6 +149,63 @@ def plan_ranged_slices(nbytes: int, slice_bytes: int = 16 << 20
     exactly one of them)."""
     cap = max(1, int(slice_bytes))
     return [(lo, min(cap, nbytes - lo)) for lo in range(0, nbytes, cap)]
+
+
+#: runs of one file at most this far apart are read as one span and
+#: copied out: a shard's rows cut by another layout's columns take one
+#: read a block of rows, not one a row (each read is a syscall and a turn
+#: of the GIL; a 2 KB run a row made an elastic restore of llama3.2-1b's
+#: optimizer state take minutes)
+COALESCE_GAP_BYTES = 1 << 20
+
+Read = Tuple[str, int, int, int]  # (path, file offset, nbytes, dst offset)
+
+
+def _spans(reads: List[Read], cap: int) -> List[List[Read]]:
+    """Consecutive reads of one file whose gaps are at most
+    :data:`COALESCE_GAP_BYTES`, grouped into spans of at most ``cap``
+    bytes (a read of ``cap`` or more stays alone)."""
+    groups: List[List[Read]] = []
+    for r in reads:
+        g = groups[-1] if groups else None
+        if g is not None and r[0] == g[0][0] \
+                and 0 <= r[1] - (g[-1][1] + g[-1][2]) <= COALESCE_GAP_BYTES \
+                and r[1] + r[2] - g[0][1] <= cap:
+            g.append(r)
+        else:
+            groups.append([r])
+    return groups
+
+
+def _read_span(fd: int, group: List[Read], out: np.ndarray) -> int:
+    """Fill ``out`` (flat uint8) at each read's destination from one read
+    of the group's span; returns the bytes the group asked for (the gaps
+    the span also reads are not counted, so ``bytes_read``, ``n_ranges``
+    and the throttle stay the reference's, read by read)."""
+    start = group[0][1]
+    end = group[-1][1] + group[-1][2]
+    if len(group) == 1:
+        _p, off, nb, dst = group[0]
+        _preadv_full(fd, memoryview(out[dst:dst + nb]), off)
+        return nb
+    span = np.empty(end - start, np.uint8)
+    _preadv_full(fd, memoryview(span), start)
+    offs = np.array([r[1] for r in group], np.int64) - start
+    nbs = np.array([r[2] for r in group], np.int64)
+    dsts = np.array([r[3] for r in group], np.int64)
+    d_off, d_dst = np.diff(offs), np.diff(dsts)
+    if (nbs == nbs[0]).all() and (d_off == d_off[0]).all() \
+            and (d_dst == d_dst[0]).all():
+        # rows of equal runs at equal strides (a column cut): one copy
+        as_strided = np.lib.stride_tricks.as_strided
+        k, nb = len(group), int(nbs[0])
+        src = as_strided(span[offs[0]:], (k, nb), (int(d_off[0]), 1))
+        dst = as_strided(out[dsts[0]:], (k, nb), (int(d_dst[0]), 1))
+        dst[...] = src
+    else:
+        for off, nb, dst_at in zip(offs, nbs, dsts):
+            out[dst_at:dst_at + nb] = span[off:off + nb]
+    return int(nbs.sum())
 
 
 def _preadv_full(fd: int, mv: memoryview, offset: int) -> None:
@@ -341,8 +402,8 @@ class _Run:
 
 
 def _leaf_dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
-        return dtypes.of_tensor(leaf).name
+    if isinstance(leaf, (torch.Tensor, ShardedTensor)):
+        return dtypes.BY_TORCH[leaf.dtype].name
     return dtypes.of_array(leaf).name
 
 
@@ -522,9 +583,18 @@ class RestoreEngine:
     # ------------------------------------------------------------- planning
     @staticmethod
     def _leaf_regions(leaf) -> Tuple[List[Region], str]:
-        """Target regions for one template leaf: the full array (a torch
+        """Target regions for one template leaf: one per unique shard of
+        a sharded template's layout (elastic), or the full array (a torch
         tensor or numpy array lives whole on one device)."""
-        full = tuple((0, d) for d in tuple(leaf.shape))
+        shape = tuple(leaf.shape)
+        full = tuple((0, d) for d in shape)
+        if isinstance(leaf, ShardedTensor):
+            regions: List[Region] = []
+            for index in leaf.devices_indices_map().values():
+                region = normalize_index(index, shape)
+                if region not in regions:
+                    regions.append(region)
+            return regions or [full], "sharded"
         return [full], "torch" if isinstance(leaf, torch.Tensor) else "numpy"
 
     def _plan_region(self, run: _Run, sources: List[_ShardSource],
@@ -576,22 +646,23 @@ class RestoreEngine:
             tasks.append(copy_task)
             return
         out = dst_view.reshape(-1).view(np.uint8)
+        reads: List[Read] = []
         pos = 0
-        cap = self.read_chunk_bytes
         for path, off, nb in ranges:
             # split giant runs so they parallelize
-            for lo, piece in plan_ranged_slices(nb, cap):
-                mv = memoryview(out[pos + lo:pos + lo + piece])
-                tasks.append(self._make_pread_task(run, path, off + lo, mv))
+            for lo, piece in plan_ranged_slices(nb, self.read_chunk_bytes):
+                reads.append((path, off + lo, piece, pos + lo))
             pos += nb
+        for group in _spans(reads, self.read_chunk_bytes):
+            tasks.append(self._make_pread_task(run, group, out))
 
-    def _make_pread_task(self, run: _Run, path: str, offset: int,
-                         mv: memoryview) -> Callable[[], Tuple[int, int]]:
+    def _make_pread_task(self, run: _Run, group: List[Read],
+                         out: np.ndarray) -> Callable[[], Tuple[int, int]]:
         def task():
             t0 = time.perf_counter()
-            _preadv_full(run.fds.get(path), mv, offset)
-            self._throttle(len(mv), t0)
-            return len(mv), 1
+            n = _read_span(run.fds.get(group[0][0]), group, out)
+            self._throttle(n, t0)
+            return n, len(group)
         return task
 
     def _read_intersection(self, run: _Run, src: _ShardSource,
@@ -604,18 +675,18 @@ class RestoreEngine:
             return src.read_fallback(src_local)
         tmp = np.empty(shape, dtype=src.dtype)
         out = tmp.reshape(-1).view(np.uint8)
+        reads: List[Read] = []
         pos = 0
-        n = 0
-        t0 = time.perf_counter()
         for path, off, nb in ranges:
-            _preadv_full(run.fds.get(path), memoryview(out[pos:pos + nb]),
-                         off)
+            reads.append((path, off, nb, pos))
             pos += nb
-            n += 1
+        t0 = time.perf_counter()
+        groups = _spans(reads, self.read_chunk_bytes)
+        n = sum(_read_span(run.fds.get(g[0][0]), g, out) for g in groups)
         with run.lock:
-            run.stats.bytes_read += pos
-            run.stats.n_ranges += n
-        self._throttle(pos, t0)
+            run.stats.bytes_read += n
+            run.stats.n_ranges += len(reads)
+        self._throttle(n, t0)
         return tmp
 
     # ------------------------------------------------------------- restore
@@ -674,7 +745,7 @@ class RestoreEngine:
         assembled: List[Tuple[str, Any, Any, str]] = []
         for path, leaf in leaves:
             pstr = f"state/{path_str(path)}"
-            if isinstance(leaf, (torch.Tensor, np.ndarray)):
+            if isinstance(leaf, (torch.Tensor, ShardedTensor, np.ndarray)):
                 if pstr not in idx.tensors:
                     if pstr in idx.delta_tensors:
                         raise RestoreError(
@@ -720,6 +791,12 @@ class RestoreEngine:
                            if pstr in idx.objects else leaf)
             elif kind == "numpy":
                 out.append(next(iter(aux.values())))
+            elif kind == "sharded":  # one tensor a region, on the mesh
+                name = _leaf_dtype_name(leaf)
+                out.append(ShardedTensor(
+                    leaf.shape, leaf.dtype, leaf.mesh, leaf.spec,
+                    {region: dtypes.host_to_tensor(buf, name, leaf.device)
+                     for region, buf in aux.items()}))
             else:  # torch: built on the template leaf's device
                 out.append(dtypes.host_to_tensor(
                     next(iter(aux.values())), _leaf_dtype_name(leaf),
@@ -735,9 +812,10 @@ class RestoreEngine:
                 ) -> Tuple[Any, RestoreStats]:
         """Rebuild a ``template``-shaped pytree from ``sdir``.
 
-        Array leaves (``torch.Tensor``/``np.ndarray``) are reassembled from
-        whichever stored shards intersect them and land on the template
-        leaf's device; non-array leaves come from the object log (or keep
+        Array leaves (``torch.Tensor``/``ShardedTensor``/``np.ndarray``)
+        are reassembled from whichever stored shards intersect each target
+        region and land on the template leaf's device (a sharded template:
+        one tensor a unique region, on its mesh); non-array leaves come from the object log (or keep
         their template value). Returns ``(tree, stats)``.
         """
         run = _Run(RestoreStats(threads=self.threads))

@@ -6,7 +6,11 @@ then one ``nvcc -shared`` links the objects into a library that ``ctypes``
 loads. The library lands in ``build/repro_torch/`` at the root of the
 checkout, named by a hash of every file under ``csrc/`` and of the compile
 and link flags, at the first launch of any kernel (never at import: hosts
-without ``nvcc`` import every module). The attention kernel's TMA tensor
+without ``nvcc`` import every module). Ranks spawned as processes build
+at once: one of them compiles under an exclusive ``flock`` on
+``build/repro_torch/.build.lock`` while the others wait on it, and the
+library appears under its final name only by an atomic rename, so no
+process ever loads a half-written one. The attention kernel's TMA tensor
 maps are encoded through the entry point that the CUDA runtime hands out
 (``cudaGetDriverEntryPoint``), so the library links no ``libcuda``.
 
@@ -23,14 +27,16 @@ themselves, where the reference does, so no ``-ftz`` either.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "ckpt_kernels.cu", CSRC / "flash_attention.cu")
@@ -105,12 +111,33 @@ def ptxas_report(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
+@contextlib.contextmanager
+def build_lock(directory: Path) -> Iterator[None]:
+    """An exclusive ``flock`` on ``directory/.build.lock``, held across
+    processes; the kernel releases it if its holder dies."""
+    directory.mkdir(parents=True, exist_ok=True)
+    fd = os.open(directory / ".build.lock", os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
 def build() -> Path:
-    """Compile the sources unless the hashed library already exists."""
+    """Compile the sources unless the hashed library already exists. The
+    compile runs under :func:`build_lock`, so of processes that build at
+    once one compiles and the others find its library."""
     out = library_path()
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
+    with build_lock(out.parent):
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     tag = f"tmp{os.getpid()}"
     objs = [out.with_name(f"{out.stem}.{src.stem}.{tag}.o") for src in SOURCES]
@@ -139,7 +166,6 @@ def build() -> Path:
                 p.wait()
         for obj in objs:
             obj.unlink(missing_ok=True)
-    return out
 
 
 def _run(cmd) -> None:
@@ -164,6 +190,21 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+#: every kernel of this process, by its C symbol (each kernel module
+#: registers its kernels when it is imported)
+KERNELS: Dict[str, "CudaKernel"] = {}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each registered kernel's launches in this process, by symbol."""
+    return {s: k.launches for s, k in KERNELS.items()}
+
+
+def zero_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
 class CudaKernel:
     """One kernel of the library, reached through its C entry point
     ``symbol`` (or another ``entry`` of the same kernel), with its launch
@@ -176,6 +217,7 @@ class CudaKernel:
         self.symbol = symbol
         self.launches = 0
         self._count_lock = threading.Lock()
+        KERNELS[symbol] = self
 
     def launch(self, *args, entry: Optional[str] = None) -> None:
         import torch

@@ -22,7 +22,7 @@ import re
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
@@ -195,14 +195,27 @@ class CheckpointRepository:
             self._active.discard(step)
 
     def commit_step(self, step: int, *, engine_mode: Optional[str] = None,
-                    meta: Optional[Dict[str, Any]] = None) -> StepManifest:
+                    meta: Optional[Dict[str, Any]] = None,
+                    expect_ranks: Optional[int] = None,
+                    writers: Optional[Sequence[int]] = None,
+                    nodes: Optional[Dict[int, Any]] = None) -> StepManifest:
         """Make a fully-persisted step visible: build its manifest (sizes +
-        checksums) and write it atomically *last*."""
+        checksums) and write it atomically *last*.
+
+        ``expect_ranks`` enables the multi-rank phase-2 gate: the manifest
+        build validates every rank's phase-1 vote (see
+        :meth:`StepManifest.build`) and raises instead of committing a
+        partially-written step. ``writers`` narrows the expected voter
+        set (a coordinator that reassigned a dead rank's shards passes
+        the survivors); ``nodes`` additionally audits the hierarchical
+        commit tree's node-aggregator votes."""
         sdir = self.step_dir(step)
         tb0 = time.perf_counter()
         manifest = StepManifest.build(sdir, step, device=self.device,
                                       engine_mode=engine_mode,
-                                      checksum=self.checksum, meta=meta)
+                                      checksum=self.checksum, meta=meta,
+                                      expect_ranks=expect_ranks,
+                                      writers=writers, nodes=nodes)
         if not manifest.files:
             raise BackendError(
                 f"refusing to commit empty step directory {sdir!r}")

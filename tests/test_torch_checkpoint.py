@@ -12,8 +12,8 @@ made by the JAX package from seeded numpy gradients. Under
   restored output.
 * The port's own two-phase loop resumes bit-exactly.
 * Import discipline, the explicit device, and the parts not yet ported
-  (the multi-rank coordinator and remote tiers; each refused, never
-  silently ignored). The baseline engines are held against the JAX
+  (remote tiers; refused, never silently ignored). Multi-rank saves are
+  held against the JAX package in ``tests/test_torch_dist.py``. The baseline engines are held against the JAX
   package in ``tests/test_torch_baselines.py``.
 """
 
@@ -329,11 +329,18 @@ def test_cuda_device_without_a_card_raises(tmp_path):
 
 
 @pytest.mark.parametrize("policy,match", [
-    (T.CheckpointPolicy(dist=T.DistPolicy(world=2)), "multi-rank"),
+    # multi-rank saves are ported (tests/test_torch_dist.py); what stays
+    # refused there is refused as the JAX package refuses it: a baseline
+    # engine cannot be a coordinator's rank lane
+    pytest.param(T.CheckpointPolicy(engine=T.EnginePolicy(mode="sync"),
+                                    dist=T.DistPolicy(world=2)),
+                 "DataMovementEngine mode", id="policy0-multi-rank"),
     (T.CheckpointPolicy(storage=T.StoragePolicy(tiers=("peer",))), "tiers"),
 ])
 def test_unported_configurations_are_refused(tmp_path, policy, match):
-    with pytest.raises(NotImplementedError, match=match):
+    exc = ValueError if match == "DataMovementEngine mode" \
+        else NotImplementedError
+    with pytest.raises(exc, match=match):
         T.CheckpointManager.from_policy(str(tmp_path), policy, device="cpu")
 
 
