@@ -105,9 +105,9 @@ Phases, any failure exits non-zero:
    times, bytes and files written, restore time (the verify, and the
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
-   Kernel launch counts are zeroed just before each of phases 4, 5, 6, 7,
-   8, 9a and 9b and read just after; each kernel of the phase must have
-   run. Phases
+   Kernel launch counts are zeroed just before each of phases 4, 5, 6,
+   10 (run right after 6), 7, 8, 9a and 9b and read just after; each
+   kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
    phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
    and span count of each delta save, the persist times and the peak
@@ -131,7 +131,33 @@ Phases, any failure exits non-zero:
    trainer's next loss equals the uninterrupted one bit for bit. Logs the
    ship time (device-to-host copy and pipe), stall, persist and commit,
    and the children's peak device memory.
-10. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+10. Tiers and the fleet fabric (slice 12), run right after phase 6 on
+   phase 5's steps 2, 4 and 6 (keyframe, delta, delta; about 4.18 GB)
+   before they are removed, with one ``ObjectStoreBackend`` tier of no
+   modelled latency or bandwidth (every time is the host's own work),
+   under ``build/chip_smoke_tiers/``. (a) ``cascade_step(6)`` ships the
+   chain whole: the tier must hold steps 2, 4 and 6, each catalog object
+   visible after its data objects, its data bytes those of the local
+   files. (b) A fresh ``CheckpointManager`` on an empty root with that
+   tier, and a fresh ``Trainer``, resume the newest step: each chain
+   member fetched from the tier and admitted by ``admit_fetched_step``'s
+   digests on the card, the state bit for bit phase 5's resumed state,
+   step 7's loss bit-equal to phase 5's; ``checksum_u32``, ``delta_xor``
+   and ``dequantize_checksum_int8`` must have run. (c) Two serving
+   replicas (threads), one on each of two empty host roots (four, two a
+   root, took the smoke over its time; two replicas sharing a root run in
+   ``tests/test_torch_fleet.py`` on the card), call
+   ``load_params_for_serving(step=6, fleet=...)`` at once through one
+   ``FleetFabric(device="cuda")``: params bit for bit
+   step 6's, the store's bytes out at most 1.25 x the chain, each root
+   admitting each step once, the fabric's ledger in each root; fails
+   first if the host has under 24 GiB available. (d) ``python -m
+   repro_torch.storage.cli --root <host 0> verify`` exits 0 (digests on
+   the card) and ``stats --fleet`` prints the ledger's replica count for
+   step 6. One ``tiers report`` JSON line: each cascade event's bytes and
+   seconds, the resume's fetch, admission, verify and restore seconds,
+   remote, peer and cache bytes, each replica's seconds, launches.
+11. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -178,6 +204,15 @@ ENGINE_STEPS, ENGINE_SAVE_AT = 3, 2
 #: the multi-rank phase: writer ranks, ranks a node of the commit tree,
 #: and the steps its trainer takes before the process ranks' save
 DIST_WORLD, DIST_NODE_SIZE, DIST_TRAIN_STEPS = 4, 2, 2
+#: the tiers phase: serving replicas warm-starting at once (two: four
+#: took the smoke over its time), hosts they share (one local root a
+#: host), the most the object store may serve
+#: them as a multiple of the chain's bytes (``tests/test_fleet.py``'s
+#: bound), the host memory it asks for, and the pinned cache of its
+#: resume-only manager
+TIER_REPLICAS, TIER_HOSTS, TIER_MAX_AMPLIFICATION = 2, 2, 1.25
+TIER_MIN_AVAIL_BYTES = 24 << 30
+TIER_RESUME_CACHE_BYTES = 256 << 20
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
@@ -1147,7 +1182,9 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
     """Train ``steps`` steps saving every ``interval`` under the mixed
     policy, resume the last step with a fresh manager and trainer, check
     the restored state, and take one more step from each trainer. Returns
-    ``(report, host copies of the last saved step's param leaves)``."""
+    ``(report, host copies of the last saved step's param leaves,
+    {"state": device copies of the resumed state's tensors, "data_state":
+    its data cursor})``."""
     import torch
     from repro_torch.core import CheckpointManager
     from repro_torch.core.tree import leaves
@@ -1271,9 +1308,13 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             f"{st.assemble_s:.3f} s), {st.bytes_read} bytes read; params "
             f"bit-exact, master/m/v the int8 round trip of the saved state")
         # the params of the last save, kept on the host for the serving
-        # phase: the step below changes them
+        # phase, and the resumed state on the device for the tiers phase:
+        # the step below changes them
         saved_params = [t.detach().to("cpu", copy=True)
                         for t in leaves(tr.params)]
+        resumed = {"state": [t.detach().clone() for t in
+                             _tensors((tr2.params, tr2.opt_state))],
+                   "data_state": tr2.pipeline.state}
         # one more step from each: the loss reads only the params and the
         # data cursor, both restored exactly
         after = [t.run(1)[-1] for t in (tr, tr2)]
@@ -1292,7 +1333,7 @@ def run_train_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         f"({'bit-identical' if a == b else f'relative difference {rel}'}); "
         f"forward+backward {after[0].grad_s:.4f} s and "
         f"{after[1].grad_s:.4f} s with no save in flight")
-    return report, saved_params
+    return report, saved_params, resumed
 
 
 def _profile(fn, top: int = 6) -> dict:
@@ -1478,6 +1519,329 @@ def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
     log(f"layer 0's q/k/v {tuple(q.shape)}/{tuple(k.shape)}: kernel within "
         f"{FLASH_TOL['bfloat16']} of the plain version (max |diff| "
         f"{err:.3g})")
+    return report
+
+
+def _recording_store():
+    """An ``ObjectStoreBackend`` with no modelled latency or bandwidth
+    (every time phase 10 reports is the host's own work) that records, in
+    ``visible``, the order in which objects become visible (a ``put``, or
+    a multipart upload's completion)."""
+    from repro_torch.storage import ObjectStoreBackend
+
+    class Recording(ObjectStoreBackend):
+        def __init__(self):
+            super().__init__(latency_s=0.0, bandwidth_mbps=None)
+            self.visible = []
+
+        def put(self, key, data):
+            super().put(key, data)
+            self.visible.append(key)
+
+        def complete_multipart(self, upload_id):
+            key = self._uploads[upload_id][0]
+            super().complete_multipart(upload_id)
+            self.visible.append(key)
+
+    return Recording()
+
+
+def _timed_calls(obj, name: str, calls: list) -> None:
+    """Wrap ``obj.name`` so each call appends ``(positional arguments,
+    seconds)`` to ``calls``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            calls.append((args, time.perf_counter() - t0))
+    setattr(obj, name, timed)
+
+
+def _launch_diff(before: dict) -> dict:
+    return {k: n - before[k] for k, n in _launches().items()}
+
+
+def run_tiers_path(device: str, cfg, workdir: str, tierdir: str,
+                   steps: list, resumed: dict, next_loss: float,
+                   saved_params: list, batch: int, seq_len: int,
+                   replicas: int = TIER_REPLICAS,
+                   hosts: int = TIER_HOSTS) -> dict:
+    """Phase 10 on phase 5's committed ``steps`` in ``workdir`` (a
+    keyframe and its deltas): (a) cascade the newest step, and with it its
+    chain, to one object-store tier; (b) a fresh manager and trainer on an
+    empty root resume the newest step from that tier, bit for bit against
+    phase 5's resumed state ``resumed``, and step 7's loss equals
+    ``next_loss``; (c) ``replicas`` serving replicas on ``hosts`` empty
+    roots warm-start the newest step's params through one
+    ``FleetFabric``, each bit for bit against ``saved_params``, the
+    store's bytes out at most ``TIER_MAX_AMPLIFICATION`` times the chain,
+    one admission per root and step; (d) the port's CLI verifies host 0's
+    root and prints its fleet ledger, in a process of its own. Returns
+    the report."""
+    import threading
+
+    import torch
+    from repro_torch.core import CheckpointManager, StoragePolicy, dtypes
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.fleet import FLEET_STATS_KEY, FleetFabric
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine
+    from repro_torch.storage import CheckpointRepository, Tier
+    from repro_torch.storage.repository import catalog_key, data_key
+    from repro_torch.training.loop import Trainer
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    report = {"replicas": replicas, "hosts": hosts}
+    newest = steps[-1]
+    remote = _recording_store()
+    tier = Tier("object", remote)
+    t_phase = time.perf_counter()
+
+    # -- 10a: cascade ------------------------------------------------------
+    before = _launches()
+    repo = CheckpointRepository(workdir, [tier], device=device,
+                                auto_cascade=False)
+    try:
+        t0 = time.perf_counter()
+        repo.cascade_step(newest)
+        cascade_s = time.perf_counter() - t0
+        chain = repo.chain_steps(newest, strict=True)
+        local_bytes = {s: sum(
+            os.path.getsize(os.path.join(repo.step_dir(s), fe.name))
+            for fe in repo.manifest(s).files) for s in chain}
+        files = {s: [fe.name for fe in repo.manifest(s).files]
+                 for s in chain}
+        events = [{"step": e.step, "bytes": e.nbytes, "s": e.seconds}
+                  for e in repo.cascade_log]
+    finally:
+        repo.close()
+    if chain != steps or repo.tier_steps(tier) != steps:
+        fail(f"cascade of step {newest}: chain {chain}, tier holds "
+             f"{repo.tier_steps(tier)}; want {steps}")
+    for s in steps:
+        at = remote.visible.index(catalog_key(s))
+        late = [n for n in files[s]
+                if remote.visible.index(data_key(s, n)) > at]
+        if late:
+            fail(f"cascade: step {s}'s catalog object landed before {late}")
+    tier_bytes = sum(remote.size(k) for k in remote.list()
+                     if not k.startswith(".catalog/"))
+    chain_bytes = sum(local_bytes.values())
+    if tier_bytes != chain_bytes:
+        fail(f"cascade: the tier holds {tier_bytes} data bytes, the local "
+             f"chain {chain_bytes}")
+    report["cascade"] = {"s": cascade_s, "events": events,
+                         "chain_bytes": chain_bytes,
+                         "visible_order": remote.visible,
+                         "launches": _launch_diff(before)}
+    log(f"tiers 10a cascade of step {newest}: {cascade_s:.3f} s, "
+        + ", ".join(f"step {e['step']} {e['bytes']} bytes in "
+                    f"{e['s']:.3f} s" for e in events)
+        + f"; the tier holds {steps} ({tier_bytes} bytes), each catalog "
+        f"object after its data")
+
+    # -- 10b: resume on a fresh host ---------------------------------------
+    before = _launches()
+    policy = _mixed_policy(TIER_RESUME_CACHE_BYTES, 2).replace(
+        storage=StoragePolicy(tiers=(tier,)))
+    fresh = os.path.join(tierdir, "fresh")
+    mgr = CheckpointManager.from_policy(fresh, policy, device=device)
+    fetches, admits = [], []
+    _timed_calls(mgr.repository, "_fetch_from_tier", fetches)
+    _timed_calls(mgr.repository, "admit_fetched_step", admits)
+    try:
+        tr = Trainer(cfg, batch=batch, seq_len=seq_len, manager=mgr,
+                     seed=SEED + 3, device=device)
+        out0 = remote.stats["bytes_out"]
+        t0 = time.perf_counter()
+        step = tr.resume()
+        sync()
+        resume_s = time.perf_counter() - t0
+        fetched_bytes = remote.stats["bytes_out"] - out0
+        st = tr.last_resume_stats
+        fetched = sorted(args[1] for args, _t in fetches)
+        if step != newest or fetched != steps \
+                or mgr.repository.local_steps() != steps:
+            fail(f"fresh-host resume: step {step}, fetched {fetched}, "
+                 f"admitted {mgr.repository.local_steps()}; want "
+                 f"{newest} from the tier's {steps}")
+        if tr.pipeline.state != resumed["data_state"]:
+            fail(f"fresh-host resume: data cursor {tr.pipeline.state}, "
+                 f"phase 5's {resumed['data_state']}")
+        _assert_equal((tr.params, tr.opt_state), resumed["state"],
+                      "fresh-host resume against phase 5's resume")
+        launches_b = _launch_diff(before)
+        rec = tr.run(1)[-1]
+        tr.manager = None
+    finally:
+        mgr.close()
+    if rec.loss != next_loss:
+        fail(f"step {rec.step} after the fresh-host resume: loss "
+             f"{rec.loss!r}, phase 5's {next_loss!r}")
+    fetch_s = sum(t for _a, t in fetches)
+    admit_s = sum(t for _a, t in admits)
+    report["resume"] = {
+        "step": step, "total_s": resume_s, "fetch_s": fetch_s - admit_s,
+        "admit_s": admit_s, "verify_s": st.verify_s, "read_s": st.read_s,
+        "fold_s": st.fold_s, "assemble_s": st.assemble_s,
+        "restore_s": resume_s - fetch_s, "bytes_fetched": fetched_bytes,
+        "bytes_read": st.bytes_read, "next_loss": rec.loss,
+        "launches": launches_b}
+    for k in ("checksum_u32", "delta_xor", "dequantize_checksum_int8"):
+        if on_card and launches_b[k] == 0:
+            fail(f"kernel {k} was never launched in the fresh-host resume")
+    log(f"tiers 10b fresh-host resume of step {step}: {resume_s:.3f} s "
+        f"(fetch {fetch_s - admit_s:.3f} s, admission digests "
+        f"{admit_s:.3f} s, restore {resume_s - fetch_s:.3f} s: verify "
+        f"{st.verify_s:.3f} s, read {st.read_s:.3f} s, fold "
+        f"{st.fold_s:.3f} s), {fetched_bytes} bytes from the tier; state "
+        f"bit-exact to phase 5's resume; step {rec.step}'s loss "
+        f"{rec.loss!r}, phase 5's {next_loss!r}; launches "
+        f"{json.dumps(launches_b)}")
+    del tr, mgr, resumed["state"]
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # -- 10c: fleet warm-start ---------------------------------------------
+    avail = _mem_available_bytes()
+    log(f"tiers 10c: {avail / 2**30:.1f} GiB of host memory available")
+    if avail < TIER_MIN_AVAIL_BYTES:
+        fail(f"host memory: {avail / 2**30:.1f} GiB available, the fleet "
+             f"warm-start needs {TIER_MIN_AVAIL_BYTES / 2**30:.0f} GiB (the "
+             f"store's chain plus each replica's assembled files)")
+    before = _launches()
+    fabric = FleetFabric(device=device)
+    roots = [os.path.join(tierdir, f"host{h}") for h in range(hosts)]
+    repos = [CheckpointRepository(r, [tier], device=device,
+                                  auto_cascade=False, auto_gc=False)
+             for r in roots]
+    admitted = {r.root: [] for r in repos}
+    for r in repos:
+        _timed_calls(r, "admit_fetched_step", admitted[r.root])
+    template = map_leaves(
+        lambda spec: torch.empty(spec.shape, device=device,
+                                 dtype=dtypes.lookup(spec.dtype).torch),
+        M.param_shapes(cfg))
+    start = threading.Barrier(replicas, timeout=600)
+    results, errors = {}, []
+
+    def replica(i: int) -> None:
+        try:
+            repo = repos[i % hosts]
+            start.wait()
+            t0 = time.perf_counter()
+            params, _st = engine.load_params_for_serving(
+                repo.root, template, step=newest, repository=repo,
+                fleet=fabric)
+            sync()
+            secs = time.perf_counter() - t0
+            got = leaves(params)
+            same = len(got) == len(saved_params) and all(
+                a.device.type == device and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b)
+                for a, b in zip(got, saved_params))
+            results[i] = {"host": i % hosts, "s": secs, "bit_exact": same}
+        except BaseException as exc:  # noqa: BLE001 — failed below
+            errors.append((i, repr(exc)))
+
+    out0 = remote.stats["bytes_out"]
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=replica, args=(i,), name=f"rep{i}")
+               for i in range(replicas)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    fleet_s = time.perf_counter() - t0
+    bytes_out = remote.stats["bytes_out"] - out0
+    launches_c = _launch_diff(before)
+    if errors:
+        fail(f"fleet warm-start: replicas failed: {errors}")
+    if sorted(results) != list(range(replicas)) \
+            or not all(r["bit_exact"] for r in results.values()):
+        fail(f"fleet warm-start: params not bit-exact to step {newest}'s: "
+             f"{results}")
+    if bytes_out > TIER_MAX_AMPLIFICATION * chain_bytes:
+        fail(f"fleet warm-start: the store served {bytes_out} bytes, over "
+             f"{TIER_MAX_AMPLIFICATION} x the chain's {chain_bytes}")
+    admissions = {os.path.basename(r): sorted(args[0] for args, _t in calls)
+                  for r, calls in admitted.items()}
+    if any(a != steps for a in admissions.values()) \
+            or any(r.local_steps() != steps for r in repos):
+        fail(f"fleet warm-start: admissions {admissions}; want each of "
+             f"{steps} once a root")
+    for r in repos:  # the ledger with every replica counted
+        fabric.persist(r)
+        if not os.path.isfile(os.path.join(r.root, FLEET_STATS_KEY)):
+            fail(f"fleet warm-start: no ledger in {r.root}")
+    stats = fabric.step_stats()
+    report["fleet"] = {
+        "s": fleet_s, "store_bytes_out": bytes_out,
+        "amplification": bytes_out / chain_bytes,
+        "remote_bytes": sum(v["remote_bytes"] for v in stats.values()),
+        "peer_bytes": sum(v["peer_bytes"] for v in stats.values()),
+        "cache_hits": sum(v["cache_hits"] for v in stats.values()),
+        "cache": fabric.cache.snapshot(),
+        "steps": {str(s): v for s, v in sorted(stats.items())},
+        "replica_s": [results[i]["s"] for i in range(replicas)],
+        "admit_s": {os.path.basename(r): [t for _a, t in calls]
+                    for r, calls in admitted.items()},
+        "launches": launches_c}
+    log(f"tiers 10c fleet warm-start: {replicas} replicas on {hosts} hosts "
+        f"in {fleet_s:.3f} s (replicas "
+        + ", ".join(f"{results[i]['s']:.3f}" for i in range(replicas))
+        + f" s); the store served {bytes_out} bytes "
+        f"({bytes_out / chain_bytes:.4f} x the chain); remote "
+        f"{report['fleet']['remote_bytes']}, peer "
+        f"{report['fleet']['peer_bytes']}, cache hits "
+        f"{report['fleet']['cache_hits']}; admissions a root and step: 1; "
+        f"params bit-exact; launches {json.dumps(launches_c)}")
+    for r in repos:
+        r.close()
+    del template
+    gc.collect()
+
+    # -- 10d: the port's CLI in a process of its own -----------------------
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cli = [sys.executable, "-m", "repro_torch.storage.cli", "--root",
+           roots[0], "--device", device]
+    t0 = time.perf_counter()
+    verify = subprocess.run(cli + ["verify"], capture_output=True,
+                            text=True, env=env, cwd=ROOT, timeout=600)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = subprocess.run(cli + ["stats", "--fleet"], capture_output=True,
+                           text=True, env=env, cwd=ROOT, timeout=600)
+    stats_s = time.perf_counter() - t0
+    if verify.returncode != 0 or verify.stdout.count(
+            "checksums verified") != len(steps):
+        fail(f"storage.cli verify on {roots[0]}: exit {verify.returncode}"
+             f"\n{verify.stdout}{verify.stderr}")
+    with open(os.path.join(roots[0], FLEET_STATS_KEY)) as f:
+        want = json.load(f)["steps"][str(newest)]["replicas"]
+    line = [ln for ln in fleet.stdout.splitlines()
+            if ln.startswith(f"step {newest:>10}")]
+    if fleet.returncode != 0 or len(line) != 1 \
+            or f"replicas={want:<4}" not in line[0] or want != replicas:
+        fail(f"storage.cli stats --fleet on {roots[0]}: exit "
+             f"{fleet.returncode}, want replicas={replicas} for step "
+             f"{newest}\n{fleet.stdout}{fleet.stderr}")
+    report["cli"] = {"verify_s": verify_s, "stats_s": stats_s,
+                     "verify": verify.stdout.splitlines(),
+                     "stats_fleet": fleet.stdout.splitlines()}
+    log(f"tiers 10d: storage.cli verify exit 0 in {verify_s:.3f} s "
+        f"({len(steps)} steps, checksums on {device}); stats --fleet in "
+        f"{stats_s:.3f} s: {line[0].strip()}")
+    report["s"] = time.perf_counter() - t_phase
     return report
 
 
@@ -2088,14 +2452,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phases 5 and 6: training (slice 2), then serving from its
-    # checkpoints (slice 3) before they are removed ------------------------
+    # -- phases 5, 6 and 10: training (slice 2), then serving from its
+    # checkpoints (slice 3) and the tiers and fleet on them (slice 12)
+    # before they are removed ---------------------------------------------
     path_launches = {"checkpoint": launches}
+    tierdir = os.path.join(ROOT, "build", "chip_smoke_tiers")
+    shutil.rmtree(tierdir, ignore_errors=True)
     try:
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         t0 = time.perf_counter()
-        report, saved_params = run_train_path(
+        report, saved_params, resumed = run_train_path(
             "cuda", cfg, workdir, HOST_CACHE_BYTES, flush_threads=8,
             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
         launches = path_launches["training"] = _launches()
@@ -2129,10 +2496,14 @@ def main() -> None:
             f"{report['restore']['verify_s']:.3f})")
         log("train report " + json.dumps(report))
         full_resume_bytes = report["restore"]["bytes_read"]
+        next_loss = report["next_step"]["loss"]
+        saved_steps = [r["step"] for r in report["saves"]]
         del report
         gc.collect()
         torch.cuda.empty_cache()
 
+        # phase 6's peak device memory holds the resumed state's copies
+        # (5.4 GB) that phase 10 checks against
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         t0 = time.perf_counter()
@@ -2142,18 +2513,44 @@ def main() -> None:
                                 n_new=SERVE_NEW)
         launches = path_launches["serving"] = report["launches"]
         serve_s = time.perf_counter() - t0
+        for k in ("checksum_u32", "delta_xor", "flash_attention"):
+            if launches[k] == 0:
+                fail(f"kernel {k} was never launched on the serving path")
+        log(f"serving path: {serve_s:.1f} s; launches "
+            f"{json.dumps(launches)}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} bytes")
+        log(f"serving path digest: checksum_u32 {launches['checksum_u32']} "
+            f"launches; params restore verify_s "
+            f"{report['restore']['verify_s']:.3f}")
+        log("serve report " + json.dumps(report))
+        del report
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- phase 10: tiers and the fleet fabric (slice 12) -------------
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        t0 = time.perf_counter()
+        report = run_tiers_path("cuda", cfg, workdir, tierdir, saved_steps,
+                                resumed, next_loss, saved_params,
+                                batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+        launches = path_launches["tiers"] = _launches()
+        tiers_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    for k in ("checksum_u32", "delta_xor", "flash_attention"):
+        shutil.rmtree(tierdir, ignore_errors=True)
+    for k in ("checksum_u32", "delta_xor", "dequantize_checksum_int8"):
         if launches[k] == 0:
-            fail(f"kernel {k} was never launched on the serving path")
-    log(f"serving path: {serve_s:.1f} s; launches {json.dumps(launches)}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    log(f"serving path digest: checksum_u32 {launches['checksum_u32']} "
-        f"launches; params restore verify_s "
-        f"{report['restore']['verify_s']:.3f}")
-    log("serve report " + json.dumps(report))
-    del report
+            fail(f"kernel {k} was never launched on the tiers path")
+    report["launches"] = launches
+    log(f"tiers path: {tiers_s:.1f} s (10a {report['cascade']['s']:.1f} s, "
+        f"10b {report['resume']['total_s']:.1f} s, 10c "
+        f"{report['fleet']['s']:.1f} s, 10d "
+        f"{report['cli']['verify_s'] + report['cli']['stats_s']:.1f} s); "
+        f"launches {json.dumps(launches)}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    log("tiers report " + json.dumps(report))
+    del report, resumed, saved_params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2210,7 +2607,7 @@ def main() -> None:
     run_dist_phase(cfg, path_launches)
 
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of phase 9")
+        f"end of every phase (1-10; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],

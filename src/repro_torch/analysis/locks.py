@@ -8,9 +8,8 @@ the lock and assigns it a **rank**: a thread may only acquire a lock whose
 rank is *strictly greater* than every lock it already holds, so the
 acquisition order over the whole system is a DAG by construction.
 
-The declared hierarchy of the port's save path, outermost (lowest rank)
-to innermost (the fleet locks of the JAX package join when that module is
-ported, at the same ranks):
+The declared hierarchy, outermost (lowest rank) to innermost (the JAX
+package's ranks):
 
 ======  =====================  ==========================================
 rank    lock                   owner
@@ -22,6 +21,10 @@ rank    lock                   owner
 20      barrier.cond           ``dist.barrier.CollectiveBarrier._cond``
 30      manager.delta_tracker  ``core.checkpoint._DeltaChainTracker._lock``
 40      repository.state       ``storage.repository.CheckpointRepository._lock``
+42      fleet.fabric           ``fleet.fabric.FleetFabric._lock``
+44      fleet.cache            ``fleet.cache.FleetCache._lock``
+46      fleet.exchange         ``fleet.peer.PeerExchange._lock``
+48      fleet.session          ``fleet.peer._SwapSession._cond``
 50      engine.save_progress   per-save closure lock in ``DataMovementEngine.submit``
 52      engine.file_state      ``core.engine._FileState.lock``
 54      snapshot.cache         ``core.state_provider.SnapshotCache._lock``

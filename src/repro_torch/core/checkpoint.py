@@ -19,7 +19,11 @@ two consistency points of the lazy protocol (paper §V-A2, Fig 6(c,d)):
 Persisted steps live in a :class:`~repro_torch.storage.CheckpointRepository`:
 once the engine reports a step fully persisted, a background committer
 writes the step's catalog manifest (file list, sizes, checksums)
-atomically *last*, so ``latest_step()`` only ever sees complete steps.
+atomically *last* — so ``latest_step()`` only ever sees complete steps —
+queues the step's cascade to the policy's remote ``tiers``, and applies
+its ``retention``. A restore resolves every chain member tier by tier
+(re-hydrating a step the local tier lacks), and ``step=None`` takes the
+newest step on any tier. ``close()`` drains the cascade.
 
 ``device`` is where the checkpoint kernels run (delta encode, chain fold,
 checksums) and is passed down to the engine, the codecs, the
@@ -38,8 +42,8 @@ visible only once every rank and node voted. Restore is elastic: an
 N-rank step restores onto any mesh and any world (plain tensors or
 :class:`~repro_torch.sharding.ShardedTensor` templates).
 
-Not yet ported: remote tiers and retention, and the legacy flat-kwarg
-constructor.
+Not ported: the JAX package's deprecated flat-kwarg constructor
+(``CheckpointManager(directory, mode=..., tiers=...)``); compose a policy.
 """
 
 from __future__ import annotations
@@ -228,10 +232,12 @@ def restore_from_repository(
 
     Step selection and delta-chain replay follow
     :meth:`CheckpointManager.restore` semantics exactly (this *is* that
-    path): ``step=None`` walks committed steps newest→oldest past damaged
-    ones, and an explicit step surfaces its own error. A delta step's
-    whole chain is re-verified against its manifest checksums (on the
-    repository's device) before the XOR fold. Returns ``(tree, stats,
+    path): ``step=None`` walks committed steps on every tier newest→oldest
+    past damaged ones, an explicit step surfaces its own error, and a chain
+    member missing from the local tier is re-hydrated from the first
+    remote tier holding a verified copy. A delta step's whole chain is
+    re-verified against its manifest checksums (on the repository's
+    device) before the XOR fold. Returns ``(tree, stats,
     restored_step)``.
     """
     sub_template = _subset_template(template, domains)
@@ -297,9 +303,6 @@ class CheckpointManager:
             raise ValueError(
                 f"differential checkpointing requires a DataMovementEngine "
                 f"mode (datastates / datastates-old), got {ep.mode!r}")
-        if sp.tiers or sp.retention is not None:
-            raise NotImplementedError(
-                "remote storage tiers and retention are not yet ported")
         self.policy = policy
         self.registry = policy.providers
         self.delta_policy = delta
@@ -313,7 +316,8 @@ class CheckpointManager:
         self.mode = ep.mode
         os.makedirs(directory, exist_ok=True)
         self.repository = CheckpointRepository(
-            directory, device=self.device, checksum=sp.manifest_checksums)
+            directory, remote_tiers=sp.tiers, device=self.device,
+            retention=sp.retention, checksum=sp.manifest_checksums)
         coordinator = dp.coordinator
         if coordinator is None and dp.world is not None and dp.world > 1:
             from repro_torch.dist.coordinator import Coordinator
@@ -364,7 +368,8 @@ class CheckpointManager:
         self.last_restored_step: Optional[int] = None
         self._inflight: List[CheckpointFuture] = []
         # Committer lane: waits for engine persist, then commits the step's
-        # manifest to the catalog off the training path.
+        # manifest to the catalog (and kicks cascade + retention GC) off
+        # the training path.
         self._commit_q: "queue.Queue[Optional[CheckpointFuture]]" = \
             queue.Queue()
         self._commit_events: Dict[int, threading.Event] = {}
@@ -624,7 +629,9 @@ class CheckpointManager:
         committed steps are tried newest→oldest (``fallback`` defaults on),
         so a checkpoint damaged *after* commit is skipped in favor of the
         previous complete one; an explicit ``step`` is restored exactly
-        (``fallback`` defaults off) and surfaces its own error.
+        (``fallback`` defaults off) and surfaces its own error. Either way
+        a step evicted from the local tier is re-hydrated from the policy's
+        remote tiers (tier-by-tier fallback).
 
         The heavy lifting is done by the parallel
         :class:`~repro_torch.core.restore.RestoreEngine`: the step directory

@@ -25,11 +25,13 @@ written).
 
 from __future__ import annotations
 
+import functools
 import os
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Set,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -172,8 +174,10 @@ class _FileState:
         self.failed = False  # producer died: discard instead of finalize
         # partial object payload assembly (chunked log appends)
         self.object_parts: Dict[str, List[bytes]] = {}
-        # release tracking for tensor providers
-        self.tensor_last_seen: Dict[str, TensorStateProvider] = {}
+        # release tracking for device-resident tensor providers: chunk
+        # writes in flight, and the tensors whose last chunk is queued
+        self.tensor_pending: Dict[str, int] = {}
+        self.tensor_all_queued: Set[str] = set()
 
     def op_started(self) -> None:
         with self.lock:
@@ -186,6 +190,20 @@ class _FileState:
         if done:
             self.on_done()
         return done
+
+    def chunk_queued(self, name: str, last: bool) -> None:
+        with self.lock:
+            self.tensor_pending[name] = self.tensor_pending.get(name, 0) + 1
+            if last:
+                self.tensor_all_queued.add(name)
+
+    def chunk_written(self, name: str) -> bool:
+        """Count one written chunk of tensor ``name``; True once its last
+        chunk is queued and no chunk of it is in flight."""
+        with self.lock:
+            self.tensor_pending[name] -= 1
+            return self.tensor_pending[name] == 0 \
+                and name in self.tensor_all_queued
 
     def producer_finished(self) -> None:
         with self.lock:
@@ -497,10 +515,15 @@ class DataMovementEngine:
                 else:
                     state.op_started()
                     on_written = None
-                    if chunk.last:
-                        p = providers.get(chunk.name)
-                        if p is not None and p.device_resident:
-                            on_written = p.release  # evict from pinned cache
+                    p = providers.get(chunk.name)
+                    if p is not None and p.device_resident:
+                        # evict from the pinned cache once every chunk of
+                        # the tensor is written: the flush lanes finish
+                        # chunks out of order, and a raw chunk is a view
+                        # of the reservation the next save reuses
+                        state.chunk_queued(chunk.name, chunk.last)
+                        on_written = functools.partial(
+                            self._chunk_written, state, p)
                     self._flush_q.put(_WriteOp(writer, chunk, state,
                                                self.throttle_mbps,
                                                on_written))
@@ -516,6 +539,12 @@ class DataMovementEngine:
             state.producer_finished()
             raise
         state.producer_finished()
+
+    @staticmethod
+    def _chunk_written(state: "_FileState",
+                       provider: TensorStateProvider) -> None:
+        if state.chunk_written(provider.name):
+            provider.release()
 
     @staticmethod
     def _discard_partial(writer: FileWriter) -> None:

@@ -4,22 +4,23 @@ One frozen config object per subsystem, composed into one
 :class:`CheckpointPolicy`:
 
 * :class:`EnginePolicy`  — which data-movement engine and its lane tuning;
-* :class:`StoragePolicy` — where committed steps live and integrity
-  checksums;
+* :class:`StoragePolicy` — where committed steps live (tiers), how many
+  survive (retention), and integrity checksums;
 * :class:`DistPolicy`    — the multi-rank writer world;
 * :class:`DeltaPolicy`   — the differential-checkpointing chain schedule;
 * a :class:`~repro_torch.core.registry.StateProviderRegistry` routing each
   state leaf to its provider.
 
-Fields and defaults are the JAX package's. What the port does not run
-yet is refused by the manager, not ignored: remote ``tiers`` and
-``retention`` raise "not yet ported".
+Fields and defaults are the JAX package's. Build a manager with
+``CheckpointManager.from_policy(directory, policy, device=...)``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional, Tuple
+
+from repro_torch.storage.repository import RetentionPolicy, Tier
 
 from .codecs import DELTA_CODEC
 from .registry import StateProviderRegistry
@@ -45,12 +46,13 @@ class EnginePolicy:
 
 @dataclasses.dataclass(frozen=True)
 class StoragePolicy:
-    """Residence of committed steps (repository layer). ``tiers`` and
-    ``retention`` keep the JAX package's fields; only the local tier
-    without retention is ported."""
+    """Tiered residence + retention of committed steps (repository layer):
+    committed steps cascade to ``tiers`` (fast -> durable) in the
+    background, and ``retention`` decides which steps the local tier
+    keeps."""
 
-    tiers: Tuple[Any, ...] = ()
-    retention: Optional[Any] = None
+    tiers: Tuple[Tier, ...] = ()
+    retention: Optional[RetentionPolicy] = None
     manifest_checksums: bool = True
 
     def __post_init__(self):

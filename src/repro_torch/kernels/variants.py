@@ -1102,9 +1102,10 @@ torch.cuda.reset_peak_memory_stats()
 cs._zero_launches()
 t0 = time.perf_counter()
 try:
-    report, _ = cs.run_train_path("cuda", cfg, workdir, cs.HOST_CACHE_BYTES,
-                                  8, batch=cs.TRAIN_BATCH,
-                                  seq_len=cs.TRAIN_SEQ)
+    # the report first: a checkout's run_train_path returns two or three
+    report = cs.run_train_path("cuda", cfg, workdir, cs.HOST_CACHE_BYTES,
+                               8, batch=cs.TRAIN_BATCH,
+                               seq_len=cs.TRAIN_SEQ)[0]
 finally:
     shutil.rmtree(workdir, ignore_errors=True)
 wall = time.perf_counter() - t0

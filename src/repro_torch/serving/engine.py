@@ -23,6 +23,7 @@ from repro_torch.core import dtypes
 from repro_torch.core.checkpoint import restore_from_repository
 from repro_torch.core.restore import RestoreEngine, RestoreStats
 from repro_torch.core.tree import leaves
+from repro_torch.fleet import FleetFabric
 from repro_torch.models import model as M
 from repro_torch.storage.repository import CheckpointRepository
 
@@ -55,25 +56,40 @@ def load_params_for_serving(directory: str, params_template: Any,
     engine's format restores; ``throttle_mbps`` emulates per-stream
     storage bandwidth on the reads (:class:`RestoreEngine`).
 
-    ``repository`` may be the port's :class:`CheckpointRepository` of
-    ``directory`` (local tier). Remote tiers (``repro``'s tiered
-    repository) and the fleet warm-start fabric (``fleet=``) are not yet
-    ported and raise, as does any other repository object.
+    Step resolution goes through the checkpoint repository: only
+    *committed* steps are eligible, and a step evicted from the local tier
+    is re-hydrated from the first remote tier holding a complete copy.
+    Pass ``repository`` (the port's :class:`CheckpointRepository`,
+    configured with the training job's remote tiers) to serve from remote
+    storage; otherwise a local-tier view of ``directory`` is used.
+
+    ``fleet`` attaches a :class:`~repro_torch.fleet.FleetFabric` to the
+    repository for the fleet warm-start path: concurrent replicas loading
+    the same step share one remote read per object through the fabric's
+    read-through cache and peer slice exchange, and replicas already
+    holding the step's chain prefix pull only the delta chain. The fabric
+    stays attached (it is shared, idempotent state); pass
+    ``repository.attach_fleet(None)`` to detach. A repository or fabric
+    of another package (the JAX one) is refused.
 
     Returns ``(params, stats)``; ``stats.bytes_read`` shows the sub-tree
     effect.
     """
-    if fleet is not None:
-        raise NotImplementedError(
-            "fleet= (the fleet warm-start fabric) is not yet ported")
     device = _device_of(params_template)
     repo = repository
     if repo is None:
-        repo = CheckpointRepository(directory, device=device)
+        repo = CheckpointRepository(directory, device=device,
+                                    auto_cascade=False, auto_gc=False)
     elif not isinstance(repo, CheckpointRepository):
-        raise NotImplementedError(
-            f"repository={type(repo).__name__}: only the port's local-tier "
-            f"CheckpointRepository is ported; remote tiers are not")
+        raise TypeError(
+            f"repository={type(repo).__name__}: pass the port's "
+            f"repro_torch CheckpointRepository")
+    if fleet is not None:
+        if not isinstance(fleet, FleetFabric):
+            raise TypeError(
+                f"fleet={type(fleet).__name__}: pass the port's "
+                f"repro_torch FleetFabric")
+        repo.attach_fleet(fleet)
     engine = RestoreEngine(device, threads=threads,
                            throttle_mbps=throttle_mbps)
     tree, stats, _step = restore_from_repository(

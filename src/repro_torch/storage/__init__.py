@@ -1,19 +1,26 @@
-"""Checkpoint residence: the catalog-backed repository (local tier), its
-manifests and the streaming file checksum."""
+"""Checkpoint residence: the tiered, catalog-backed repository, its
+backends (local POSIX, in-memory peer, simulated object store), manifests,
+the streaming file checksum and the admin CLI (``python -m
+repro_torch.storage.cli``)."""
 
-from .backend import BackendError, LocalBackend, StorageBackend
+from .backend import (BackendError, LocalBackend, MemoryBackend,
+                      ObjectStoreBackend, StorageBackend)
 from .file_format import StreamingFileChecksum
 from .manifest import (CHECKSUM_ALGO, CHECKSUM_CHUNK_BYTES, FileEntry,
                        ManifestError, NodeManifest, RankManifest,
                        StepManifest, file_checksum, read_node_manifests,
                        read_rank_manifests)
-from .repository import CheckpointRepository, VerifyResult, committed_steps
+from .repository import (CascadeEvent, CheckpointRepository, GCReport,
+                         RetentionPolicy, Tier, VerifyResult,
+                         committed_steps, orphan_steps)
 
 __all__ = [
-    "BackendError", "LocalBackend", "StorageBackend",
+    "BackendError", "LocalBackend", "MemoryBackend", "ObjectStoreBackend",
+    "StorageBackend",
     "StreamingFileChecksum",
     "CHECKSUM_ALGO", "CHECKSUM_CHUNK_BYTES", "FileEntry", "ManifestError",
     "NodeManifest", "RankManifest", "StepManifest", "file_checksum",
     "read_node_manifests", "read_rank_manifests",
-    "CheckpointRepository", "VerifyResult", "committed_steps",
+    "CascadeEvent", "CheckpointRepository", "GCReport", "RetentionPolicy",
+    "Tier", "VerifyResult", "committed_steps", "orphan_steps",
 ]

@@ -11,8 +11,10 @@ made by the JAX package from seeded numpy gradients. Under
   against the **saved input states**, never against one package's
   restored output.
 * The port's own two-phase loop resumes bit-exactly.
-* Import discipline, the explicit device, and the parts not yet ported
-  (remote tiers; refused, never silently ignored). Multi-rank saves are
+* Import discipline, the explicit device, and configurations the port
+  refuses (refused, never silently ignored). Remote tiers and retention
+  are held against the JAX package in ``tests/test_torch_storage.py``.
+  Multi-rank saves are
   held against the JAX package in ``tests/test_torch_dist.py``. The baseline engines are held against the JAX
   package in ``tests/test_torch_baselines.py``.
 """
@@ -301,6 +303,57 @@ def test_dtype_converting_restore_is_refused(tmp_path):
         mgr.close()
 
 
+def test_reservation_outlives_every_chunk_write(tmp_path, monkeypatch):
+    """A tensor's pinned-cache reservation is released only after every
+    one of its chunks is written: the flush lanes finish chunks out of
+    order, and a raw chunk is a view of the reservation the next save
+    reuses. The first chunk's write is held until the other seven are
+    written; the release must still come after it."""
+    import threading
+
+    from repro_torch.core import layout, state_provider
+
+    n_chunks = 8
+    done, released = [], []
+    lock = threading.Lock()
+    others = threading.Condition(lock)
+    first = [True]
+    orig_write = layout.FileWriter.write_at
+    orig_release = state_provider.TensorStateProvider.release
+
+    def write_at(self, offset, data):
+        with lock:
+            hold, first[0] = first[0], False
+            if hold:
+                assert others.wait_for(lambda: len(done) == n_chunks - 1,
+                                       timeout=30)
+        orig_write(self, offset, data)
+        with lock:
+            done.append(offset)
+            others.notify_all()
+
+    def release(self):
+        with lock:
+            released.append(len(done))
+        orig_release(self)
+
+    monkeypatch.setattr(layout.FileWriter, "write_at", write_at)
+    monkeypatch.setattr(state_provider.TensorStateProvider, "release",
+                        release)
+    mgr = T.CheckpointManager.from_policy(str(tmp_path), T.CheckpointPolicy(
+        engine=T.EnginePolicy(host_cache_bytes=1 << 20, flush_threads=2,
+                              chunk_bytes=1024)), device="cpu")
+    try:
+        w = torch.arange(256 * n_chunks, dtype=torch.float32)
+        mgr.save(1, {"w": w}, blocking=True)
+        assert not mgr.commit_errors
+        assert len(done) == n_chunks and released[0] == n_chunks
+        out = mgr.restore({"w": torch.zeros_like(w)}, step=1)
+        assert torch.equal(out["w"], w)
+    finally:
+        mgr.close()
+
+
 def test_zero_size_host_leaf_fails_like_repro(tmp_path):
     """A zero-size host array fails the save in both packages alike (a
     known fault of the reference, kept rather than fixed in one place)."""
@@ -335,11 +388,12 @@ def test_cuda_device_without_a_card_raises(tmp_path):
     pytest.param(T.CheckpointPolicy(engine=T.EnginePolicy(mode="sync"),
                                     dist=T.DistPolicy(world=2)),
                  "DataMovementEngine mode", id="policy0-multi-rank"),
+    # remote tiers are ported (tests/test_torch_storage.py); a tier that
+    # is not a Tier object is refused before any save
     (T.CheckpointPolicy(storage=T.StoragePolicy(tiers=("peer",))), "tiers"),
 ])
 def test_unported_configurations_are_refused(tmp_path, policy, match):
-    exc = ValueError if match == "DataMovementEngine mode" \
-        else NotImplementedError
+    exc = ValueError if match == "DataMovementEngine mode" else TypeError
     with pytest.raises(exc, match=match):
         T.CheckpointManager.from_policy(str(tmp_path), policy, device="cpu")
 

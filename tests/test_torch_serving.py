@@ -263,10 +263,13 @@ def test_load_params_for_serving_restores_model_domain(tmp_path, writer):
 
 
 def test_serving_refuses_unported_sources(tmp_path):
+    """The JAX package's repository and anything that is not the port's
+    fleet fabric are refused (tiered repositories and ``fleet=`` are
+    served in ``tests/test_torch_fleet.py``)."""
     _j, cfg = _configs("bfloat16")
     template = TM.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="fleet"):
+    with pytest.raises(TypeError, match="fleet"):
         TE.load_params_for_serving(str(tmp_path), template, fleet=object())
-    with pytest.raises(NotImplementedError, match="remote tiers"):
+    with pytest.raises(TypeError, match="repro_torch CheckpointRepository"):
         TE.load_params_for_serving(str(tmp_path), template,
                                    repository=JRepository(str(tmp_path)))
