@@ -27,7 +27,11 @@ Phases, any failure exits non-zero:
    attention within 2e-5 (fp32) and 2e-2 (bf16) for the ``full``,
    ``window`` (200, and 32: narrower than a tile) and ``chunked`` (192:
    across tiles) masks at S 1, 127, 128, 129, 257 and 2,100, and 300
-   queries over 200 keys, with 32/8 and 4/4 heads — then timed with CUDA
+   queries over 200 keys, with 32/8 and 4/4 heads, at hd 64 and 128; its
+   row stats within 1e-3 and ``layers._Flash``'s gradients (relative L2
+   error, 1e-4 fp32, 2e-2 bf16) against the plain version's, also at
+   phase 11b's shape; each timed attention shape held against the plain
+   version first (hd 64 at phase 6's, hd 128 at phase 11a's) — then timed with CUDA
    events beside its plain version, its bound (flash attention also as
    TFLOP/s and its share of the bound), and a library yardstick where one
    PyTorch call computes the
@@ -157,12 +161,25 @@ Phases, any failure exits non-zero:
    step 6. One ``tiers report`` JSON line: each cascade event's bytes and
    seconds, the resume's fetch, admission, verify and restore seconds,
    remote, peer and cache bytes, each replica's seconds, launches.
-11. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+11. The attention-family model zoo (slice 13), under
+   ``build/chip_smoke_zoo/``. (a) gemma3-27b at full width cut to 6
+   layers (5 ``window`` + 1 ``full``): saved once, restored by
+   ``load_params_for_serving`` bit for bit, ``greedy_generate`` of 2 x
+   4,096 tokens for 32 twice (the same tokens; six hd-128 launches a
+   prefill by mask, none in decode; each decode step writes ring slot
+   ``pos % 1024`` alone), and one more prefill whose every layer's real
+   q, k, v go through the kernel and the plain version. (b) musicgen-
+   medium at full width cut to 4 layers trained at 2 x 4,096 tokens
+   through the kernel with row stats and ``layers._Flash``: 3 steps
+   saving at 2, a bit-exact resume, step 3's loss bit-equal. One ``zoo
+   report`` JSON line.
+12. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -216,6 +233,15 @@ TIER_RESUME_CACHE_BYTES = 256 << 20
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
+#: the checkpoint phase and its path through the thread ranks (9a) run
+#: at this depth; the training, serving, engines, process-rank and tiers
+#: phases at 2 layers (phase 10 reads phase 5's chain)
+CKPT_LAYERS = 1
+#: the zoo phase: gemma3-27b served at one repetition of its pattern
+#: (5 window + 1 full), musicgen-medium trained at 4 layers on batches of
+#: 2 x 4,096 tokens (past the 2,048 of the direct attention path)
+ZOO_SERVE_LAYERS, ZOO_TRAIN_LAYERS = 6, 4
+ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ = 2, 4096
 #: flash attention at odd sizes: (queries, keys) — one short of, on and
 #: past the bf16 kernel's 128-row tiles, fewer keys than queries — (H, KV)
 #: heads, and masks: a window narrower than a tile, chunks across tiles
@@ -225,6 +251,9 @@ FLASH_HEADS = ((32, 8), (4, 4))
 FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("window", 32, 0),
                ("chunked", 0, 192))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the head widths the attention kernel is built for, and gemma3's window
+FLASH_HDS = (64, 128)
+ZOO_WINDOW = 1024
 #: the reduction kernels at the reducer's shapes: llama3.2-1b's embedding
 #: (128,256 x 2,048 fp32) for the downcast, the same leaf as rows of 256
 #: for the int8 pair, and delta_xor's fold piece for the two u32/f32 ones
@@ -279,8 +308,10 @@ def _kernels():
 
 
 def _zero_launches() -> None:
+    from repro_torch.kernels import flash_attention
     for k in _kernels().values():
         k.launches = 0
+    flash_attention.LAUNCHES_BY.clear()
 
 
 def _launches() -> dict:
@@ -757,7 +788,7 @@ def _flash_err(got, want, tol: float) -> float:
     lies past ``tol + tol * |want|`` (``assert_allclose`` with ``atol =
     rtol = tol``, as ``tests/test_kernels.py`` holds the Pallas kernel)."""
     import torch
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     diff = (g - w).abs()
     if not bool(torch.isfinite(g).all()) \
             or bool((diff > tol + tol * w.abs()).any()):
@@ -765,40 +796,150 @@ def _flash_err(got, want, tol: float) -> float:
     return float(diff.max())
 
 
-def flash_flop(B: int, S: int, H: int, hd: int) -> int:
-    """FLOP of the two products of causal ``full`` attention: ``4 * hd``
-    per visible (query, key) pair, ``S (S + 1) / 2`` pairs per (b, h)."""
-    return 4 * hd * B * H * S * (S + 1) // 2
+def flash_pairs(S: int, window: int = 0) -> int:
+    """Visible (query, key) pairs of causal attention over S positions,
+    within ``window`` keys when it is set."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def flash_flop(B: int, S: int, H: int, hd: int, window: int = 0) -> int:
+    """FLOP of the two products of causal attention (``full``, or
+    ``window``): ``4 * hd`` per visible (query, key) pair
+    (:func:`flash_pairs`) per (b, h)."""
+    return 4 * hd * B * H * flash_pairs(S, window)
 
 
 def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
-                   itemsize: int) -> tuple:
-    """(bound ms, bound_by) of causal ``full`` attention: its FLOP
+                   itemsize: int, window: int = 0) -> tuple:
+    """(bound ms, bound_by) of causal attention: its FLOP
     (:func:`flash_flop`) against the bf16 tensor-core peak; q, k, v read
     once and the output written once against the memory rate."""
-    flop = flash_flop(B, S, H, hd)
+    flop = flash_flop(B, S, H, hd, window)
     nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
     t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_flash_kernel(gen) -> dict:
-    """Flash attention against its plain version at odd sizes (every mask,
-    both dtypes, 32/8 and 4/4 heads) and at the serving shape (B 2,
-    S 4,096, 32/8 heads, hd 64, bf16, ``full``); then timed there beside
-    the plain version, the bound, and PyTorch's
-    ``scaled_dot_product_attention`` (causal, GQA) as the library time."""
+def _check_flash_stats(gen) -> float:
+    """The kernel's row stats against the plain version's, at hd 64 and
+    128, both dtypes, every mask, at (S, T) 300 and 2,100 with 32/8 heads,
+    and at 11b's shape (B 2, S 4,096, 24/24 heads, hd 64, bf16,
+    ``full``); the output equal to the call without stats. Returns the
+    largest ``|m|`` error."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    B, hd = SERVE_BATCH, 64
-    worst = 0.0
-    cases = [(B, S, T, H, KV, dt, kind) for S, T in FLASH_SEQS
-             for H, KV in FLASH_HEADS for dt in ("float32", "bfloat16")
-             for kind in FLASH_KINDS]
-    cases.append((B, SERVE_PROMPT, SERVE_PROMPT, 32, 8, "bfloat16",
+    cases = [(2, S, 32, 8, hd, dt, mask) for hd in FLASH_HDS
+             for dt in ("float32", "bfloat16") for S in (300, 2100)
+             for mask in FLASH_KINDS]
+    cases.append((ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ, 24, 24, 64, "bfloat16",
                   FLASH_KINDS[0]))
-    for B_, S, T, H, KV, dt, (kind, window, chunk) in cases:
+    worst = 0.0
+    for B, S, H, KV, hd, dt, (kind, window, chunk) in cases:
+        tdt = getattr(torch, dt)
+        q, k, v = (torch.randn(B, S, h, hd, device="cuda",
+                               generator=gen).to(tdt) for h in (H, KV, KV))
+        out, m, l = fa.flash_attention_cuda(
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            return_stats=True)
+        _o, wm, wl = fa.flash_attention_plain(
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            return_stats=True)
+        plain_out = fa.flash_attention_cuda(
+            q, k, v, kind=kind, window=window, chunk=chunk)
+        torch.cuda.synchronize()
+        dm, dl = (m - wm).abs(), (l - wl).abs()
+        if not torch.equal(out, plain_out) \
+                or bool((dm > 1e-3 + 1e-4 * wm.abs()).any()) \
+                or bool((dl > 1e-3 + 1e-3 * wl.abs()).any()):
+            fail(f"flash_attention's row stats disagree with the plain "
+                 f"version's at B {B} S {S} heads {H}/{KV} hd {hd} {dt} "
+                 f"{kind}: max |dm| {float(dm.max())!r}, max |dl| "
+                 f"{float(dl.max())!r}")
+        worst = max(worst, float(dm.max()))
+    return worst
+
+
+#: ``layers._Flash``'s gradients against autograd through the plain
+#: version: relative L2 error a gradient (``tests/test_torch_flash_
+#: backward.py``'s card test holds them so); the output is held
+#: elementwise at :data:`FLASH_TOL`
+GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _rel_l2(got, want) -> float:
+    import torch
+    g, w = got.detach().float(), want.detach().float()
+    if not bool(torch.isfinite(g).all()):
+        return math.inf
+    return float((g - w).norm() / w.norm())
+
+
+def _check_flash_backward(gen) -> float:
+    """``layers._Flash`` (the kernel's forward with stats, the ported
+    backward) against autograd through the plain version: the output
+    within :data:`FLASH_TOL` and dq, dk, dv within :data:`GRAD_REL_L2`,
+    at S 2,100 with ``kv_block`` 1,024, 32/8 heads, ``full`` and
+    ``window`` 200, hd 64 and 128, both dtypes, and at 11b's shape (B 2,
+    S 4,096, 24/24 heads, hd 64, bf16, ``full``). Returns the largest
+    relative L2 error of a gradient."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    cases = [(1, 2100, 32, 8, hd, dt, kind, window) for hd in FLASH_HDS
+             for dt in ("float32", "bfloat16")
+             for kind, window in (("full", 0), ("window", 200))]
+    cases.append((ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ, 24, 24, 64, "bfloat16",
+                  "full", 0))
+    worst = 0.0
+    for B, S, H, KV, hd, dt, kind, window in cases:
+        tdt = getattr(torch, dt)
+        ins = [torch.randn(B, S, h, hd, device="cuda", generator=gen).to(tdt)
+               for h in (H, KV, KV)]
+        dout = torch.randn(B, S, H * hd, device="cuda", generator=gen) \
+            .to(tdt)
+        q, k, v = (t.clone().requires_grad_(True) for t in ins)
+        out = layers._Flash.apply(q, k, v, kind, window, 0, 1024)
+        grads = torch.autograd.grad(out, (q, k, v), dout)
+        pq, pk, pv = (t.clone().requires_grad_(True) for t in ins)
+        want = fa.flash_attention_plain(pq, pk, pv, kind=kind, window=window,
+                                        kv_block=1024)
+        wgrads = torch.autograd.grad(want, (pq, pk, pv), dout)
+        torch.cuda.synchronize()
+        out_err = _flash_err(out, want, FLASH_TOL[dt])
+        errs = [_rel_l2(g, w) for g, w in zip(grads, wgrads)]
+        if not math.isfinite(out_err) \
+                or not all(e < GRAD_REL_L2[dt] for e in errs):
+            fail(f"layers._Flash disagrees with autograd through the plain "
+                 f"version at B {B} S {S} heads {H}/{KV} hd {hd} {dt} "
+                 f"{kind}: out within {FLASH_TOL[dt]}: "
+                 f"{math.isfinite(out_err)}; relative L2 error of dq, dk, "
+                 f"dv {errs} (limit {GRAD_REL_L2[dt]})")
+        worst = max(worst, *errs)
+        del ins, dout, q, k, v, out, grads, pq, pk, pv, want, wgrads
+    return worst
+
+
+def check_flash_kernel(gen) -> dict:
+    """Flash attention against its plain version at odd sizes (every mask,
+    both dtypes, 32/8 and 4/4 heads, hd 64 and 128); its row stats and
+    ``layers._Flash``'s gradients against the plain version's; then, each
+    held against the plain version first, timed at the serving shape (B
+    2, S 4,096, 32/8 heads, hd 64, bf16, ``full``) beside the plain
+    version, the bound, and PyTorch's ``scaled_dot_product_attention``
+    (causal, GQA) as the library time, and at hd 128 at phase 11a's shape
+    (B 2, S 4,096, 32/16 heads; ``full`` and ``window`` 1,024) beside SDPA
+    (``is_causal``, and the window's boolean mask)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    B = SERVE_BATCH
+    worst = 0.0
+    cases = [(B, S, T, H, KV, hd, dt, kind) for hd in FLASH_HDS
+             for S, T in FLASH_SEQS for H, KV in FLASH_HEADS
+             for dt in ("float32", "bfloat16") for kind in FLASH_KINDS]
+    for B_, S, T, H, KV, hd, dt, (kind, window, chunk) in cases:
         tdt = getattr(torch, dt)
         q = torch.randn(B_, S, H, hd, device="cuda", generator=gen).to(tdt)
         k = torch.randn(B_, T, KV, hd, device="cuda", generator=gen).to(tdt)
@@ -812,44 +953,103 @@ def check_flash_kernel(gen) -> dict:
         if got.shape != want.shape or got.dtype != q.dtype \
                 or not math.isfinite(err):
             fail(f"flash_attention disagrees with its plain version at "
-                 f"B {B_} S {S} T {T} heads {H}/{KV} {dt} {kind} (window "
-                 f"{window}, chunk {chunk}): max |diff| "
+                 f"B {B_} S {S} T {T} heads {H}/{KV} hd {hd} {dt} {kind} "
+                 f"(window {window}, chunk {chunk}): max |diff| "
                  f"{float((got.float() - want.float()).abs().max())!r}")
         worst = max(worst, err)
-    S, H, KV = SERVE_PROMPT, 32, 8
-    q = torch.randn(B, S, H, hd, device="cuda", generator=gen) \
-        .to(torch.bfloat16)
-    k = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
-        .to(torch.bfloat16)
-    v = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
-        .to(torch.bfloat16)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = _time_ms(lambda: fa.flash_attention_cuda(q, k, v), 50)
-    plain_ms = _time_ms(lambda: fa.flash_attention_plain(q, k, v), 5)
-    library_ms = _time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 50)
-    bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2)
-    tflops = flash_flop(B, S, H, hd) / (ms * 1e-3) / 1e12
+    stats_err = _check_flash_stats(gen)
+    grad_err = _check_flash_backward(gen)
+
+    def timed(S, H, KV, hd, window):
+        """Times at (B, S, H/KV, hd, bf16, causal or ``window``), after
+        the kernel's output there is held against the plain version's."""
+        q = torch.randn(B, S, H, hd, device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        k = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        v = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
+            .to(torch.bfloat16)
+        kind = "window" if window else "full"
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            mask = fa.allowed(torch.arange(S, device="cuda"),
+                              torch.arange(S, device="cuda"), kind, window, 0)
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        else:
+            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+        kern = lambda: fa.flash_attention_cuda(q, k, v, kind=kind,  # noqa: E731
+                                               window=window)
+        plain = lambda: fa.flash_attention_plain(q, k, v, kind=kind,  # noqa: E731
+                                                 window=window)
+        err = _flash_err(kern(), plain(), FLASH_TOL["bfloat16"])
+        if not math.isfinite(err):
+            fail(f"flash_attention disagrees with its plain version at B "
+                 f"{B} S {S} heads {H}/{KV} hd {hd} bf16 {kind} (window "
+                 f"{window})")
+        ms, library_ms = _time_turns(kern, lib, 50)
+        plain_ms = _time_ms(plain, 5)
+        bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2, window)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "tflops": flash_flop(B, S, H, hd, window) / (ms * 1e-3)
+                / 1e12, "bound_share": bound_ms / ms, "max_abs_err": err}
+
+    S = SERVE_PROMPT
+    row = timed(S, 32, 8, 64, 0)
+    worst = max(worst, row.pop("max_abs_err"))
+    log(f"kernel flash_attention at B {B} S {S} heads 32/8 hd 64 bf16 "
+        f"causal: {row['ms']:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+        f"{row['bound_share']:.3f} of the bound (plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}, scaled_dot_product_attention "
+        f"{row['library_ms']:.4f} ms)")
+    for window in (0, ZOO_WINDOW):
+        r = timed(S, 32, 16, 128, window)
+        worst = max(worst, r["max_abs_err"])
+        tag = f"hd128_window{window}" if window else "hd128"
+        row.update({f"{tag}_{k}": r[k] for k in r})
+        log(f"kernel flash_attention at B {B} S {S} heads 32/16 hd 128 bf16 "
+            f"{'window ' + str(window) if window else 'causal'}: within "
+            f"{FLASH_TOL['bfloat16']} of the plain version (max |diff| "
+            f"{r['max_abs_err']:.3g}); {r['ms']:.4f} ms, "
+            f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+            f"bound (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms)")
     log(f"kernel flash_attention: within {FLASH_TOL} of its plain version "
         f"at (S, T) {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, "
-        f"masks {FLASH_KINDS}, fp32 and bf16 (max |diff| {worst:.3g}); at "
-        f"B {B} S {S} heads {H}/{KV} hd {hd} bf16 causal: {ms:.4f} ms, "
-        f"{tflops:.1f} TFLOP/s, {bound_ms / ms:.3f} of the bound (plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms)")
-    return {"flash_attention": {
-        "name": "flash_attention", "shape": [B, S, H, KV, hd],
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "tflops": tflops,
-        "bound_share": bound_ms / ms}}
+        f"hd {FLASH_HDS}, masks {FLASH_KINDS}, fp32 and bf16, and at B {B} "
+        f"S {S} 32/16 hd 128 causal and window {ZOO_WINDOW} (max |diff| "
+        f"{worst:.3g}); row stats within 1e-3, also at B {ZOO_TRAIN_BATCH} "
+        f"S {ZOO_TRAIN_SEQ} 24/24 hd 64 (max |dm| {stats_err:.3g}); "
+        f"layers._Flash's dq, dk, dv within a relative L2 error of "
+        f"{GRAD_REL_L2} of autograd through the plain version, also at "
+        f"that shape (largest {grad_err:.3g})")
+    row.update(name="flash_attention", shape=[B, S, 32, 8, 64],
+               max_abs_err=worst, stats_max_abs_err=stats_err,
+               grad_max_rel_l2=grad_err)
+    return {"flash_attention": row}
 
 
 #: SASS opcodes counted in the attention kernels: wgmma (HGMMA), TMA loads
 #: and stores (UTMALDG, UTMASTG), mbarrier operations (SYNCS), mma.sync
 #: (HMMA) and the SFU's exponentials
 FLASH_SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA", "MUFU.EX2")
+
+
+def _flash_kernel_name(text: str):
+    """``flash_fwd_bf16<128>``-style name of the attention kernel whose
+    mangled name is in ``text`` (a template on the head width), or
+    ``None``."""
+    import re
+    m = re.search(r"flash_fwd_([a-z0-9]+?)(?:ILi(\d+)E)?(?:E|v|'|\s|$)",
+                  text)
+    if not m:
+        return None
+    return f"flash_fwd_{m.group(1)}" + (f"<{m.group(2)}>" if m.group(2)
+                                        else "")
 
 
 def describe_flash_build(lib) -> None:
@@ -867,7 +1067,7 @@ def describe_flash_build(lib) -> None:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\S*flash_fwd_\w+?)(?:E|')", line)
         if m:
-            name = re.search(r"flash_fwd_[a-z0-9]+", m.group(1)).group(0)
+            name = _flash_kernel_name(line)
             continue
         if name and re.search(r"registers|spill|warning|C75", line):
             log(f"ptxas {name}: {line.strip()}")
@@ -881,16 +1081,16 @@ def describe_flash_build(lib) -> None:
     sass = subprocess.run([cuobjdump, "-sass", str(lib)],
                           capture_output=True, text=True, check=True).stdout
     for body in sass.split("Function : ")[1:]:
-        kernel = re.search(r"flash_fwd_[a-z0-9]+", body.split("\n", 1)[0])
+        kernel = _flash_kernel_name(body.split("\n", 1)[0])
         if not kernel:
             continue
         counts = {op: len(re.findall(r"\b" + re.escape(op) + r"[ .]", body))
                   for op in FLASH_SASS_OPS}
-        log(f"sass {kernel.group(0)}: {json.dumps(counts)}")
-        if kernel.group(0) == "flash_fwd_bf16" and (
+        log(f"sass {kernel}: {json.dumps(counts)}")
+        if kernel.startswith("flash_fwd_bf16") and (
                 not counts["HGMMA"] or not counts["UTMALDG"]
                 or counts["HMMA"]):
-            fail(f"flash_fwd_bf16 is not the wgmma/TMA kernel: {counts}")
+            fail(f"{kernel} is not the wgmma/TMA kernel: {counts}")
 
 
 # ----------------------------------------------------------- main path
@@ -1503,7 +1703,7 @@ def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
     # layer 0's real q/k/v through the kernel and its plain version
     with torch.no_grad():
         p0 = map_leaves(lambda t: t[0], params["groups"][0][0])
-        x = M._embed_inputs(cfg, params, tokens)
+        x, _mem = M._embed_inputs(cfg, params, {"tokens": tokens})
         h = layers.apply_norm(p0["ln1"], x)
         q, k, v = layers.project_qkv(
             cfg, p0["attn"], h, layers.positions_for(batch, prompt_len,
@@ -2273,9 +2473,308 @@ def run_reduction_path(device: str, cfg, workdir: str,
     return report
 
 
-def run_dist_phase(cfg, path_launches: dict) -> None:
+# ------------------------------------------------------------ model zoo
+def _zoo_cfg(name: str, n_layers: int, pattern: tuple):
+    """``name``'s config at full width, cut to ``n_layers`` layers of
+    repetitions of ``pattern``."""
+    from repro_torch.configs import get_config
+    return get_config(name, n_layers=n_layers,
+                      layer_groups=((pattern, n_layers // len(pattern)),))
+
+
+def _n_params(cfg) -> int:
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import model as M
+    return sum(math.prod(s.shape) for s in leaves(M.param_shapes(cfg)))
+
+
+def _flash_by_kind(before) -> dict:
+    """The attention kernel's launches by ``hd/kind/stats`` since
+    ``before`` (a copy of ``flash_attention.LAUNCHES_BY``)."""
+    from repro_torch.kernels import flash_attention as fa
+    return {f"{hd}/{kind}/{'stats' if st else 'out'}": n - before[(hd, kind,
+                                                                  st)]
+            for (hd, kind, st), n in fa.LAUNCHES_BY.items()
+            if n != before[(hd, kind, st)]}
+
+
+def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
+                       prompt_len: int, n_new: int) -> dict:
+    """11a: ``cfg`` (gemma3-27b, window and full blocks) served from a
+    checkpoint. Params made on ``device`` from a seeded generator are
+    saved once as ``{"model": params}`` (datastates engine, raw policy)
+    and restored by ``load_params_for_serving``, bit for bit; then
+    ``greedy_generate`` runs ``batch`` seeded prompts of ``prompt_len``
+    tokens for ``n_new`` tokens twice (the same tokens), each prefill
+    launching the kernel once a layer with the layer's mask at
+    ``cfg.hd`` and no decode step launching it; then the steps again by
+    hand, where every decode step must write slot ``pos % window`` of
+    each window layer's ring and nothing else of it."""
+    import torch
+    from repro_torch.core import (CheckpointManager, CheckpointPolicy,
+                                  EnginePolicy)
+    from repro_torch.core import dtypes
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    params = M.init_params(cfg, gen, device)
+    saved = [t.clone() for t in leaves(params)]
+    policy = CheckpointPolicy(engine=EnginePolicy(
+        host_cache_bytes=HOST_CACHE_BYTES, flush_threads=8))
+    mgr = CheckpointManager.from_policy(workdir, policy, device=device)
+    try:
+        t0 = time.perf_counter()
+        fut = mgr.save(1, {"model": params})
+        mgr.wait_for_persist()
+        mgr.wait_for_commit()
+        save_s = time.perf_counter() - t0
+        if mgr.commit_errors:
+            fail(f"zoo serving: commit errors {mgr.commit_errors}")
+    finally:
+        mgr.close()
+    del params
+    gc.collect()
+    template = map_leaves(
+        lambda spec: torch.empty(spec.shape, device=device,
+                                 dtype=dtypes.lookup(spec.dtype).torch),
+        M.param_shapes(cfg))
+    t0 = time.perf_counter()
+    params, st = engine.load_params_for_serving(workdir, template, step=1)
+    sync()
+    restore_s = time.perf_counter() - t0
+    del template
+    _assert_equal(params, saved, "zoo serving: restore")
+    del saved
+    gc.collect()
+
+    window_layers = sum(count for pattern, count in cfg.layer_groups
+                        for b in pattern if b == "window")
+    full_layers = cfg.n_layers - window_layers
+    want = {f"{cfg.hd}/window/out": window_layers,
+            f"{cfg.hd}/full/out": full_layers} if on_card else {}
+    tokens = torch.randint(
+        0, cfg.vocab, (batch, prompt_len),
+        generator=torch.Generator().manual_seed(SEED + 12),
+        dtype=torch.int32).to(device)
+    prompt = {"tokens": tokens}
+    runs = []
+    for _ in range(2):
+        before = collections.Counter(fa.LAUNCHES_BY)
+        t0 = time.perf_counter()
+        out = engine.greedy_generate(cfg, params, prompt, n_new)
+        sync()
+        runs.append((out, time.perf_counter() - t0, _flash_by_kind(before)))
+    (out, _s, by_kind), (out2, _s2, by_kind2) = runs
+    if out.shape != (batch, n_new) or bool(((out < 0)
+                                            | (out >= cfg.vocab)).any()):
+        fail(f"zoo serving: greedy_generate gave {tuple(out.shape)} with "
+             f"tokens outside the vocabulary")
+    if not torch.equal(out, out2):
+        fail("zoo serving: greedy_generate gave other tokens the second "
+             "time")
+    if by_kind != want or by_kind2 != want:
+        fail(f"zoo serving: a greedy_generate launched the attention "
+             f"kernel {by_kind} / {by_kind2}, not {want} (once a layer in "
+             f"the prefill, by the layer's mask; none in decode)")
+
+    # the steps by hand: prefill, then each decode step writes one ring
+    # slot of every window layer
+    cfg_n = dataclasses.replace(cfg, max_decode_len=n_new)
+    prefill = engine.make_prefill_step(cfg_n)
+    decode = engine.make_decode_step(cfg_n)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompt)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    rings = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
+             for b, c in zip(pattern, group) if b == "window"]
+    toks, decode_s, wraps = [], 0.0, 0
+    for i in range(n_new):
+        pos = prompt_len + i
+        toks.append(torch.argmax(logits[:, -1].float(), -1)
+                    .to(torch.int32)[:, None])
+        before = [(c["k"].clone(), c["v"].clone()) for c in rings]
+        t0 = time.perf_counter()
+        logits, caches = decode(params, toks[-1], caches, pos)
+        sync()
+        decode_s += time.perf_counter() - t0
+        slot = pos % cfg.window
+        wraps += slot < pos
+        for c, (k0, v0) in zip(rings, before):
+            for new, old in ((c["k"], k0), (c["v"], v0)):
+                changed = (new != old).flatten(3).any(-1).any(0).any(0)
+                if changed.nonzero().flatten().tolist() != [slot]:
+                    fail(f"zoo serving: decode at position {pos} changed "
+                         f"ring slots {changed.nonzero().flatten().tolist()}"
+                         f", not [{slot}]")
+    if not torch.equal(torch.cat(toks, 1), out):
+        fail("zoo serving: the prefill and decode steps gave other tokens "
+             "than greedy_generate")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    del logits, caches
+    layer_errs = _zoo_layer_flash_errs(cfg, prefill, params, prompt) \
+        if on_card else []
+    report = {
+        "config": cfg.name, "layers": cfg.n_layers,
+        "pattern": [list(p) for p, _n in cfg.layer_groups],
+        "window": cfg.window, "hd": cfg.hd, "params": _n_params(cfg),
+        "bytes": st.bytes_read, "save_s": save_s,
+        "save_persist_s": fut.stats.persist_latency_s,
+        "restore_s": restore_s, "restore_verify_s": st.verify_s,
+        "restore_read_s": st.read_s, "prefill_s": prefill_s,
+        "decode_s_per_token": decode_s / n_new,
+        "generate_s": [r[1] for r in runs], "flash_by_kind": by_kind,
+        "ring_wraps": wraps, "layer_max_abs_err": layer_errs,
+        "tokens": out.cpu().tolist()}
+    if on_card:
+        report["max_memory_allocated"] = peak
+    log(f"zoo serving ({cfg.name}, {cfg.n_layers} layers, "
+        f"{report['params']} params): save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s ({st.bytes_read} bytes, bit-exact), prefill of "
+        f"{batch} x {prompt_len} {prefill_s:.3f} s, decode "
+        f"{report['decode_s_per_token'] * 1e3:.2f} ms a token; the same "
+        f"{n_new} tokens twice; kernel launches a prefill {by_kind}; "
+        f"{wraps} decode steps past the ring's first wrap, each writing "
+        f"slot pos % {cfg.window} alone; every layer's real q/k/v through "
+        f"the kernel within {FLASH_TOL['bfloat16']} of the plain version "
+        f"(max |diff| by layer {layer_errs})")
+    return report
+
+
+def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
+    """One more prefill with every launch of the attention kernel
+    recorded: each layer's real q, k, v (and mask) through the plain
+    version too, within ``FLASH_TOL["bfloat16"]``; fails unless the
+    prefill launched the kernel once a layer, with the layer's mask.
+    Returns each layer's largest difference."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    kinds = [b for pattern, count in cfg.layer_groups
+             for _ in range(count) for b in pattern]
+    seen = []
+    launch = fa.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        got = launch(q, k, v, **kw)
+        seen.append((q, k, v, kw, got))
+        return got
+    fa.flash_attention_cuda = recording
+    try:
+        with torch.no_grad():
+            logits, caches = prefill(params, prompt)
+    finally:
+        fa.flash_attention_cuda = launch
+    del logits, caches
+    masks = [(kw["kind"], kw["window"]) for *_qkv, kw, _g in seen]
+    if masks != [(b, cfg.window) for b in kinds]:
+        fail(f"zoo serving: the prefill launched the attention kernel with "
+             f"(mask, window) {masks}, not the layers' {kinds} at window "
+             f"{cfg.window}")
+    errs = []
+    for i, (q, k, v, kw, got) in enumerate(seen):
+        with torch.no_grad():
+            want = fa.flash_attention_plain(
+                q, k, v, kv_block=cfg.attn_kv_block, **kw)
+        torch.cuda.synchronize()
+        err = _flash_err(got, want, FLASH_TOL["bfloat16"])
+        if not math.isfinite(err):
+            fail(f"zoo serving: flash_attention disagrees with its plain "
+                 f"version on layer {i}'s q/k/v {tuple(q.shape)}/"
+                 f"{tuple(k.shape)} ({kw}): max |diff| "
+                 f"{float((got.float() - want.float()).abs().max())!r}")
+        errs.append(err)
+        del want
+    return errs
+
+
+def run_zoo_train_path(device: str, cfg, workdir: str, batch: int,
+                       seq_len: int) -> dict:
+    """11b: ``cfg`` (musicgen-medium: codebooks, memory, ``xattn``,
+    layernorm, biases, ``gelu_mlp``) trained past 2,048 tokens through
+    the kernel's forward with row stats and the ported backward:
+    phase 8's check of one engine (``datastates``, raw policy: 3 steps
+    saving at 2, a fresh manager verifies and a fresh trainer resumes
+    step 2 bit for bit, step 3's loss bit-equal), with every step
+    launching the kernel once a layer with stats and nothing else."""
+    from repro_torch.kernels import flash_attention as fa
+    before = collections.Counter(fa.LAUNCHES_BY)
+    t0 = time.perf_counter()
+    row, _copies = _engine_mode("datastates", device, cfg, workdir,
+                                HOST_CACHE_BYTES, 8, batch, seq_len, None)
+    by_kind = _flash_by_kind(before)
+    steps = ENGINE_STEPS + 1     # three, then one after the resume
+    want = {f"{cfg.hd}/full/stats": steps * cfg.n_layers} \
+        if device == "cuda" else {}
+    if by_kind != want:
+        fail(f"zoo training: the attention kernel ran {by_kind} over "
+             f"{steps} steps, not {want} (once a layer and step, with "
+             f"stats, under grad)")
+    if not math.isfinite(row["loss"]):
+        fail(f"zoo training: loss {row['loss']!r}")
+    row.update(config=cfg.name, layers=cfg.n_layers, params=_n_params(cfg),
+               flash_by_kind=by_kind, s=time.perf_counter() - t0)
+    log(f"zoo training ({cfg.name}, {cfg.n_layers} layers, "
+        f"{row['params']} params, {batch} x {seq_len} tokens): "
+        f"{row['s']:.1f} s; step 3's loss {row['loss']!r} before and after "
+        f"the resume; kernel launches {by_kind}")
+    return row
+
+
+def run_zoo_phase(path_launches: dict) -> dict:
+    """Phase 11 on the card: 11a and 11b, each with the launch counts
+    zeroed just before and read into ``path_launches`` just after."""
+    import torch
+    report = {}
+    zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    for key, run in (
+            ("serving", lambda: run_zoo_serve_path(
+                "cuda", _zoo_cfg("gemma3-27b", ZOO_SERVE_LAYERS,
+                                 ("window",) * 5 + ("full",)),
+                os.path.join(zoo_dir, "serve"), SERVE_BATCH, SERVE_PROMPT,
+                SERVE_NEW)),
+            ("training", lambda: run_zoo_train_path(
+                "cuda", _zoo_cfg("musicgen-medium", ZOO_TRAIN_LAYERS,
+                                 ("xattn",)),
+                os.path.join(zoo_dir, "train"), ZOO_TRAIN_BATCH,
+                ZOO_TRAIN_SEQ))):
+        shutil.rmtree(zoo_dir, ignore_errors=True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            t0 = time.perf_counter()
+            report[key] = run()
+            report[key]["launches"] = path_launches[f"zoo_{key}"] = \
+                _launches()
+            report[key]["phase_s"] = time.perf_counter() - t0
+            report[key]["max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated()
+        finally:
+            shutil.rmtree(zoo_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, k in (("serving", "checksum_u32"), ("serving", "flash_attention"),
+                   ("training", "checksum_u32"),
+                   ("training", "flash_attention")):
+        if report[key]["launches"][k] == 0:
+            fail(f"kernel {k} was never launched on the zoo {key} path")
+    log(f"zoo path: 11a {report['serving']['phase_s']:.1f} s, 11b "
+        f"{report['training']['phase_s']:.1f} s")
+    return report
+
+
+def run_dist_phase(cfg, thread_cfg, path_launches: dict) -> None:
     """Phase 9 on the card: 9a (:func:`run_main_path` through four thread
-    ranks) and 9b (:func:`run_dist_process_path`), each with the launch
+    ranks, at ``thread_cfg``, phase 4's config) and 9b
+    (:func:`run_dist_process_path`, at ``cfg``), each with the launch
     counts zeroed just before and read into ``path_launches`` just after;
     fails unless each ran its kernels."""
     import torch
@@ -2287,7 +2786,8 @@ def run_dist_phase(cfg, path_launches: dict) -> None:
         _zero_launches()
         t0 = time.perf_counter()
         report = run_main_path(
-            "cuda", cfg, dist_dir, HOST_CACHE_BYTES, flush_threads=8,
+            "cuda", thread_cfg, dist_dir, HOST_CACHE_BYTES,
+            flush_threads=8,
             dist=DistPolicy(world=DIST_WORLD, node_size=DIST_NODE_SIZE))
         launches = path_launches["dist_thread"] = _launches()
         thread_s = time.perf_counter() - t0
@@ -2413,6 +2913,9 @@ def main() -> None:
              f"cache plus restore buffers)")
     cfg = get_config("llama3.2-1b", n_layers=2,
                      layer_groups=uniform_groups("full", 2))
+    # phases 4 and 9a check the save and restore's structure, not depth
+    ckpt_cfg = get_config("llama3.2-1b", n_layers=CKPT_LAYERS,
+                          layer_groups=uniform_groups("full", CKPT_LAYERS))
     workdir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
 
     # -- phase 4: the checkpoint path of slice 1 --------------------------
@@ -2421,7 +2924,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         _zero_launches()
         t0 = time.perf_counter()
-        report = run_main_path("cuda", cfg, workdir, HOST_CACHE_BYTES,
+        report = run_main_path("cuda", ckpt_cfg, workdir, HOST_CACHE_BYTES,
                                flush_threads=8)
         launches = _launches()
         main_s = time.perf_counter() - t0
@@ -2604,10 +3107,13 @@ def main() -> None:
                     "launches": launches}))
 
     # -- phase 9: multi-rank saves (slice 11) ------------------------------
-    run_dist_phase(cfg, path_launches)
+    run_dist_phase(cfg, ckpt_cfg, path_launches)
+
+    # -- phase 11: the attention-family model zoo (slice 13) --------------
+    log("zoo report " + json.dumps(run_zoo_phase(path_launches)))
 
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of every phase (1-10; phase 10 runs after 6)")
+        f"end of every phase (1-11; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
@@ -2621,7 +3127,9 @@ def main() -> None:
                              "chunk_device_ms", "chunk_plain_ms",
                              "chunk_bound_ms", "piece64_ms",
                              "piece64_device_ms", "piece64_plain_ms",
-                             "piece64_bound_ms") if x in r}}
+                             "piece64_bound_ms", "stats_max_abs_err",
+                             "grad_max_rel_l2") if x in r},
+        **{x: v for x, v in r.items() if x.startswith("hd128")}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

@@ -1,6 +1,12 @@
 """Model configurations the port carries (its own copies of the JAX
-package's numbers)."""
+package's numbers). Importing this package registers them all."""
 
-from .base import ModelConfig, get_config, smoke_variant, uniform_groups
+from .base import (LayerGroups, ModelConfig, get_config, list_configs,
+                   pattern_groups, register, smoke_variant, uniform_groups)
 
-__all__ = ["ModelConfig", "get_config", "smoke_variant", "uniform_groups"]
+# import every arch module so the registry is populated
+from . import (command_r_35b, gemma3_27b, llama2_7b, llama3_2_1b,  # noqa
+               musicgen_medium, starcoder2_7b)
+
+__all__ = ["LayerGroups", "ModelConfig", "get_config", "list_configs",
+           "pattern_groups", "register", "smoke_variant", "uniform_groups"]

@@ -1,15 +1,22 @@
-"""The dense-transformer subset of ``repro/configs/base.py``'s
+"""The attention-family subset of ``repro/configs/base.py``'s
 ``ModelConfig``: the fields that decide the parameter tree (and so the
-checkpointed state) and those the dense forward reads (``rope_theta``,
-``tie_embeddings``, ``norm``, ``act``, ``dtype``), the two the
-serving path reads (``attn_kv_block``, ``max_decode_len``) and the one
-the partition rules read (``sharding_mode``); none of the remat or
-analysis flags."""
+checkpointed state) and those the forward reads (``rope_theta``,
+``window``, ``chunk``, ``use_bias``, ``tie_embeddings``, ``norm``,
+``act``, the modality stubs ``n_prefix_embeds``, ``n_memory_embeds`` and
+``n_codebooks``, ``dtype``), the two the serving path reads
+(``attn_kv_block``, ``max_decode_len``) and the one the partition rules
+read (``sharding_mode``); none of the MoE, recurrent, remat or analysis
+fields. Block types the port runs: ``full``, ``window`` (sliding-window
+causal), ``chunked`` (block-local causal) and ``xattn`` (full
+self-attention plus cross-attention to a conditioning memory); the
+others of the reference (``*_moe``, ``rec``, ``rwkv``) and the prefix-LM
+(``n_prefix_embeds``) are refused where the model is built."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
+import pkgutil
 from typing import Dict, Tuple
 
 LayerGroups = Tuple[Tuple[Tuple[str, ...], int], ...]
@@ -28,10 +35,15 @@ class ModelConfig:
     layer_groups: LayerGroups
     head_dim: int = 0                # 0 -> d_model // n_heads
     rope_theta: float = 10_000.0
+    window: int = 0                  # sliding-window size for "window" blocks
+    chunk: int = 0                   # chunk size for "chunked" blocks
     use_bias: bool = False
     tie_embeddings: bool = False
     norm: str = "rmsnorm"            # rmsnorm | layernorm
-    act: str = "silu"                # silu (gated) | gelu (gated) | gelu_mlp
+    act: str = "silu"                # silu | gelu | relu_sq (gated) | gelu_mlp
+    n_prefix_embeds: int = 0         # vlm: patch embeds prepended (refused)
+    n_memory_embeds: int = 0         # audio: cross-attention memory length
+    n_codebooks: int = 0             # audio: parallel codebook streams
     source: str = ""
     dtype: str = "bfloat16"
     sharding_mode: str = "2d"        # "2d" (beyond-paper) | "tp_zero1" (paper)
@@ -56,6 +68,18 @@ def uniform_groups(block: str, n_layers: int) -> LayerGroups:
     return (((block,), n_layers),)
 
 
+def pattern_groups(pattern: Tuple[str, ...], n_layers: int) -> LayerGroups:
+    """Repeat ``pattern``; a remainder prefix of the pattern becomes a
+    second group (gemma3: 62 = 10 x (5 window + 1 full) + 2 window)."""
+    reps, rem = divmod(n_layers, len(pattern))
+    groups: LayerGroups = ()
+    if reps:
+        groups += ((tuple(pattern), reps),)
+    if rem:
+        groups += ((tuple(pattern[:rem]), 1),)
+    return groups
+
+
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in _REGISTRY:
         mod = name.replace("-", "_").replace(".", "_")
@@ -64,10 +88,20 @@ def get_config(name: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+def list_configs() -> Tuple[str, ...]:
+    """The names of every config module of this package, sorted."""
+    from repro_torch import configs as pkg
+    for m in pkgutil.iter_modules(pkg.__path__):
+        if m.name != "base":
+            importlib.import_module(f"repro_torch.configs.{m.name}")
+    return tuple(sorted(_REGISTRY))
+
+
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
-    """``repro.configs.base.smoke_variant`` for dense configs: 2 layers,
-    d_model <= 256, 4 heads (2 KV heads when grouped), d_ff <= 512,
-    vocab <= 512."""
+    """``repro.configs.base.smoke_variant``: 2 layers keeping the first
+    two block types of the config, d_model <= 256, 4 heads (2 KV heads
+    when grouped), d_ff <= 512, vocab <= 512, window and chunk <= 16,
+    at most 4 prefix and memory embeddings; codebooks as they are."""
     heads = 4 if cfg.n_heads else 0
     kv = min(cfg.n_kv_heads, heads) or (1 if heads else 0)
     if heads and cfg.n_kv_heads > 1:
@@ -83,4 +117,8 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         cfg, name=cfg.name + "-smoke", n_layers=len(pattern),
         d_model=min(cfg.d_model, 256), n_heads=heads, n_kv_heads=kv,
         head_dim=0, d_ff=min(cfg.d_ff, 512), vocab=min(cfg.vocab, 512),
-        layer_groups=((pattern, 1),))
+        layer_groups=((pattern, 1),),
+        window=min(cfg.window, 16) if cfg.window else 0,
+        chunk=min(cfg.chunk, 16) if cfg.chunk else 0,
+        n_prefix_embeds=min(cfg.n_prefix_embeds, 4),
+        n_memory_embeds=min(cfg.n_memory_embeds, 4))

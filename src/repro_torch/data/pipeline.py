@@ -45,17 +45,29 @@ class SyntheticTokenPipeline:
 
     # -- iteration -----------------------------------------------------------
     def next_batch(self) -> Dict[str, np.ndarray]:
-        """``{"tokens": int32 (batch, seq_len)}`` for the current step,
-        then advance the cursor."""
+        """``{"tokens": int32 (batch, seq_len[, n_codebooks])}``, with
+        ``"memory_embeds"`` fp32 ``(batch, n_memory_embeds, d_model)``
+        where the config has a memory, for the current step; then advance
+        the cursor. Drawn in the reference's order from one generator (the
+        prefix-LM's ``prefix_embeds``, drawn between them there, is not
+        ported: ``models.model`` refuses such configs)."""
+        cfg = self.cfg
         rng = np.random.default_rng(
             np.random.SeedSequence([self._state.seed, self._state.step]))
         self._state.step += 1
-        return {"tokens": rng.integers(0, self.cfg.vocab,
-                                       size=(self.batch, self.seq_len),
-                                       dtype=np.int32)}
+        shape = (self.batch, self.seq_len)
+        if cfg.n_codebooks:
+            shape = shape + (cfg.n_codebooks,)
+        batch = {"tokens": rng.integers(0, cfg.vocab, size=shape,
+                                        dtype=np.int32)}
+        if cfg.n_memory_embeds:
+            batch["memory_embeds"] = rng.standard_normal(
+                (self.batch, cfg.n_memory_embeds, cfg.d_model),
+                dtype=np.float32)
+        return batch
 
     def next_batch_on(self, device: torch.device) -> Dict[str, torch.Tensor]:
-        """:meth:`next_batch` as tensors on ``device``."""
+        """:meth:`next_batch` as tensors on ``device``, every leaf."""
         return {k: torch.from_numpy(v).to(device)
                 for k, v in self.next_batch().items()}
 

@@ -34,32 +34,53 @@
 // (4 * hd per visible query-key pair) against 84 MB of input and output (q,
 // k, v read once, the output written once), so it is bound by the tensor
 // cores' 989 TFLOP/s (0.139 ms), not by the 3.35 TB/s of device memory
-// (0.025 ms). At hd 64 the softmax's exponentials cost the SM as many
-// cycles as the two products (16 a cycle on the SFUs against 1,024
-// multiply-adds a cycle on the tensor cores), so the design keeps several
-// warpgroups in flight, each one's softmax beside the others' products.
+// (0.025 ms); at hd 128 (gemma3-27b: B 2, S 4,096, 32/16 heads) 2.75e11
+// FLOP (0.278 ms) against 134 MB (0.040 ms). At hd 64 the softmax's
+// exponentials cost the SM as many cycles as the two products (16 a cycle
+// on the SFUs against 1,024 multiply-adds a cycle on the tensor cores), so
+// the design keeps several warpgroups in flight, each one's softmax beside
+// the others' products; at hd 128 the products take twice as long per
+// exponential and two warpgroups suffice.
+//
+// Head widths: both bodies are templates on hd, built for 64 and 128 (the
+// TPU kernel takes any width; every attention config of the repo has hd 64
+// or 128). A row of hd 128 bf16 values is 256 bytes, two 128-byte swizzle
+// atoms: every tile is kept as hd / 64 column halves, each a plain
+// 128-byte-swizzled tile of 64 columns, loaded and stored by its own TMA box;
+// the wgmma descriptors step from one half to the next along hd.
+//
+// Row stats: when the caller passes m and l (fp32, (B, S, H)), each row's
+// running max of the scaled logits and its sum of exponentials relative to
+// it are written, as the reference's _flash_fwd_impl returns them for the
+// backward (repro/models/layers.py:151-185); a row that sees no key keeps
+// m = -1e30 and l = 0. Without them nothing more is stored.
 //
 // Two bodies, one per input type:
 // - bf16 (the serving path), a warp-specialised Hopper pipeline. A CTA of
-//   four warpgroups owns 192 query rows of one (b, h); CTAs are issued
-//   heads first, then batch, then the query tiles longest first:
+//   one producer and C consumer warpgroups (C = 3 at hd 64, 2 at hd 128)
+//   owns 64 C query rows of one (b, h); CTAs are issued heads first, then
+//   batch, then the query tiles longest first:
 //   * warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
 //     and one thread issues every TMA load, Q once, then each 128-key K
-//     and V tile into a two-stage shared-memory ring. TMA writes the tiles
-//     in the 128-byte swizzle (a 64-wide bf16 row is exactly 128 bytes) and
+//     and V tile into a shared-memory ring of three stages at hd 64, two at
+//     hd 128. TMA writes the tiles
+//     in the 128-byte swizzle (64 bf16 columns are exactly 128 bytes; a
+//     wider row is loaded as 64-column halves, one box each) and
 //     zero-fills rows past S and T, so ragged tails need no staging code.
 //     full[stage] mbarriers carry the transaction bytes; the producer waits
 //     on empty[stage] before it refills a stage.
-//   * warpgroups 1-3 are the consumers, 64 query rows each (setmaxnreg
-//     .inc). S = Q K^T is four wgmma m64n128k16 (A and B K-major from the
-//     swizzled tiles), scaled in fp32 afterwards with log2(e) folded in for
+//   * the other warpgroups are the consumers, 64 query rows each
+//     (setmaxnreg.inc: 160 registers at hd 64, 240 at hd 128). S = Q K^T
+//     is hd / 16 wgmma m64n128k16 (A and B K-major from the swizzled
+//     tiles), scaled in fp32 afterwards with log2(e) folded in for
 //     ex2.approx; the online softmax stays in registers (row max and sum
 //     over a quad of lanes). The S accumulator, packed to bf16, is wgmma's
-//     A fragment layout, so O += P V is eight wgmma m64n64k16 with P from
-//     registers and V read MN-major from its tile (the transpose bit, no
-//     copy). Q K^T of tile i is issued together with P V of tile i - 1, so
-//     that product runs while the warpgroup takes tile i's softmax. Each
-//     consumer warp arrives on empty[stage] once its P V has retired.
+//     A fragment layout, so O += P V is eight wgmma m64n64k16 a 64-column
+//     half of O, with P from registers and V read MN-major from its tile
+//     (the transpose bit, no copy). Q K^T of tile i is issued together with
+//     P V of tile i - 1, so that product runs while the warpgroup takes
+//     tile i's softmax. Each consumer warp arrives on empty[stage] once its
+//     P V has retired.
 //   * Masks cost only where they bite: each row's visible keys are the
 //     interval [lo(i), min(i, T - 1)] (lo is 0, i - window + 1 or the
 //     chunk's start), so a tile that every row of a warpgroup sees whole
@@ -68,8 +89,8 @@
 //     positions.
 //   * Epilogue: acc times the IEEE reciprocal of l + 1e-30, as bf16, into
 //     the warpgroup's own rows of the Q tile (free once its last product
-//     retired), in the same swizzle, then one TMA store, which also clips
-//     rows past S.
+//     retired), in the same swizzle, then one TMA store a half, which also
+//     clips rows past S; then the row stats, where asked for.
 // - fp32: plain fp32 FMA on the CUDA cores (the tensor cores' TF32 keeps
 //   too few digits for the 2e-5 tolerance), q pre-scaled in fp32 as the
 //   reference does, 4 threads per query row, 64-query CTAs, IEEE expf and
@@ -92,9 +113,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kTiny = 1e-30f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
-constexpr int HD = 64;  // head width (llama3.2-1b: 2048 / 32)
 
 enum MaskKind : int { kFull = 0, kWindow = 1, kChunked = 2 };
 
@@ -103,6 +124,8 @@ struct Params {
   const void* k;
   const void* v;
   void* out;
+  float* m;  // row stats (B, S, H), or null
+  float* l;
   int64_t S, T, H, KV;
   int64_t window, chunk;
   int kind;
@@ -144,6 +167,7 @@ __device__ __forceinline__ int64_t row_offset(int64_t b, int64_t pos,
 // 256 threads: query row r = tid / 4 of the tile, part = tid % 4. In q.k^T a
 // thread takes the keys part, part + 4, ...; in p.v the dims part, part + 4,
 // ... (neighbouring parts on neighbouring shared-memory banks).
+template <int HD>
 __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
   constexpr int LD = HD + 1;
   constexpr int PLD = kBlockK + 1;
@@ -245,39 +269,57 @@ __global__ void __launch_bounds__(256) flash_fwd_f32(Params p) {
     float* out = static_cast<float*>(p.out) + row_offset(b, i, p.S, p.H, h, HD);
 #pragma unroll
     for (int dd = 0; dd < DP; ++dd) out[part + 4 * dd] = acc[dd] / (l + kTiny);
+    if (p.m != nullptr && part == 0) {
+      p.m[(b * p.S + i) * p.H + h] = m;
+      p.l[(b * p.S + i) * p.H + h] = l;
+    }
   }
 }
 
 // ------------------------------------------------------------------ bf16
-// The Hopper body. Tiles are rows of 64 bf16 (128 bytes, one swizzle row
-// each), 1,024-byte aligned so the 128-byte swizzle of TMA and of the wgmma
-// descriptors line up.
-constexpr int kConsumers = 3;               // consumer warpgroups
-constexpr int kTileQ = 64 * kConsumers;      // query rows per CTA
-constexpr int kTileK = 128;                  // keys per ring stage
-constexpr int kStages = 2;
-constexpr int kRowBytes = HD * 2;
-constexpr int kTileBytes = kTileK * kRowBytes;  // 16 KB: one K or V stage
-constexpr int kQBytes = kTileQ * kRowBytes;     // 24 KB: Q, then the output
-constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kConsumerWarps = 4 * kConsumers;
-constexpr int kProducerRegs = 24;
-// what the producer gives up, shared among the consumers (a multiple of 8)
-constexpr int kConsumerRegs =
-    (65536 / kThreads + (65536 / kThreads - kProducerRegs) / kConsumers) / 8 *
-    8;
-// shared memory from a 1,024-byte aligned base: Q, the K ring, the V ring,
-// then the barriers (q_full, k_full[], v_full[], empty[])
-constexpr int kSmemK = kQBytes;
-constexpr int kSmemV = kSmemK + kStages * kTileBytes;
-constexpr int kSmemBar = kSmemV + kStages * kTileBytes;
-constexpr int kSmemBytes = kSmemBar + (1 + 3 * kStages) * 8 + 1024;
+// The Hopper body. Tiles are kept as 64-column halves: rows of 64 bf16
+// (128 bytes, one swizzle row each), 1,024-byte aligned so the 128-byte
+// swizzle of TMA and of the wgmma descriptors line up.
+template <int HD>
+struct Tile {
+  static constexpr int kConsumers = HD == 64 ? 3 : 2;  // consumer warpgroups
+  static constexpr int kHalves = HD / 64;       // 64-column halves of a row
+  static constexpr int kTileQ = 64 * kConsumers;  // query rows per CTA
+  static constexpr int kTileK = 128;              // keys per ring stage
+  // ring stages: three at hd 64, where the templated body with two ran
+  // about 11 % slower than the untemplated one it replaced (the same
+  // instructions, scheduled otherwise) and a third stage took that back;
+  // two at hd 128 (variants.py's three_stages ablation tries three)
+  static constexpr int kStages = HD == 64 ? 3 : 2;
+  static constexpr int kRowBytes = 128;           // one half's row
+  static constexpr int kHalfBytes = kTileK * kRowBytes;  // 16 KB
+  static constexpr int kTileBytes = kHalves * kHalfBytes;  // one K or V stage
+  static constexpr int kQHalfBytes = kTileQ * kRowBytes;
+  static constexpr int kQBytes = kHalves * kQHalfBytes;  // Q, then the output
+  static constexpr int kThreads = 128 * (1 + kConsumers);
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kProducerRegs = 24;
+  // what the producer gives up, shared among the consumers (a multiple of 8)
+  static constexpr int kConsumerRegs =
+      (65536 / kThreads + (65536 / kThreads - kProducerRegs) / kConsumers) /
+      8 * 8;
+  // shared memory from a 1,024-byte aligned base: Q, the K ring, the V
+  // ring, then the barriers (q_full, k_full[], v_full[], empty[])
+  static constexpr int kSmemK = kQBytes;
+  static constexpr int kSmemV = kSmemK + kStages * kTileBytes;
+  static constexpr int kSmemBar = kSmemV + kStages * kTileBytes;
+  static constexpr int kSmemBytes = kSmemBar + (1 + 3 * kStages) * 8 + 1024;
+};
+static_assert(Tile<128>::kConsumerRegs == 240, "hd 128: two warpgroups");
+static_assert(Tile<128>::kSmemBytes <= 232448, "shared memory of one CTA");
 
 struct TileParams {
-  int S, T, group;  // group: query heads per KV head
+  int S, T, H, group;  // group: query heads per KV head
   int kind, window, chunk;
   int n_qtiles;
   float scale_log2;  // log2(e) / sqrt(hd)
+  float* m;          // row stats (B, S, H), or null
+  float* l;
 };
 
 // Query i sees keys [row_lo(i), row_hi(i)] (an empty interval when lo > hi).
@@ -327,27 +369,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// One box of the 4-D map (hd, heads, seq, B) at {0, head, row, b}.
+// One box of the 4-D map (hd, heads, seq, B) at {col, head, row, b}.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int head, int row,
-                                         int b) {
+                                         uint32_t bar, int col, int head,
+                                         int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(head),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head),
       "r"(row), "r"(b)
       : "memory");
 }
 
+// Every 64-column half of a tile of `rows` rows (half h at dst + h * stride).
+template <int HD>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, uint32_t stride,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int head, int row,
+                                              int b) {
+#pragma unroll
+  for (int h = 0; h < HD / 64; ++h)
+    tma_load(dst + h * stride, map, bar, 64 * h, head, row, b);
+}
+
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
-                                          int head, int row, int b) {
+                                          int col, int head, int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(src), "r"(0), "r"(head), "r"(row), "r"(b)
+      "r"(src), "r"(col), "r"(head), "r"(row), "r"(b)
       : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
@@ -380,6 +431,12 @@ template <int N>
 __device__ __forceinline__ void hold(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int H, int N>
+__device__ __forceinline__ void hold(float (&r)[H][N]) {
+#pragma unroll
+  for (int h = 0; h < H; ++h) hold(r[h]);
 }
 
 // d (64 x 128 fp32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) *
@@ -451,21 +508,32 @@ struct Rows {
   float m_a, m_b, l_a, l_b;
 };
 
-// S = Q K^T of one tile into s (four k-steps of 16 along hd, 32 bytes each).
+// S = Q K^T of one tile into s: hd / 16 k-steps of 16 along hd (32 bytes
+// each), four a 64-column half; dq and dk step by their half's bytes.
+template <int HD>
 __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
                                          uint64_t dk) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint64_t hq = (kk / 4) * (Tile<HD>::kQHalfBytes >> 4);
+    const uint64_t hk = (kk / 4) * (Tile<HD>::kHalfBytes >> 4);
+    wgmma_qk(s, dq + hq + 2 * (kk % 4), dk + hk + 2 * (kk % 4), kk);
+  }
   wgmma_commit();
 }
 
-// O += P V of one tile: 16 keys (2,048 bytes of V) a step.
-__device__ __forceinline__ void issue_pv(float (&o)[32],
+// O += P V of one tile: 16 keys (2,048 bytes of a V half) a step, for each
+// 64-column half of O.
+template <int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 64][32],
                                          const uint32_t (&pa)[8][4],
                                          uint64_t dv) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) wgmma_pv(o, pa[c], dv + 128 * c);
+  for (int h = 0; h < HD / 64; ++h) {
+    const uint64_t dvh = dv + h * (Tile<HD>::kHalfBytes >> 4);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) wgmma_pv(o[h], pa[c], dvh + 128 * c);
+  }
   wgmma_commit();
 }
 
@@ -531,16 +599,37 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// A row's stats in the reference's units: m of the scaled logits (m is
+// kept in log2 units here), l as it stands; a row that saw nothing keeps
+// the reference's m = -1e30.
+__device__ __forceinline__ void store_stats(const TileParams& p, int b, int h,
+                                            int i, float m_log2, float l) {
+  if (p.m == nullptr || i >= p.S) return;
+  const int64_t at = (static_cast<int64_t>(b) * p.S + i) * p.H + h;
+  p.m[at] = m_log2 <= kNegInf ? kNegInf : m_log2 * kLn2;
+  p.l[at] = l;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Tile<HD>::kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
                    const __grid_constant__ CUtensorMap tm_o,
                    const TileParams p) {
+  using C = Tile<HD>;
+  constexpr int kTileQ = C::kTileQ;
+  constexpr int kTileK = C::kTileK;
+  constexpr int kStages = C::kStages;
+  constexpr int kTileBytes = C::kTileBytes;
+  constexpr int kRowBytes = C::kRowBytes;
+  constexpr int kSmemK = C::kSmemK;
+  constexpr int kSmemV = C::kSmemV;
+  constexpr int kHalves = C::kHalves;
   extern __shared__ __align__(1024) unsigned char smem_ring[];
   const uint32_t base = (smem_u32(smem_ring) + 1023u) & ~1023u;
   const uint32_t sq = base;
-  const uint32_t bar_q = base + kSmemBar;
+  const uint32_t bar_q = base + C::kSmemBar;
   const uint32_t bar_k = bar_q + 8;            // k_full[kStages]
   const uint32_t bar_v = bar_k + 8 * kStages;  // v_full[kStages]
   const uint32_t bar_e = bar_v + 8 * kStages;  // empty[kStages]
@@ -560,7 +649,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_e + 8 * s, kConsumerWarps);
+      mbar_init(bar_e + 8 * s, C::kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -568,25 +657,25 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer warpgroup: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
     if (threadIdx.x == 0) {
-      mbar_expect_tx(bar_q, kQBytes);
-      tma_load(sq, &tm_q, bar_q, h, q0, b);
+      mbar_expect_tx(bar_q, C::kQBytes);
+      tma_load_tile<HD>(sq, C::kQHalfBytes, &tm_q, bar_q, h, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(bar_e + 8 * s, ((it / kStages) & 1) ^ 1);
         const int jb = (t0 + it) * kTileK;
         mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-        tma_load(base + kSmemK + s * kTileBytes, &tm_k, bar_k + 8 * s, kvh,
-                 jb, b);
+        tma_load_tile<HD>(base + kSmemK + s * kTileBytes, C::kHalfBytes,
+                          &tm_k, bar_k + 8 * s, kvh, jb, b);
         mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-        tma_load(base + kSmemV + s * kTileBytes, &tm_v, bar_v + 8 * s, kvh,
-                 jb, b);
+        tma_load_tile<HD>(base + kSmemV + s * kTileBytes, C::kHalfBytes,
+                          &tm_v, bar_v + 8 * s, kvh, jb, b);
       }
     }
   } else {
     // ---- consumer warpgroups: 64 query rows each
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
     const int ct = threadIdx.x - 128;
     const int cw = ct >> 7;
     const int warp = (ct >> 5) & 3;
@@ -613,10 +702,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       first = max(some_lo / kTileK - t0, 0);
       last = max(min(some_hi / kTileK + 1 - t0, n_tiles), first);
     }
+    // this warpgroup's rows of Q's first half
     const uint32_t sq_rows = sq + cw * 64 * kRowBytes;
     const uint64_t dq = sw128_desc(sq_rows, 16, 1024);
-    // K is K-major like Q; V is MN-major, where N = 64 is one swizzle atom
-    // wide and both byte offsets are the 1,024 between 8-row groups
+    // K is K-major like Q; V is MN-major, where a half's N = 64 is one
+    // swizzle atom wide and both byte offsets are the 1,024 between 8-row
+    // groups
     auto k_desc = [&](int st) {
       return sw128_desc(base + kSmemK + st * kTileBytes, 16, 1024);
     };
@@ -639,22 +730,26 @@ __global__ void __launch_bounds__(kThreads, 1)
       release(it);
     };
 
-    float o[32];
+    float o[kHalves][32];
     float s[64];
     uint32_t pa[8][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = 0.f;
     float al_a, al_b;
     auto rescale = [&] {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        o[4 * n] *= al_a;
-        o[4 * n + 1] *= al_a;
-        o[4 * n + 2] *= al_b;
-        o[4 * n + 3] *= al_b;
-      }
+      for (int hh = 0; hh < kHalves; ++hh)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[hh][4 * n] *= al_a;
+          o[hh][4 * n + 1] *= al_a;
+          o[hh][4 * n + 2] *= al_b;
+          o[hh][4 * n + 3] *= al_b;
+        }
     };
 
     mbar_wait(bar_q, 0);
@@ -662,7 +757,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (first < last) {
       mbar_wait(bar_k + 8 * (first % kStages), parity(first));
       wgmma_fence();
-      issue_qk(s, dq, k_desc(first % kStages));
+      issue_qk<HD>(s, dq, k_desc(first % kStages));
       wgmma_wait<0>();
       hold(s);
       online_softmax(s, (t0 + first) * kTileK, t, whole(first), p.scale_log2,
@@ -675,8 +770,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(bar_v + 8 * ((it - 1) % kStages), parity(it - 1));
         hold(o);
         wgmma_fence();
-        issue_qk(s, dq, k_desc(it % kStages));
-        issue_pv(o, pa, v_desc((it - 1) % kStages));
+        issue_qk<HD>(s, dq, k_desc(it % kStages));
+        issue_pv<HD>(o, pa, v_desc((it - 1) % kStages));
         wgmma_wait<1>();  // S of tile it; P V of tile it - 1 still runs
         hold(s);
         online_softmax(s, (t0 + it) * kTileK, t, whole(it), p.scale_log2, r,
@@ -690,7 +785,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_wait(bar_v + 8 * ((last - 1) % kStages), parity(last - 1));
       hold(o);
       wgmma_fence();
-      issue_pv(o, pa, v_desc((last - 1) % kStages));
+      issue_pv<HD>(o, pa, v_desc((last - 1) % kStages));
       wgmma_wait<0>();
       hold(o);
       release(last - 1);
@@ -706,22 +801,38 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float inv_a = 1.f / (l_a + kTiny), inv_b = 1.f / (l_b + kTiny);
       const int ra = warp * 16 + g;  // rows ra and ra + 8 share ra % 8 = g
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const uint32_t col = static_cast<uint32_t>(((n ^ g) << 4) + 4 * t);
-        const uint32_t va = pack_f32(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
-        const uint32_t vb = pack_f32(o[4 * n + 2] * inv_b, o[4 * n + 3] * inv_b);
-        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(sq_rows + ra * kRowBytes +
-                                                      col),
-                     "r"(va)
-                     : "memory");
-        asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
-                         sq_rows + (ra + 8) * kRowBytes + col),
-                     "r"(vb)
-                     : "memory");
+      for (int hh = 0; hh < kHalves; ++hh) {
+        const uint32_t rows = sq_rows + hh * C::kQHalfBytes;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const uint32_t col = static_cast<uint32_t>(((n ^ g) << 4) + 4 * t);
+          const uint32_t va =
+              pack_f32(o[hh][4 * n] * inv_a, o[hh][4 * n + 1] * inv_a);
+          const uint32_t vb =
+              pack_f32(o[hh][4 * n + 2] * inv_b, o[hh][4 * n + 3] * inv_b);
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(rows + ra * kRowBytes +
+                                                        col),
+                       "r"(va)
+                       : "memory");
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(
+                           rows + (ra + 8) * kRowBytes + col),
+                       "r"(vb)
+                       : "memory");
+        }
       }
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-      if ((ct & 127) == 0) tma_store(&tm_o, sq_rows, h, r0, b);
+      if ((ct & 127) == 0) {
+#pragma unroll
+        for (int hh = 0; hh < kHalves; ++hh)
+          tma_store(&tm_o, sq_rows + hh * C::kQHalfBytes, 64 * hh, h, r0, b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      if (t == 0) {
+        store_stats(p, b, h, ia, r.m_a, l_a);
+        store_stats(p, b, h, ia + 8, r.m_b, l_b);
+      }
     }
   }
 }
@@ -755,21 +866,22 @@ EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor (B, len, heads, hd) as the 4-D map (hd, heads, len, B) with
-// boxes of `rows` rows of one head, 128-byte swizzled; reads past len give
-// zeros.
-bool rows_map(CUtensorMap* map, const void* base, int64_t heads, int64_t len,
-              int64_t B, uint32_t rows) {
+// boxes of `rows` rows of 64 columns of one head, 128-byte swizzled; reads
+// past len give zeros.
+bool rows_map(CUtensorMap* map, const void* base, int64_t hd, int64_t heads,
+              int64_t len, int64_t B, uint32_t rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD),
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(hd * 2);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(len),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(kRowBytes),
-      static_cast<cuuint64_t>(heads * kRowBytes),
-      static_cast<cuuint64_t>(len * heads * kRowBytes)};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(HD), 1, rows, 1};
+  const cuuint64_t strides[3] = {row_bytes,
+                                 static_cast<cuuint64_t>(heads) * row_bytes,
+                                 static_cast<cuuint64_t>(len * heads) *
+                                     row_bytes};
+  const cuuint32_t box[4] = {64, 1, rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, unit,
@@ -778,21 +890,24 @@ bool rows_map(CUtensorMap* map, const void* base, int64_t heads, int64_t len,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+template <int HD>
 cudaError_t launch_bf16(const Params& p, int64_t B, cudaStream_t st) {
+  using C = Tile<HD>;
   // 32-bit positions, and the query tiles on grid.z
   constexpr int64_t kMaxLen = int64_t{1} << 30;
-  const int64_t n_qtiles = (p.S + kTileQ - 1) / kTileQ;
+  const int64_t n_qtiles = (p.S + C::kTileQ - 1) / C::kTileQ;
   if (p.S > kMaxLen || p.T > kMaxLen || n_qtiles > 65535)
     return cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, to;
-  if (!rows_map(&tq, p.q, p.H, p.S, B, kTileQ) ||
-      !rows_map(&tk, p.k, p.KV, p.T, B, kTileK) ||
-      !rows_map(&tv, p.v, p.KV, p.T, B, kTileK) ||
-      !rows_map(&to, p.out, p.H, p.S, B, 64))
+  if (!rows_map(&tq, p.q, HD, p.H, p.S, B, C::kTileQ) ||
+      !rows_map(&tk, p.k, HD, p.KV, p.T, B, C::kTileK) ||
+      !rows_map(&tv, p.v, HD, p.KV, p.T, B, C::kTileK) ||
+      !rows_map(&to, p.out, HD, p.H, p.S, B, 64))
     return cudaErrorInvalidValue;
   TileParams tp;
   tp.S = static_cast<int>(p.S);
   tp.T = static_cast<int>(p.T);
+  tp.H = static_cast<int>(p.H);
   tp.group = static_cast<int>(p.H / p.KV);
   tp.kind = p.kind;
   // a window <= 0 sees nothing, one past every position sees everything
@@ -802,49 +917,55 @@ cudaError_t launch_bf16(const Params& p, int64_t B, cudaStream_t st) {
   tp.n_qtiles = static_cast<int>(n_qtiles);
   tp.scale_log2 = static_cast<float>(1.4426950408889634 /
                                      std::sqrt(static_cast<double>(HD)));
+  tp.m = p.m;
+  tp.l = p.l;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmemBytes);
   if (rc != cudaSuccess) return rc;
   // heads fastest, then batch, then the query tiles longest first
   const dim3 grid(static_cast<unsigned>(p.H), static_cast<unsigned>(B),
                   static_cast<unsigned>(n_qtiles));
-  flash_fwd_bf16<<<grid, kThreads, kSmemBytes, st>>>(tq, tk, tv, to, tp);
+  flash_fwd_bf16<HD><<<grid, C::kThreads, C::kSmemBytes, st>>>(tq, tk, tv, to,
+                                                              tp);
   return cudaGetLastError();
 }
 
+template <int HD>
 cudaError_t launch_f32(const Params& p, int64_t B, cudaStream_t st) {
   const dim3 grid(static_cast<unsigned>((p.S + kBlockQ - 1) / kBlockQ),
                   static_cast<unsigned>(p.H), static_cast<unsigned>(B));
   const int smem = (3 * kBlockQ * (HD + 1) + kBlockQ * (kBlockK + 1)) * 4;
   cudaError_t rc = cudaFuncSetAttribute(
-      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return rc;
-  flash_fwd_f32<<<grid, 256, smem, st>>>(p);
+  flash_fwd_f32<HD><<<grid, 256, smem, st>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q: (B, S, H, hd), k/v: (B, T, KV, hd), out: (B, S, H * hd), all contiguous
-// and 16-byte aligned, of one dtype: bf16 when is_bf16, else fp32.
-// kind: 0 full, 1 window, 2 chunked. hd must be 64.
-extern "C" int ckpt_flash_attention_fwd(const void* q, const void* k,
-                                        const void* v, void* out, int64_t B,
-                                        int64_t S, int64_t T, int64_t H,
-                                        int64_t KV, int64_t hd,
-                                        int64_t is_bf16, int64_t kind,
-                                        int64_t window, int64_t chunk,
-                                        void* stream) {
+// and 16-byte aligned, of one dtype: bf16 when is_bf16, else fp32; m and l
+// fp32 (B, S, H) for the row stats, or both null. kind: 0 full, 1 window,
+// 2 chunked. hd must be 64 or 128.
+extern "C" int ckpt_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* out, void* m, void* l,
+    int64_t B, int64_t S, int64_t T, int64_t H, int64_t KV, int64_t hd,
+    int64_t is_bf16, int64_t kind, int64_t window, int64_t chunk,
+    void* stream) {
   if (B < 1 || B > 65535 || S < 1 || T < 1 || H < 1 || H > 65535 || KV < 1 ||
       H % KV != 0 || kind < kFull || kind > kChunked ||
-      (kind == kChunked && chunk < 1))
+      (kind == kChunked && chunk < 1) || (m == nullptr) != (l == nullptr) ||
+      (hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.out = out;
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
   p.S = S;
   p.T = T;
   p.H = H;
@@ -854,7 +975,11 @@ extern "C" int ckpt_flash_attention_fwd(const void* q, const void* k,
   p.kind = static_cast<int>(kind);
   p.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd != HD) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(is_bf16 != 0 ? launch_bf16(p, B, st)
-                                       : launch_f32(p, B, st));
+  cudaError_t rc;
+  if (hd == 64)
+    rc = is_bf16 != 0 ? launch_bf16<64>(p, B, st) : launch_f32<64>(p, B, st);
+  else
+    rc = is_bf16 != 0 ? launch_bf16<128>(p, B, st) : launch_f32<128>(p, B, st);
+  return static_cast<int>(rc);
 }
+

@@ -20,12 +20,20 @@ real query and are masked. The plain version pads the keys the same way
 (and masks ``j >= T`` explicitly); query rows are independent, so it does
 not pad them. The CUDA kernel, ``ckpt_flash_attention_fwd`` in
 ``csrc/flash_attention.cu``, masks the ragged tail instead and takes any
-S and T; its KV tiles are 128 keys in bf16 (64 in fp32) whatever
-``kv_block`` says.
+S and T at head widths 64 and 128; its KV tiles are 128 keys in bf16 (64
+in fp32) whatever ``kv_block`` says.
+
+With ``return_stats`` both also return each row's stats as
+``_flash_fwd_impl`` carries them for the backward: ``m``, the running max
+of the scaled logits (``-1e30`` for a row that sees no key), and ``l``,
+the sum of their exponentials relative to ``m``, each fp32 ``(B, S, H)``.
+The kernel writes them only where the caller passes buffers for them;
+a call without them passes null pointers and stores nothing more.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -34,13 +42,18 @@ from .build import CudaKernel
 from .checksum import aligned
 
 KINDS = ("full", "window", "chunked")
-#: the head width the CUDA kernel is built for (llama3.2-1b's)
-KERNEL_HEAD_DIM = 64
+#: the head widths the CUDA kernel is built for (llama3.2-1b's and
+#: musicgen-medium's 64; gemma3-27b's, llama2-7b's and the other attention
+#: configs' 128)
+KERNEL_HEAD_DIM = frozenset({64, 128})
 #: CUDA grid limits on the head and batch axes
 MAX_GRID_YZ = 65_535
 NEG_INF = -1e30
 
 KERNEL = CudaKernel("ckpt_flash_attention_fwd")
+#: the kernel's launches by ``(hd, kind, stats)``, counted beside
+#: ``KERNEL.launches`` at each launch
+LAUNCHES_BY = collections.Counter()
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,9 +92,10 @@ def allowed(qpos: torch.Tensor, kpos: torch.Tensor, kind: str, window: int,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, kind: str = "full", window: int = 0,
-                          chunk: int = 0, kv_block: int = 1024
-                          ) -> torch.Tensor:
-    """The attention in plain PyTorch ops, on any device."""
+                          chunk: int = 0, kv_block: int = 1024,
+                          return_stats: bool = False):
+    """The attention in plain PyTorch ops, on any device; with
+    ``return_stats``, ``(out, m, l)``."""
     check_inputs(q, k, v, kind, window, chunk)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
@@ -115,13 +129,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bskrt,btkh->bskrh", pexp, v_j)
         m = m_new
     out = acc / (l[..., None] + 1e-30)
-    return out.reshape(B, S, H * hd).to(q.dtype)
+    out = out.reshape(B, S, H * hd).to(q.dtype)
+    if return_stats:
+        return out, m.reshape(B, S, H), l.reshape(B, S, H)
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kind: str = "full", window: int = 0,
-                         chunk: int = 0) -> torch.Tensor:
-    """Launch the kernel on CUDA tensors; returns ``(B, S, H * hd)``."""
+                         chunk: int = 0, return_stats: bool = False):
+    """Launch the kernel on CUDA tensors; returns ``(B, S, H * hd)``, or
+    ``(out, m, l)`` with ``return_stats``."""
     check_inputs(q, k, v, kind, window, chunk)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
@@ -129,13 +147,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}, {k.device}, {v.device}")
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
-    if hd != KERNEL_HEAD_DIM or B > MAX_GRID_YZ or H > MAX_GRID_YZ:
+    if hd not in KERNEL_HEAD_DIM or B > MAX_GRID_YZ or H > MAX_GRID_YZ:
         raise ValueError(
-            f"the kernel takes hd {KERNEL_HEAD_DIM} and B, H <= "
-            f"{MAX_GRID_YZ}; got B {B}, H {H}, hd {hd}")
+            f"the kernel takes hd {sorted(KERNEL_HEAD_DIM)} (hd 256 is not "
+            f"yet ported) and B, H <= {MAX_GRID_YZ}; got B {B}, H {H}, "
+            f"hd {hd}")
     q, k, v = (aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty((B, S, H * hd), dtype=q.dtype, device=q.device)
+    args = (B, S, T, H, KV, hd, int(q.dtype == torch.bfloat16),
+            KINDS.index(kind), window, chunk)
+    m = l = None
+    stats = (0, 0)  # null: the kernel stores no row stats
+    if return_stats:
+        m, l = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+                for _ in range(2))
+        stats = (m.data_ptr(), l.data_ptr())
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  B, S, T, H, KV, hd, int(q.dtype == torch.bfloat16),
-                  KINDS.index(kind), window, chunk)
-    return out
+                  *stats, *args)
+    LAUNCHES_BY[(hd, kind, return_stats)] += 1
+    return (out, m, l) if return_stats else out

@@ -209,24 +209,29 @@ def fused_dequantize_int8_segments(payloads: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kind: str = "full", window: int = 0, chunk: int = 0,
-                    kv_block: int = 1024) -> torch.Tensor:
+                    kv_block: int = 1024, return_stats: bool = False):
     """Causal online-softmax attention: q ``(B, S, H, hd)``, k/v
     ``(B, T, KV, hd)`` -> ``(B, S, H * hd)`` in q's dtype (see
-    :mod:`.flash_attention`). ``kv_block`` sets the plain version's KV
-    blocks; the kernel tiles by 128 keys in bf16, 64 in fp32.
+    :mod:`.flash_attention`), or ``(out, m, l)`` with ``return_stats``
+    (fp32 ``(B, S, H)`` row stats). ``kv_block`` sets the plain version's
+    KV blocks; the kernel tiles by 128 keys in bf16, 64 in fp32.
 
     Forward only: under grad with an input that requires it, this raises,
-    since a ctypes launch would cut the autograd graph without a word (the
-    backward, ``repro/models/layers.py:188-233``, is not yet ported)."""
+    since a ctypes launch would cut the autograd graph without a word. To
+    train through it, call ``repro_torch.models.layers._Flash`` (the
+    port of the reference's ``_flash`` custom VJP, whose backward
+    recomputes the probabilities from the row stats)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention is forward only: the backward of the blocked "
-            "attention is not yet ported (run it under torch.no_grad())")
+            "flash_attention is forward only: train through "
+            "repro_torch.models.layers._Flash, whose backward is the "
+            "blocked attention's (or run it under torch.no_grad())")
     if _kind(q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, kind=kind, window=window,
-                                         chunk=chunk, kv_block=kv_block)
+                                         chunk=chunk, kv_block=kv_block,
+                                         return_stats=return_stats)
     return _fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
-                                    chunk=chunk)
+                                    chunk=chunk, return_stats=return_stats)
 
 
 # ------------------------------------------------------ host-staged bytes

@@ -7,6 +7,7 @@
     python -m repro_torch.kernels.variants int8path CHECKOUT [CHECKOUT ...]
     python -m repro_torch.kernels.variants xor [variants.json]
     python -m repro_torch.kernels.variants deltapath CHECKOUT[:SHARE] ...
+    python -m repro_torch.kernels.variants attnpath CHECKOUT [CHECKOUT ...]
 
 A variant is a list of ``[old, new]`` text substitutions applied to one
 source under ``csrc/`` (each ``old`` must occur in it). Each variant is
@@ -21,11 +22,16 @@ the times (ms) per variant. Times are comparable only within one run.
 
 Attention (the default): variants of ``csrc/flash_attention.cu``, checked
 against :func:`.flash_attention.flash_attention_plain` at a few bf16
-shapes and timed with CUDA events at the serving shape (B 2, S 4,096,
-32/8 heads, hd 64, causal) beside ``scaled_dot_product_attention``.
-Without a file it runs :data:`ABLATIONS`: the shipped kernel, and the
-same kernel with one part of its work removed at a time, to show which
-part holds it back.
+shapes (hd 64 and 128) and timed with CUDA events at the serving shape
+(B 2, S 4,096, 32/8 heads, hd 64, causal) and at gemma3-27b's (32/16
+heads, hd 128; keys ``hd128_...``), each beside
+``scaled_dot_product_attention``.
+Without a file it runs :data:`ABLATIONS`: the shipped kernel, two
+consumer warpgroups at hd 64, two ring stages at hd 64 and three at hd
+128, the epilogue without its row-stats code (``no_row_stats``), the
+softmax's exponentials held ahead of the P V wait (``p_before_wait``,
+``volatile_ex2``), and the same kernel with one part of its work
+removed at a time, to show which part holds it back.
 
 ``stream``: variants of ``csrc/ckpt_kernels.cu``'s streaming core
 (``ckpt_delta_xor``, ``ckpt_downcast_bf16``, ``ckpt_delta_f32``), checked
@@ -98,6 +104,16 @@ aims at (1 a segment, 8, 32 against 16), clusters of 16 blocks against 8,
 ``atomic_loop``, the design it replaced (a memset of the digests, then
 per segment one launch of the grid-stride loop with an atomic a block).
 
+``attnpath``: the attention kernel of checkouts of this repository
+(directories holding ``src/repro_torch``) in turns, the order given and
+then reversed, each in a process of its own that imports only that
+checkout, builds its library and times its ``flash_attention_cuda`` at
+:data:`SERVE` (hd 64, bf16, causal) as ``attention_main`` times a
+variant: :data:`ROUNDS` rounds of :data:`REPS` back-to-back calls under
+CUDA events, each round beside ``scaled_dot_product_attention``, then
+the kernel's device time under ``torch.profiler``. A line ``attnpath``
+with a JSON object per run, and the run's ptxas lines of the bf16 body.
+
 ``deltapath``: the checkpoint phase of ``chip_smoke.py`` (K, Δ, Δ saves of
 llama3.2-1b at full width, 2 layers, then the restores of steps 3 and 1)
 for checkouts of this repository in turns, as ``int8path`` runs them,
@@ -122,8 +138,8 @@ from pathlib import Path
 from . import build
 
 EX2 = '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
-QK = "    wgmma_qk(s, dq + 2 * kk, dk + 2 * kk, kk);"
-PV = "  for (int c = 0; c < 8; ++c) wgmma_pv(o, pa[c], dv + 128 * c);"
+QK = "    wgmma_qk(s, dq + hq + 2 * (kk % 4), dk + hk + 2 * (kk % 4), kk);"
+PV = "    for (int c = 0; c < 8; ++c) wgmma_pv(o[h], pa[c], dvh + 128 * c);"
 SOFTMAX_FIRST = (
     "      online_softmax(s, (t0 + first) * kTileK, t, whole(first), "
     "p.scale_log2,\n                     r, al_a, al_b);")
@@ -132,39 +148,57 @@ SOFTMAX_NEXT = (
     "p.scale_log2, r,\n                       al_a, al_b);")
 PACK = "pack_p(pa, s);"
 KV_LOADS = """        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
-        tma_load(base + kSmemK + s * kTileBytes, &tm_k, bar_k + 8 * s, kvh,
-                 jb, b);
+        tma_load_tile<HD>(base + kSmemK + s * kTileBytes, C::kHalfBytes,
+                          &tm_k, bar_k + 8 * s, kvh, jb, b);
         mbar_expect_tx(bar_v + 8 * s, kTileBytes);
-        tma_load(base + kSmemV + s * kTileBytes, &tm_v, bar_v + 8 * s, kvh,
-                 jb, b);"""
+        tma_load_tile<HD>(base + kSmemV + s * kTileBytes, C::kHalfBytes,
+                          &tm_v, bar_v + 8 * s, kvh, jb, b);"""
 NO_EX2 = [[EX2, "  y = x;"]]
 NO_PRODUCTS = [[QK, "    ;"], [PV, "  ;"]]
 NO_SOFTMAX = [[SOFTMAX_FIRST, "al_a = al_b = 1.f;"],
               [SOFTMAX_NEXT, "al_a = al_b = 1.f;"], [PACK, ";"]]
 NO_KV_LOADS = [[KV_LOADS, "        mbar_arrive(bar_k + 8 * s);\n"
                           "        mbar_arrive(bar_v + 8 * s);"]]
+STATS_STORE = """      if (t == 0) {
+        store_stats(p, b, h, ia, r.m_a, l_a);
+        store_stats(p, b, h, ia + 8, r.m_b, l_b);
+      }
+"""
 ATTENTION = "flash_attention.cu"
 STREAM = "ckpt_kernels.cu"
 
 #: the shipped kernel and ablations of it
 ABLATIONS = {
     "kernel": [],
-    "two_consumers": [["constexpr int kConsumers = 3;",
-                       "constexpr int kConsumers = 2;"]],
-    "three_stages": [["constexpr int kStages = 2;",
-                      "constexpr int kStages = 3;"]],
+    "two_consumers": [["kConsumers = HD == 64 ? 3 : 2;",
+                       "kConsumers = 2;"]],
+    "two_stages": [["kStages = HD == 64 ? 3 : 2;", "kStages = 2;"]],
+    "three_stages": [["kStages = HD == 64 ? 3 : 2;", "kStages = 3;"]],
+    "no_row_stats": [[STATS_STORE, ""]],
+    # the softmax's exponentials kept ahead of the P V wait (the compiler
+    # may sink them past it): by a hold on p, or by volatile ex2
+    "p_before_wait": [[SOFTMAX_NEXT, SOFTMAX_NEXT + "\n        hold(s);"]],
+    "volatile_ex2": [['  asm("ex2.', '  asm volatile("ex2.']],
     "x_no_ex2": NO_EX2,
     "x_no_products": NO_PRODUCTS,
     "x_no_softmax": NO_SOFTMAX,
     "x_loads_only": NO_PRODUCTS + NO_SOFTMAX,
     "x_nothing": NO_PRODUCTS + NO_SOFTMAX + NO_KV_LOADS,
 }
-#: bf16 (B, S, T, H, KV, kind, window, chunk) each variant must agree at
-CHECKS = ((1, 128, 128, 1, 1, "full", 0, 0), (2, 129, 129, 4, 2, "full", 0, 0),
-          (2, 300, 200, 32, 8, "window", 32, 0),
-          (2, 2100, 2100, 32, 8, "chunked", 0, 192),
-          (2, 4096, 4096, 32, 8, "full", 0, 0))
+#: bf16 (B, S, T, H, KV, kind, window, chunk, hd) each variant must agree
+#: at
+CHECKS = ((1, 128, 128, 1, 1, "full", 0, 0, 64),
+          (2, 129, 129, 4, 2, "full", 0, 0, 64),
+          (2, 300, 200, 32, 8, "window", 32, 0, 64),
+          (2, 2100, 2100, 32, 8, "chunked", 0, 192, 64),
+          (2, 4096, 4096, 32, 8, "full", 0, 0, 64),
+          (2, 300, 200, 32, 16, "window", 32, 0, 128),
+          (2, 4096, 4096, 32, 16, "full", 0, 0, 128),
+          (2, 4096, 4096, 32, 16, "window", 1024, 0, 128))
 SERVE = (2, 4096, 32, 8)  # B, S, H, KV
+#: gemma3-27b's prefill (B, S, H, KV) at hd 128, causal, where each
+#: variant is timed too
+SERVE_128 = (2, 4096, 32, 16)
 ROUNDS, REPS = 2, 300
 
 
@@ -212,10 +246,10 @@ def _build(name: str, subs, source: str = ATTENTION,
 
 
 def _agrees(torch, fa, case) -> float:
-    B, S, T, H, KV, kind, window, chunk = case
+    B, S, T, H, KV, kind, window, chunk, hd = case
     gen = torch.Generator(device="cuda")
     gen.manual_seed(S * 7 + T)
-    q, k, v = (torch.randn(B, n, h, 64, device="cuda", generator=gen)
+    q, k, v = (torch.randn(B, n, h, hd, device="cuda", generator=gen)
                .to(torch.bfloat16) for n, h in ((S, H), (T, KV), (T, KV)))
     got = fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
                                   chunk=chunk).float()
@@ -306,23 +340,27 @@ def attention_main(args) -> None:
         print(f"{name}: {' | '.join(ptxas)}; max |diff| {errs}", flush=True)
         if name.startswith("x_") or max(errs) < float("inf"):
             libs[name] = lib
-    B, S, H, KV = SERVE
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    q, k, v = (torch.randn(B, S, h, 64, device="cuda", generator=gen)
-               .to(torch.bfloat16) for h in (H, KV, KV))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    calls = {}  # tag -> (q, k, v, SDPA's q, k, v)
+    for tag, (B, S, H, KV), hd in (("", SERVE, 64), ("hd128_", SERVE_128,
+                                                      128)):
+        q, k, v = (torch.randn(B, S, h, hd, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for h in (H, KV, KV))
+        calls[tag] = (q, k, v, *(x.transpose(1, 2) for x in (q, k, v)))
     clocks = _sample_clocks()
-    times = {name: [] for name in [*libs, "sdpa"]}
+    times = {f"{tag}{name}": [] for tag in calls for name in [*libs, "sdpa"]}
     try:
         for _ in range(ROUNDS):
-            for name, lib in libs.items():
-                build._lib = lib
-                times[name].append(_time_ms(
-                    torch, lambda: fa.flash_attention_cuda(q, k, v)))
-            times["sdpa"].append(_time_ms(
-                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)))
+            for tag, (q, k, v, qt, kt, vt) in calls.items():
+                for name, lib in libs.items():
+                    build._lib = lib
+                    times[tag + name].append(_time_ms(
+                        torch, lambda: fa.flash_attention_cuda(q, k, v)))
+                times[tag + "sdpa"].append(_time_ms(
+                    torch,
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)))
     finally:
         build._lib = None
         _print_clocks(clocks)
@@ -1456,6 +1494,86 @@ def deltapath_main(args) -> None:
                   f"{proc.stderr[-4000:]}", flush=True)
 
 
+# ------------------------------------- the attention kernel by checkout
+ATTN_PATH_RUN = """
+import json, os, sys
+root = os.getcwd()
+sys.path.insert(0, os.path.join(root, "src"))
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as fa
+lib = build.build()
+build.library()
+ptxas, on = [], False
+for line in build.ptxas_report(lib).read_text().splitlines():
+    if "Compiling entry" in line:
+        on = "flash_fwd_bf16" in line
+    elif on and any(x in line for x in ("registers", "spill")):
+        ptxas.append(line.strip())
+B, S, H, KV = %(serve)r
+gen = torch.Generator(device="cuda")
+gen.manual_seed(1)
+q, k, v = (torch.randn(B, S, h, 64, device="cuda", generator=gen)
+           .to(torch.bfloat16) for h in (H, KV, KV))
+qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+kern = lambda: fa.flash_attention_cuda(q, k, v)
+sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+    qt, kt, vt, is_causal=True, enable_gqa=True)
+want = fa.flash_attention_plain(q, k, v).float()
+err = float((kern().float() - want).abs().max())
+del want
+
+def time_ms(fn, reps):
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+times = {"kernel": [], "sdpa": []}
+for _ in range(%(rounds)d):
+    times["kernel"].append(time_ms(kern, %(reps)d))
+    times["sdpa"].append(time_ms(sdpa, %(reps)d))
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for _ in range(100):
+        kern()
+    torch.cuda.synchronize()
+dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+n = sum(e.count for e in dev)
+print("attnpath " + json.dumps({
+    "checkout": root, "max_abs_err": err, "ms": times["kernel"],
+    "sdpa_ms": times["sdpa"],
+    "device_ms": sum(e.self_device_time_total for e in dev) / n / 1e3
+    if n else None, "ptxas": ptxas}), flush=True)
+"""
+
+
+def attnpath_main(args) -> None:
+    """Each checkout's attention kernel in turns: the order given, then
+    reversed."""
+    if not args:
+        sys.exit("attnpath: name one or more checkouts")
+    print(_smi_line(), flush=True)
+    run = ATTN_PATH_RUN % {"serve": SERVE, "rounds": ROUNDS, "reps": REPS}
+    for checkout in [*args, *reversed(args)]:
+        proc = subprocess.run([sys.executable, "-c", run], cwd=checkout,
+                              capture_output=True, text=True)
+        print("\n".join(x for x in proc.stdout.splitlines()
+                        if x.startswith("attnpath ")), flush=True)
+        if proc.returncode != 0:
+            print(f"attnpath: {checkout} failed ({proc.returncode}):\n"
+                  f"{proc.stderr[-4000:]}", flush=True)
+
+
 def main(argv) -> None:
     import torch
 
@@ -1474,6 +1592,8 @@ def main(argv) -> None:
         xor_main(args[1:])
     elif args and args[0] == "deltapath":
         deltapath_main(args[1:])
+    elif args and args[0] == "attnpath":
+        attnpath_main(args[1:])
     else:
         attention_main(args)
 

@@ -8,6 +8,10 @@ four engines the paper compares (``sync``, ``snapshot``,
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --steps 20 --ckpt-interval 5 --ckpt-dir /tmp/ckpt
+
+``--arch`` takes any config of ``repro_torch.configs.list_configs()``:
+llama3.2-1b, llama2-7b, starcoder2-7b, gemma3-27b, command-r-35b and
+musicgen-medium.
 """
 
 from __future__ import annotations

@@ -1,27 +1,33 @@
-"""Dense-transformer layers as plain functions on tensors (port of the
-dense half of ``repro/models/layers.py``): rmsnorm, RoPE, the causal mask,
-GQA attention on the direct and the blocked path, single-token decode
-attention over a KV cache, the gated FFN, embedding and tied logits.
-Parameters are dicts of tensors in the JAX package's tree; autograd gives
-the backward of every path but the blocked one.
+"""Attention-family layers as plain functions on tensors (port of
+``repro/models/layers.py`` but the prefix-LM): rmsnorm and layernorm,
+RoPE, the ``full`` / ``window`` / ``chunked`` masks, GQA attention on the
+direct and the blocked path, single-token decode attention over a linear
+or ring cache, cross-attention to a conditioning memory, the gated FFNs
+and ``gelu_mlp``, with the optional projection and FFN biases, and
+embeddings and logits with parallel codebooks. Parameters are dicts of
+tensors in the JAX package's tree; autograd gives the backward of every
+path, the blocked one through :class:`_Flash`.
 
 Cast points are the reference's. Norms and RoPE compute in fp32 and cast
-back to the input dtype. On the direct path (and in decode) attention
-logits are scaled in the working dtype, then softmaxed in fp32 under a
-``-1e30`` mask and cast to ``v``'s dtype; on the blocked path q is scaled
-in fp32 before the product (:mod:`repro_torch.kernels.flash_attention`).
-A Python scalar that JAX applies to a bf16 array is cast to bf16 first
-(weak typing), so it is applied here as a 0-d tensor of the working dtype.
+back to the input dtype. On the direct path (and in decode and
+cross-attention) attention logits are scaled in the working dtype, then
+softmaxed in fp32 under a ``-1e30`` mask and cast to ``v``'s dtype; on
+the blocked path q is scaled in fp32 before the product
+(:mod:`repro_torch.kernels.flash_attention`). A Python scalar that JAX
+applies to a bf16 array is cast to bf16 first (weak typing), so it is
+applied here as a 0-d tensor of the working dtype.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import NEG_INF
+from repro_torch.kernels.flash_attention import allowed as _allowed
 
 #: the longest sequence on the direct (materialised-logits) attention
 #: path; longer ones take the blocked online-softmax path
@@ -36,10 +42,16 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- norms
 def apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to ``x.dtype``."""
+    """In fp32, cast back to ``x.dtype``: layernorm (population variance,
+    as ``jnp.var``) when ``p`` holds a bias, else RMSNorm."""
     xf = x.to(torch.float32)
-    ms = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + eps) * p["scale"]
+    if "bias" in p:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"]
     return y.to(x.dtype)
 
 
@@ -65,137 +77,299 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------------- masks
-def make_mask(seq_len: int, device: torch.device) -> torch.Tensor:
-    """(S, S) causal mask (``kind="full"``, no prefix)."""
-    i = torch.arange(seq_len, device=device)[:, None]
-    j = torch.arange(seq_len, device=device)[None, :]
-    return j <= i
+def make_mask(seq_len: int, device: torch.device, kind: str = "full", *,
+              window: int = 0, chunk: int = 0) -> torch.Tensor:
+    """(S, S) boolean mask of ``kind`` (``full``, ``window`` or
+    ``chunked``); the reference's ``n_prefix`` is not ported."""
+    if kind not in ("full", "window", "chunked"):
+        raise ValueError(kind)
+    if (kind == "window" and window <= 0) or (kind == "chunked"
+                                              and chunk <= 0):
+        raise ValueError(f"kind={kind!r} needs a positive size")
+    pos = torch.arange(seq_len, device=device)
+    return _allowed(pos, pos, kind, window, chunk)
 
 
 # ----------------------------------------------------------------- attention
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w
+    return y if b is None else y + b
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: torch.Tensor) -> torch.Tensor:
-    """q: (B,S,H,hd), k/v: (B,T,KV,hd); GQA by grouping heads."""
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q: (B,S,H,hd), k/v: (B,T,KV,hd); GQA by grouping heads; ``mask``
+    broadcasts over (S, T), or ``None`` for none."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
     qg = q.reshape(B, S, KV, rep, hd)
     logits = torch.einsum("bskrh,btkh->bkrst", qg, k) \
         / _scalar(math.sqrt(hd), q)
-    logits = logits.to(torch.float32).masked_fill(~mask, -1e30)
+    logits = logits.to(torch.float32)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkrst,btkh->bskrh", probs, v)
     return out.reshape(B, S, H * hd)
 
 
+def _query_rows(lo: int, hi: int, S: int, kind: str, window: int,
+                chunk: int) -> Tuple[int, int]:
+    """The query rows ``[r0, r1)`` that may see some key in ``[lo, hi)``;
+    every other row's probabilities there are 0."""
+    r1 = S
+    if kind == "window":
+        r1 = min(S, hi - 1 + window)
+    elif kind == "chunked":
+        r1 = min(S, ((hi - 1) // chunk + 1) * chunk)
+    return lo, max(lo, r1)
+
+
+def _flash_bwd(q, k, v, out, m, l, dout, kind: str, window: int,
+               chunk: int, kv_block: int):
+    """Port of the reference's ``_flash_bwd`` (``repro/models/layers.py:
+    194-231``) in plain PyTorch, outside any kernel as the reference runs
+    it in XLA: blockwise over ``kv_block`` keys, P recomputed from the
+    forward's row stats ``m`` and ``l``, ``D = sum(dout * out)``,
+    ``ds = p * (dp - D)``; nothing (S, T) is held. A key block touches
+    only the query rows that may see it (:func:`_query_rows`), and the
+    ragged last block is cut, not padded: rows and keys past S carry no
+    gradient in the reference either. Returns ``(dq, dk, dv)`` in the
+    inputs' dtypes, dq through the ``1/sqrt(hd)`` the reference applies
+    to q in fp32."""
+    B, S, H, hd = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(hd)
+    qs = q.reshape(B, S, KV, rep, hd).to(f32) * scale
+    do = dout.reshape(B, S, KV, rep, hd).to(f32)
+    o = out.reshape(B, S, KV, rep, hd).to(f32)
+    m = m.reshape(B, S, KV, rep)
+    linv = 1.0 / (l.reshape(B, S, KV, rep) + 1e-30)
+    D = torch.sum(do * o, dim=-1)
+    dq = torch.zeros_like(qs)
+    dk = torch.zeros((B, T, KV, hd), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for lo in range(0, T, kv_block):
+        hi = min(lo + kv_block, T)
+        r0, r1 = _query_rows(lo, hi, S, kind, window, chunk)
+        if r0 >= r1:
+            continue
+        k_j, v_j = k[:, lo:hi].to(f32), v[:, lo:hi].to(f32)
+        q_i, do_i = qs[:, r0:r1], do[:, r0:r1]
+        allow = _allowed(torch.arange(r0, r1, device=q.device),
+                         torch.arange(lo, hi, device=q.device), kind,
+                         window, chunk)[None, :, None, None, :]
+        logits = torch.einsum("bskrh,btkh->bskrt", q_i, k_j)
+        p = torch.exp(logits - m[:, r0:r1, ..., None]) \
+            * linv[:, r0:r1, ..., None]
+        p = torch.where(allow, p, 0.0)
+        dv[:, lo:hi] = torch.einsum("bskrt,bskrh->btkh", p, do_i)
+        dp = torch.einsum("bskrh,btkh->bskrt", do_i, v_j)
+        ds = p * (dp - D[:, r0:r1, ..., None])
+        dq[:, r0:r1] += torch.einsum("bskrt,btkh->bskrh", ds, k_j)
+        dk[:, lo:hi] = torch.einsum("bskrt,bskrh->btkh", ds, q_i)
+    return ((dq * scale).reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """The blocked attention with its backward (port of the reference's
+    ``_flash`` ``custom_vjp``). The forward is
+    :func:`repro_torch.kernels.ops.flash_attention` with its row stats
+    (the hand-written kernel on a card, its plain version on the CPU);
+    ``q, k, v, out, m, l`` are saved and :func:`_flash_bwd` recomputes
+    the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kind: str, window: int, chunk: int,
+                kv_block: int):
+        out, m, l = ops.flash_attention(q, k, v, kind=kind, window=window,
+                                        chunk=chunk, kv_block=kv_block,
+                                        return_stats=True)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.mask = (kind, window, chunk, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, m, l = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, m, l, dout, *ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
 def blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kind: str = "full", window: int = 0, chunk: int = 0,
                  kv_block: int = 1024) -> torch.Tensor:
-    """Flash-style attention (port of ``repro.models.layers.blocked_sdpa``,
-    forward only): an online softmax over KV blocks that never holds the
-    (S, S) logits, through :func:`repro_torch.kernels.ops.flash_attention`
-    — the hand-written kernel on a card, its plain version on the CPU. The
+    """Flash-style attention (port of ``repro.models.layers.blocked_sdpa``):
+    an online softmax over KV blocks that never holds the (S, S) logits,
+    through :func:`repro_torch.kernels.ops.flash_attention` — the
+    hand-written kernel on a card, its plain version on the CPU. The
     reference's padding of S to a multiple of ``kv_block`` lives in the
     plain version; the kernel masks the ragged tail instead, and both give
-    the same rows. Under grad it raises: the backward is not yet ported."""
+    the same rows. Under grad it goes through :class:`_Flash`, whose
+    backward is the reference's."""
     kvb = min(kv_block, q.shape[1])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, kind, window, chunk, kvb)
     return ops.flash_attention(q, k, v, kind=kind, window=window,
                                chunk=chunk, kv_block=kvb)
 
 
 def full_seq_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  kind: str = "full", window: int = 0, chunk: int = 0,
                   kv_block: int = 1024) -> torch.Tensor:
-    """Causal self-attention over the whole sequence: the direct masked
-    path up to :data:`DIRECT_SDPA_MAX_SEQ` tokens, the blocked path
-    beyond."""
+    """Causal self-attention over the whole sequence with the ``kind``
+    mask: the direct masked path up to :data:`DIRECT_SDPA_MAX_SEQ` tokens,
+    the blocked path beyond."""
     S = q.shape[1]
     if S <= DIRECT_SDPA_MAX_SEQ:
-        return _sdpa(q, k, v, make_mask(S, q.device))
-    return blocked_sdpa(q, k, v, kv_block=kv_block)
+        return _sdpa(q, k, v, make_mask(S, q.device, kind, window=window,
+                                        chunk=chunk))
+    return blocked_sdpa(q, k, v, kind=kind, window=window, chunk=chunk,
+                        kv_block=kv_block)
 
 
 def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q (B,S,H,hd), k and v (B,S,KV,hd) of x (B,S,d), q and k rotated at
-    ``positions`` (B,S)."""
+    """q (B,S,H,hd), k and v (B,S,KV,hd) of x (B,S,d), with the biases
+    where the params hold them, q and k rotated at ``positions`` (B,S)."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KV, hd)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-              positions: torch.Tensor
+              positions: torch.Tensor, kind: str = "full"
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence causal self-attention (train / prefill). x: (B,S,d).
-    Returns ``(out, (k, v))`` with k after RoPE, for the decode cache."""
+    """Full-sequence self-attention (train / prefill) under the ``kind``
+    mask (``cfg.window``, ``cfg.chunk``). x: (B,S,d). Returns ``(out,
+    (k, v))`` with k after RoPE, for the decode cache."""
     q, k, v = project_qkv(cfg, p, x, positions)
-    out = full_seq_sdpa(q, k, v, kv_block=cfg.attn_kv_block)
-    return out @ p["wo"], (k, v)
+    out = full_seq_sdpa(q, k, v, kind=kind, window=cfg.window,
+                        chunk=cfg.chunk, kv_block=cfg.attn_kv_block)
+    return _proj(out, p["wo"], p.get("bo")), (k, v)
 
 
 def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int
+                     cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
+                     *, mode: str = "full"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Single-token decode over a ``full`` cache (port of
-    ``repro.models.layers.decode_attention`` with ``mode="full"``).
-    x: (B,1,d); cache_k/v: (B,T,KV,hd) holding absolute positions
-    ``0..T-1``; ``pos`` is the new token's position.
+    """Single-token decode (port of ``repro.models.layers.
+    decode_attention``). x: (B,1,d); cache_k/v: (B,T,KV,hd); ``pos`` is
+    the new token's absolute position.
 
-    The new token's k and v (after RoPE at ``pos``) are written into slot
-    ``pos`` of ``cache_k`` and ``cache_v`` **in place**, where JAX's
-    ``dynamic_update_slice`` returns updated copies; the same tensors come
-    back. A ``pos`` outside the cache raises (``dynamic_update_slice``
-    would clamp it). Attention is the direct path under the validity mask
-    ``idx <= pos`` over the cache."""
+    ``mode="full"``: the cache holds positions ``0..T-1`` and the token
+    goes to slot ``pos`` (outside the cache it raises, where
+    ``dynamic_update_slice`` would clamp it). ``"window"`` / ``"chunked"``:
+    the cache is a ring of T slots (the window or the chunk) and the token
+    goes to slot ``pos % T``; keys are rotated before they are stored, so
+    RoPE stays exact, and the softmax does not care about their order.
+    The slot is written **in place**, where JAX's
+    ``dynamic_update_slice`` returns updated copies; the same tensors
+    come back. Attention is the direct path under the validity mask:
+    ``idx <= pos`` (full), ``idx < min(pos + 1, T)`` (window),
+    ``idx <= pos % T`` (chunked: the ring restarts at each chunk)."""
     T = cache_k.shape[1]
-    if not 0 <= pos < T:
-        raise ValueError(f"decode position {pos} outside the cache's {T} "
-                         f"slots")
+    if mode == "full":
+        if not 0 <= pos < T:
+            raise ValueError(f"decode position {pos} outside the cache's "
+                             f"{T} slots")
+        slot = pos
+    elif mode in ("window", "chunked"):
+        slot = pos % T
+    else:
+        raise ValueError(mode)
     posv = torch.full((x.shape[0], 1), pos, device=x.device)
     q, k, v = project_qkv(cfg, p, x, posv)
-    cache_k[:, pos:pos + 1] = k
-    cache_v[:, pos:pos + 1] = v
-    valid = torch.arange(T, device=x.device) <= pos
+    cache_k[:, slot:slot + 1] = k
+    cache_v[:, slot:slot + 1] = v
+    idx = torch.arange(T, device=x.device)
+    if mode == "window":
+        valid = idx < min(pos + 1, T)
+    elif mode == "chunked":
+        valid = idx <= pos % T
+    else:
+        valid = idx <= pos
     out = _sdpa(q, cache_k, cache_v, valid)
-    return out @ p["wo"], cache_k, cache_v
+    return _proj(out, p["wo"], p.get("bo")), cache_k, cache_v
+
+
+def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B,S,d) to precomputed memory K/V
+    (B,M,KV,hd): no mask, no RoPE."""
+    B, S, _ = x.shape
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.hd)
+    return _proj(_sdpa(q, mem_k, mem_v, None), p["wo"], p.get("bo"))
+
+
+def memory_kv(cfg, p: Dict[str, torch.Tensor], memory: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The conditioning memory (B,M,d) projected to K/V once (prefill)."""
+    B, M, _ = memory.shape
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    k = _proj(memory, p["wk"], p.get("bk")).reshape(B, M, KV, hd)
+    v = _proj(memory, p["wv"], p.get("bv")).reshape(B, M, KV, hd)
+    return k, v
 
 
 # ----------------------------------------------------------------------- ffn
 def apply_ffn(cfg, p: Dict[str, torch.Tensor],
               x: torch.Tensor) -> torch.Tensor:
-    """Gated FFN: ``act(x @ w_gate) * (x @ w_up) @ w_down``."""
-    up = x @ p["w_up"]
-    gate = x @ p["w_gate"]
-    if cfg.act == "silu":
-        h = torch.nn.functional.silu(gate) * up
-    elif cfg.act == "gelu":
-        h = torch.nn.functional.gelu(gate, approximate="tanh") * up
+    """``gelu_mlp``: ``gelu(x @ w_up + b_up) @ w_down + b_down``; the
+    gated ones: ``act(x @ w_gate) * (x @ w_up) @ w_down`` with ``silu``,
+    ``gelu`` (tanh form, as ``jax.nn.gelu``) or ``relu_sq``."""
+    up = _proj(x, p["w_up"], p.get("b_up"))
+    gelu = torch.nn.functional.gelu
+    if cfg.act == "gelu_mlp":
+        h = gelu(up, approximate="tanh")
     else:
-        raise NotImplementedError(f"activation {cfg.act!r} is not ported")
-    return h @ p["w_down"]
+        gate = x @ p["w_gate"]
+        if cfg.act == "silu":
+            h = torch.nn.functional.silu(gate) * up
+        elif cfg.act == "gelu":
+            h = gelu(gate, approximate="tanh") * up
+        elif cfg.act == "relu_sq":
+            h = torch.square(torch.relu(gate)) * up
+        else:
+            raise ValueError(cfg.act)
+    return _proj(h, p["w_down"], p.get("b_down"))
 
 
 # ----------------------------------------------------------------- embedding
-def embed_tokens(p: Dict[str, torch.Tensor],
+def embed_tokens(cfg, p: Dict[str, torch.Tensor],
                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B,S) int -> (B,S,d)."""
-    return p["embed"][tokens.long()]
+    """tokens: (B,S) int, or (B,S,K) with ``cfg.n_codebooks`` K: codebook
+    c's token t is row ``c * vocab + t`` and the K rows are summed ->
+    (B,S,d)."""
+    tokens = tokens.long()
+    if cfg.n_codebooks:
+        offs = torch.arange(cfg.n_codebooks, device=tokens.device) \
+            * cfg.vocab
+        return p["embed"][tokens + offs].sum(dim=2)
+    return p["embed"][tokens]
 
 
 def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],
                        x: torch.Tensor) -> torch.Tensor:
-    if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["head"]
+    """(B,S,vocab), or (B,S,K,vocab) with codebooks."""
+    logits = x @ (p["embed"].T if cfg.tie_embeddings else p["head"])
+    if cfg.n_codebooks:
+        B, S, _ = x.shape
+        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab)
+    return logits
 
 
 def positions_for(batch: int, seq_len: int,
                   device: torch.device) -> torch.Tensor:
     """(B, S) token positions."""
     return torch.arange(seq_len, device=device).expand(batch, seq_len)
-

@@ -1,6 +1,7 @@
 """Serving: restore a training checkpoint's parameters, prefill a prompt
-batch, decode greedily (port of ``repro/serving/engine.py`` for the dense
-family).
+batch, decode greedily (port of ``repro/serving/engine.py`` for the
+attention family: ``full``, ``window`` and ``chunked`` self-attention,
+``xattn`` blocks with a conditioning memory, parallel codebooks).
 
 ``prefill_step`` consumes a full prompt and returns (last-token logits,
 decode caches); ``decode_step`` consumes one token and the caches.
@@ -8,7 +9,8 @@ PyTorch runs eagerly, so the steps are plain functions where the JAX
 package jits them, and they run under ``torch.no_grad()``. Everything
 stays on the device of the params: on a card a prompt longer than 2,048
 tokens goes through the flash-attention kernel, decode through the direct
-attention path. Cache templates are ``meta`` tensors, PyTorch's shape-and-
+attention path over a linear cache (``full``) or a ring (``window``,
+``chunked``). Cache templates are ``meta`` tensors, PyTorch's shape-and-
 dtype stand-ins for ``jax.ShapeDtypeStruct``.
 """
 
@@ -25,6 +27,7 @@ from repro_torch.core.restore import RestoreEngine, RestoreStats
 from repro_torch.core.tree import leaves
 from repro_torch.fleet import FleetFabric
 from repro_torch.models import model as M
+from repro_torch.models.model import ATTN_TYPES, attn_kind
 from repro_torch.storage.repository import CheckpointRepository
 
 
@@ -118,14 +121,27 @@ def make_decode_step(cfg) -> Callable:
 def _cache_entry_shapes(cfg, btype: str, batch: int, seq_len: int
                         ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Shapes and dtypes of one layer's decode cache (without the stack
-    dimension)."""
-    if btype != "full":
+    dimension): ``k``, ``v`` of ``seq_len`` slots, or of the window or
+    chunk where that is shorter, and for ``xattn`` the memory's ``mk``,
+    ``mv``."""
+    if btype not in ATTN_TYPES:
         raise NotImplementedError(
             f"{cfg.name}: the decode cache of block type {btype!r} is not "
             f"yet ported")
     dt = dtypes.lookup(cfg.dtype).torch
-    shape = (batch, seq_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": (shape, dt), "v": (shape, dt)}
+    kind = attn_kind(btype)
+    T = seq_len
+    if kind == "window":
+        T = min(cfg.window, seq_len)
+    elif kind == "chunked":
+        T = min(cfg.chunk, seq_len)
+    shape = (batch, T, cfg.n_kv_heads, cfg.hd)
+    e = {"k": (shape, dt), "v": (shape, dt)}
+    if btype == "xattn":
+        mem = (batch, cfg.n_memory_embeds, cfg.n_kv_heads, cfg.hd)
+        e["mk"] = (mem, dt)
+        e["mv"] = (mem, dt)
+    return e
 
 
 def cache_template(cfg, batch: int, seq_len: int,
@@ -156,22 +172,26 @@ def zero_caches(cfg, batch: int, seq_len: int,
 
 def greedy_generate(cfg, params, prompt_batch: Dict[str, torch.Tensor],
                     n_new: int) -> torch.Tensor:
-    """Prefill ``prompt_batch["tokens"]`` (B, S) and decode ``n_new``
-    tokens greedily (argmax of the fp32 last-position logits); returns
-    them as (B, n_new) int32. The cache has ``n_new`` slots after the
-    prompt (``max_decode_len``); token ``i`` is decoded at position
-    ``S + i`` (the dense family has no prefix embeddings). As in the
-    reference, the loop decodes once more after the last token it
-    returns."""
+    """Prefill ``prompt_batch`` (``tokens`` (B, S), or (B, S, K) with
+    codebooks, and ``memory_embeds`` where the config has a memory) and
+    decode ``n_new`` tokens greedily (argmax of the fp32 last-position
+    logits); returns them as (B, n_new) int32, or (B, n_new, K). A full
+    cache has ``n_new`` slots after the prompt (``max_decode_len``); token
+    ``i`` is decoded at position ``S + i`` (the prefix-LM is not ported).
+    As in the reference, the loop decodes once more after the last token
+    it returns."""
     cfg = dataclasses.replace(cfg, max_decode_len=n_new)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     logits, caches = prefill(params, prompt_batch)
-    S = prompt_batch["tokens"].shape[1]
+    B, S = prompt_batch["tokens"].shape[:2]
 
     def next_tokens(logits):
-        return torch.argmax(logits[:, -1].to(torch.float32), dim=-1) \
-            .to(torch.int32).reshape(-1, 1)
+        last = torch.argmax(logits[:, -1].to(torch.float32), dim=-1) \
+            .to(torch.int32)
+        if cfg.n_codebooks:
+            return last.reshape(B, 1, cfg.n_codebooks)
+        return last.reshape(B, 1)
 
     out = []
     nxt = next_tokens(logits)

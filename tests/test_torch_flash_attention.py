@@ -23,8 +23,10 @@ both packages, which gives the same bits) go through:
   fp32 and bf16, the masked softmax in fp32 on every row that sees a key
   (it gives a row that sees none the mean of v, the flash kernels 0).
 
-The wrapper raises under grad (the backward is not ported), never falls
-back on a CUDA tensor, and counts only its own launches. A ``gpu``-marked
+The wrapper raises under grad (``layers._Flash`` is the way to train
+through it; the model's blocked path under grad is held in
+``tests/test_torch_model.py`` and ``tests/test_torch_flash_backward.py``),
+never falls back on a CUDA tensor, and counts only its own launches. A ``gpu``-marked
 test holds the CUDA kernel against the plain version on a card at the same
 tile edges and masks, in both dtypes; it skips inside the test on a host
 without one. The kernel's source is checked here for what its bf16 body is
@@ -191,10 +193,8 @@ def test_refuses_grad_and_bad_inputs():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 4, 2, 64, 6))
     with pytest.raises(NotImplementedError, match="backward"):
         tops.flash_attention(q.requires_grad_(True), k, v)
-    long = torch.zeros(1, layers.DIRECT_SDPA_MAX_SEQ + 1, 2, 64,
-                       requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        layers.full_seq_sdpa(long, long, long)
+    with pytest.raises(NotImplementedError, match="_Flash"):
+        tops.flash_attention(q, k, v, return_stats=True)
     with torch.no_grad():
         assert tops.flash_attention(q, k, v).shape == (1, 8, 256)
     q = q.detach()
@@ -222,7 +222,9 @@ def test_entry_point_is_in_the_library():
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert build.CSRC / "flash_attention.cu" in build.SOURCES
     assert f'extern "C" int {fa.KERNEL.symbol}(' in src
-    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 15
+    # q, k, v, out, the row stats m and l (null when not asked for), ten
+    # sizes and flags, the stream
+    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 17
 
 
 def test_bf16_body_is_a_warp_specialised_tma_wgmma_pipeline():
@@ -277,3 +279,72 @@ def test_cuda_kernel_matches_plain(S, T, dtype, heads):
         np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
                                    atol=TOL[dtype], rtol=TOL[dtype])
     assert fa.KERNEL.launches == before + len(kinds)
+
+
+def test_kernel_takes_hd_64_and_128_with_row_stats():
+    """Both bodies are instantiated at hd 64 and 128 (hd 256 comes with
+    the configs that need it), and the one entry point takes the row
+    stats' buffers after the output (null when they are not asked for)."""
+    assert fa.KERNEL_HEAD_DIM == {64, 128}
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    for part in ("launch_bf16<64>", "launch_bf16<128>", "launch_f32<64>",
+                 "launch_f32<128>",
+                 f'extern "C" int {fa.KERNEL.symbol}(',
+                 "void* out, void* m, void* l,"):
+        assert part in src, part
+    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 17
+    q = torch.zeros(1, 4, 2, 256)
+    with torch.no_grad():   # the plain version takes any width
+        assert tops.flash_attention(q, q, q).shape == (1, 4, 512)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T", [(1, 1), (127, 127), (128, 128), (129, 129),
+                                 (257, 257), (300, 200), (2100, 2100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(32, 16), (4, 4)])
+def test_cuda_kernel_matches_plain_at_hd128(S, T, dtype, heads):
+    """The hd-128 instantiation (two consumer warpgroups, 64-column
+    halves) at the tile edges of its 128-row CTAs and every mask."""
+    _cuda_or_skip()
+    H, KV = heads
+    (_j, cpu) = _both(_qkv(1, S, T, H, KV, 128, S + 1), dtype)
+    q, k, v = (t.cuda() for t in cpu)
+    kinds = [("full", 0, 0), ("window", 300, 0), ("window", 32, 0),
+             ("chunked", 0, 512), ("chunked", 0, 192)]
+    before = fa.KERNEL.launches
+    for kind, window, chunk in kinds:
+        got = tops.flash_attention(q, k, v, kind=kind, window=window,
+                                   chunk=chunk)
+        want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
+                                        chunk=chunk)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.KERNEL.launches == before + len(kinds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_row_stats_match_plain(hd, dtype):
+    """The kernel's m and l against the plain version's: within 1e-3
+    absolute plus 1e-4 (m) and 1e-3 (l) relative (m comes back from log2
+    units in the bf16 body, and its products are bf16 inputs summed in
+    fp32 in another order); the output equals the call without stats."""
+    _cuda_or_skip()
+    (_j, cpu) = _both(_qkv(2, 300, 300, 4, 2, hd, hd), dtype)
+    q, k, v = (t.cuda() for t in cpu)
+    for kind, window, chunk in KINDS + [("window", 0, 0)]:
+        out, m, l = tops.flash_attention(q, k, v, kind=kind, window=window,
+                                         chunk=chunk, return_stats=True)
+        _o, wm, wl = fa.flash_attention_plain(
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            return_stats=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tops.flash_attention(
+            q, k, v, kind=kind, window=window, chunk=chunk))
+        np.testing.assert_allclose(m.cpu().numpy(), wm.cpu().numpy(),
+                                   atol=1e-3, rtol=1e-4)
+        np.testing.assert_allclose(l.cpu().numpy(), wl.cpu().numpy(),
+                                   atol=1e-3, rtol=1e-3)

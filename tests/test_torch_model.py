@@ -180,11 +180,25 @@ def test_pipeline_draws_the_reference_batches():
 
 def test_long_sequences_are_refused():
     """Past 2048 tokens attention takes the blocked online-softmax path,
-    whose backward is not yet ported: under grad it raises rather than
-    returning a tensor that trains nothing; without grad it runs."""
-    q = torch.zeros(1, layers.DIRECT_SDPA_MAX_SEQ + 1, 2, 4,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="blocked"):
-        layers.full_seq_sdpa(q, q, q)
+    which trains through ``layers._Flash``: at S 2,049 its gradients equal
+    those of the direct masked path (fp32, ``rtol=1e-4, atol=1e-5``: the
+    two differ in summation order and in where the softmax normalises)
+    instead of raising; without grad it runs too."""
+    S = layers.DIRECT_SDPA_MAX_SEQ + 1
+    rng = np.random.default_rng(9)
+    qkv = [torch.from_numpy(rng.standard_normal((1, S, 2, 8))
+                            .astype(np.float32)).requires_grad_(True)
+           for _ in range(3)]
+    dout = torch.from_numpy(rng.standard_normal((1, S, 16))
+                            .astype(np.float32))
+    out = layers.full_seq_sdpa(*qkv, kv_block=512)
+    grads = torch.autograd.grad(out, qkv, dout)
+    direct = layers._sdpa(*qkv, layers.make_mask(S, "cpu"))
+    want = torch.autograd.grad(direct, qkv, dout)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               direct.detach().numpy(), rtol=1e-4, atol=1e-5)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5)
     with torch.no_grad():
-        assert layers.full_seq_sdpa(q, q, q).shape == (1, q.shape[1], 8)
+        assert layers.full_seq_sdpa(*qkv).shape == (1, S, 16)

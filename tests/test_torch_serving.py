@@ -188,7 +188,7 @@ def test_cache_templates():
     assert all(not t.any() and t.device.type == "cpu" for t in leaves(zeros))
     with pytest.raises(NotImplementedError, match="block type"):
         TE.cache_template(dataclasses.replace(
-            cfg, layer_groups=((("window",), 1),)), 1, 4)
+            cfg, layer_groups=((("rec",), 1),)), 1, 4)
 
 
 # ------------------------------------------------------ load for serving
