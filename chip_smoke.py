@@ -27,11 +27,14 @@ Phases, any failure exits non-zero:
    attention within 2e-5 (fp32) and 2e-2 (bf16) for the ``full``,
    ``window`` (200, and 32: narrower than a tile) and ``chunked`` (192:
    across tiles) masks at S 1, 127, 128, 129, 257 and 2,100, and 300
-   queries over 200 keys, with 32/8 and 4/4 heads, at hd 64 and 128; its
-   row stats within 1e-3 and ``layers._Flash``'s gradients (relative L2
-   error, 1e-4 fp32, 2e-2 bf16) against the plain version's, also at
-   phase 11b's shape; each timed attention shape held against the plain
-   version first (hd 64 at phase 6's, hd 128 at phase 11a's) — then timed with CUDA
+   queries over 200 keys, with 32/8 and 4/4 heads, at hd 64, 128 and
+   256, and with the prefix-LM's prefix of 256 (``full`` and ``window``
+   200 at S 2,100 and 300 over 200, every hd); its row stats within 1e-3
+   and ``layers._Flash``'s gradients (relative L2 error, 1e-4 fp32, 2e-2
+   bf16) against the plain version's, also at phase 11b's shape; each
+   timed attention shape held against the plain version first (hd 64 at
+   phase 6's, hd 128 at phase 11a's, hd 256 at 12a's and 12b's) — then
+   timed with CUDA
    events beside its plain version, its bound (flash attention also as
    TFLOP/s and its share of the bound), and a library yardstick where one
    PyTorch call computes the
@@ -87,14 +90,15 @@ Phases, any failure exits non-zero:
    ``torch.profiler``, and layer 0's real q/k/v through the kernel and its
    plain version.
 7. Offline reduction path (slice 4): the same model's state at one layer
-   (full width) made on the card from a seeded generator, three in-place AdamW steps on seeded
-   gradients, each followed by saves of two ``DifferentialCheckpointer``
-   streams (keyframe every 3: K, delta, delta): ``quant="bf16"`` of the
-   fp32 master (stacked leaves folded to 2-D) and ``quant="int8"`` of the
-   fp32 first moment (each leaf as rows of 256); then steps 1-3 restore
-   and must equal, bit for bit, the working arrays the plain versions give
-   on the card; then the ``dequantize_int8`` kernel on step 3's restored
-   q is within one scale of the saved moment.
+   (full width) made on the card from a seeded generator, two in-place
+   AdamW steps on seeded gradients, each followed by saves of two
+   ``DifferentialCheckpointer`` streams (keyframe every 3: K, delta):
+   ``quant="bf16"`` of the fp32 master (stacked leaves folded to 2-D) and
+   ``quant="int8"`` of the fp32 first moment (each leaf as rows of 256);
+   then steps 1-2 restore and must equal, bit for bit, the working arrays
+   the plain versions give on the card; then the ``dequantize_int8``
+   kernel on step 2's restored q is within one scale of the saved
+   moment.
 8. Engines (slice 10): the four engines the paper compares, in its order
    (``sync``, ``snapshot``, ``datastates-old``, ``datastates``), each from
    the same seed under a raw policy (the baselines refuse delta and
@@ -110,7 +114,8 @@ Phases, any failure exits non-zero:
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
    Kernel launch counts are zeroed just before each of phases 4, 5, 6,
-   10 (run right after 6), 7, 8, 9a and 9b and read just after; each
+   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b and 12c and
+   read just after; each
    kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
    phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
@@ -162,10 +167,10 @@ Phases, any failure exits non-zero:
    seconds, the resume's fetch, admission, verify and restore seconds,
    remote, peer and cache bytes, each replica's seconds, launches.
 11. The attention-family model zoo (slice 13), under
-   ``build/chip_smoke_zoo/``. (a) gemma3-27b at full width cut to 6
-   layers (5 ``window`` + 1 ``full``): saved once, restored by
+   ``build/chip_smoke_zoo/``. (a) gemma3-27b at full width cut to 2
+   layers (1 ``window`` + 1 ``full``): saved once, restored by
    ``load_params_for_serving`` bit for bit, ``greedy_generate`` of 2 x
-   4,096 tokens for 32 twice (the same tokens; six hd-128 launches a
+   4,096 tokens for 32 twice (the same tokens; two hd-128 launches a
    prefill by mask, none in decode; each decode step writes ring slot
    ``pos % 1024`` alone), and one more prefill whose every layer's real
    q, k, v go through the kernel and the plain version. (b) musicgen-
@@ -173,7 +178,24 @@ Phases, any failure exits non-zero:
    through the kernel with row stats and ``layers._Flash``: 3 steps
    saving at 2, a bit-exact resume, step 3's loss bit-equal. One ``zoo
    report`` JSON line.
-12. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+12. The rest of the zoo (slice 14), at full width, under
+   ``build/chip_smoke_zoo/``. (a) recurrentgemma-2b cut to 3 layers (rec,
+   rec, window 2,048; hd 256) and (b) paligemma-3b cut to 2 layers (the
+   prefix-LM: 256 patch embeddings before 3,840 tokens; hd 256) as 11a:
+   one save, a bit-exact restore, ``greedy_generate`` of 2 prompts for 32
+   tokens twice (the same tokens; a prefill launches ``{256/window: 1}``
+   and ``{256/full/prefix: 2}``), each decode step writing ring slot
+   ``pos % 2048`` alone and shifting each ``rec`` layer's convolution
+   window by one, the ``rec`` state after decode within a relative L2
+   error of 2e-2 of a prefill over the same tokens, every attention
+   layer's real q, k, v through the kernel and the plain version. (c)
+   dbrx-132b (MoE, 16 experts top 4) and rwkv6-7b, 1 layer each, from
+   seeded params without a save: ``greedy_generate`` of 2 x 4,096 tokens
+   for 32 twice, the same tokens (dbrx's prefill ``{128/full: 1}``), and
+   rwkv's prefill of 4,080 tokens and 16 decode steps within a relative
+   L2 error of 2e-2 of its 4,096-token forward. One ``zoo rest report``
+   JSON line.
+13. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -237,11 +259,27 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
 #: at this depth; the training, serving, engines, process-rank and tiers
 #: phases at 2 layers (phase 10 reads phase 5's chain)
 CKPT_LAYERS = 1
-#: the zoo phase: gemma3-27b served at one repetition of its pattern
-#: (5 window + 1 full), musicgen-medium trained at 4 layers on batches of
-#: 2 x 4,096 tokens (past the 2,048 of the direct attention path)
-ZOO_SERVE_LAYERS, ZOO_TRAIN_LAYERS = 6, 4
+#: the zoo phase: gemma3-27b served at 2 layers (one ``window``, one
+#: ``full``: both masks, the ring's wrap and the per-layer check at a
+#: third of its pattern's bytes), musicgen-medium trained at 4 layers on
+#: batches of 2 x 4,096 tokens (past the 2,048 of the direct attention
+#: path)
+ZOO_SERVE_PATTERN, ZOO_TRAIN_LAYERS = ("window", "full"), 4
 ZOO_TRAIN_BATCH, ZOO_TRAIN_SEQ = 2, 4096
+#: the rest of the zoo (phase 12), each at full width cut in depth:
+#: recurrentgemma-2b at one repetition of its (rec, rec, window) pattern,
+#: paligemma-3b at 2 layers with its 256-patch prefix (3,840 tokens after
+#: it), dbrx-132b and rwkv6-7b at 1 layer each; rwkv's decode continues a
+#: prefill of 4,080 tokens for 16 steps fed the next given tokens
+ZOO12_PATTERNS = {"recurrentgemma-2b": ("rec", "rec", "window"),
+                  "paligemma-3b": ("full", "full"),
+                  "dbrx-132b": ("full_moe",), "rwkv6-7b": ("rwkv",)}
+RWKV_TAIL = 16
+#: rwkv's last logits after prefill + decode against a forward over the
+#: whole sequence: relative L2 error (bf16: the chunked and the stepwise
+#: WKV round to bf16 at other points; ``tests/test_torch_model_zoo_
+#: recurrent.py`` holds the same bound on the CPU)
+RWKV_TAIL_REL_L2 = 2e-2
 #: flash attention at odd sizes: (queries, keys) — one short of, on and
 #: past the bf16 kernel's 128-row tiles, fewer keys than queries — (H, KV)
 #: heads, and masks: a window narrower than a tile, chunks across tiles
@@ -252,16 +290,25 @@ FLASH_KINDS = (("full", 0, 0), ("window", 200, 0), ("window", 32, 0),
                ("chunked", 0, 192))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: the head widths the attention kernel is built for, and gemma3's window
-FLASH_HDS = (64, 128)
+FLASH_HDS = (64, 128, 256)
 ZOO_WINDOW = 1024
+#: the prefix-LM's prefix (paligemma's 256 patches) at odd sizes: (S, T),
+#: each under ``full`` and ``window`` 200 at every head width
+FLASH_PREFIX, FLASH_PREFIX_SEQS = 256, ((2100, 2100), (300, 200))
+#: phase 12's attention shapes at hd 256: 12a recurrentgemma-2b's window
+#: layer (10/1 heads, window 2,048) and 12b paligemma-3b's prefix-LM (8/1
+#: heads, ``full`` with the 256-patch prefix), B 2 x S 4,096 each
+ZOO12A_HEADS, ZOO12A_WINDOW = (10, 1), 2048
+ZOO12B_HEADS = (8, 1)
 #: the reduction kernels at the reducer's shapes: llama3.2-1b's embedding
 #: (128,256 x 2,048 fp32) for the downcast, the same leaf as rows of 256
 #: for the int8 pair, and delta_xor's fold piece for the two u32/f32 ones
 DOWNCAST_SHAPE = (128_256, 2048)
 INT8_ROWS = 128_256 * 2048 // 256
-#: the reducer phase: keyframe every 3 saves, so steps 1-3 save K, delta,
-#: delta
-REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 3, 3
+#: the reducer phase: keyframe every 3 saves, so steps 1-2 save K, delta
+#: (two steps, not three, since phase 12: the smoke's time; the CPU tests
+#: keep the longer chain)
+REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 2, 3
 #: the reducer phase's depth (full width)
 REDUCE_LAYERS = 1
 SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
@@ -796,27 +843,34 @@ def _flash_err(got, want, tol: float) -> float:
     return float(diff.max())
 
 
-def flash_pairs(S: int, window: int = 0) -> int:
+def flash_pairs(S: int, window: int = 0, n_prefix: int = 0) -> int:
     """Visible (query, key) pairs of causal attention over S positions,
-    within ``window`` keys when it is set."""
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+    within ``window`` keys when it is set; each of the first ``n_prefix``
+    rows sees the whole prefix instead (``full``: n(n - 1) / 2 pairs
+    more)."""
+    def causal(n: int) -> int:  # rows [0, n)
+        if not window or window >= n:
+            return n * (n + 1) // 2
+        return window * (window + 1) // 2 + (n - window) * window
+    n = min(n_prefix, S)
+    return n * n + causal(S) - causal(n)
 
 
-def flash_flop(B: int, S: int, H: int, hd: int, window: int = 0) -> int:
+def flash_flop(B: int, S: int, H: int, hd: int, window: int = 0,
+               n_prefix: int = 0) -> int:
     """FLOP of the two products of causal attention (``full``, or
-    ``window``): ``4 * hd`` per visible (query, key) pair
-    (:func:`flash_pairs`) per (b, h)."""
-    return 4 * hd * B * H * flash_pairs(S, window)
+    ``window``, with the prefix-LM's prefix): ``4 * hd`` per visible
+    (query, key) pair (:func:`flash_pairs`) per (b, h)."""
+    return 4 * hd * B * H * flash_pairs(S, window, n_prefix)
 
 
 def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
-                   itemsize: int, window: int = 0) -> tuple:
+                   itemsize: int, window: int = 0,
+                   n_prefix: int = 0) -> tuple:
     """(bound ms, bound_by) of causal attention: its FLOP
     (:func:`flash_flop`) against the bf16 tensor-core peak; q, k, v read
     once and the output written once against the memory rate."""
-    flop = flash_flop(B, S, H, hd, window)
+    flop = flash_flop(B, S, H, hd, window, n_prefix)
     nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
     t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -824,8 +878,9 @@ def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
 
 
 def _check_flash_stats(gen) -> float:
-    """The kernel's row stats against the plain version's, at hd 64 and
-    128, both dtypes, every mask, at (S, T) 300 and 2,100 with 32/8 heads,
+    """The kernel's row stats against the plain version's, at hd 64, 128
+    and 256, both dtypes, every mask, at (S, T) 300 and 2,100 with 32/8
+    heads,
     and at 11b's shape (B 2, S 4,096, 24/24 heads, hd 64, bf16,
     ``full``); the output equal to the call without stats. Returns the
     largest ``|m|`` error."""
@@ -882,7 +937,8 @@ def _check_flash_backward(gen) -> float:
     backward) against autograd through the plain version: the output
     within :data:`FLASH_TOL` and dq, dk, dv within :data:`GRAD_REL_L2`,
     at S 2,100 with ``kv_block`` 1,024, 32/8 heads, ``full`` and
-    ``window`` 200, hd 64 and 128, both dtypes, and at 11b's shape (B 2,
+    ``window`` 200, hd 64, 128 and 256, both dtypes, and at 11b's shape
+    (B 2,
     S 4,096, 24/24 heads, hd 64, bf16, ``full``). Returns the largest
     relative L2 error of a gradient."""
     import torch
@@ -924,45 +980,55 @@ def _check_flash_backward(gen) -> float:
 
 def check_flash_kernel(gen) -> dict:
     """Flash attention against its plain version at odd sizes (every mask,
-    both dtypes, 32/8 and 4/4 heads, hd 64 and 128); its row stats and
-    ``layers._Flash``'s gradients against the plain version's; then, each
-    held against the plain version first, timed at the serving shape (B
-    2, S 4,096, 32/8 heads, hd 64, bf16, ``full``) beside the plain
+    both dtypes, 32/8 and 4/4 heads, hd 64, 128 and 256), with the
+    prefix-LM's prefix of 256 at (S, T) 2,100 and 300 over 200 (``full``
+    and ``window`` 200, 32/8 heads, every hd, both dtypes); its row stats
+    and ``layers._Flash``'s gradients against the plain version's; then,
+    each held against the plain version first, timed at the serving shape
+    (B 2, S 4,096, 32/8 heads, hd 64, bf16, ``full``) beside the plain
     version, the bound, and PyTorch's ``scaled_dot_product_attention``
-    (causal, GQA) as the library time, and at hd 128 at phase 11a's shape
-    (B 2, S 4,096, 32/16 heads; ``full`` and ``window`` 1,024) beside SDPA
-    (``is_causal``, and the window's boolean mask)."""
+    (causal, GQA) as the library time, at hd 128 at phase 11a's shape (B
+    2, S 4,096, 32/16 heads; ``full`` and ``window`` 1,024) beside SDPA
+    (``is_causal``, and the window's boolean mask), and at hd 256 at
+    phase 12a's (10/1 heads, ``window`` 2,048) and 12b's (8/1 heads,
+    ``full`` with a prefix of 256: SDPA with the boolean mask, and causal
+    SDPA at the same shape beside it)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     B = SERVE_BATCH
     worst = 0.0
-    cases = [(B, S, T, H, KV, hd, dt, kind) for hd in FLASH_HDS
+    cases = [(B, S, T, H, KV, hd, dt, kind, 0) for hd in FLASH_HDS
              for S, T in FLASH_SEQS for H, KV in FLASH_HEADS
              for dt in ("float32", "bfloat16") for kind in FLASH_KINDS]
-    for B_, S, T, H, KV, hd, dt, (kind, window, chunk) in cases:
+    cases += [(B, S, T, 32, 8, hd, dt, kind, FLASH_PREFIX)
+              for hd in FLASH_HDS for S, T in FLASH_PREFIX_SEQS
+              for dt in ("float32", "bfloat16") for kind in FLASH_KINDS[:2]]
+    for B_, S, T, H, KV, hd, dt, (kind, window, chunk), n_prefix in cases:
         tdt = getattr(torch, dt)
         q = torch.randn(B_, S, H, hd, device="cuda", generator=gen).to(tdt)
         k = torch.randn(B_, T, KV, hd, device="cuda", generator=gen).to(tdt)
         v = torch.randn(B_, T, KV, hd, device="cuda", generator=gen).to(tdt)
         got = fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
-                                      chunk=chunk)
+                                      chunk=chunk, n_prefix=n_prefix)
         want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
-                                        chunk=chunk)
+                                        chunk=chunk, n_prefix=n_prefix)
         torch.cuda.synchronize()
         err = _flash_err(got, want, FLASH_TOL[dt])
         if got.shape != want.shape or got.dtype != q.dtype \
                 or not math.isfinite(err):
             fail(f"flash_attention disagrees with its plain version at "
                  f"B {B_} S {S} T {T} heads {H}/{KV} hd {hd} {dt} {kind} "
-                 f"(window {window}, chunk {chunk}): max |diff| "
+                 f"(window {window}, chunk {chunk}, n_prefix {n_prefix}): "
+                 f"max |diff| "
                  f"{float((got.float() - want.float()).abs().max())!r}")
         worst = max(worst, err)
     stats_err = _check_flash_stats(gen)
     grad_err = _check_flash_backward(gen)
 
-    def timed(S, H, KV, hd, window):
-        """Times at (B, S, H/KV, hd, bf16, causal or ``window``), after
-        the kernel's output there is held against the plain version's."""
+    def timed(S, H, KV, hd, window, n_prefix=0):
+        """Times at (B, S, H/KV, hd, bf16, causal or ``window``, with the
+        prefix), after the kernel's output there is held against the
+        plain version's."""
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen) \
             .to(torch.bfloat16)
         k = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
@@ -971,30 +1037,37 @@ def check_flash_kernel(gen) -> dict:
             .to(torch.bfloat16)
         kind = "window" if window else "full"
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if window:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        causal = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                              enable_gqa=True)
+        lib = causal
+        if window or n_prefix:
             mask = fa.allowed(torch.arange(S, device="cuda"),
-                              torch.arange(S, device="cuda"), kind, window, 0)
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        else:
-            lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-        kern = lambda: fa.flash_attention_cuda(q, k, v, kind=kind,  # noqa: E731
-                                               window=window)
-        plain = lambda: fa.flash_attention_plain(q, k, v, kind=kind,  # noqa: E731
-                                                 window=window)
+                              torch.arange(S, device="cuda"), kind, window,
+                              0, n_prefix)
+            lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                               enable_gqa=True)
+        kern = lambda: fa.flash_attention_cuda(  # noqa: E731
+            q, k, v, kind=kind, window=window, n_prefix=n_prefix)
+        plain = lambda: fa.flash_attention_plain(  # noqa: E731
+            q, k, v, kind=kind, window=window, n_prefix=n_prefix)
         err = _flash_err(kern(), plain(), FLASH_TOL["bfloat16"])
         if not math.isfinite(err):
             fail(f"flash_attention disagrees with its plain version at B "
                  f"{B} S {S} heads {H}/{KV} hd {hd} bf16 {kind} (window "
-                 f"{window})")
+                 f"{window}, n_prefix {n_prefix})")
         ms, library_ms = _time_turns(kern, lib, 50)
         plain_ms = _time_ms(plain, 5)
-        bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2, window)
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "tflops": flash_flop(B, S, H, hd, window) / (ms * 1e-3)
-                / 1e12, "bound_share": bound_ms / ms, "max_abs_err": err}
+        bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2, window,
+                                            n_prefix)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "tflops": flash_flop(B, S, H, hd, window, n_prefix)
+               / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
+               "max_abs_err": err}
+        if n_prefix:
+            _ms, row["library_causal_ms"] = _time_turns(kern, causal, 50)
+        return row
 
     S = SERVE_PROMPT
     row = timed(S, 32, 8, 64, 0)
@@ -1018,10 +1091,29 @@ def check_flash_kernel(gen) -> dict:
             f"bound (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
             f"ms by {r['bound_by']}, scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms)")
+    for tag, (H, KV), window, n_prefix in (
+            ("hd256_window2048", ZOO12A_HEADS, ZOO12A_WINDOW, 0),
+            ("hd256_prefix256", ZOO12B_HEADS, 0, FLASH_PREFIX)):
+        r = timed(S, H, KV, 256, window, n_prefix)
+        worst = max(worst, r["max_abs_err"])
+        row.update({f"{tag}_{k}": r[k] for k in r})
+        log(f"kernel flash_attention at B {B} S {S} heads {H}/{KV} hd 256 "
+            f"bf16 {'window ' + str(window) if window else 'causal'}"
+            f"{', prefix ' + str(n_prefix) if n_prefix else ''}: within "
+            f"{FLASH_TOL['bfloat16']} of the plain version (max |diff| "
+            f"{r['max_abs_err']:.3g}); {r['ms']:.4f} ms, "
+            f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the "
+            f"bound (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms"
+            + (f", causal SDPA at that shape {r['library_causal_ms']:.4f} ms"
+               if n_prefix else "") + ")")
     log(f"kernel flash_attention: within {FLASH_TOL} of its plain version "
         f"at (S, T) {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, "
-        f"hd {FLASH_HDS}, masks {FLASH_KINDS}, fp32 and bf16, and at B {B} "
-        f"S {S} 32/16 hd 128 causal and window {ZOO_WINDOW} (max |diff| "
+        f"hd {FLASH_HDS}, masks {FLASH_KINDS}, fp32 and bf16, with a prefix "
+        f"of {FLASH_PREFIX} at (S, T) {FLASH_PREFIX_SEQS}, and at B {B} "
+        f"S {S} 32/16 hd 128 causal and window {ZOO_WINDOW}, hd 256 10/1 "
+        f"window {ZOO12A_WINDOW} and 8/1 prefix {FLASH_PREFIX} (max |diff| "
         f"{worst:.3g}); row stats within 1e-3, also at B {ZOO_TRAIN_BATCH} "
         f"S {ZOO_TRAIN_SEQ} 24/24 hd 64 (max |dm| {stats_err:.3g}); "
         f"layers._Flash's dq, dk, dv within a relative L2 error of "
@@ -1703,7 +1795,7 @@ def run_serve_path(device: str, cfg, workdir: str, step: int, saved: list,
     # layer 0's real q/k/v through the kernel and its plain version
     with torch.no_grad():
         p0 = map_leaves(lambda t: t[0], params["groups"][0][0])
-        x, _mem = M._embed_inputs(cfg, params, {"tokens": tokens})
+        x, _n, _mem = M._embed_inputs(cfg, params, {"tokens": tokens})
         h = layers.apply_norm(p0["ln1"], x)
         q, k, v = layers.project_qkv(
             cfg, p0["attn"], h, layers.positions_for(batch, prompt_len,
@@ -2354,7 +2446,7 @@ def run_reduction_path(device: str, cfg, workdir: str,
                        steps: int = REDUCE_STEPS) -> dict:
     """The offline reduction path (slice 4): ``steps`` in-place AdamW steps
     on seeded gradients, each followed by a save of two offline
-    checkpointers (keyframe every 3: K, delta, delta).
+    checkpointers (keyframe every 3: K, delta[, delta]).
     ``quant="bf16"`` saves the fp32 master with stacked leaves folded to
     ``(count * rows, cols)``; ``quant="int8"`` saves the fp32 first moment
     with every leaf viewed as rows of 256. Without the fold no llama leaf
@@ -2488,28 +2580,65 @@ def _n_params(cfg) -> int:
     return sum(math.prod(s.shape) for s in leaves(M.param_shapes(cfg)))
 
 
+def _launch_name(hd: int, kind: str, prefix: bool, stats: bool) -> str:
+    """``hd/kind[/prefix][/stats]``: a key of
+    ``flash_attention.LAUNCHES_BY`` as the zoo phases log it."""
+    return f"{hd}/{kind}" + ("/prefix" if prefix else "") \
+        + ("/stats" if stats else "")
+
+
 def _flash_by_kind(before) -> dict:
-    """The attention kernel's launches by ``hd/kind/stats`` since
+    """The attention kernel's launches by :func:`_launch_name` since
     ``before`` (a copy of ``flash_attention.LAUNCHES_BY``)."""
     from repro_torch.kernels import flash_attention as fa
-    return {f"{hd}/{kind}/{'stats' if st else 'out'}": n - before[(hd, kind,
-                                                                  st)]
-            for (hd, kind, st), n in fa.LAUNCHES_BY.items()
-            if n != before[(hd, kind, st)]}
+    return {_launch_name(*key): n - before[key]
+            for key, n in fa.LAUNCHES_BY.items() if n != before[key]}
+
+
+def _prefill_launches(cfg) -> dict:
+    """The kernel's launches one prefill past 2,048 tokens makes: one an
+    attention layer, by its mask and the prefix."""
+    from repro_torch.models import model as M
+    want = collections.Counter()
+    for pattern, count in cfg.layer_groups:
+        for b in pattern:
+            if b in M.ATTN_TYPES:
+                want[_launch_name(cfg.hd, M.attn_kind(b),
+                                  bool(cfg.n_prefix_embeds), False)] += count
+    return dict(want)
+
+
+def _zoo_prompt(cfg, device: str, batch: int, prompt_len: int) -> dict:
+    """Seeded prompt tokens, and the prefix-LM's patch embeddings (fp32,
+    as the data pipeline draws them) where the config has them."""
+    import torch
+    gen = torch.Generator().manual_seed(SEED + 12)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt_len),
+                                      generator=gen,
+                                      dtype=torch.int32).to(device)}
+    if cfg.n_prefix_embeds:
+        prompt["prefix_embeds"] = torch.randn(
+            batch, cfg.n_prefix_embeds, cfg.d_model, generator=gen).to(device)
+    return prompt
 
 
 def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
                        prompt_len: int, n_new: int) -> dict:
-    """11a: ``cfg`` (gemma3-27b, window and full blocks) served from a
-    checkpoint. Params made on ``device`` from a seeded generator are
-    saved once as ``{"model": params}`` (datastates engine, raw policy)
-    and restored by ``load_params_for_serving``, bit for bit; then
-    ``greedy_generate`` runs ``batch`` seeded prompts of ``prompt_len``
-    tokens for ``n_new`` tokens twice (the same tokens), each prefill
-    launching the kernel once a layer with the layer's mask at
-    ``cfg.hd`` and no decode step launching it; then the steps again by
-    hand, where every decode step must write slot ``pos % window`` of
-    each window layer's ring and nothing else of it."""
+    """11a, 12a and 12b: ``cfg`` (gemma3-27b: window and full blocks;
+    recurrentgemma-2b: RG-LRU and window blocks; paligemma-3b: the
+    prefix-LM) served from a checkpoint. Params made on ``device`` from a
+    seeded generator are saved once as ``{"model": params}`` (datastates
+    engine, raw policy) and restored by ``load_params_for_serving``, bit
+    for bit; then ``greedy_generate`` runs ``batch`` seeded prompts of
+    ``prompt_len`` tokens (after the config's patch prefix, where it has
+    one) for ``n_new`` tokens twice (the same tokens), each prefill
+    launching the kernel once an attention layer with the layer's mask
+    and the prefix at ``cfg.hd`` and no decode step launching it; then
+    the steps again by hand, where every decode step must write slot
+    ``pos % window`` of each window layer's ring and nothing else of it
+    and shift every ``rec`` layer's ``conv`` by one input, and the ``rec``
+    layers' state after them must match a prefill over the same tokens
+    (:func:`_rec_state_errs`)."""
     import torch
     from repro_torch.core import (CheckpointManager, CheckpointPolicy,
                                   EnginePolicy)
@@ -2556,16 +2685,8 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
     del saved
     gc.collect()
 
-    window_layers = sum(count for pattern, count in cfg.layer_groups
-                        for b in pattern if b == "window")
-    full_layers = cfg.n_layers - window_layers
-    want = {f"{cfg.hd}/window/out": window_layers,
-            f"{cfg.hd}/full/out": full_layers} if on_card else {}
-    tokens = torch.randint(
-        0, cfg.vocab, (batch, prompt_len),
-        generator=torch.Generator().manual_seed(SEED + 12),
-        dtype=torch.int32).to(device)
-    prompt = {"tokens": tokens}
+    want = _prefill_launches(cfg) if on_card else {}
+    prompt = _zoo_prompt(cfg, device, batch, prompt_len)
     runs = []
     for _ in range(2):
         before = collections.Counter(fa.LAUNCHES_BY)
@@ -2597,17 +2718,20 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
     prefill_s = time.perf_counter() - t0
     rings = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
              for b, c in zip(pattern, group) if b == "window"]
+    recs = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
+            for b, c in zip(pattern, group) if b == "rec"]
     toks, decode_s, wraps = [], 0.0, 0
     for i in range(n_new):
-        pos = prompt_len + i
+        pos = prompt_len + cfg.n_prefix_embeds + i
         toks.append(torch.argmax(logits[:, -1].float(), -1)
                     .to(torch.int32)[:, None])
         before = [(c["k"].clone(), c["v"].clone()) for c in rings]
+        rec_before = [(c["h"].clone(), c["conv"].clone()) for c in recs]
         t0 = time.perf_counter()
         logits, caches = decode(params, toks[-1], caches, pos)
         sync()
         decode_s += time.perf_counter() - t0
-        slot = pos % cfg.window
+        slot = pos % cfg.window if rings else pos
         wraps += slot < pos
         for c, (k0, v0) in zip(rings, before):
             for new, old in ((c["k"], k0), (c["v"], v0)):
@@ -2616,6 +2740,17 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
                     fail(f"zoo serving: decode at position {pos} changed "
                          f"ring slots {changed.nonzero().flatten().tolist()}"
                          f", not [{slot}]")
+        for c, (_h0, conv0) in zip(recs, rec_before):
+            # the convolution's window of the last W - 1 inputs shifts by
+            # one (a repeated token may leave h and the values as they
+            # were: greedy decoding can settle on one token)
+            shifted = (c["conv"][:, :, :-1] == conv0[:, :, 1:]) \
+                .flatten(1).all(-1)
+            if not bool(shifted.all()):
+                fail(f"zoo serving: decode at position {pos}: rec layers' "
+                     f"conv shifted by one {shifted.tolist()}")
+    rec_errs = _rec_state_errs(cfg, prefill, params, prompt, toks, recs) \
+        if recs else []
     if not torch.equal(torch.cat(toks, 1), out):
         fail("zoo serving: the prefill and decode steps gave other tokens "
              "than greedy_generate")
@@ -2626,40 +2761,74 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
     report = {
         "config": cfg.name, "layers": cfg.n_layers,
         "pattern": [list(p) for p, _n in cfg.layer_groups],
-        "window": cfg.window, "hd": cfg.hd, "params": _n_params(cfg),
+        "window": cfg.window, "hd": cfg.hd,
+        "n_prefix": cfg.n_prefix_embeds, "params": _n_params(cfg),
         "bytes": st.bytes_read, "save_s": save_s,
         "save_persist_s": fut.stats.persist_latency_s,
         "restore_s": restore_s, "restore_verify_s": st.verify_s,
         "restore_read_s": st.read_s, "prefill_s": prefill_s,
         "decode_s_per_token": decode_s / n_new,
         "generate_s": [r[1] for r in runs], "flash_by_kind": by_kind,
-        "ring_wraps": wraps, "layer_max_abs_err": layer_errs,
+        "ring_wraps": wraps, "rec_state_rel_l2": rec_errs,
+        "layer_max_abs_err": layer_errs,
         "tokens": out.cpu().tolist()}
     if on_card:
         report["max_memory_allocated"] = peak
     log(f"zoo serving ({cfg.name}, {cfg.n_layers} layers, "
         f"{report['params']} params): save {save_s:.2f} s, restore "
         f"{restore_s:.2f} s ({st.bytes_read} bytes, bit-exact), prefill of "
-        f"{batch} x {prompt_len} {prefill_s:.3f} s, decode "
+        f"{batch} x ({cfg.n_prefix_embeds} + {prompt_len}) "
+        f"{prefill_s:.3f} s, decode "
         f"{report['decode_s_per_token'] * 1e3:.2f} ms a token; the same "
         f"{n_new} tokens twice; kernel launches a prefill {by_kind}; "
-        f"{wraps} decode steps past the ring's first wrap, each writing "
-        f"slot pos % {cfg.window} alone; every layer's real q/k/v through "
-        f"the kernel within {FLASH_TOL['bfloat16']} of the plain version "
-        f"(max |diff| by layer {layer_errs})")
+        + (f"{wraps} decode steps past the ring's first wrap, each writing "
+           f"slot pos % {cfg.window} alone; " if rings else "")
+        + (f"every step shifted each of {len(recs)} rec layers' conv, "
+           f"and (h, conv) after the steps within a relative L2 error of "
+           f"{REC_STATE_REL_L2} of a prefill over the same tokens "
+           f"{rec_errs}; " if recs else "")
+        + f"every attention layer's real q/k/v through the kernel within "
+        f"{FLASH_TOL['bfloat16']} of the plain version (max |diff| by "
+        f"layer {layer_errs})")
     return report
+
+
+#: the ``rec`` layers' state after decode steps against a prefill over
+#: the same tokens: relative L2 error (bf16 projections at other shapes,
+#: the log-depth scan against the stepwise recurrence)
+REC_STATE_REL_L2 = 2e-2
+
+
+def _rec_state_errs(cfg, prefill, params, prompt, toks, recs) -> list:
+    """Each ``rec`` layer's ``h`` and ``conv`` after the decode steps
+    against a prefill over the prompt and the tokens fed to them, by
+    relative L2 error (within :data:`REC_STATE_REL_L2`): the decode
+    steps continue the prefill's recurrence."""
+    import torch
+    longer = dict(prompt, tokens=torch.cat([prompt["tokens"]] + toks, 1))
+    _logits, caches = prefill(params, longer)
+    want = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
+            for b, c in zip(pattern, group) if b == "rec"]
+    errs = [(_rel_l2(c["h"], w["h"]), _rel_l2(c["conv"], w["conv"]))
+            for c, w in zip(recs, want)]
+    if not all(e < REC_STATE_REL_L2 for pair in errs for e in pair):
+        fail(f"zoo serving: the rec layers' (h, conv) after decode stand "
+             f"at relative L2 errors {errs} from a prefill over the same "
+             f"tokens (limit {REC_STATE_REL_L2})")
+    return errs
 
 
 def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
     """One more prefill with every launch of the attention kernel
-    recorded: each layer's real q, k, v (and mask) through the plain
-    version too, within ``FLASH_TOL["bfloat16"]``; fails unless the
-    prefill launched the kernel once a layer, with the layer's mask.
-    Returns each layer's largest difference."""
+    recorded: each attention layer's real q, k, v (and mask) through the
+    plain version too, within ``FLASH_TOL["bfloat16"]``; fails unless the
+    prefill launched the kernel once an attention layer, with the layer's
+    mask and the prefix. Returns each layer's largest difference."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    kinds = [b for pattern, count in cfg.layer_groups
-             for _ in range(count) for b in pattern]
+    from repro_torch.models import model as M
+    kinds = [M.attn_kind(b) for pattern, count in cfg.layer_groups
+             for _ in range(count) for b in pattern if b in M.ATTN_TYPES]
     seen = []
     launch = fa.flash_attention_cuda
 
@@ -2674,11 +2843,12 @@ def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
     finally:
         fa.flash_attention_cuda = launch
     del logits, caches
-    masks = [(kw["kind"], kw["window"]) for *_qkv, kw, _g in seen]
-    if masks != [(b, cfg.window) for b in kinds]:
+    masks = [(kw["kind"], kw["window"], kw["n_prefix"])
+             for *_qkv, kw, _g in seen]
+    if masks != [(b, cfg.window, cfg.n_prefix_embeds) for b in kinds]:
         fail(f"zoo serving: the prefill launched the attention kernel with "
-             f"(mask, window) {masks}, not the layers' {kinds} at window "
-             f"{cfg.window}")
+             f"(mask, window, prefix) {masks}, not the layers' {kinds} at "
+             f"window {cfg.window}, prefix {cfg.n_prefix_embeds}")
     errs = []
     for i, (q, k, v, kw, got) in enumerate(seen):
         with torch.no_grad():
@@ -2729,6 +2899,159 @@ def run_zoo_train_path(device: str, cfg, workdir: str, batch: int,
     return row
 
 
+def run_zoo_generate_path(device: str, cfg, batch: int, prompt_len: int,
+                          n_new: int) -> dict:
+    """12c: ``cfg`` (dbrx-132b: MoE; rwkv6-7b: RWKV6) from params made on
+    ``device`` from a seeded generator, without a save (their checkpoints
+    cross between the packages in the CPU tests): ``greedy_generate`` of
+    ``batch`` seeded prompts of ``prompt_len`` tokens for ``n_new``
+    twice, the same tokens, each prefill launching the kernel once an
+    attention layer by its mask and no decode step launching it. A config
+    with ``rwkv`` blocks also decodes on from a prefill of ``prompt_len -
+    RWKV_TAIL`` tokens, fed the next given tokens, to last logits within
+    :data:`RWKV_TAIL_REL_L2` (relative L2 error) of a forward over all
+    ``prompt_len``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine
+
+    on_card = device == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device)
+    sync()
+    init_s = time.perf_counter() - t0
+    want = _prefill_launches(cfg) if on_card else {}
+    prompt = _zoo_prompt(cfg, device, batch, prompt_len)
+    runs = []
+    for _ in range(2):
+        before = collections.Counter(fa.LAUNCHES_BY)
+        t0 = time.perf_counter()
+        out = engine.greedy_generate(cfg, params, prompt, n_new)
+        sync()
+        runs.append((out, time.perf_counter() - t0, _flash_by_kind(before)))
+    (out, _s, by_kind), (out2, _s2, by_kind2) = runs
+    if out.shape != (batch, n_new) or bool(((out < 0)
+                                            | (out >= cfg.vocab)).any()):
+        fail(f"zoo generation ({cfg.name}): greedy_generate gave "
+             f"{tuple(out.shape)} with tokens outside the vocabulary")
+    if not torch.equal(out, out2):
+        fail(f"zoo generation ({cfg.name}): greedy_generate gave other "
+             f"tokens the second time")
+    if by_kind != want or by_kind2 != want:
+        fail(f"zoo generation ({cfg.name}): a greedy_generate launched the "
+             f"attention kernel {by_kind} / {by_kind2}, not {want}")
+    prefill = engine.make_prefill_step(cfg)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, prompt)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    del logits, caches
+    report = {"config": cfg.name, "layers": cfg.n_layers,
+              "pattern": [list(p) for p, _n in cfg.layer_groups],
+              "params": _n_params(cfg), "init_s": init_s,
+              "prefill_s": prefill_s, "generate_s": [r[1] for r in runs],
+              "flash_by_kind": by_kind, "tokens": out.cpu().tolist()}
+    tail = ""
+    if any(b == "rwkv" for p, _n in cfg.layer_groups for b in p):
+        tokens = prompt["tokens"]
+        cut = prompt_len - RWKV_TAIL
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            whole = M.forward(cfg, params, {"tokens": tokens})[:, -1] \
+                .float()
+            _l, caches = M.forward(cfg, params, {"tokens": tokens[:, :cut]},
+                                   collect_caches=True)
+            for pos in range(cut, prompt_len):
+                logits, caches = M.decode(
+                    cfg, params, {"tokens": tokens[:, pos:pos + 1]}, caches,
+                    pos)
+        sync()
+        err = _rel_l2(logits[:, -1], whole)
+        if not err < RWKV_TAIL_REL_L2:
+            fail(f"zoo generation ({cfg.name}): a prefill of {cut} tokens "
+                 f"and {RWKV_TAIL} decode steps gave last logits at a "
+                 f"relative L2 error of {err!r} from a forward over "
+                 f"{prompt_len} (limit {RWKV_TAIL_REL_L2})")
+        report.update(tail_rel_l2=err, tail_s=time.perf_counter() - t0)
+        tail = (f"; a prefill of {cut} tokens and {RWKV_TAIL} decode steps "
+                f"within a relative L2 error of {err:.3g} of the "
+                f"{prompt_len}-token forward")
+        del whole, logits, caches
+    if on_card:
+        report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"zoo generation ({cfg.name}, {cfg.n_layers} layers, "
+        f"{report['params']} params, seeded on {device} in {init_s:.2f} s): "
+        f"prefill of {batch} x {prompt_len} {prefill_s:.3f} s, "
+        f"greedy_generate of {n_new} tokens "
+        f"{', '.join(f'{r[1]:.2f}' for r in runs)} s, the same tokens "
+        f"twice; kernel launches a prefill {by_kind}{tail}")
+    del params
+    return report
+
+
+def run_zoo_rest_phase(path_launches: dict) -> dict:
+    """Phase 12 on the card, the rest of the zoo at full width: 12a
+    recurrentgemma-2b and 12b paligemma-3b served from a checkpoint
+    (:func:`run_zoo_serve_path`), 12c dbrx-132b and rwkv6-7b generating
+    from seeded params (:func:`run_zoo_generate_path`); each part with
+    the launch counts zeroed just before and read into ``path_launches``
+    just after."""
+    import torch
+    report = {}
+    zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
+
+    def cfg(name):
+        pattern = ZOO12_PATTERNS[name]
+        return _zoo_cfg(name, len(pattern), pattern)
+
+    def generate():
+        return {name: run_zoo_generate_path("cuda", cfg(name), SERVE_BATCH,
+                                            SERVE_PROMPT, SERVE_NEW)
+                for name in ("dbrx-132b", "rwkv6-7b")}
+    for key, run in (
+            ("recurrent", lambda: run_zoo_serve_path(
+                "cuda", cfg("recurrentgemma-2b"),
+                os.path.join(zoo_dir, "rec"), SERVE_BATCH, SERVE_PROMPT,
+                SERVE_NEW)),
+            ("prefix_lm", lambda: run_zoo_serve_path(
+                "cuda", cfg("paligemma-3b"), os.path.join(zoo_dir, "vlm"),
+                SERVE_BATCH, SERVE_PROMPT - FLASH_PREFIX, SERVE_NEW)),
+            ("generate", generate)):
+        shutil.rmtree(zoo_dir, ignore_errors=True)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_launches()
+            t0 = time.perf_counter()
+            report[key] = run()
+            report[key]["launches"] = path_launches[f"zoo_{key}"] = \
+                _launches()
+            report[key]["phase_s"] = time.perf_counter() - t0
+            report[key]["max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated()
+        finally:
+            shutil.rmtree(zoo_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, k in (("recurrent", "checksum_u32"),
+                   ("recurrent", "flash_attention"),
+                   ("prefix_lm", "checksum_u32"),
+                   ("prefix_lm", "flash_attention"),
+                   ("generate", "flash_attention")):
+        if report[key]["launches"][k] == 0:
+            fail(f"kernel {k} was never launched on the zoo {key} path")
+    log(f"zoo path, the rest: 12a {report['recurrent']['phase_s']:.1f} s, "
+        f"12b {report['prefix_lm']['phase_s']:.1f} s, 12c "
+        f"{report['generate']['phase_s']:.1f} s")
+    return report
+
+
 def run_zoo_phase(path_launches: dict) -> dict:
     """Phase 11 on the card: 11a and 11b, each with the launch counts
     zeroed just before and read into ``path_launches`` just after."""
@@ -2737,8 +3060,8 @@ def run_zoo_phase(path_launches: dict) -> dict:
     zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
     for key, run in (
             ("serving", lambda: run_zoo_serve_path(
-                "cuda", _zoo_cfg("gemma3-27b", ZOO_SERVE_LAYERS,
-                                 ("window",) * 5 + ("full",)),
+                "cuda", _zoo_cfg("gemma3-27b", len(ZOO_SERVE_PATTERN),
+                                 ZOO_SERVE_PATTERN),
                 os.path.join(zoo_dir, "serve"), SERVE_BATCH, SERVE_PROMPT,
                 SERVE_NEW)),
             ("training", lambda: run_zoo_train_path(
@@ -3112,8 +3435,11 @@ def main() -> None:
     # -- phase 11: the attention-family model zoo (slice 13) --------------
     log("zoo report " + json.dumps(run_zoo_phase(path_launches)))
 
+    # -- phase 12: the rest of the zoo (slice 14) --------------------------
+    log("zoo rest report " + json.dumps(run_zoo_rest_phase(path_launches)))
+
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of every phase (1-11; phase 10 runs after 6)")
+        f"end of every phase (1-12; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],
@@ -3129,7 +3455,7 @@ def main() -> None:
                              "piece64_device_ms", "piece64_plain_ms",
                              "piece64_bound_ms", "stats_max_abs_err",
                              "grad_max_rel_l2") if x in r},
-        **{x: v for x, v in r.items() if x.startswith("hd128")}}
+        **{x: v for x, v in r.items() if x.startswith(("hd128", "hd256"))}}
         for k, r in rows.items()]}
     log(json.dumps(line))
     log(smi)

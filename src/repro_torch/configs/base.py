@@ -1,16 +1,18 @@
-"""The attention-family subset of ``repro/configs/base.py``'s
-``ModelConfig``: the fields that decide the parameter tree (and so the
-checkpointed state) and those the forward reads (``rope_theta``,
-``window``, ``chunk``, ``use_bias``, ``tie_embeddings``, ``norm``,
-``act``, the modality stubs ``n_prefix_embeds``, ``n_memory_embeds`` and
-``n_codebooks``, ``dtype``), the two the serving path reads
-(``attn_kv_block``, ``max_decode_len``) and the one the partition rules
-read (``sharding_mode``); none of the MoE, recurrent, remat or analysis
-fields. Block types the port runs: ``full``, ``window`` (sliding-window
-causal), ``chunked`` (block-local causal) and ``xattn`` (full
-self-attention plus cross-attention to a conditioning memory); the
-others of the reference (``*_moe``, ``rec``, ``rwkv``) and the prefix-LM
-(``n_prefix_embeds``) are refused where the model is built."""
+"""The port's copy of ``repro/configs/base.py``'s ``ModelConfig``: the
+fields that decide the parameter tree (and so the checkpointed state) and
+those the forward reads (``rope_theta``, ``window``, ``chunk``,
+``use_bias``, ``tie_embeddings``, ``norm``, ``act``, the MoE fields, the
+RWKV6 and RG-LRU fields, the modality stubs ``n_prefix_embeds``,
+``n_memory_embeds`` and ``n_codebooks``, ``dtype``), the two the serving
+path reads (``attn_kv_block``, ``max_decode_len``) and the one the
+partition rules read (``sharding_mode``); none of the remat, mesh or
+analysis fields. Block types: ``full``, ``window`` (sliding-window
+causal), ``chunked`` (block-local causal), ``xattn`` (full self-attention
+plus cross-attention to a conditioning memory), ``*_moe`` (the same
+attention, the FFN replaced by a mixture of experts), ``rec`` (the RG-LRU
+block of Griffin) and ``rwkv`` (RWKV6 time-mix and channel-mix); a config
+with ``n_prefix_embeds`` is a prefix-LM (its patch prefix attends both
+ways)."""
 
 from __future__ import annotations
 
@@ -41,7 +43,20 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "silu"                # silu | gelu | relu_sq (gated) | gelu_mlp
-    n_prefix_embeds: int = 0         # vlm: patch embeds prepended (refused)
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 256        # tokens per dispatch group
+    shared_expert: bool = False
+    router_aux_coef: float = 0.01
+    # --- recurrent (rwkv / rg-lru) ---
+    rwkv_head_size: int = 64
+    rwkv_chunk: int = 16
+    rwkv_decay_lora: int = 64
+    lru_width: int = 0               # 0 -> d_model
+    conv_width: int = 4
+    n_prefix_embeds: int = 0         # vlm: patch embeds prepended
     n_memory_embeds: int = 0         # audio: cross-attention memory length
     n_codebooks: int = 0             # audio: parallel codebook streams
     source: str = ""
@@ -53,6 +68,10 @@ class ModelConfig:
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // max(self.n_heads, 1)
+
+    @property
+    def d_rnn(self) -> int:
+        return self.lru_width or self.d_model
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}
@@ -100,8 +119,10 @@ def list_configs() -> Tuple[str, ...]:
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """``repro.configs.base.smoke_variant``: 2 layers keeping the first
     two block types of the config, d_model <= 256, 4 heads (2 KV heads
-    when grouped), d_ff <= 512, vocab <= 512, window and chunk <= 16,
-    at most 4 prefix and memory embeddings; codebooks as they are."""
+    when grouped), d_ff <= 512, vocab <= 512, at most 4 experts and top
+    2 with dispatch groups of 16, window and chunk <= 16, the RG-LRU at
+    d_model, RWKV6 chunks of 4, at most 4 prefix and memory embeddings;
+    codebooks as they are."""
     heads = 4 if cfg.n_heads else 0
     kv = min(cfg.n_kv_heads, heads) or (1 if heads else 0)
     if heads and cfg.n_kv_heads > 1:
@@ -118,7 +139,10 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         d_model=min(cfg.d_model, 256), n_heads=heads, n_kv_heads=kv,
         head_dim=0, d_ff=min(cfg.d_ff, 512), vocab=min(cfg.vocab, 512),
         layer_groups=((pattern, 1),),
+        n_experts=min(cfg.n_experts, 4) if cfg.n_experts else 0,
+        top_k=min(cfg.top_k, 2) if cfg.top_k else 0,
         window=min(cfg.window, 16) if cfg.window else 0,
         chunk=min(cfg.chunk, 16) if cfg.chunk else 0,
+        lru_width=0, moe_group_size=16,
         n_prefix_embeds=min(cfg.n_prefix_embeds, 4),
-        n_memory_embeds=min(cfg.n_memory_embeds, 4))
+        n_memory_embeds=min(cfg.n_memory_embeds, 4), rwkv_chunk=4)

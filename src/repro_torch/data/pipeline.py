@@ -46,11 +46,11 @@ class SyntheticTokenPipeline:
     # -- iteration -----------------------------------------------------------
     def next_batch(self) -> Dict[str, np.ndarray]:
         """``{"tokens": int32 (batch, seq_len[, n_codebooks])}``, with
-        ``"memory_embeds"`` fp32 ``(batch, n_memory_embeds, d_model)``
-        where the config has a memory, for the current step; then advance
-        the cursor. Drawn in the reference's order from one generator (the
-        prefix-LM's ``prefix_embeds``, drawn between them there, is not
-        ported: ``models.model`` refuses such configs)."""
+        ``"prefix_embeds"`` fp32 ``(batch, n_prefix_embeds, d_model)``
+        where the config is a prefix-LM and ``"memory_embeds"`` fp32
+        ``(batch, n_memory_embeds, d_model)`` where it has a memory, for
+        the current step; then advance the cursor. Drawn in the
+        reference's order from one generator."""
         cfg = self.cfg
         rng = np.random.default_rng(
             np.random.SeedSequence([self._state.seed, self._state.step]))
@@ -60,6 +60,10 @@ class SyntheticTokenPipeline:
             shape = shape + (cfg.n_codebooks,)
         batch = {"tokens": rng.integers(0, cfg.vocab, size=shape,
                                         dtype=np.int32)}
+        if cfg.n_prefix_embeds:
+            batch["prefix_embeds"] = rng.standard_normal(
+                (self.batch, cfg.n_prefix_embeds, cfg.d_model),
+                dtype=np.float32)
         if cfg.n_memory_embeds:
             batch["memory_embeds"] = rng.standard_normal(
                 (self.batch, cfg.n_memory_embeds, cfg.d_model),

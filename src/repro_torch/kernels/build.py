@@ -71,8 +71,8 @@ SIGNATURES = {
     "ckpt_downcast_bf16": (_P, _N, _P, _P),
     "ckpt_delta_f32": (_P, _P, _P, _N, _P),
     # q, k, v, out, m, l (the row stats, or both null); B, S, T, H, KV, hd,
-    # is_bf16, kind, window, chunk
-    "ckpt_flash_attention_fwd": (_P,) * 6 + (_N,) * 10 + (_P,),
+    # is_bf16, kind, window, chunk, n_prefix
+    "ckpt_flash_attention_fwd": (_P,) * 6 + (_N,) * 11 + (_P,),
 }
 
 _lock = threading.Lock()

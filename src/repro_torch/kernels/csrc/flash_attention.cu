@@ -8,7 +8,10 @@
 //
 // What it computes (the plain version is flash_attention_plain in
 // repro_torch/kernels/flash_attention.py): causal online-softmax attention
-// with the "full", "window" and "chunked" masks. q is (B, S, H, hd), k and v
+// with the "full", "window" and "chunked" masks, and the prefix-LM's prefix
+// (the first n_prefix positions also see each other, as
+// repro.models.layers._allowed has it: the TPU kernel takes no prefix, its
+// twin blocked_sdpa(n_prefix=...) does). q is (B, S, H, hd), k and v
 // are (B, T, KV, hd), the output is (B, S, H * hd) in q's dtype. Logits are
 // scaled by 1/sqrt(hd) in fp32, masked entries read -1e30 and their
 // probabilities are zeroed, the running max m, sum l and accumulator acc are
@@ -35,19 +38,27 @@
 // k, v read once, the output written once), so it is bound by the tensor
 // cores' 989 TFLOP/s (0.139 ms), not by the 3.35 TB/s of device memory
 // (0.025 ms); at hd 128 (gemma3-27b: B 2, S 4,096, 32/16 heads) 2.75e11
-// FLOP (0.278 ms) against 134 MB (0.040 ms). At hd 64 the softmax's
+// FLOP (0.278 ms) against 134 MB (0.040 ms); at hd 256 (recurrentgemma-2b:
+// B 2, S 4,096, 10/1 heads, window 2,048) 1.29e11 FLOP (0.130 ms) against
+// 97 MB (0.029 ms). At hd 64 the softmax's
 // exponentials cost the SM as many cycles as the two products (16 a cycle
 // on the SFUs against 1,024 multiply-adds a cycle on the tensor cores), so
 // the design keeps several warpgroups in flight, each one's softmax beside
 // the others' products; at hd 128 the products take twice as long per
 // exponential and two warpgroups suffice.
 //
-// Head widths: both bodies are templates on hd, built for 64 and 128 (the
-// TPU kernel takes any width; every attention config of the repo has hd 64
-// or 128). A row of hd 128 bf16 values is 256 bytes, two 128-byte swizzle
-// atoms: every tile is kept as hd / 64 column halves, each a plain
-// 128-byte-swizzled tile of 64 columns, loaded and stored by its own TMA box;
-// the wgmma descriptors step from one half to the next along hd.
+// Head widths: both bodies are templates on hd, built for 64, 128 and 256
+// (the TPU kernel takes any width; the repo's configs have hd 64, 128 and,
+// recurrentgemma-2b and paligemma-3b, 256). A row of hd 128 bf16 values is
+// 256 bytes, two 128-byte swizzle atoms, and at hd 256 it is four: every
+// tile is kept as hd / 64 column parts ("halves" below, four at hd 256),
+// each a plain 128-byte-swizzled tile of 64 columns, loaded and stored by
+// its own TMA box; the wgmma descriptors step from one part to the next
+// along hd every four k-steps. At hd 256 a 128-key K or V stage would be
+// 64 KB, and with Q's 64 KB two stages would pass the 227 KB of a CTA, so
+// the tiles are 64 keys (Q K^T as m64n64k16): Q 64 KB and two stages of K
+// and V 128 KB, 192 KB in all. A consumer thread then holds O (128
+// registers), S (32) and P (16) in the 240 that two consumers get.
 //
 // Row stats: when the caller passes m and l (fp32, (B, S, H)), each row's
 // running max of the scaled logits and its sum of exponentials relative to
@@ -59,31 +70,35 @@
 // - bf16 (the serving path), a warp-specialised Hopper pipeline. A CTA of
 //   one producer and C consumer warpgroups (C = 3 at hd 64, 2 at hd 128)
 //   owns 64 C query rows of one (b, h); CTAs are issued heads first, then
-//   batch, then the query tiles longest first:
+//   batch, then the query tiles longest first (C = 2 at hd 256 too):
 //   * warpgroup 0 is the producer: it gives up registers (setmaxnreg.dec)
 //     and one thread issues every TMA load, Q once, then each 128-key K
-//     and V tile into a shared-memory ring of three stages at hd 64, two at
-//     hd 128. TMA writes the tiles
+//     and V tile (64-key at hd 256) into a shared-memory ring of three
+//     stages at hd 64, two at hd 128 and 256. TMA writes the tiles
 //     in the 128-byte swizzle (64 bf16 columns are exactly 128 bytes; a
 //     wider row is loaded as 64-column halves, one box each) and
 //     zero-fills rows past S and T, so ragged tails need no staging code.
 //     full[stage] mbarriers carry the transaction bytes; the producer waits
 //     on empty[stage] before it refills a stage.
 //   * the other warpgroups are the consumers, 64 query rows each
-//     (setmaxnreg.inc: 160 registers at hd 64, 240 at hd 128). S = Q K^T
-//     is hd / 16 wgmma m64n128k16 (A and B K-major from the swizzled
+//     (setmaxnreg.inc: 160 registers at hd 64, 240 at hd 128 and 256).
+//     S = Q K^T is hd / 16 wgmma m64n128k16 (m64n64k16 at hd 256; A and B
+//     K-major from the swizzled
 //     tiles), scaled in fp32 afterwards with log2(e) folded in for
 //     ex2.approx; the online softmax stays in registers (row max and sum
 //     over a quad of lanes). The S accumulator, packed to bf16, is wgmma's
-//     A fragment layout, so O += P V is eight wgmma m64n64k16 a 64-column
-//     half of O, with P from registers and V read MN-major from its tile
+//     A fragment layout, so O += P V is eight wgmma m64n64k16 (four at hd
+//     256) a 64-column half of O, with P from registers and V read MN-major
+//     from its tile
 //     (the transpose bit, no copy). Q K^T of tile i is issued together with
 //     P V of tile i - 1, so that product runs while the warpgroup takes
 //     tile i's softmax. Each consumer warp arrives on empty[stage] once its
 //     P V has retired.
 //   * Masks cost only where they bite: each row's visible keys are the
 //     interval [lo(i), min(i, T - 1)] (lo is 0, i - window + 1 or the
-//     chunk's start), so a tile that every row of a warpgroup sees whole
+//     chunk's start; a row below n_prefix sees [0, min(n_prefix, T) - 1],
+//     which holds its causal interval), so a tile that every row of a
+//     warpgroup sees whole
 //     runs no per-element test, a tile that none of them sees is skipped,
 //     and only the tiles across an edge compare each key, on 32-bit
 //     positions.
@@ -128,6 +143,7 @@ struct Params {
   float* l;
   int64_t S, T, H, KV;
   int64_t window, chunk;
+  int64_t n_prefix;  // the first n_prefix positions see each other
   int kind;
   float scale;
 };
@@ -135,7 +151,9 @@ struct Params {
 // Query position i may see key position j.
 __device__ __forceinline__ bool allowed(int64_t i, int64_t j,
                                         const Params& p) {
-  if (j > i || j >= p.T) return false;
+  if (j >= p.T) return false;
+  if (i < p.n_prefix && j < p.n_prefix) return true;
+  if (j > i) return false;
   if (p.kind == kWindow) return j > i - p.window;
   if (p.kind == kChunked) return (i / p.chunk) == (j / p.chunk);
   return true;
@@ -145,9 +163,12 @@ __device__ __forceinline__ bool allowed(int64_t i, int64_t j,
 __device__ __forceinline__ void kv_tiles(int64_t q0, int64_t q1,
                                          const Params& p, int64_t* t0,
                                          int64_t* t1) {
-  const int64_t hi = q1 < p.T ? q1 : p.T;  // keys j <= q1 - 1, j < T
+  int64_t hi = q1 < p.T ? q1 : p.T;  // keys j <= q1 - 1, j < T
   int64_t lo = 0;
-  if (p.kind == kWindow) {
+  if (q0 < p.n_prefix) {  // the first row sees the whole prefix
+    const int64_t np = p.n_prefix < p.T ? p.n_prefix : p.T;
+    hi = hi > np ? hi : np;
+  } else if (p.kind == kWindow) {
     lo = q0 - p.window + 1;
     lo = lo > 0 ? lo : 0;
   } else if (p.kind == kChunked) {
@@ -285,7 +306,10 @@ struct Tile {
   static constexpr int kConsumers = HD == 64 ? 3 : 2;  // consumer warpgroups
   static constexpr int kHalves = HD / 64;       // 64-column halves of a row
   static constexpr int kTileQ = 64 * kConsumers;  // query rows per CTA
-  static constexpr int kTileK = 128;              // keys per ring stage
+  // keys per ring stage: 64 at hd 256, where two 128-key stages and Q
+  // would not fit in one CTA's shared memory
+  static constexpr int kTileK = HD == 256 ? 64 : 128;
+  static constexpr int kKeySteps = kTileK / 16;   // P V k-steps a tile
   // ring stages: three at hd 64, where the templated body with two ran
   // about 11 % slower than the untemplated one it replaced (the same
   // instructions, scheduled otherwise) and a third stage took that back;
@@ -311,26 +335,33 @@ struct Tile {
   static constexpr int kSmemBytes = kSmemBar + (1 + 3 * kStages) * 8 + 1024;
 };
 static_assert(Tile<128>::kConsumerRegs == 240, "hd 128: two warpgroups");
+static_assert(Tile<256>::kConsumerRegs == 240, "hd 256: two warpgroups");
 static_assert(Tile<128>::kSmemBytes <= 232448, "shared memory of one CTA");
+static_assert(Tile<256>::kSmemBytes <= 232448, "shared memory of one CTA");
 
 struct TileParams {
   int S, T, H, group;  // group: query heads per KV head
   int kind, window, chunk;
+  int n_prefix;  // the first n_prefix positions see each other
   int n_qtiles;
   float scale_log2;  // log2(e) / sqrt(hd)
   float* m;          // row stats (B, S, H), or null
   float* l;
 };
 
-// Query i sees keys [row_lo(i), row_hi(i)] (an empty interval when lo > hi).
+// Query i sees keys [row_lo(i), row_hi(i)] (an empty interval when lo > hi;
+// a lo below 0 reads as 0). A row below n_prefix sees the whole prefix,
+// which holds its causal interval. Neither end falls as i rises.
 __device__ __forceinline__ int row_lo(int i, const TileParams& p) {
+  if (i < p.n_prefix) return 0;
   if (p.kind == kWindow) return i - p.window + 1;
   if (p.kind == kChunked) return (i / p.chunk) * p.chunk;
   return 0;
 }
 
 __device__ __forceinline__ int row_hi(int i, const TileParams& p) {
-  return i < p.T - 1 ? i : p.T - 1;
+  const int last = i < p.n_prefix ? p.n_prefix - 1 : i;
+  return last < p.T - 1 ? last : p.T - 1;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
@@ -465,6 +496,25 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64 fp32) = (accumulate ? d : 0) + A (64 x 16, K-major smem) *
+// B (16 x 64, K-major smem: the keys' rows); Q K^T of a 64-key tile.
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d (64 x 64 fp32) += A (64 x 16 bf16 in registers) * B (16 x 64, MN-major
 // smem: V's rows, read through the transpose bit).
 __device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4],
@@ -511,8 +561,8 @@ struct Rows {
 // S = Q K^T of one tile into s: hd / 16 k-steps of 16 along hd (32 bytes
 // each), four a 64-column half; dq and dk step by their half's bytes.
 template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
-                                         uint64_t dk) {
+__device__ __forceinline__ void issue_qk(float (&s)[Tile<HD>::kTileK / 2],
+                                         uint64_t dq, uint64_t dk) {
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint64_t hq = (kk / 4) * (Tile<HD>::kQHalfBytes >> 4);
@@ -525,28 +575,31 @@ __device__ __forceinline__ void issue_qk(float (&s)[64], uint64_t dq,
 // O += P V of one tile: 16 keys (2,048 bytes of a V half) a step, for each
 // 64-column half of O.
 template <int HD>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 64][32],
-                                         const uint32_t (&pa)[8][4],
-                                         uint64_t dv) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[HD / 64][32], const uint32_t (&pa)[Tile<HD>::kKeySteps][4],
+    uint64_t dv) {
 #pragma unroll
   for (int h = 0; h < HD / 64; ++h) {
     const uint64_t dvh = dv + h * (Tile<HD>::kHalfBytes >> 4);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) wgmma_pv(o[h], pa[c], dvh + 128 * c);
+    for (int c = 0; c < Tile<HD>::kKeySteps; ++c)
+      wgmma_pv(o[h], pa[c], dvh + 128 * c);
   }
   wgmma_commit();
 }
 
-// The online softmax of one tile of logits s at keys jb.. (in place: s
-// becomes p), with the per-key mask only when `whole` is false. Returns
-// the factors by which the accumulator's two rows must be rescaled.
-__device__ __forceinline__ void online_softmax(float (&s)[64], int jb, int t,
+// The online softmax of one tile of logits s (N / 4 keys wide) at keys
+// jb.. (in place: s becomes p), with the per-key mask only when `whole` is
+// false. Returns the factors by which the accumulator's two rows must be
+// rescaled.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N], int jb, int t,
                                                bool whole, float scale_log2,
                                                Rows& r, float& al_a,
                                                float& al_b) {
   float mx_a = -INFINITY, mx_b = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     if (!whole) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -573,7 +626,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int jb, int t,
   r.m_b = mn_b;
   float sa0 = 0.f, sa1 = 0.f, sb0 = 0.f, sb1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     s[4 * j] = ex2(fmaf(s[4 * j], scale_log2, -mn_a));
     s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], scale_log2, -mn_a));
     s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], scale_log2, -mn_b));
@@ -588,10 +641,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], int jb, int t,
 }
 
 // Keys 16c .. 16c + 15 of p, as bf16, are the A fragment of P V's step c.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&s)[64]) {
+template <int N>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[N / 8][4],
+                                       const float (&s)[N]) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < N / 8; ++c) {
     pa[c][0] = pack_f32(s[8 * c], s[8 * c + 1]);
     pa[c][1] = pack_f32(s[8 * c + 2], s[8 * c + 3]);
     pa[c][2] = pack_f32(s[8 * c + 4], s[8 * c + 5]);
@@ -731,14 +785,14 @@ __global__ void __launch_bounds__(Tile<HD>::kThreads, 1)
     };
 
     float o[kHalves][32];
-    float s[64];
-    uint32_t pa[8][4];
+    float s[kTileK / 2];
+    uint32_t pa[C::kKeySteps][4];
 #pragma unroll
     for (int hh = 0; hh < kHalves; ++hh)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[hh][i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = 0.f;
+    for (int i = 0; i < kTileK / 2; ++i) s[i] = 0.f;
     float al_a, al_b;
     auto rescale = [&] {
 #pragma unroll
@@ -914,6 +968,7 @@ cudaError_t launch_bf16(const Params& p, int64_t B, cudaStream_t st) {
   tp.window = static_cast<int>(
       p.window < 0 ? 0 : (p.window > kMaxLen ? kMaxLen : p.window));
   tp.chunk = static_cast<int>(p.chunk > kMaxLen ? kMaxLen : p.chunk);
+  tp.n_prefix = static_cast<int>(p.n_prefix > kMaxLen ? kMaxLen : p.n_prefix);
   tp.n_qtiles = static_cast<int>(n_qtiles);
   tp.scale_log2 = static_cast<float>(1.4426950408889634 /
                                      std::sqrt(static_cast<double>(HD)));
@@ -948,16 +1003,16 @@ cudaError_t launch_f32(const Params& p, int64_t B, cudaStream_t st) {
 // q: (B, S, H, hd), k/v: (B, T, KV, hd), out: (B, S, H * hd), all contiguous
 // and 16-byte aligned, of one dtype: bf16 when is_bf16, else fp32; m and l
 // fp32 (B, S, H) for the row stats, or both null. kind: 0 full, 1 window,
-// 2 chunked. hd must be 64 or 128.
+// 2 chunked; n_prefix >= 0 (0: no prefix). hd must be 64, 128 or 256.
 extern "C" int ckpt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* m, void* l,
     int64_t B, int64_t S, int64_t T, int64_t H, int64_t KV, int64_t hd,
     int64_t is_bf16, int64_t kind, int64_t window, int64_t chunk,
-    void* stream) {
+    int64_t n_prefix, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || T < 1 || H < 1 || H > 65535 || KV < 1 ||
       H % KV != 0 || kind < kFull || kind > kChunked ||
       (kind == kChunked && chunk < 1) || (m == nullptr) != (l == nullptr) ||
-      (hd != 64 && hd != 128))
+      n_prefix < 0 || (hd != 64 && hd != 128 && hd != 256))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -972,14 +1027,17 @@ extern "C" int ckpt_flash_attention_fwd(
   p.KV = KV;
   p.window = window;
   p.chunk = chunk;
+  p.n_prefix = n_prefix;
   p.kind = static_cast<int>(kind);
   p.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (hd == 64)
     rc = is_bf16 != 0 ? launch_bf16<64>(p, B, st) : launch_f32<64>(p, B, st);
-  else
+  else if (hd == 128)
     rc = is_bf16 != 0 ? launch_bf16<128>(p, B, st) : launch_f32<128>(p, B, st);
+  else
+    rc = is_bf16 != 0 ? launch_bf16<256>(p, B, st) : launch_f32<256>(p, B, st);
   return static_cast<int>(rc);
 }
 

@@ -6,7 +6,11 @@ Layouts are the JAX package's: q ``(B, S, H, hd)``, k and v
 ``h // (H // KV)``), output ``(B, S, H * hd)`` in q's dtype. Query ``i``
 sees key ``j`` when ``j <= i`` and, for ``kind="window"``,
 ``j > i - window``, or, for ``kind="chunked"``, ``i // chunk ==
-j // chunk`` (``repro.models.layers._allowed`` without a prefix).
+j // chunk``; or, with ``n_prefix``, when both lie below ``n_prefix``
+(the prefix-LM's patch prefix attends both ways). This is
+``repro.models.layers._allowed``. The TPU kernel takes no prefix; its
+twin, the model's blocked path (``blocked_sdpa(n_prefix=...)``,
+``repro/models/layers.py:236-262``), does, and this is the port of it.
 
 :func:`flash_attention_plain` is the port of ``_flash_fwd_impl``
 (``repro/models/layers.py:151-185``), the function that the Pallas kernel
@@ -20,8 +24,8 @@ real query and are masked. The plain version pads the keys the same way
 (and masks ``j >= T`` explicitly); query rows are independent, so it does
 not pad them. The CUDA kernel, ``ckpt_flash_attention_fwd`` in
 ``csrc/flash_attention.cu``, masks the ragged tail instead and takes any
-S and T at head widths 64 and 128; its KV tiles are 128 keys in bf16 (64
-in fp32) whatever ``kv_block`` says.
+S and T at head widths 64, 128 and 256; its KV tiles are 128 keys in
+bf16 (64 at hd 256, and 64 in fp32) whatever ``kv_block`` says.
 
 With ``return_stats`` both also return each row's stats as
 ``_flash_fwd_impl`` carries them for the backward: ``m``, the running max
@@ -44,20 +48,22 @@ from .checksum import aligned
 KINDS = ("full", "window", "chunked")
 #: the head widths the CUDA kernel is built for (llama3.2-1b's and
 #: musicgen-medium's 64; gemma3-27b's, llama2-7b's and the other attention
-#: configs' 128)
-KERNEL_HEAD_DIM = frozenset({64, 128})
+#: configs' 128; recurrentgemma-2b's and paligemma-3b's 256)
+KERNEL_HEAD_DIM = frozenset({64, 128, 256})
 #: CUDA grid limits on the head and batch axes
 MAX_GRID_YZ = 65_535
 NEG_INF = -1e30
 
 KERNEL = CudaKernel("ckpt_flash_attention_fwd")
-#: the kernel's launches by ``(hd, kind, stats)``, counted beside
-#: ``KERNEL.launches`` at each launch
+#: the kernel's launches by ``(hd, kind, prefix, stats)`` (``prefix``:
+#: whether ``n_prefix`` was set), counted beside ``KERNEL.launches`` at
+#: each launch
 LAUNCHES_BY = collections.Counter()
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 kind: str, window: int, chunk: int) -> None:
+                 kind: str, window: int, chunk: int,
+                 n_prefix: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"expected q (B, S, H, hd) and k, v (B, T, KV, hd), got "
@@ -75,10 +81,12 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
     if kind == "chunked" and chunk < 1:
         raise ValueError(f"kind='chunked' needs chunk >= 1, got {chunk}")
+    if n_prefix < 0:
+        raise ValueError(f"n_prefix must be >= 0, got {n_prefix}")
 
 
 def allowed(qpos: torch.Tensor, kpos: torch.Tensor, kind: str, window: int,
-            chunk: int) -> torch.Tensor:
+            chunk: int, n_prefix: int = 0) -> torch.Tensor:
     """(Sq, Sk) visibility between absolute positions."""
     i = qpos[:, None]
     j = kpos[None, :]
@@ -87,16 +95,18 @@ def allowed(qpos: torch.Tensor, kpos: torch.Tensor, kind: str, window: int,
         m = m & (j > i - window)
     elif kind == "chunked":
         m = m & ((i // chunk) == (j // chunk))
+    if n_prefix:
+        m = m | ((i < n_prefix) & (j < n_prefix))
     return m
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, kind: str = "full", window: int = 0,
-                          chunk: int = 0, kv_block: int = 1024,
-                          return_stats: bool = False):
+                          chunk: int = 0, n_prefix: int = 0,
+                          kv_block: int = 1024, return_stats: bool = False):
     """The attention in plain PyTorch ops, on any device; with
     ``return_stats``, ``(out, m, l)``."""
-    check_inputs(q, k, v, kind, window, chunk)
+    check_inputs(q, k, v, kind, window, chunk, n_prefix)
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -117,7 +127,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_j = k[:, lo:lo + kvb].to(f32)
         v_j = v[:, lo:lo + kvb].to(f32)
         logits = torch.einsum("bskrh,btkh->bskrt", qg, k_j)
-        allow = allowed(qpos, kpos, kind, window, chunk) & (kpos < T)
+        allow = allowed(qpos, kpos, kind, window, chunk, n_prefix) \
+            & (kpos < T)
         allow = allow[None, :, None, None, :]
         logits = torch.where(allow, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(-1))
@@ -137,10 +148,11 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, kind: str = "full", window: int = 0,
-                         chunk: int = 0, return_stats: bool = False):
+                         chunk: int = 0, n_prefix: int = 0,
+                         return_stats: bool = False):
     """Launch the kernel on CUDA tensors; returns ``(B, S, H * hd)``, or
     ``(out, m, l)`` with ``return_stats``."""
-    check_inputs(q, k, v, kind, window, chunk)
+    check_inputs(q, k, v, kind, window, chunk, n_prefix)
     if q.device.type != "cuda" or k.device != q.device \
             or v.device != q.device:
         raise ValueError(f"expected CUDA tensors on one device, got "
@@ -149,13 +161,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     T, KV = k.shape[1], k.shape[2]
     if hd not in KERNEL_HEAD_DIM or B > MAX_GRID_YZ or H > MAX_GRID_YZ:
         raise ValueError(
-            f"the kernel takes hd {sorted(KERNEL_HEAD_DIM)} (hd 256 is not "
-            f"yet ported) and B, H <= {MAX_GRID_YZ}; got B {B}, H {H}, "
-            f"hd {hd}")
+            f"the kernel takes hd {sorted(KERNEL_HEAD_DIM)} and B, H <= "
+            f"{MAX_GRID_YZ}; got B {B}, H {H}, hd {hd}")
     q, k, v = (aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty((B, S, H * hd), dtype=q.dtype, device=q.device)
     args = (B, S, T, H, KV, hd, int(q.dtype == torch.bfloat16),
-            KINDS.index(kind), window, chunk)
+            KINDS.index(kind), window, chunk, n_prefix)
     m = l = None
     stats = (0, 0)  # null: the kernel stores no row stats
     if return_stats:
@@ -164,5 +175,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stats = (m.data_ptr(), l.data_ptr())
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   *stats, *args)
-    LAUNCHES_BY[(hd, kind, return_stats)] += 1
+    LAUNCHES_BY[(hd, kind, bool(n_prefix), return_stats)] += 1
     return (out, m, l) if return_stats else out

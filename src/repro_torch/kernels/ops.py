@@ -209,12 +209,15 @@ def fused_dequantize_int8_segments(payloads: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kind: str = "full", window: int = 0, chunk: int = 0,
-                    kv_block: int = 1024, return_stats: bool = False):
+                    n_prefix: int = 0, kv_block: int = 1024,
+                    return_stats: bool = False):
     """Causal online-softmax attention: q ``(B, S, H, hd)``, k/v
     ``(B, T, KV, hd)`` -> ``(B, S, H * hd)`` in q's dtype (see
     :mod:`.flash_attention`), or ``(out, m, l)`` with ``return_stats``
-    (fp32 ``(B, S, H)`` row stats). ``kv_block`` sets the plain version's
-    KV blocks; the kernel tiles by 128 keys in bf16, 64 in fp32.
+    (fp32 ``(B, S, H)`` row stats); the first ``n_prefix`` positions
+    also see each other (the prefix-LM). ``kv_block`` sets the plain
+    version's KV blocks; the kernel tiles by 128 keys in bf16 (64 at hd
+    256), 64 in fp32.
 
     Forward only: under grad with an input that requires it, this raises,
     since a ctypes launch would cut the autograd graph without a word. To
@@ -228,10 +231,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "blocked attention's (or run it under torch.no_grad())")
     if _kind(q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, kind=kind, window=window,
-                                         chunk=chunk, kv_block=kv_block,
+                                         chunk=chunk, n_prefix=n_prefix,
+                                         kv_block=kv_block,
                                          return_stats=return_stats)
     return _fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
-                                    chunk=chunk, return_stats=return_stats)
+                                    chunk=chunk, n_prefix=n_prefix,
+                                    return_stats=return_stats)
 
 
 # ------------------------------------------------------ host-staged bytes

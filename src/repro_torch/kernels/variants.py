@@ -108,11 +108,13 @@ per segment one launch of the grid-stride loop with an atomic a block).
 (directories holding ``src/repro_torch``) in turns, the order given and
 then reversed, each in a process of its own that imports only that
 checkout, builds its library and times its ``flash_attention_cuda`` at
-:data:`SERVE` (hd 64, bf16, causal) as ``attention_main`` times a
+:data:`SERVE` (hd 64, bf16, causal) and :data:`SERVE_128` (hd 128) as
+``attention_main`` times a
 variant: :data:`ROUNDS` rounds of :data:`REPS` back-to-back calls under
 CUDA events, each round beside ``scaled_dot_product_attention``, then
 the kernel's device time under ``torch.profiler``. A line ``attnpath``
-with a JSON object per run, and the run's ptxas lines of the bf16 body.
+with a JSON object per run and head width, and the run's ptxas lines of
+the bf16 body.
 
 ``deltapath``: the checkpoint phase of ``chip_smoke.py`` (K, Δ, Δ saves of
 llama3.2-1b at full width, 2 layers, then the restores of steps 3 and 1)
@@ -139,7 +141,7 @@ from . import build
 
 EX2 = '  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
 QK = "    wgmma_qk(s, dq + hq + 2 * (kk % 4), dk + hk + 2 * (kk % 4), kk);"
-PV = "    for (int c = 0; c < 8; ++c) wgmma_pv(o[h], pa[c], dvh + 128 * c);"
+PV = "      wgmma_pv(o[h], pa[c], dvh + 128 * c);"
 SOFTMAX_FIRST = (
     "      online_softmax(s, (t0 + first) * kTileK, t, whole(first), "
     "p.scale_log2,\n                     r, al_a, al_b);")
@@ -154,7 +156,7 @@ KV_LOADS = """        mbar_expect_tx(bar_k + 8 * s, kTileBytes);
         tma_load_tile<HD>(base + kSmemV + s * kTileBytes, C::kHalfBytes,
                           &tm_v, bar_v + 8 * s, kvh, jb, b);"""
 NO_EX2 = [[EX2, "  y = x;"]]
-NO_PRODUCTS = [[QK, "    ;"], [PV, "  ;"]]
+NO_PRODUCTS = [[QK, "    ;"], [PV, "      ;"]]
 NO_SOFTMAX = [[SOFTMAX_FIRST, "al_a = al_b = 1.f;"],
               [SOFTMAX_NEXT, "al_a = al_b = 1.f;"], [PACK, ";"]]
 NO_KV_LOADS = [[KV_LOADS, "        mbar_arrive(bar_k + 8 * s);\n"
@@ -173,7 +175,10 @@ ABLATIONS = {
     "two_consumers": [["kConsumers = HD == 64 ? 3 : 2;",
                        "kConsumers = 2;"]],
     "two_stages": [["kStages = HD == 64 ? 3 : 2;", "kStages = 2;"]],
-    "three_stages": [["kStages = HD == 64 ? 3 : 2;", "kStages = 3;"]],
+    # three stages at hd 128 too (at hd 256 they pass a CTA's shared
+    # memory)
+    "three_stages": [["kStages = HD == 64 ? 3 : 2;",
+                      "kStages = HD == 256 ? 2 : 3;"]],
     "no_row_stats": [[STATS_STORE, ""]],
     # the softmax's exponentials kept ahead of the P V wait (the compiler
     # may sink them past it): by a hold on p, or by volatile ex2
@@ -194,7 +199,9 @@ CHECKS = ((1, 128, 128, 1, 1, "full", 0, 0, 64),
           (2, 4096, 4096, 32, 8, "full", 0, 0, 64),
           (2, 300, 200, 32, 16, "window", 32, 0, 128),
           (2, 4096, 4096, 32, 16, "full", 0, 0, 128),
-          (2, 4096, 4096, 32, 16, "window", 1024, 0, 128))
+          (2, 4096, 4096, 32, 16, "window", 1024, 0, 128),
+          (2, 300, 200, 10, 1, "window", 32, 0, 256),
+          (2, 4096, 4096, 8, 1, "full", 0, 0, 256))
 SERVE = (2, 4096, 32, 8)  # B, S, H, KV
 #: gemma3-27b's prefill (B, S, H, KV) at hd 128, causal, where each
 #: variant is timed too
@@ -1512,18 +1519,6 @@ for line in build.ptxas_report(lib).read_text().splitlines():
         on = "flash_fwd_bf16" in line
     elif on and any(x in line for x in ("registers", "spill")):
         ptxas.append(line.strip())
-B, S, H, KV = %(serve)r
-gen = torch.Generator(device="cuda")
-gen.manual_seed(1)
-q, k, v = (torch.randn(B, S, h, 64, device="cuda", generator=gen)
-           .to(torch.bfloat16) for h in (H, KV, KV))
-qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-kern = lambda: fa.flash_attention_cuda(q, k, v)
-sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-    qt, kt, vt, is_causal=True, enable_gqa=True)
-want = fa.flash_attention_plain(q, k, v).float()
-err = float((kern().float() - want).abs().max())
-del want
 
 def time_ms(fn, reps):
     for _ in range(5):
@@ -1538,22 +1533,36 @@ def time_ms(fn, reps):
     t1.synchronize()
     return t0.elapsed_time(t1) / reps
 
-times = {"kernel": [], "sdpa": []}
-for _ in range(%(rounds)d):
-    times["kernel"].append(time_ms(kern, %(reps)d))
-    times["sdpa"].append(time_ms(sdpa, %(reps)d))
-with profile(activities=[ProfilerActivity.CPU,
-                         ProfilerActivity.CUDA]) as prof:
-    for _ in range(100):
-        kern()
-    torch.cuda.synchronize()
-dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-n = sum(e.count for e in dev)
-print("attnpath " + json.dumps({
-    "checkout": root, "max_abs_err": err, "ms": times["kernel"],
-    "sdpa_ms": times["sdpa"],
-    "device_ms": sum(e.self_device_time_total for e in dev) / n / 1e3
-    if n else None, "ptxas": ptxas}), flush=True)
+for (B, S, H, KV), hd in ((%(serve)r, 64), (%(serve_128)r, 128)):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    q, k, v = (torch.randn(B, S, h, hd, device="cuda", generator=gen)
+               .to(torch.bfloat16) for h in (H, KV, KV))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kern = lambda: fa.flash_attention_cuda(q, k, v)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    want = fa.flash_attention_plain(q, k, v).float()
+    err = float((kern().float() - want).abs().max())
+    del want
+    times = {"kernel": [], "sdpa": []}
+    for _ in range(%(rounds)d):
+        times["kernel"].append(time_ms(kern, %(reps)d))
+        times["sdpa"].append(time_ms(sdpa, %(reps)d))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            kern()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    n = sum(e.count for e in dev)
+    print("attnpath " + json.dumps({
+        "checkout": root, "hd": hd, "max_abs_err": err,
+        "ms": times["kernel"], "sdpa_ms": times["sdpa"],
+        "device_ms": sum(e.self_device_time_total for e in dev) / n / 1e3
+        if n else None, "ptxas": ptxas}), flush=True)
+    del q, k, v, qt, kt, vt
 """
 
 
@@ -1563,7 +1572,8 @@ def attnpath_main(args) -> None:
     if not args:
         sys.exit("attnpath: name one or more checkouts")
     print(_smi_line(), flush=True)
-    run = ATTN_PATH_RUN % {"serve": SERVE, "rounds": ROUNDS, "reps": REPS}
+    run = ATTN_PATH_RUN % {"serve": SERVE, "serve_128": SERVE_128,
+                           "rounds": ROUNDS, "reps": REPS}
     for checkout in [*args, *reversed(args)]:
         proc = subprocess.run([sys.executable, "-c", run], cwd=checkout,
                               capture_output=True, text=True)

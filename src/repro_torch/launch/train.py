@@ -9,9 +9,11 @@ four engines the paper compares (``sync``, ``snapshot``,
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --smoke --steps 20 --ckpt-interval 5 --ckpt-dir /tmp/ckpt
 
-``--arch`` takes any config of ``repro_torch.configs.list_configs()``:
-llama3.2-1b, llama2-7b, starcoder2-7b, gemma3-27b, command-r-35b and
-musicgen-medium.
+``--arch`` takes any config of ``repro_torch.configs.list_configs()``,
+the JAX package's eleven: llama3.2-1b, llama2-7b, starcoder2-7b,
+gemma3-27b, command-r-35b, musicgen-medium, dbrx-132b,
+llama4-maverick-400b-a17b, recurrentgemma-2b, rwkv6-7b and paligemma-3b
+(``--smoke`` for a size a CPU runs).
 """
 
 from __future__ import annotations

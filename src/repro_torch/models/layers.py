@@ -1,12 +1,13 @@
 """Attention-family layers as plain functions on tensors (port of
-``repro/models/layers.py`` but the prefix-LM): rmsnorm and layernorm,
-RoPE, the ``full`` / ``window`` / ``chunked`` masks, GQA attention on the
-direct and the blocked path, single-token decode attention over a linear
-or ring cache, cross-attention to a conditioning memory, the gated FFNs
-and ``gelu_mlp``, with the optional projection and FFN biases, and
-embeddings and logits with parallel codebooks. Parameters are dicts of
-tensors in the JAX package's tree; autograd gives the backward of every
-path, the blocked one through :class:`_Flash`.
+``repro/models/layers.py``): rmsnorm and layernorm, RoPE, the ``full`` /
+``window`` / ``chunked`` masks and the prefix-LM's bidirectional prefix,
+GQA attention on the direct and the blocked path, single-token decode
+attention over a linear or ring cache, cross-attention to a
+conditioning memory, the gated FFNs and ``gelu_mlp``, with the optional
+projection and FFN biases, and embeddings and logits with parallel
+codebooks. Parameters are dicts of tensors in the JAX package's tree;
+autograd gives the backward of every path, the blocked one through
+:class:`_Flash`.
 
 Cast points are the reference's. Norms and RoPE compute in fp32 and cast
 back to the input dtype. On the direct path (and in decode and
@@ -78,16 +79,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # --------------------------------------------------------------------- masks
 def make_mask(seq_len: int, device: torch.device, kind: str = "full", *,
-              window: int = 0, chunk: int = 0) -> torch.Tensor:
+              window: int = 0, chunk: int = 0,
+              n_prefix: int = 0) -> torch.Tensor:
     """(S, S) boolean mask of ``kind`` (``full``, ``window`` or
-    ``chunked``); the reference's ``n_prefix`` is not ported."""
+    ``chunked``); the first ``n_prefix`` positions also see each other
+    (prefix-LM, PaliGemma)."""
     if kind not in ("full", "window", "chunked"):
         raise ValueError(kind)
     if (kind == "window" and window <= 0) or (kind == "chunked"
                                               and chunk <= 0):
         raise ValueError(f"kind={kind!r} needs a positive size")
     pos = torch.arange(seq_len, device=device)
-    return _allowed(pos, pos, kind, window, chunk)
+    return _allowed(pos, pos, kind, window, chunk, n_prefix)
 
 
 # ----------------------------------------------------------------- attention
@@ -116,19 +119,23 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _query_rows(lo: int, hi: int, S: int, kind: str, window: int,
-                chunk: int) -> Tuple[int, int]:
+                chunk: int, n_prefix: int = 0) -> Tuple[int, int]:
     """The query rows ``[r0, r1)`` that may see some key in ``[lo, hi)``;
-    every other row's probabilities there are 0."""
+    every other row's probabilities there are 0. A key below
+    ``n_prefix`` is also seen by every row of the prefix."""
     r1 = S
     if kind == "window":
         r1 = min(S, hi - 1 + window)
     elif kind == "chunked":
         r1 = min(S, ((hi - 1) // chunk + 1) * chunk)
-    return lo, max(lo, r1)
+    r0 = lo
+    if lo < n_prefix:
+        r0, r1 = 0, max(r1, min(n_prefix, S))
+    return r0, max(r0, r1)
 
 
 def _flash_bwd(q, k, v, out, m, l, dout, kind: str, window: int,
-               chunk: int, kv_block: int):
+               chunk: int, kv_block: int, n_prefix: int = 0):
     """Port of the reference's ``_flash_bwd`` (``repro/models/layers.py:
     194-231``) in plain PyTorch, outside any kernel as the reference runs
     it in XLA: blockwise over ``kv_block`` keys, P recomputed from the
@@ -155,14 +162,14 @@ def _flash_bwd(q, k, v, out, m, l, dout, kind: str, window: int,
     dv = torch.zeros_like(dk)
     for lo in range(0, T, kv_block):
         hi = min(lo + kv_block, T)
-        r0, r1 = _query_rows(lo, hi, S, kind, window, chunk)
+        r0, r1 = _query_rows(lo, hi, S, kind, window, chunk, n_prefix)
         if r0 >= r1:
             continue
         k_j, v_j = k[:, lo:hi].to(f32), v[:, lo:hi].to(f32)
         q_i, do_i = qs[:, r0:r1], do[:, r0:r1]
         allow = _allowed(torch.arange(r0, r1, device=q.device),
                          torch.arange(lo, hi, device=q.device), kind,
-                         window, chunk)[None, :, None, None, :]
+                         window, chunk, n_prefix)[None, :, None, None, :]
         logits = torch.einsum("bskrh,btkh->bskrt", q_i, k_j)
         p = torch.exp(logits - m[:, r0:r1, ..., None]) \
             * linv[:, r0:r1, ..., None]
@@ -182,28 +189,29 @@ class _Flash(torch.autograd.Function):
     :func:`repro_torch.kernels.ops.flash_attention` with its row stats
     (the hand-written kernel on a card, its plain version on the CPU);
     ``q, k, v, out, m, l`` are saved and :func:`_flash_bwd` recomputes
-    the probabilities from them."""
+    the probabilities from them. ``n_prefix`` (last, 0 when left out)
+    is the prefix-LM's prefix."""
 
     @staticmethod
     def forward(ctx, q, k, v, kind: str, window: int, chunk: int,
-                kv_block: int):
+                kv_block: int, n_prefix: int = 0):
         out, m, l = ops.flash_attention(q, k, v, kind=kind, window=window,
-                                        chunk=chunk, kv_block=kv_block,
-                                        return_stats=True)
+                                        chunk=chunk, n_prefix=n_prefix,
+                                        kv_block=kv_block, return_stats=True)
         ctx.save_for_backward(q, k, v, out, m, l)
-        ctx.mask = (kind, window, chunk, kv_block)
+        ctx.mask = (kind, window, chunk, kv_block, n_prefix)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, m, l = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, out, m, l, dout, *ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kind: str = "full", window: int = 0, chunk: int = 0,
-                 kv_block: int = 1024) -> torch.Tensor:
+                 n_prefix: int = 0, kv_block: int = 1024) -> torch.Tensor:
     """Flash-style attention (port of ``repro.models.layers.blocked_sdpa``):
     an online softmax over KV blocks that never holds the (S, S) logits,
     through :func:`repro_torch.kernels.ops.flash_attention` — the
@@ -214,23 +222,24 @@ def blocked_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     backward is the reference's."""
     kvb = min(kv_block, q.shape[1])
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _Flash.apply(q, k, v, kind, window, chunk, kvb)
+        return _Flash.apply(q, k, v, kind, window, chunk, kvb, n_prefix)
     return ops.flash_attention(q, k, v, kind=kind, window=window,
-                               chunk=chunk, kv_block=kvb)
+                               chunk=chunk, n_prefix=n_prefix, kv_block=kvb)
 
 
 def full_seq_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   kind: str = "full", window: int = 0, chunk: int = 0,
-                  kv_block: int = 1024) -> torch.Tensor:
+                  n_prefix: int = 0, kv_block: int = 1024) -> torch.Tensor:
     """Causal self-attention over the whole sequence with the ``kind``
-    mask: the direct masked path up to :data:`DIRECT_SDPA_MAX_SEQ` tokens,
-    the blocked path beyond."""
+    mask (and the bidirectional prefix of ``n_prefix`` positions): the
+    direct masked path up to :data:`DIRECT_SDPA_MAX_SEQ` tokens, the
+    blocked path beyond."""
     S = q.shape[1]
     if S <= DIRECT_SDPA_MAX_SEQ:
         return _sdpa(q, k, v, make_mask(S, q.device, kind, window=window,
-                                        chunk=chunk))
+                                        chunk=chunk, n_prefix=n_prefix))
     return blocked_sdpa(q, k, v, kind=kind, window=window, chunk=chunk,
-                        kv_block=kv_block)
+                        n_prefix=n_prefix, kv_block=kv_block)
 
 
 def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -248,14 +257,17 @@ def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
-              positions: torch.Tensor, kind: str = "full"
+              positions: torch.Tensor, kind: str = "full",
+              n_prefix: int = 0
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence self-attention (train / prefill) under the ``kind``
-    mask (``cfg.window``, ``cfg.chunk``). x: (B,S,d). Returns ``(out,
-    (k, v))`` with k after RoPE, for the decode cache."""
+    mask (``cfg.window``, ``cfg.chunk``), the first ``n_prefix``
+    positions also seeing each other. x: (B,S,d). Returns ``(out, (k,
+    v))`` with k after RoPE, for the decode cache."""
     q, k, v = project_qkv(cfg, p, x, positions)
     out = full_seq_sdpa(q, k, v, kind=kind, window=cfg.window,
-                        chunk=cfg.chunk, kv_block=cfg.attn_kv_block)
+                        chunk=cfg.chunk, n_prefix=n_prefix,
+                        kv_block=cfg.attn_kv_block)
     return _proj(out, p["wo"], p.get("bo")), (k, v)
 
 

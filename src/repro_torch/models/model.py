@@ -1,24 +1,28 @@
-"""The attention-family models: parameter trees, forward, decode and loss
-(port of ``repro/models/model.py`` for the ``full``, ``window``,
-``chunked`` and ``xattn`` block types).
+"""The model zoo: parameter trees, forward, decode and loss (port of
+``repro/models/model.py`` for every block type: ``full``, ``window``,
+``chunked``, ``xattn``, the ``*_moe`` ones, ``rec`` and ``rwkv``, and the
+prefix-LM).
 
 :func:`param_shapes` reproduces the tree of ``init_params`` exactly —
 ``{"embed": {"embed"[, "head"]}, "ln_f": norm, "groups": ((stacked block,
-...), ...)}`` with each block ``{"attn": {wq, wk, wv, wo[, bq, bk, bv,
-bo]}, "ffn": {w_up, w_down[, w_gate][, b_up, b_down]}, "ln1": norm,
-"ln2": norm}`` (plus ``"lnx"`` and ``"xattn"`` for ``xattn`` blocks)
-stacked over the group's repeat count, a norm being ``{scale[, bias]}``
-— so state built here checkpoints under the same tensor names as the
-JAX package's. Matrices and projection biases are in ``cfg.dtype``
-(bf16), norm scales and biases in fp32. The MoE, recurrent and RWKV
-block types and the prefix-LM are refused (they come with hd 256 and
-new block types in a later slice).
+...), ...)}`` with each block ``{"ln1": norm, "ln2": norm}`` and, by
+type, ``"attn": {wq, wk, wv, wo[, bq, bk, bv, bo]}`` with ``"ffn":
+{w_up, w_down[, w_gate][, b_up, b_down]}`` (plus ``"lnx"`` and
+``"xattn"`` for ``xattn``) or ``"moe": {router, w_gate, w_up, w_down[,
+shared]}`` (``*_moe``); ``"rec"`` (the RG-LRU) and ``"ffn"`` (``rec``);
+``"tmix"`` and ``"cmix"`` (``rwkv``), stacked over the group's repeat
+count, a norm being ``{scale[, bias]}`` — so state built here
+checkpoints under the same tensor names as the JAX package's. Matrices
+and projection biases are in ``cfg.dtype`` (bf16); norm scales and
+biases, the router, the RG-LRU's gate biases and decay, and RWKV6's
+mixes, decay base, bonus and group-norm scale in fp32, as there.
 
 :func:`forward` runs the stacked groups with a Python loop over the
 repeat index where the JAX package scans, slicing each stacked leaf, so
 the parameters keep their tree and the names the checkpoint resolves.
 With ``collect_caches`` it also returns the decode caches that
-:func:`decode` reads and writes, in the JAX package's cache tree.
+:func:`decode` reads and writes, in the JAX package's cache tree;
+:func:`forward_aux` also returns the MoE layers' summed aux loss.
 """
 
 from __future__ import annotations
@@ -32,11 +36,13 @@ import torch
 from repro_torch.core import dtypes
 from repro_torch.core.tree import map_leaves
 
-from . import layers
+from . import layers, moe, rglru, rwkv6
 
-#: the block types the port runs (the reference's ``ATTN_TYPES`` without
-#: the ``*_moe`` ones)
-ATTN_TYPES = ("full", "window", "chunked", "xattn")
+#: the block types with self-attention (the reference's ``ATTN_TYPES``)
+ATTN_TYPES = ("full", "window", "chunked", "full_moe", "window_moe",
+              "chunked_moe", "xattn")
+#: every block type
+BLOCK_TYPES = ATTN_TYPES + ("rec", "rwkv")
 
 
 def attn_kind(btype: str) -> str:
@@ -44,31 +50,29 @@ def attn_kind(btype: str) -> str:
     return btype.split("_")[0] if btype != "xattn" else "full"
 
 
+def is_moe(btype: str) -> bool:
+    return btype.endswith("_moe")
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """One parameter leaf: shape, dtype name, and how it starts:
-    ``init="normal"`` times ``scale``, or ``"ones"`` (norm scales) or
-    ``"zeros"`` (biases)."""
+    ``init="normal"`` or ``"uniform"`` (on [0, 1)) times ``scale`` plus
+    ``offset``, or ``"ones"`` (norm scales) or ``"zeros"`` (biases)."""
 
     shape: Tuple[int, ...]
     dtype: str
     scale: float = 0.0
     init: str = "normal"
+    offset: float = 0.0
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.n_prefix_embeds:
-        raise NotImplementedError(
-            f"{cfg.name}: the prefix-LM (n_prefix_embeds="
-            f"{cfg.n_prefix_embeds}) is not yet ported (slice 14, with "
-            f"hd 256)")
+    """Raise for a block type or norm the reference does not run either."""
     for pattern, _count in cfg.layer_groups:
         for btype in pattern:
-            if btype not in ATTN_TYPES:
-                raise NotImplementedError(
-                    f"{cfg.name}: block type {btype!r} is not yet ported "
-                    f"(slice 14)")
+            if btype not in BLOCK_TYPES:
+                raise ValueError(f"{cfg.name}: block type {btype!r}")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         raise ValueError(f"{cfg.name}: norm {cfg.norm!r}")
 
@@ -111,13 +115,83 @@ def _ffn(cfg, c: Tuple[int, ...]) -> Dict[str, ParamSpec]:
     return p
 
 
+def _moe(cfg, c: Tuple[int, ...]) -> Dict[str, Any]:
+    """``repro.models.moe.init_moe``'s tree."""
+    d, f, E, dt = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.dtype
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(f) / math.sqrt(2 * cfg.n_layers)
+    p = {"router": ParamSpec(c + (d, E), "float32", s_in),
+         "w_gate": ParamSpec(c + (E, d, f), dt, s_in),
+         "w_up": ParamSpec(c + (E, d, f), dt, s_in),
+         "w_down": ParamSpec(c + (E, f, d), dt, s_out)}
+    if cfg.shared_expert:
+        p["shared"] = _ffn(cfg, c)
+    return p
+
+
+def _rglru(cfg, c: Tuple[int, ...]) -> Dict[str, ParamSpec]:
+    """``repro.models.rglru.init_rglru_block``'s tree."""
+    d, dr, dt = cfg.d_model, cfg.d_rnn, cfg.dtype
+    s, sr = 1.0 / math.sqrt(d), 1.0 / math.sqrt(dr)
+    return {"w_gate_branch": ParamSpec(c + (d, dr), dt, s),
+            "w_rec_in": ParamSpec(c + (d, dr), dt, s),
+            "conv_w": ParamSpec(c + (cfg.conv_width, dr), dt, 0.1),
+            "conv_b": ParamSpec(c + (dr,), dt, init="zeros"),
+            "lam": ParamSpec(c + (dr,), "float32", 3.5, "uniform", 0.5),
+            "w_a": ParamSpec(c + (dr, dr), dt, sr),
+            "b_a": ParamSpec(c + (dr,), "float32", init="zeros"),
+            "w_x": ParamSpec(c + (dr, dr), dt, sr),
+            "b_x": ParamSpec(c + (dr,), "float32", init="zeros"),
+            "w_out": ParamSpec(c + (dr, d), dt,
+                               sr / math.sqrt(2 * cfg.n_layers))}
+
+
+def _rwkv(cfg, c: Tuple[int, ...]) -> Dict[str, Dict[str, ParamSpec]]:
+    """``repro.models.rwkv6.init_rwkv`` and ``init_channel_mix``'s
+    trees."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.dtype
+    H, hs, lora = d // cfg.rwkv_head_size, cfg.rwkv_head_size, \
+        cfg.rwkv_decay_lora
+    s, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(2 * cfg.n_layers)
+    f32 = "float32"
+    tmix = {"mix_base": ParamSpec(c + (5, d), f32, 0.5, "uniform"),
+            "mix_w1": ParamSpec(c + (d, 5 * rwkv6.MIX_LORA), dt, s),
+            "mix_w2": ParamSpec(c + (5, rwkv6.MIX_LORA, d), dt, 0.01),
+            "w0": ParamSpec(c + (d,), f32, 0.5, offset=-0.6),
+            "w_a": ParamSpec(c + (d, lora), dt, s),
+            "w_b": ParamSpec(c + (lora, d), dt, 0.01),
+            "u": ParamSpec(c + (H, hs), f32, 0.1),
+            "wr": ParamSpec(c + (d, d), dt, s),
+            "wk": ParamSpec(c + (d, d), dt, s),
+            "wv": ParamSpec(c + (d, d), dt, s),
+            "wg": ParamSpec(c + (d, d), dt, s),
+            "wo": ParamSpec(c + (d, d), dt, s * s_out),
+            "ln_x_scale": ParamSpec(c + (d,), f32, init="ones")}
+    cmix = {"mix_k": ParamSpec(c + (d,), f32, 0.5, "uniform"),
+            "mix_r": ParamSpec(c + (d,), f32, 0.5, "uniform"),
+            "w_in": ParamSpec(c + (d, f), dt, s),
+            "w_out": ParamSpec(c + (f, d), dt, s_out / math.sqrt(f)),
+            "w_r": ParamSpec(c + (d, d), dt, s)}
+    return {"tmix": tmix, "cmix": cmix}
+
+
 def _block(cfg, btype: str, count: int) -> Dict[str, Any]:
     c = (count,)
-    p = {"attn": _attention(cfg, c), "ffn": _ffn(cfg, c),
-         "ln1": _norm(cfg, c), "ln2": _norm(cfg, c)}
-    if btype == "xattn":
-        p["lnx"] = _norm(cfg, c)
-        p["xattn"] = _attention(cfg, c)
+    p: Dict[str, Any] = {"ln1": _norm(cfg, c), "ln2": _norm(cfg, c)}
+    if btype in ATTN_TYPES:
+        p["attn"] = _attention(cfg, c)
+        if btype == "xattn":
+            p["lnx"] = _norm(cfg, c)
+            p["xattn"] = _attention(cfg, c)
+        if is_moe(btype):
+            p["moe"] = _moe(cfg, c)
+        else:
+            p["ffn"] = _ffn(cfg, c)
+    elif btype == "rec":
+        p["rec"] = _rglru(cfg, c)
+        p["ffn"] = _ffn(cfg, c)
+    else:
+        p.update(_rwkv(cfg, c))
     return p
 
 
@@ -146,36 +220,67 @@ def init_params(cfg, generator: torch.Generator,
             return torch.ones(spec.shape, dtype=dt, device=device)
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
-        x = torch.randn(spec.shape, generator=generator, device=device)
-        return x.mul_(spec.scale).to(dt)
+        draw = torch.rand if spec.init == "uniform" else torch.randn
+        x = draw(spec.shape, generator=generator, device=device)
+        return x.mul_(spec.scale).add_(spec.offset).to(dt)
     return map_leaves(make, param_shapes(cfg))
 
 
 # ------------------------------------------------------------------ forward
 def block_forward(cfg, btype: str, p: Dict[str, Any], x: torch.Tensor, *,
-                  positions: torch.Tensor, memory: Optional[torch.Tensor],
-                  collect_cache: bool):
-    """One block: pre-norm self-attention under the block's mask, for
-    ``xattn`` pre-norm cross-attention to ``memory``, then the pre-norm
-    FFN, each added to the residual in ``x.dtype``. Returns ``(x,
-    cache)``, the cache ``None`` unless ``collect_cache``."""
-    h = layers.apply_norm(p["ln1"], x)
-    a, (k, v) = layers.attention(cfg, p["attn"], h, positions=positions,
-                                 kind=attn_kind(btype))
-    x = x + a.to(x.dtype)
-    if btype == "xattn":
-        hx = layers.apply_norm(p["lnx"], x)
-        mk, mv = layers.memory_kv(cfg, p["xattn"], memory)
-        x = x + layers.cross_attention(cfg, p["xattn"], hx, mk,
-                                       mv).to(x.dtype)
-    h2 = layers.apply_norm(p["ln2"], x)
-    x = x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+                  positions: torch.Tensor, n_prefix: int,
+                  memory: Optional[torch.Tensor], collect_cache: bool):
+    """One block on the whole sequence. Attention blocks: pre-norm
+    self-attention under the block's mask (and the prefix), for ``xattn``
+    pre-norm cross-attention to ``memory``, then the pre-norm FFN or MoE;
+    ``rec``: the pre-norm RG-LRU block, then the FFN; ``rwkv``: pre-norm
+    time-mix and channel-mix from a zero carry. Each is added to the
+    residual in ``x.dtype``. Returns ``(x, cache, aux)``, the cache
+    ``None`` unless ``collect_cache``, aux the MoE loss (0 elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache = None
-    if collect_cache:
-        cache = _cache_from_kv(cfg, btype, k, v)
+    if btype in ATTN_TYPES:
+        h = layers.apply_norm(p["ln1"], x)
+        a, (k, v) = layers.attention(cfg, p["attn"], h, positions=positions,
+                                     kind=attn_kind(btype),
+                                     n_prefix=n_prefix)
+        x = x + a.to(x.dtype)
         if btype == "xattn":
-            cache["mk"], cache["mv"] = mk, mv
-    return x, cache
+            hx = layers.apply_norm(p["lnx"], x)
+            mk, mv = layers.memory_kv(cfg, p["xattn"], memory)
+            x = x + layers.cross_attention(cfg, p["xattn"], hx, mk,
+                                           mv).to(x.dtype)
+        h2 = layers.apply_norm(p["ln2"], x)
+        if is_moe(btype):
+            f, aux = moe.apply_moe(cfg, p["moe"], h2)
+        else:
+            f = layers.apply_ffn(cfg, p["ffn"], h2)
+        x = x + f.to(x.dtype)
+        if collect_cache:
+            cache = _cache_from_kv(cfg, btype, k, v)
+            if btype == "xattn":
+                cache["mk"], cache["mv"] = mk, mv
+    elif btype == "rec":
+        h = layers.apply_norm(p["ln1"], x)
+        r, (h_last, conv) = rglru.apply_rglru_block(cfg, p["rec"], h)
+        x = x + r.to(x.dtype)
+        h2 = layers.apply_norm(p["ln2"], x)
+        x = x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+        if collect_cache:
+            cache = {"h": h_last, "conv": conv}
+    else:  # rwkv
+        h = layers.apply_norm(p["ln1"], x)
+        zero_last = torch.zeros((x.shape[0], cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+        t, (_x_t, S) = rwkv6.time_mix(cfg, p["tmix"], h, zero_last, None)
+        x = x + t.to(x.dtype)
+        h2 = layers.apply_norm(p["ln2"], x)
+        c, _x_c = rwkv6.channel_mix(cfg, p["cmix"], h2, zero_last)
+        x = x + c.to(x.dtype)
+        if collect_cache:
+            # the normed inputs' last token carries the token shift
+            cache = {"x_t": h[:, -1, :], "S": S, "x_c": h2[:, -1, :]}
+    return x, cache, aux
 
 
 def _cache_from_kv(cfg, btype: str, k: torch.Tensor,
@@ -225,39 +330,49 @@ def _embed(cfg, params: Dict[str, Any],
 
 def _embed_inputs(cfg, params: Dict[str, Any],
                   batch: Dict[str, torch.Tensor]
-                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``(x, memory)``: the prompt's embeddings (:func:`_embed`), and the
-    conditioning memory (``memory_embeds`` cast to their dtype) of a
-    config with ``n_memory_embeds``, else ``None``."""
+                  ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+    """``(x, n_prefix, memory)``: the prompt's embeddings (:func:`_embed`)
+    after the prefix-LM's ``prefix_embeds`` (cast to their dtype) where
+    the config has ``n_prefix_embeds``, that count (else 0), and the
+    conditioning memory (``memory_embeds`` cast likewise) of a config
+    with ``n_memory_embeds``, else ``None``."""
     x = _embed(cfg, params, batch["tokens"])
+    n_prefix = 0
     memory = None
+    if cfg.n_prefix_embeds:
+        x = torch.cat([batch["prefix_embeds"].to(x.dtype), x], dim=1)
+        n_prefix = cfg.n_prefix_embeds
     if cfg.n_memory_embeds:
         memory = batch["memory_embeds"].to(x.dtype)
-    return x, memory
+    return x, n_prefix, memory
 
 
-def forward(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-            *, collect_caches: bool = False):
-    """Full-sequence forward; returns the logits (B, S, vocab) (B, S, K,
-    vocab with codebooks), or ``(logits, caches)`` with
-    ``collect_caches``: the decode caches in the JAX package's tree, one
-    tuple per layer group of one dict per pattern position (``k``, ``v``,
-    and ``mk``, ``mv`` for ``xattn``), each leaf stacked over the group's
-    repeat index."""
+def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+                *, collect_caches: bool = False):
+    """The reference's ``forward``: ``(logits, aux, caches)``, the logits
+    (B, S, vocab) (B, S, K, vocab with codebooks; S counts the prefix),
+    the MoE layers' summed aux loss (fp32, 0 without MoE), and with
+    ``collect_caches`` the decode caches in the JAX package's tree (else
+    ``None``): one tuple per layer group of one dict per pattern position
+    (``k``, ``v``, and ``mk``, ``mv`` for ``xattn``; ``h``, ``conv`` for
+    ``rec``; ``x_t``, ``S``, ``x_c`` for ``rwkv``), each leaf stacked over
+    the group's repeat index."""
     check_supported(cfg)
-    x, memory = _embed_inputs(cfg, params, batch)
+    x, n_prefix, memory = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     positions = layers.positions_for(B, S, x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for (pattern, count), stacked in zip(cfg.layer_groups,
                                          params["groups"]):
         per_pos = [[] for _ in pattern]
         for i in range(count):
             for j, (btype, pp) in enumerate(zip(pattern, stacked)):
-                x, cache = block_forward(
+                x, cache, aux = block_forward(
                     cfg, btype, map_leaves(lambda t: t[i], pp), x,
-                    positions=positions, memory=memory,
+                    positions=positions, n_prefix=n_prefix, memory=memory,
                     collect_cache=collect_caches)
+                aux_total = aux_total + aux
                 per_pos[j].append(cache)
         if collect_caches:
             caches.append(tuple(
@@ -265,34 +380,67 @@ def forward(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 for cs in per_pos))
     x = layers.apply_norm(params["ln_f"], x)
     logits = layers.logits_from_hidden(cfg, params["embed"], x)
-    return (logits, tuple(caches)) if collect_caches else logits
+    return logits, aux_total, (tuple(caches) if collect_caches else None)
+
+
+def forward(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+            *, collect_caches: bool = False):
+    """:func:`forward_aux` without the aux: the logits, or ``(logits,
+    caches)`` with ``collect_caches``."""
+    logits, _aux, caches = forward_aux(cfg, params, batch,
+                                       collect_caches=collect_caches)
+    return (logits, caches) if collect_caches else logits
 
 
 def block_decode(cfg, btype: str, p: Dict[str, Any], x: torch.Tensor,
                  cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
-    """One block on one token at ``pos``; the cache's k and v are written
-    in place (:func:`layers.decode_attention`, a ring for ``window`` and
-    ``chunked``), so only x comes back. ``xattn`` reads the memory's K/V
-    from the cache."""
+    """One block on one token at ``pos``; its cache is written in place,
+    so only x comes back. Attention blocks write k and v
+    (:func:`layers.decode_attention`, a ring for ``window`` and
+    ``chunked``; ``xattn`` reads the memory's K/V from the cache), ``rec``
+    its ``h`` and ``conv``, ``rwkv`` its ``x_t``, ``S`` and ``x_c``, where
+    the reference returns updated copies."""
     h = layers.apply_norm(p["ln1"], x)
-    a, _k, _v = layers.decode_attention(cfg, p["attn"], h, cache["k"],
-                                        cache["v"], pos,
-                                        mode=attn_kind(btype))
-    x = x + a.to(x.dtype)
-    if btype == "xattn":
-        hx = layers.apply_norm(p["lnx"], x)
-        x = x + layers.cross_attention(cfg, p["xattn"], hx, cache["mk"],
-                                       cache["mv"]).to(x.dtype)
+    if btype in ATTN_TYPES:
+        a, _k, _v = layers.decode_attention(cfg, p["attn"], h, cache["k"],
+                                            cache["v"], pos,
+                                            mode=attn_kind(btype))
+        x = x + a.to(x.dtype)
+        if btype == "xattn":
+            hx = layers.apply_norm(p["lnx"], x)
+            x = x + layers.cross_attention(cfg, p["xattn"], hx, cache["mk"],
+                                           cache["mv"]).to(x.dtype)
+        h2 = layers.apply_norm(p["ln2"], x)
+        if is_moe(btype):
+            f, _aux = moe.apply_moe(cfg, p["moe"], h2)
+        else:
+            f = layers.apply_ffn(cfg, p["ffn"], h2)
+        return x + f.to(x.dtype)
+    if btype == "rec":
+        r, (h_last, conv) = rglru.apply_rglru_block(
+            cfg, p["rec"], h, state=(cache["h"], cache["conv"]))
+        cache["h"].copy_(h_last)
+        cache["conv"].copy_(conv)
+        x = x + r.to(x.dtype)
+        h2 = layers.apply_norm(p["ln2"], x)
+        return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    t, (x_t, S) = rwkv6.time_mix(cfg, p["tmix"], h, cache["x_t"],
+                                 cache["S"], decode=True)
+    x = x + t.to(x.dtype)
     h2 = layers.apply_norm(p["ln2"], x)
-    return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    c, x_c = rwkv6.channel_mix(cfg, p["cmix"], h2, cache["x_c"])
+    cache["x_t"].copy_(x_t)
+    cache["S"].copy_(S)
+    cache["x_c"].copy_(x_c)
+    return x + c.to(x.dtype)
 
 
 def decode(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
            caches, pos: int):
     """One-token decode. ``batch["tokens"]``: (B, 1), or (B, 1, K) with
-    codebooks. Returns ``(logits, caches)``; each layer's cache slice is
-    written in place, so the stacked cache tensors that come back are the
-    ones passed in."""
+    codebooks; ``pos`` counts the prefix-LM's prefix. Returns ``(logits,
+    caches)``; each layer's cache slice is written in place, so the
+    stacked cache tensors that come back are the ones passed in."""
     check_supported(cfg)
     x = _embed(cfg, params, batch["tokens"])
     for (pattern, count), stacked, gcache in zip(
@@ -309,11 +457,14 @@ def decode(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
 def loss_fn(cfg, params: Dict[str, Any],
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy: ``logsumexp`` over fp32 logits of the
-    positions ``[:-1]`` minus the gold logit, averaged (over every
-    codebook too)."""
-    logits = forward(cfg, params, batch)
+    text positions ``[:-1]`` (the prefix-LM's prefix is not scored) minus
+    the gold logit, averaged (over every codebook too), plus
+    ``router_aux_coef`` times the MoE aux loss."""
+    logits, aux, _caches = forward_aux(cfg, params, batch)
+    if cfg.n_prefix_embeds:
+        logits = logits[:, cfg.n_prefix_embeds:]
     tgt = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1].to(torch.float32)
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    return (logz - gold).mean()
+    return (logz - gold).mean() + cfg.router_aux_coef * aux

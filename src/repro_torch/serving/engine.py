@@ -1,7 +1,8 @@
 """Serving: restore a training checkpoint's parameters, prefill a prompt
-batch, decode greedily (port of ``repro/serving/engine.py`` for the
-attention family: ``full``, ``window`` and ``chunked`` self-attention,
-``xattn`` blocks with a conditioning memory, parallel codebooks).
+batch, decode greedily (port of ``repro/serving/engine.py`` for every
+block type: ``full``, ``window`` and ``chunked`` self-attention, ``xattn``
+blocks with a conditioning memory, the MoE ones, the RG-LRU's ``rec`` and
+RWKV6's ``rwkv``; parallel codebooks and the prefix-LM's patch prefix).
 
 ``prefill_step`` consumes a full prompt and returns (last-token logits,
 decode caches); ``decode_step`` consumes one token and the caches.
@@ -10,8 +11,9 @@ package jits them, and they run under ``torch.no_grad()``. Everything
 stays on the device of the params: on a card a prompt longer than 2,048
 tokens goes through the flash-attention kernel, decode through the direct
 attention path over a linear cache (``full``) or a ring (``window``,
-``chunked``). Cache templates are ``meta`` tensors, PyTorch's shape-and-
-dtype stand-ins for ``jax.ShapeDtypeStruct``.
+``chunked``), the recurrent blocks by one step of their recurrence from
+the carried state. Cache templates are ``meta`` tensors, PyTorch's
+shape-and-dtype stand-ins for ``jax.ShapeDtypeStruct``.
 """
 
 from __future__ import annotations
@@ -123,12 +125,22 @@ def _cache_entry_shapes(cfg, btype: str, batch: int, seq_len: int
     """Shapes and dtypes of one layer's decode cache (without the stack
     dimension): ``k``, ``v`` of ``seq_len`` slots, or of the window or
     chunk where that is shorter, and for ``xattn`` the memory's ``mk``,
-    ``mv``."""
-    if btype not in ATTN_TYPES:
-        raise NotImplementedError(
-            f"{cfg.name}: the decode cache of block type {btype!r} is not "
-            f"yet ported")
+    ``mv``; for ``rec`` the fp32 state ``h`` and the convolution's last
+    ``conv_width - 1`` inputs; for ``rwkv`` the token-shift carries
+    ``x_t``, ``x_c`` and the fp32 WKV state ``S``."""
     dt = dtypes.lookup(cfg.dtype).torch
+    f32 = torch.float32
+    if btype == "rec":
+        return {"h": ((batch, cfg.d_rnn), f32),
+                "conv": ((batch, cfg.conv_width - 1, cfg.d_rnn), dt)}
+    if btype == "rwkv":
+        hs = cfg.rwkv_head_size
+        H = cfg.d_model // hs
+        return {"x_t": ((batch, cfg.d_model), dt),
+                "S": ((batch, H, hs, hs), f32),
+                "x_c": ((batch, cfg.d_model), dt)}
+    if btype not in ATTN_TYPES:
+        raise ValueError(btype)
     kind = attn_kind(btype)
     T = seq_len
     if kind == "window":
@@ -173,18 +185,19 @@ def zero_caches(cfg, batch: int, seq_len: int,
 def greedy_generate(cfg, params, prompt_batch: Dict[str, torch.Tensor],
                     n_new: int) -> torch.Tensor:
     """Prefill ``prompt_batch`` (``tokens`` (B, S), or (B, S, K) with
-    codebooks, and ``memory_embeds`` where the config has a memory) and
-    decode ``n_new`` tokens greedily (argmax of the fp32 last-position
-    logits); returns them as (B, n_new) int32, or (B, n_new, K). A full
-    cache has ``n_new`` slots after the prompt (``max_decode_len``); token
-    ``i`` is decoded at position ``S + i`` (the prefix-LM is not ported).
-    As in the reference, the loop decodes once more after the last token
-    it returns."""
+    codebooks, ``memory_embeds`` where the config has a memory and
+    ``prefix_embeds`` where it is a prefix-LM) and decode ``n_new`` tokens
+    greedily (argmax of the fp32 last-position logits); returns them as
+    (B, n_new) int32, or (B, n_new, K). A full cache has ``n_new`` slots
+    after the prompt (``max_decode_len``); token ``i`` is decoded at
+    position ``S + n_prefix_embeds + i``. As in the reference, the loop
+    decodes once more after the last token it returns."""
     cfg = dataclasses.replace(cfg, max_decode_len=n_new)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     logits, caches = prefill(params, prompt_batch)
     B, S = prompt_batch["tokens"].shape[:2]
+    S += cfg.n_prefix_embeds  # the prefix-LM's patch positions
 
     def next_tokens(logits):
         last = torch.argmax(logits[:, -1].to(torch.float32), dim=-1) \

@@ -8,8 +8,10 @@ overwrites the very buffers a save requested at the previous iteration's
 end may still be copying to the host, so
 :meth:`CheckpointManager.wait_for_capture` sits between backward and
 update, as the JAX package's donating update needs it. Every leaf of a
-batch goes to the device (the tokens, with codebooks ``(B, S, K)``, and
-the conditioning memory's fp32 ``memory_embeds``); past 2,048 tokens the
+batch goes to the device (the tokens, with codebooks ``(B, S, K)``, the
+prefix-LM's fp32 ``prefix_embeds`` and the conditioning memory's fp32
+``memory_embeds``); the loss carries the MoE aux term
+(``models.model.loss_fn``); past 2,048 tokens the
 attention trains through :class:`repro_torch.models.layers._Flash`, the
 kernel's forward with the reference's blocked backward.
 """

@@ -23,6 +23,15 @@ both packages, which gives the same bits) go through:
   fp32 and bf16, the masked softmax in fp32 on every row that sees a key
   (it gives a row that sees none the mean of v, the flash kernels 0).
 
+At hd 256 (recurrentgemma-2b's and paligemma-3b's width) the plain
+version is held against the Pallas kernel in interpret mode and the
+masked softmax under every mask, at ragged S and with GQA, within the same
+tolerances. With a prefix (``n_prefix``: the first positions also see
+each other, the prefix-LM's mask) it is held against
+``repro.models.layers.blocked_sdpa(n_prefix=...)`` past the direct path
+(3e-5 fp32, 2e-2 bf16) and against a masked softmax under
+``repro.models.layers.make_mask(n_prefix=...)`` (2e-5).
+
 The wrapper raises under grad (``layers._Flash`` is the way to train
 through it; the model's blocked path under grad is held in
 ``tests/test_torch_model.py`` and ``tests/test_torch_flash_backward.py``),
@@ -222,9 +231,9 @@ def test_entry_point_is_in_the_library():
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert build.CSRC / "flash_attention.cu" in build.SOURCES
     assert f'extern "C" int {fa.KERNEL.symbol}(' in src
-    # q, k, v, out, the row stats m and l (null when not asked for), ten
-    # sizes and flags, the stream
-    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 17
+    # q, k, v, out, the row stats m and l (null when not asked for),
+    # eleven sizes and flags (n_prefix last), the stream
+    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 18
 
 
 def test_bf16_body_is_a_warp_specialised_tma_wgmma_pipeline():
@@ -282,20 +291,23 @@ def test_cuda_kernel_matches_plain(S, T, dtype, heads):
 
 
 def test_kernel_takes_hd_64_and_128_with_row_stats():
-    """Both bodies are instantiated at hd 64 and 128 (hd 256 comes with
-    the configs that need it), and the one entry point takes the row
-    stats' buffers after the output (null when they are not asked for)."""
-    assert fa.KERNEL_HEAD_DIM == {64, 128}
+    """Both bodies are instantiated at hd 64, 128 and 256, and the one
+    entry point takes the row stats' buffers after the output (null when
+    they are not asked for) and the prefix after the chunk; no second
+    entry point."""
+    assert fa.KERNEL_HEAD_DIM == {64, 128, 256}
     src = (build.CSRC / "flash_attention.cu").read_text()
-    for part in ("launch_bf16<64>", "launch_bf16<128>", "launch_f32<64>",
-                 "launch_f32<128>",
+    for part in ("launch_bf16<64>", "launch_bf16<128>", "launch_bf16<256>",
+                 "launch_f32<64>", "launch_f32<128>", "launch_f32<256>",
                  f'extern "C" int {fa.KERNEL.symbol}(',
-                 "void* out, void* m, void* l,"):
+                 "void* out, void* m, void* l,",
+                 "int64_t n_prefix, void* stream)"):
         assert part in src, part
-    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 17
-    q = torch.zeros(1, 4, 2, 256)
+    assert src.count('extern "C"') == 1
+    assert len(build.SIGNATURES[fa.KERNEL.symbol]) == 18
+    q = torch.zeros(1, 4, 2, 96)
     with torch.no_grad():   # the plain version takes any width
-        assert tops.flash_attention(q, q, q).shape == (1, 4, 512)
+        assert tops.flash_attention(q, q, q).shape == (1, 4, 192)
 
 
 @pytest.mark.gpu
@@ -325,7 +337,7 @@ def test_cuda_kernel_matches_plain_at_hd128(S, T, dtype, heads):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_row_stats_match_plain(hd, dtype):
     """The kernel's m and l against the plain version's: within 1e-3
@@ -348,3 +360,175 @@ def test_cuda_row_stats_match_plain(hd, dtype):
                                    atol=1e-3, rtol=1e-4)
         np.testing.assert_allclose(l.cpu().numpy(), wl.cpu().numpy(),
                                    atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------- hd 256 and the prefix
+HD256_CASES = [(256, 256, 4, 2), (300, 200, 4, 1), (129, 129, 2, 2)]
+
+
+@pytest.mark.parametrize("S,T,H,KV", HD256_CASES)
+@pytest.mark.parametrize("kind,window,chunk", TILE_KINDS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_pallas_kernel_at_hd256(S, T, H, KV, kind, window,
+                                              chunk, dtype):
+    """hd 256 (four 64-column parts a row in the CUDA kernel, 64-key
+    tiles): the plain version against the Pallas kernel in interpret
+    mode, ragged S, fewer keys than queries, GQA, every mask."""
+    B, hd = 1, 256
+    (jq, jk, jv), (q, k, v) = _both(_qkv(B, S, T, H, KV, hd, 31 + S),
+                                    dtype)
+    want = jops.flash_attention(jq, jk, jv, kind=kind, window=window,
+                                chunk=chunk, q_block=_pallas_block(S),
+                                kv_block=_pallas_block(T), interpret=True)
+    got = tops.flash_attention(q, k, v, kind=kind, window=window,
+                               chunk=chunk, kv_block=64)
+    assert got.shape == (B, S, H * hd) and got.dtype == q.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want).reshape(B, S, H * hd),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("S,T,H,KV", HD256_CASES)
+@pytest.mark.parametrize("kind,window,chunk", TILE_KINDS)
+def test_plain_matches_masked_softmax_at_hd256(S, T, H, KV, kind, window,
+                                               chunk):
+    B, hd = 2, 256
+    qn, kn, vn = _qkv(B, S, T, H, KV, hd, 41 + T)
+    got = fa.flash_attention_plain(
+        torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+        kind=kind, window=window, chunk=chunk, kv_block=64).numpy()
+    fold = lambda a, n: np.repeat(a, H // a.shape[2], 2).transpose(
+        0, 2, 1, 3).reshape(B * H, n, hd)
+    want = np.asarray(jref.flash_attention_ref(
+        fold(qn, S), fold(kn, T), fold(vn, T), kind=kind, window=window,
+        chunk=chunk)).reshape(B, H, S, hd).transpose(0, 2, 1, 3)
+    sees = fa.allowed(torch.arange(S), torch.arange(T), kind, window,
+                      chunk).any(1).numpy()
+    got = got.reshape(B, S, H * hd)
+    np.testing.assert_allclose(got[:, sees],
+                               want.reshape(B, S, H * hd)[:, sees],
+                               atol=2e-5, rtol=2e-5)
+    assert not got[:, ~sees].any()
+
+
+#: (hd, kind, window, chunk, n_prefix) with a prefix: the prefix-LM's own
+#: (paligemma: full, hd 256), and the prefix with the other masks
+PREFIX_CASES = [(256, "full", 0, 0, 256), (64, "window", 200, 0, 256),
+                (128, "chunked", 0, 192, 300), (64, "full", 0, 0, 2100)]
+
+
+@pytest.mark.parametrize("hd,kind,window,chunk,n_prefix", PREFIX_CASES)
+@pytest.mark.parametrize("dtype,tol", [("float32", 3e-5),
+                                       ("bfloat16", 2e-2)])
+def test_prefix_matches_reference_blocked_sdpa(hd, kind, window, chunk,
+                                               n_prefix, dtype, tol):
+    """``n_prefix`` through the port's blocked path (the plain version on
+    the CPU) against the reference's ``blocked_sdpa(n_prefix=...)`` at S
+    2,100 (padded to 3,072 by 1,024-key blocks there), 2/1 heads."""
+    B, S, H, KV = 1, 2100, 2, 1
+    (jq, jk, jv), (q, k, v) = _both(_qkv(B, S, S, H, KV, hd, 50 + hd),
+                                    dtype)
+    want = jlayers.blocked_sdpa(jq, jk, jv, kind=kind, window=window,
+                                chunk=chunk, n_prefix=n_prefix,
+                                kv_block=1024)
+    got = layers.full_seq_sdpa(q, k, v, kind=kind, window=window,
+                               chunk=chunk, n_prefix=n_prefix,
+                               kv_block=1024)
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("S,T", [(37, 37), (300, 200), (129, 129)])
+@pytest.mark.parametrize("n_prefix", [1, 20, 128, 250])
+@pytest.mark.parametrize("kind,window,chunk", TILE_KINDS)
+def test_prefix_matches_masked_softmax(S, T, n_prefix, kind, window, chunk):
+    """The plain version with a prefix against a direct masked softmax
+    under the reference's ``make_mask(n_prefix=...)`` (keys past T cut
+    off); rows that see no key are 0."""
+    B, H, KV, hd = 1, 4, 2, 32
+    qn, kn, vn = _qkv(B, S, T, H, KV, hd, 60 + n_prefix)
+    got = fa.flash_attention_plain(
+        torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+        kind=kind, window=window, chunk=chunk, n_prefix=n_prefix,
+        kv_block=64).numpy().reshape(B, S, H, hd)
+    n = max(S, T)
+    mask = np.asarray(jlayers.make_mask(n, kind, window=window, chunk=chunk,
+                                        n_prefix=n_prefix))[:S, :T]
+    assert np.array_equal(mask, fa.allowed(
+        torch.arange(S), torch.arange(T), kind, window, chunk,
+        n_prefix).numpy())
+    rep = H // KV
+    k_, v_ = np.repeat(kn, rep, 2), np.repeat(vn, rep, 2)
+    logits = np.einsum("bshd,bthd->bhst", qn, k_) / np.sqrt(hd)
+    logits = np.where(mask, logits, -np.inf)
+    sees = mask.any(1)
+    p = np.exp(logits - logits.max(-1, keepdims=True, initial=-1e30))
+    p = np.where(mask, p, 0.0)
+    p = p / np.maximum(p.sum(-1, keepdims=True), 1e-30)
+    want = np.einsum("bhst,bthd->bshd", p, v_)
+    np.testing.assert_allclose(got[:, sees], want[:, sees], atol=2e-5,
+                               rtol=2e-5)
+    assert not got[:, ~sees].any()
+
+
+def test_prefix_is_refused_below_zero_and_may_cover_every_position():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 8, 8, 2, 2, 64, 9))
+    with pytest.raises(ValueError, match="n_prefix"):
+        tops.flash_attention(q, k, v, n_prefix=-1)
+    # a prefix that covers every position is a full bidirectional mask
+    full = fa.flash_attention_plain(q, k, v, n_prefix=8)
+    want = torch.softmax(torch.einsum("bshd,bthd->bhst", q, k) / 8.0, -1)
+    np.testing.assert_allclose(
+        full.numpy(), torch.einsum("bhst,bthd->bshd", want, v).reshape(
+            1, 8, 128).numpy(), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T", [(1, 1), (127, 127), (128, 128), (129, 129),
+                                 (257, 257), (300, 200), (2100, 2100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(10, 1), (4, 4)])
+def test_cuda_kernel_matches_plain_at_hd256(S, T, dtype, heads):
+    """The hd-256 instantiation (two consumer warpgroups, four 64-column
+    parts a row, 64-key tiles) at the tile edges and every mask, and with
+    a prefix of 256 under ``full`` and ``window``."""
+    _cuda_or_skip()
+    H, KV = heads
+    (_j, cpu) = _both(_qkv(1, S, T, H, KV, 256, S + 2), dtype)
+    q, k, v = (t.cuda() for t in cpu)
+    kinds = [("full", 0, 0, 0), ("window", 300, 0, 0), ("window", 32, 0, 0),
+             ("chunked", 0, 512, 0), ("chunked", 0, 192, 0),
+             ("full", 0, 0, 256), ("window", 200, 0, 256)]
+    before = fa.KERNEL.launches
+    for kind, window, chunk, n_prefix in kinds:
+        got = tops.flash_attention(q, k, v, kind=kind, window=window,
+                                   chunk=chunk, n_prefix=n_prefix)
+        want = fa.flash_attention_plain(q, k, v, kind=kind, window=window,
+                                        chunk=chunk, n_prefix=n_prefix)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.KERNEL.launches == before + len(kinds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,T", [(300, 300), (2100, 2100), (300, 200)])
+def test_cuda_kernel_with_a_prefix_matches_plain(hd, dtype, S, T):
+    """A prefix of 256 (and one past every position) at each head width,
+    with every mask; counted under its launch key."""
+    _cuda_or_skip()
+    (_j, cpu) = _both(_qkv(1, S, T, 4, 2, hd, S + hd), dtype)
+    q, k, v = (t.cuda() for t in cpu)
+    for kind, window, chunk in TILE_KINDS:
+        for n_prefix in (256, S + 1):
+            before = fa.LAUNCHES_BY[(hd, kind, True, False)]
+            got = tops.flash_attention(q, k, v, kind=kind, window=window,
+                                       chunk=chunk, n_prefix=n_prefix)
+            want = fa.flash_attention_plain(q, k, v, kind=kind,
+                                            window=window, chunk=chunk,
+                                            n_prefix=n_prefix)
+            torch.cuda.synchronize()
+            assert fa.LAUNCHES_BY[(hd, kind, True, False)] == before + 1
+            np.testing.assert_allclose(_f32(got.cpu()), _f32(want.cpu()),
+                                       atol=TOL[dtype], rtol=TOL[dtype])

@@ -15,6 +15,10 @@ training past 2,048 tokens against the JAX package's trainer.
   relative L2 error a gradient (the output is cast to bf16 before ``D =
   sum(dout * out)`` in the port, in fp32 in the reference, and bf16 inputs
   round at other points).
+* The same at hd 256 (``full``, ``window`` 300) and with the prefix-LM's
+  prefix (``n_prefix`` 256 or 300, ``full`` at hd 64 and 256, ``chunked``
+  512 at hd 128): ``blocked_sdpa(n_prefix=...)`` both ways, the same
+  tolerances.
 * The row stats ``m`` and ``l`` of the plain version against the
   reference's ``_flash_fwd_impl``.
 * Training through it past 2,048 tokens is held in
@@ -61,18 +65,33 @@ def _inputs(hd: int, seed: int):
 @pytest.mark.parametrize("hd", [64, 128])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_backward_matches_jax_grad(kind, window, chunk, hd, dtype):
-    qn, kn, vn, don = _inputs(hd, hd + len(kind))
+    _check_backward(kind, window, chunk, hd, dtype, 0)
+
+
+@pytest.mark.parametrize("hd,kind,window,chunk,n_prefix,dtype", [
+    (256, "full", 0, 0, 0, "float32"), (256, "window", 300, 0, 0, "float32"),
+    (256, "full", 0, 0, 0, "bfloat16"), (64, "full", 0, 0, 256, "float32"),
+    (256, "full", 0, 0, 256, "float32"), (256, "full", 0, 0, 256, "bfloat16"),
+    (128, "chunked", 0, 512, 300, "float32")])
+def test_flash_backward_at_hd256_and_with_a_prefix_matches_jax_grad(
+        hd, kind, window, chunk, n_prefix, dtype):
+    _check_backward(kind, window, chunk, hd, dtype, n_prefix)
+
+
+def _check_backward(kind, window, chunk, hd, dtype, n_prefix):
+    qn, kn, vn, don = _inputs(hd, hd + len(kind) + n_prefix)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (qn, kn, vn))
     jout, vjp = jax.vjp(lambda q, k, v: JL.blocked_sdpa(
-        q, k, v, kind=kind, window=window, chunk=chunk, kv_block=KV_BLOCK),
-        jq, jk, jv)
+        q, k, v, kind=kind, window=window, chunk=chunk, n_prefix=n_prefix,
+        kv_block=KV_BLOCK), jq, jk, jv)
     jgrads = vjp(jnp.asarray(don).astype(jdt))
     q, k, v = (torch.from_numpy(a).to(tdt).requires_grad_(True)
                for a in (qn, kn, vn))
     out = layers.blocked_sdpa(q, k, v, kind=kind, window=window,
-                              chunk=chunk, kv_block=KV_BLOCK)
+                              chunk=chunk, n_prefix=n_prefix,
+                              kv_block=KV_BLOCK)
     assert out.dtype == tdt and out.grad_fn is not None
     grads = torch.autograd.grad(out, (q, k, v),
                                 torch.from_numpy(don).to(tdt))
@@ -122,29 +141,34 @@ def test_row_stats_match_reference(kind, window, chunk):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_flash_backward_matches_plain_autograd(hd, dtype):
     """On a card: the output and dq, dk, dv of ``_Flash`` (the kernel's
     forward and row stats) against autograd through the plain version,
-    within 2e-5 (fp32) and 2e-2 (bf16) as the forward is held."""
+    within 2e-5 (fp32) and 2e-2 (bf16) as the forward is held; with a
+    prefix of 256 too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     tdt = getattr(torch, dtype)
     tol = {"float32": 2e-5, "bfloat16": 2e-2}[dtype]
-    for kind, window, chunk in KINDS:
+    for (kind, window, chunk), n_prefix in [(m, 0) for m in KINDS] \
+            + [(KINDS[0], 256)]:
         qn, kn, vn, don = _inputs(hd, 7)
         ins = [torch.from_numpy(a).cuda().to(tdt) for a in (qn, kn, vn)]
         dout = torch.from_numpy(don).cuda().to(tdt)
         q, k, v = (t.clone().requires_grad_(True) for t in ins)
-        before = fa.LAUNCHES_BY[(hd, kind, True)]
+        key = (hd, kind, bool(n_prefix), True)
+        before = fa.LAUNCHES_BY[key]
         out = layers.blocked_sdpa(q, k, v, kind=kind, window=window,
-                                  chunk=chunk, kv_block=KV_BLOCK)
+                                  chunk=chunk, n_prefix=n_prefix,
+                                  kv_block=KV_BLOCK)
         grads = torch.autograd.grad(out, (q, k, v), dout)
-        assert fa.LAUNCHES_BY[(hd, kind, True)] == before + 1
+        assert fa.LAUNCHES_BY[key] == before + 1
         pq, pk, pv = (t.clone().requires_grad_(True) for t in ins)
         want = fa.flash_attention_plain(pq, pk, pv, kind=kind,
                                         window=window, chunk=chunk,
+                                        n_prefix=n_prefix,
                                         kv_block=KV_BLOCK)
         wgrads = torch.autograd.grad(want, (pq, pk, pv), dout)
         torch.cuda.synchronize()

@@ -11,8 +11,8 @@ and ``repro_torch`` with ``device="cpu"``:
 
 * the parameter tree equals ``jax.eval_shape(init_params)`` leaf for
   leaf (paths, shapes, dtypes), and every field the two ``ModelConfig``
-  share is equal; the unported configs raise ``NotImplementedError``
-  naming their block type or the prefix-LM;
+  share is equal; the configs of slice 14 (held in their own files) pass
+  ``check_supported`` at full size;
 * forward logits, loss and every gradient leaf, fp32 within ``rtol=1e-5,
   atol=1e-6`` (``tests/test_torch_model.py``'s: same algorithm and cast
   points, XLA and ATen sum in other orders; logits ``atol=1e-5``).
@@ -45,9 +45,10 @@ from repro_torch.models import model as TM
 
 ZOO = ["llama2-7b", "starcoder2-7b", "gemma3-27b", "command-r-35b",
        "musicgen-medium"]
-UNPORTED = {"dbrx-132b": "full_moe", "llama4-maverick-400b-a17b": "_moe",
-            "recurrentgemma-2b": "'rec'", "rwkv6-7b": "'rwkv'",
-            "paligemma-3b": "prefix"}
+#: the configs of slice 14 and a module path their trees hold
+UNPORTED = {"dbrx-132b": "/moe/", "llama4-maverick-400b-a17b": "/shared/",
+            "recurrentgemma-2b": "/rec/", "rwkv6-7b": "/tmix/",
+            "paligemma-3b": "/attn/"}
 #: gemma3's smoke variant with its window block made chunked
 CHUNKED = {"layer_groups": ((("chunked", "full"), 1),), "chunk": 16}
 BATCH, SEQ = 2, 32
@@ -100,15 +101,28 @@ def test_param_tree_and_fields_match_reference(name):
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_configs_are_refused(name):
-    """Their block types (MoE, RG-LRU, RWKV6) and the prefix-LM come in a
-    later slice: the port's tree and forward refuse them by name."""
+    """The configs an earlier slice refused (MoE, RG-LRU, RWKV6, the
+    prefix-LM) are ported now (``tests/test_torch_moe.py``,
+    ``test_torch_model_zoo_recurrent.py``, ``test_torch_prefix_lm.py``):
+    the full-size config built from the reference's fields passes
+    ``check_supported`` and its tree has the smoke variant's paths, with
+    the block type's modules; only a block type the reference does not
+    run either is refused."""
     jcfg = jget_config(name)
     cfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
                          for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-        TM.param_shapes(cfg)
-    with pytest.raises(NotImplementedError, match=UNPORTED[name]):
-        TM.forward(cfg, {}, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    TM.check_supported(cfg)
+
+    def leaf_names(c):  # paths with the group and position cut off
+        return {"/".join(path_str(p).split("/")[3:]) or path_str(p)
+                for p, _s in flatten_with_path(TM.param_shapes(c))[0]}
+    paths = [path_str(p) for p, _s in flatten_with_path(
+        TM.param_shapes(cfg))[0]]
+    assert leaf_names(cfg) == leaf_names(smoke_variant(cfg))
+    assert any(UNPORTED[name] in p for p in paths)
+    bad = dataclasses.replace(cfg, layer_groups=((("mamba",), 1),))
+    with pytest.raises(ValueError, match="mamba"):
+        TM.param_shapes(bad)
 
 
 def _loss_and_grads(jcfg, cfg, seed: int):

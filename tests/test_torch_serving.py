@@ -186,9 +186,16 @@ def test_cache_templates():
     assert shapes == [((1, 3, 10, 2, cfg.hd), torch.bfloat16, "meta")] * 4
     zeros = TE.zero_caches(cfg, 3, 10, device="cpu")
     assert all(not t.any() and t.device.type == "cpu" for t in leaves(zeros))
-    with pytest.raises(NotImplementedError, match="block type"):
+    # a recurrent block's cache is its carried state (slice 14), an
+    # unknown block type has none
+    rec = TE.cache_template(dataclasses.replace(
+        cfg, layer_groups=((("rec",), 1),)), 1, 4)
+    assert {k: tuple(t.shape) for k, t in rec[0][0].items()} == {
+        "h": (1, 1, cfg.d_rnn), "conv": (1, 1, cfg.conv_width - 1,
+                                         cfg.d_rnn)}
+    with pytest.raises(ValueError, match="mamba"):
         TE.cache_template(dataclasses.replace(
-            cfg, layer_groups=((("rec",), 1),)), 1, 4)
+            cfg, layer_groups=((("mamba",), 1),)), 1, 4)
 
 
 # ------------------------------------------------------ load for serving
