@@ -114,8 +114,8 @@ Phases, any failure exits non-zero:
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
    Kernel launch counts are zeroed just before each of phases 4, 5, 6,
-   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b and 12c and
-   read just after; each
+   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b, 12c and 13
+   and read just after; each
    kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
    phases 4-5 the XOR digest's launches, the ``encode.delta`` span time
@@ -134,12 +134,15 @@ Phases, any failure exits non-zero:
    (data 2 x model 4) mesh of virtual devices by ``shard_tree``, is saved
    raw by four spawned writer processes on the card (after a tiny step-0
    save that waits out their start-up): every rank writes and votes,
-   bytes written equal the state's unique bytes; a fresh world-1 manager
-   restores it onto a (data 4 x model 2) mesh and, through a fresh
-   trainer, onto unsharded tensors, both bit for bit, and the resumed
-   trainer's next loss equals the uninterrupted one bit for bit. Logs the
-   ship time (device-to-host copy and pipe), stall, persist and commit,
-   and the children's peak device memory.
+   bytes written equal the state's unique bytes; the parent then
+   consolidates the step's four rank files into two aggregates
+   (``consolidate_step_dir(group=2)``, originals removed; logs its
+   seconds, bytes read and written, files before and after); a fresh
+   world-1 manager restores the aggregates onto a (data 4 x model 2)
+   mesh and, through a fresh trainer, onto unsharded tensors, both bit
+   for bit, and the resumed trainer's next loss equals the uninterrupted
+   one bit for bit. Logs the ship time (device-to-host copy and pipe),
+   stall, persist and commit, and the children's peak device memory.
 10. Tiers and the fleet fabric (slice 12), run right after phase 6 on
    phase 5's steps 2, 4 and 6 (keyframe, delta, delta; about 4.18 GB)
    before they are removed, with one ``ObjectStoreBackend`` tier of no
@@ -195,7 +198,20 @@ Phases, any failure exits non-zero:
    rwkv's prefill of 4,080 tokens and 16 decode steps within a relative
    L2 error of 2e-2 of its 4,096-token forward. One ``zoo rest report``
    JSON line.
-13. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+13. The dry run against the card (slice 15), last: phase 6's prefill and
+   a training step (``make_train_step``) of llama3.2-1b at full width, 2
+   layers, at 2 x 4,096 tokens (past the 2,048 of the direct attention
+   path, so both run the attention kernel), each traced by
+   ``repro_torch.launch.dryrun`` on fake CUDA tensors on a (1, 1) mesh,
+   then run for real from seeded params: a warm-up, one run under
+   ``FlopCounterMode`` and three timed with CUDA events. Fails unless
+   the traced FLOPs equal the counted ones and the dry run's argument
+   bytes equal the real arguments' bytes, both exactly, and the kernel
+   launched in both steps; logs the predicted temp bytes beside the peak
+   device memory beyond the arguments, the step time beside the dry
+   run's bound, and one ``run_dryrun("gemma3-27b", "prefill_32k")``
+   record's trace time and terms. One ``dryrun report`` JSON line.
+14. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -243,6 +259,9 @@ ENGINE_STEPS, ENGINE_SAVE_AT = 3, 2
 #: the multi-rank phase: writer ranks, ranks a node of the commit tree,
 #: and the steps its trainer takes before the process ranks' save
 DIST_WORLD, DIST_NODE_SIZE, DIST_TRAIN_STEPS = 4, 2, 2
+#: phase 9b consolidates its committed step's four rank files this many
+#: to an aggregate before the restores read it
+CONSOLIDATE_GROUP = 2
 #: the tiers phase: serving replicas warm-starting at once (two: four
 #: took the smoke over its time), hosts they share (one local root a
 #: host), the most the object store may serve
@@ -255,6 +274,10 @@ TIER_RESUME_CACHE_BYTES = 256 << 20
 #: the serving phase: prompts, prompt tokens (past the 2,048 of the
 #: direct attention path) and new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 2, 4096, 32
+#: the dry-run phase: timed real runs of each step, and the config and
+#: shape of its one CLI-equivalent record at full depth
+DRYRUN_TIMED = 3
+DRYRUN_CLI = ("gemma3-27b", "prefill_32k")
 #: the checkpoint phase and its path through the thread ranks (9a) run
 #: at this depth; the training, serving, engines, process-rank and tiers
 #: phases at 2 layers (phase 10 reads phase 5's chain)
@@ -843,33 +866,14 @@ def _flash_err(got, want, tol: float) -> float:
     return float(diff.max())
 
 
-def flash_pairs(S: int, window: int = 0, n_prefix: int = 0) -> int:
-    """Visible (query, key) pairs of causal attention over S positions,
-    within ``window`` keys when it is set; each of the first ``n_prefix``
-    rows sees the whole prefix instead (``full``: n(n - 1) / 2 pairs
-    more)."""
-    def causal(n: int) -> int:  # rows [0, n)
-        if not window or window >= n:
-            return n * (n + 1) // 2
-        return window * (window + 1) // 2 + (n - window) * window
-    n = min(n_prefix, S)
-    return n * n + causal(S) - causal(n)
-
-
-def flash_flop(B: int, S: int, H: int, hd: int, window: int = 0,
-               n_prefix: int = 0) -> int:
-    """FLOP of the two products of causal attention (``full``, or
-    ``window``, with the prefix-LM's prefix): ``4 * hd`` per visible
-    (query, key) pair (:func:`flash_pairs`) per (b, h)."""
-    return 4 * hd * B * H * flash_pairs(S, window, n_prefix)
-
-
 def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
                    itemsize: int, window: int = 0,
                    n_prefix: int = 0) -> tuple:
     """(bound ms, bound_by) of causal attention: its FLOP
-    (:func:`flash_flop`) against the bf16 tensor-core peak; q, k, v read
-    once and the output written once against the memory rate."""
+    (``flash_attention.flash_flop``, the attention operator's FLOP formula)
+    against the bf16 tensor-core peak; q, k, v read once and the output
+    written once against the memory rate."""
+    from repro_torch.kernels.flash_attention import flash_flop
     flop = flash_flop(B, S, H, hd, window, n_prefix)
     nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
     t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
@@ -1062,7 +1066,7 @@ def check_flash_kernel(gen) -> dict:
                                             n_prefix)
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": flash_flop(B, S, H, hd, window, n_prefix)
+               "tflops": fa.flash_flop(B, S, H, hd, window, n_prefix)
                / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
                "max_abs_err": err}
         if n_prefix:
@@ -2367,6 +2371,7 @@ def run_dist_process_path(device: str, cfg, workdir: str,
     again = tr.run(1)[-1]
     tr = None
     gc.collect()
+    consolidation = _consolidate_step(device, workdir, step)
 
     rpolicy = CheckpointPolicy(engine=EnginePolicy(
         host_cache_bytes=64 << 20, flush_threads=1))
@@ -2412,7 +2417,45 @@ def run_dist_process_path(device: str, cfg, workdir: str,
             "files": len(man.files), "child_peak_bytes": peak,
             "child_launches": st.extra.get("kernel_launches", {}),
             "elastic_restore_s": elastic_s, "resume_s": resume_s,
-            "loss": again.loss, "resumed_loss": again2.loss}
+            "loss": again.loss, "resumed_loss": again2.loss,
+            "consolidation": consolidation}
+
+
+def _consolidate_step(device: str, workdir: str, step: int) -> dict:
+    """Phase 9b's offline consolidation: the committed step's rank files
+    merged :data:`CONSOLIDATE_GROUP` to an aggregate, the originals
+    removed, before the restores read it. Fails unless every rank file
+    went into an aggregate. The step is raw (the process ranks' policy
+    routes nothing to the delta provider), so nothing in it is refused."""
+    import glob
+
+    from repro_torch.core import step_dir
+    from repro_torch.core.consolidate import consolidate_step_dir, file_count
+    sdir = step_dir(workdir, step)
+    ranks = sorted(glob.glob(os.path.join(sdir, "rank*.dsllm")))
+    bytes_read = sum(os.path.getsize(p) for p in ranks)
+    files_before = file_count(sdir)
+    t0 = time.perf_counter()
+    written = consolidate_step_dir(sdir, group=CONSOLIDATE_GROUP,
+                                   remove_originals=True, device=device)
+    secs = time.perf_counter() - t0
+    files_after = file_count(sdir)
+    want = -(-len(ranks) // CONSOLIDATE_GROUP)
+    if len(ranks) != DIST_WORLD or len(written) != want \
+            or files_after != want \
+            or glob.glob(os.path.join(sdir, "rank*.dsllm")):
+        fail(f"consolidation of step {step}: {len(ranks)} rank files into "
+             f"{len(written)} aggregates, {files_after} files left")
+    out = {"s": secs, "bytes_read": bytes_read,
+           "bytes_written": sum(os.path.getsize(p) for p in written),
+           "files_before": files_before, "files_after": files_after,
+           "group": CONSOLIDATE_GROUP, "encoding": "raw"}
+    log(f"process ranks: consolidated step {step} in {secs:.3f} s: "
+        f"{files_before} rank files ({bytes_read} bytes read) into "
+        f"{files_after} aggregates ({out['bytes_written']} bytes written), "
+        f"group {CONSOLIDATE_GROUP}; raw tensors, no delta-encoded one to "
+        f"refuse")
+    return out
 
 
 def _fold_2d(t):
@@ -3175,7 +3218,10 @@ def run_dist_phase(cfg, thread_cfg, path_launches: dict) -> None:
         f"tensor bytes; children's peak device memory "
         + ", ".join(f"{r}: {b}" for r, b in
                     report["child_peak_bytes"].items())
-        + f" bytes; restore onto (4 x 2) {report['elastic_restore_s']:.3f} "
+        + f" bytes; consolidated into "
+        f"{report['consolidation']['files_after']} aggregates in "
+        f"{report['consolidation']['s']:.3f} s; restore of the aggregates "
+        f"onto (4 x 2) {report['elastic_restore_s']:.3f} "
         f"s, resume {report['resume_s']:.3f} s, bit-exact; step "
         f"{DIST_TRAIN_STEPS + 1}'s loss {report['loss']!r} from both "
         f"trainers; launches {json.dumps(launches)} (the ranks' checksum_u32 "
@@ -3188,6 +3234,147 @@ def run_dist_phase(cfg, thread_cfg, path_launches: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
+
+
+def _timed_steps(device: str, fn, reps: int) -> float:
+    """Mean seconds of ``reps`` calls of ``fn`` (CUDA events on a card)."""
+    import torch
+    if device != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    for _ in range(reps):
+        fn()
+    ev1.record()
+    ev1.synchronize()
+    return ev0.elapsed_time(ev1) / 1e3 / reps
+
+
+def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
+    """Phase 13: the dry run (``repro_torch.launch.dryrun``) against the
+    card. Each of two steps of ``cfg`` at ``batch`` x ``seq_len`` tokens,
+    phase 6's prefill and a training step (``make_train_step``), is
+    traced on fake tensors on a (1, 1) mesh, then run for real from
+    seeded params: once to warm up, once under ``FlopCounterMode``, and
+    :data:`DRYRUN_TIMED` times timed. Fails unless the traced FLOPs equal
+    the counted FLOPs exactly, the dry run's argument bytes equal the real
+    arguments' bytes exactly, and the attention kernel launched in each
+    real step. Logs, with no gate, the predicted temp bytes against the
+    peak device memory beyond the arguments, and the step time against
+    the dry run's bound. Then one CLI-equivalent record of
+    :data:`DRYRUN_CLI` at full depth on the production mesh."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.serving.engine import make_prefill_step
+    from repro_torch.training.loop import make_train_step
+
+    mesh = make_abstract_mesh((1, 1), ("data", "model"))
+    on_card = device == "cuda"
+    out = {}
+    for kind in ("prefill", "train"):
+        shape = InputShape(f"{kind}_{batch}x{seq_len}", seq_len, batch, kind)
+        rec = dryrun.dryrun_record(cfg, shape, mesh)
+        roof = rec["roofline"]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        params = M.init_params(cfg, gen, torch.device(device))
+        tokens = torch.randint(0, cfg.vocab, (batch, seq_len),
+                               dtype=torch.int32, device=device,
+                               generator=gen)
+        if kind == "train":
+            params = map_leaves(lambda t: t.requires_grad_(True), params)
+            args = (params, init_opt_state(params), {"tokens": tokens})
+            step = make_train_step(cfg, AdamWConfig())
+        else:
+            args = (params, {"tokens": tokens})
+            step = make_prefill_step(cfg)
+        arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args))
+        step(*args)  # warm-up
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        launches0 = fa.KERNEL.launches
+        with FlopCounterMode(display=False) as fc:
+            step(*args)
+        counted = fc.get_total_flops()
+        peak_temp = (torch.cuda.max_memory_allocated() - base) \
+            if on_card else None
+        step_s = _timed_steps(device, lambda: step(*args), DRYRUN_TIMED)
+        launched = fa.KERNEL.launches - launches0
+        if counted != roof["traced_flops_global"]:
+            fail(f"dry run {kind}: traced {roof['traced_flops_global']!r} "
+                 f"FLOPs, the real step counted {counted}")
+        if arg_bytes != roof["memory"]["argument_size_in_bytes"]:
+            fail(f"dry run {kind}: argument_size_in_bytes "
+                 f"{roof['memory']['argument_size_in_bytes']}, the real "
+                 f"arguments hold {arg_bytes} bytes")
+        if on_card and launched < 1 + DRYRUN_TIMED:
+            fail(f"dry run {kind}: the attention kernel launched {launched} "
+                 f"times in {1 + DRYRUN_TIMED} real steps")
+        out[kind] = {
+            "fake_device": rec["fake_device"], "trace_s": rec["trace_s"],
+            "flops": counted, "argument_bytes": arg_bytes,
+            "predicted_temp_bytes": roof["memory"]["temp_size_in_bytes"],
+            "peak_temp_bytes": peak_temp, "step_s": step_s,
+            "bound_s": roof["bound_s"], "dominant": roof["dominant"],
+            "terms": roof["terms"], "step_over_bound": step_s
+            / roof["bound_s"], "flash_launches": launched}
+        log(f"dry run {kind} at {batch} x {seq_len} tokens: traced on fake "
+            f"{rec['fake_device']} tensors in {rec['trace_s']:.3f} s; "
+            f"FLOPs {counted} traced and counted; argument bytes {arg_bytes} "
+            f"predicted and real; temp bytes predicted "
+            f"{roof['memory']['temp_size_in_bytes']}, peak beyond the "
+            f"arguments {peak_temp}; step {step_s * 1e3:.3f} ms against a "
+            f"bound of {roof['bound_s'] * 1e3:.3f} ms "
+            f"({out[kind]['step_over_bound']:.3f}x, {roof['dominant']}); "
+            f"attention kernel launches {launched}")
+        del args, params, step
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    rec = dryrun.run_dryrun(*DRYRUN_CLI, verbose=False)
+    out["cli"] = {"arch": DRYRUN_CLI[0], "shape": DRYRUN_CLI[1],
+                  "trace_s": rec["trace_s"],
+                  "terms": rec["roofline"]["terms"],
+                  "dominant": rec["roofline"]["dominant"],
+                  "memory": rec["roofline"]["memory"]}
+    log(f"dry run {DRYRUN_CLI[0]} x {DRYRUN_CLI[1]} x {rec['mesh']}: traced "
+        f"in {rec['trace_s']:.3f} s; terms "
+        f"{json.dumps(rec['roofline']['terms'])}; dominant "
+        f"{rec['roofline']['dominant']}")
+    return out
+
+
+def run_dryrun_phase(cfg, path_launches: dict) -> dict:
+    """Phase 13 on the card, last, with the launch counts zeroed just
+    before and read into ``path_launches`` just after."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    t0 = time.perf_counter()
+    report = run_dryrun_path("cuda", cfg, SERVE_BATCH, SERVE_PROMPT)
+    launches = path_launches["dryrun"] = _launches()
+    report["phase_s"] = time.perf_counter() - t0
+    if launches["flash_attention"] == 0:
+        fail("kernel flash_attention was never launched on the dry run's "
+             "path")
+    report["launches"] = launches
+    log(f"dry run path: {report['phase_s']:.1f} s; launches "
+        f"{json.dumps(launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
 
 
 def main() -> None:
@@ -3438,8 +3625,11 @@ def main() -> None:
     # -- phase 12: the rest of the zoo (slice 14) --------------------------
     log("zoo rest report " + json.dumps(run_zoo_rest_phase(path_launches)))
 
+    # -- phase 13: the dry run against the card (slice 15) ----------------
+    log("dryrun report " + json.dumps(run_dryrun_phase(cfg, path_launches)))
+
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of every phase (1-12; phase 10 runs after 6)")
+        f"end of every phase (1-13; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],

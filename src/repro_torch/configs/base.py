@@ -5,13 +5,18 @@ those the forward reads (``rope_theta``, ``window``, ``chunk``,
 RWKV6 and RG-LRU fields, the modality stubs ``n_prefix_embeds``,
 ``n_memory_embeds`` and ``n_codebooks``, ``dtype``), the two the serving
 path reads (``attn_kv_block``, ``max_decode_len``) and the one the
-partition rules read (``sharding_mode``); none of the remat, mesh or
-analysis fields. Block types: ``full``, ``window`` (sliding-window
-causal), ``chunked`` (block-local causal), ``xattn`` (full self-attention
-plus cross-attention to a conditioning memory), ``*_moe`` (the same
-attention, the FFN replaced by a mixture of experts), ``rec`` (the RG-LRU
-block of Griffin) and ``rwkv`` (RWKV6 time-mix and channel-mix); a config
-with ``n_prefix_embeds`` is a prefix-LM (its patch prefix attends both
+partition rules read (``sharding_mode``), and ``long_context_ok``, which
+the dry run reads. The reference's remat, scan-unroll and mesh fields
+(``remat``, ``analysis_unroll``, ``decode_kv_seq_shard``,
+``ulysses_attention``, ``seq_parallel_residual``) are left out: they steer
+XLA's compilation of a sharded step, the port runs its layers eagerly in a
+Python loop on one card, and nothing in it reads them. Block types:
+``full``, ``window`` (sliding-window causal), ``chunked`` (block-local
+causal), ``xattn`` (full self-attention plus cross-attention to a
+conditioning memory), ``*_moe`` (the same attention, the FFN replaced by
+a mixture of experts), ``rec`` (the RG-LRU block of Griffin) and
+``rwkv`` (RWKV6 time-mix and channel-mix); a config with
+``n_prefix_embeds`` is a prefix-LM (its patch prefix attends both
 ways)."""
 
 from __future__ import annotations
@@ -22,6 +27,22 @@ import pkgutil
 from typing import Dict, Tuple
 
 LayerGroups = Tuple[Tuple[Tuple[str, ...], int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +85,7 @@ class ModelConfig:
     sharding_mode: str = "2d"        # "2d" (beyond-paper) | "tp_zero1" (paper)
     attn_kv_block: int = 1024        # KV block size for blocked attention
     max_decode_len: int = 0          # decode-cache headroom after prefill
+    long_context_ok: bool = False    # may run long_500k
 
     @property
     def hd(self) -> int:
@@ -72,6 +94,15 @@ class ModelConfig:
     @property
     def d_rnn(self) -> int:
         return self.lru_width or self.d_model
+
+    def n_params(self) -> int:
+        """Approximate parameter count (used for 6ND model-FLOPs)."""
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self)
+
+    def n_active_params(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+        return count_params_analytic(self, active_only=True)
 
 
 _REGISTRY: Dict[str, ModelConfig] = {}

@@ -10,4 +10,5 @@ register(ModelConfig(
     rope_theta=8_000_000.0,
     use_bias=False, tie_embeddings=True, norm="layernorm", act="silu",
     source="hf:CohereForAI/c4ai-command-r-v01",
+    long_context_ok=False,  # pure full attention -> long_500k skipped
 ))

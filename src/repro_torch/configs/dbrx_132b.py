@@ -9,4 +9,5 @@ register(ModelConfig(
     n_experts=16, top_k=4,
     rope_theta=500_000.0, norm="layernorm", act="silu",
     source="hf:databricks/dbrx-base",
+    long_context_ok=False,  # pure full attention -> long_500k skipped
 ))

@@ -12,4 +12,5 @@ register(ModelConfig(
     head_dim=128,  # gemma3 uses explicit head_dim 128 (32*128 != d_model)
     tie_embeddings=True, norm="rmsnorm", act="gelu",
     source="hf:google/gemma-3-1b-pt",
+    long_context_ok=True,  # 5/6 sliding window; global layers decode O(S)
 ))

@@ -10,4 +10,5 @@ register(ModelConfig(
     layer_groups=uniform_groups("full", 32),
     rope_theta=10_000.0, norm="rmsnorm", act="silu",
     source="arXiv:2307.09288 (paper Table II)",
+    long_context_ok=False,
 ))

@@ -9,4 +9,5 @@ register(ModelConfig(
     rope_theta=500_000.0,
     tie_embeddings=True, norm="rmsnorm", act="silu",
     source="hf:meta-llama/Llama-3.2-1B",
+    long_context_ok=False,  # pure full attention -> long_500k skipped
 ))

@@ -16,4 +16,5 @@ register(ModelConfig(
     n_experts=128, top_k=1, shared_expert=True,
     norm="rmsnorm", act="silu",
     source="hf:meta-llama/Llama-4-Scout-17B-16E",
+    long_context_ok=True,  # chunked attention on 3/4 of layers
 ))

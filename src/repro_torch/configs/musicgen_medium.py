@@ -14,4 +14,5 @@ register(ModelConfig(
     use_bias=True,
     n_codebooks=4, n_memory_embeds=64,
     source="arXiv:2306.05284",
+    long_context_ok=False,  # full attention decoder -> long_500k skipped
 ))

@@ -11,4 +11,5 @@ register(ModelConfig(
     tie_embeddings=True, norm="rmsnorm", act="gelu",
     n_prefix_embeds=256,  # SigLIP 224px/14 -> 256 patches (stubbed)
     source="arXiv:2407.07726",
+    long_context_ok=False,  # full attention -> long_500k skipped
 ))

@@ -12,4 +12,5 @@ register(ModelConfig(
     tie_embeddings=True, norm="rmsnorm", act="gelu",
     lru_width=2560, conv_width=4,
     source="arXiv:2402.19427",
+    long_context_ok=True,  # recurrent + local attention
 ))

@@ -9,4 +9,5 @@ register(ModelConfig(
     rwkv_head_size=64, rwkv_chunk=16, rwkv_decay_lora=64,
     norm="layernorm", act="relu_sq",  # rwkv channel-mix uses relu^2
     source="arXiv:2404.05892",
+    long_context_ok=True,  # O(1) recurrent state
 ))

@@ -9,4 +9,5 @@ register(ModelConfig(
     window=4096, rope_theta=1_000_000.0,
     use_bias=True, norm="layernorm", act="gelu_mlp",
     source="arXiv:2402.19173",
+    long_context_ok=True,  # sliding-window attention
 ))

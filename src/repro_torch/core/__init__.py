@@ -23,6 +23,7 @@ from .baselines import (BaseCheckpointEngine, DataStatesEngine,
                         load_sync_rank)
 from .distributed import (ShardRecord, group_by_rank, plan_shards,
                           state_domain)
+from .consolidate import consolidate_step_dir, file_count
 
 __all__ = [
     "CheckpointManager", "ENGINES", "latest_step", "resolve_device",
@@ -45,4 +46,5 @@ __all__ = [
     "load_snapshot_rank", "load_sync_rank",
     "ShardRecord", "group_by_rank", "plan_shards",
     "state_domain",
+    "consolidate_step_dir", "file_count",
 ]

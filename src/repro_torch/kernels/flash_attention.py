@@ -33,14 +33,27 @@ of the scaled logits (``-1e30`` for a row that sees no key), and ``l``,
 the sum of their exponentials relative to ``m``, each fp32 ``(B, S, H)``.
 The kernel writes them only where the caller passes buffers for them;
 a call without them passes null pointers and stores nothing more.
+
+Both are bound as one PyTorch operator, ``torch.ops.repro_torch.
+flash_attention_fwd`` (:data:`OP`, a ``torch.library.custom_op``): its
+CPU implementation is the plain version, its CUDA implementation the
+kernel's launch, and its fake implementation gives the outputs' shapes
+and dtypes, so a step traced on fake CUDA tensors (the dry run,
+:mod:`repro_torch.launch.dryrun`) passes through it without a card. Its
+FLOP formula for ``torch.utils.flop_counter`` is :func:`flash_flop`:
+``4 * hd`` per visible (query, key) pair, the count the dry run and the
+smoke's bound both take.
 """
 
 from __future__ import annotations
 
 import collections
 import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .build import CudaKernel
 from .checksum import aligned
@@ -177,3 +190,93 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   *stats, *args)
     LAUNCHES_BY[(hd, kind, bool(n_prefix), return_stats)] += 1
     return (out, m, l) if return_stats else out
+
+
+# ------------------------------------------------------------ FLOP count
+def flash_pairs(S: int, window: int = 0, n_prefix: int = 0, *,
+                T: Optional[int] = None, kind: Optional[str] = None,
+                chunk: int = 0) -> int:
+    """Visible (query, key) pairs of S queries over ``T`` keys (``S`` when
+    left out) under :func:`allowed`: causal, within ``window`` keys for
+    ``kind="window"`` (the kind when ``window`` is set and ``kind`` is
+    left out), inside the query's chunk for ``kind="chunked"``; each of
+    the first ``n_prefix`` rows sees the whole prefix instead."""
+    T = S if T is None else T
+    kind = kind or ("window" if window else "full")
+    i = np.arange(S, dtype=np.int64)
+    hi = np.minimum(i + 1, T)
+    if kind == "window":
+        lo = np.maximum(i - window + 1, 0)
+    elif kind == "chunked":
+        lo = (i // chunk) * chunk
+    else:
+        lo = np.zeros_like(i)
+    count = np.maximum(hi - lo, 0)
+    n = min(n_prefix, S)
+    count[:n] = min(n_prefix, T)  # a prefix row's causal keys lie inside it
+    return int(count.sum())
+
+
+def flash_flop(B: int, S: int, H: int, hd: int, window: int = 0,
+               n_prefix: int = 0, *, T: Optional[int] = None,
+               kind: Optional[str] = None, chunk: int = 0) -> int:
+    """FLOP of the two products of the attention (``Q K^T`` and ``P V``):
+    ``4 * hd`` per visible (query, key) pair (:func:`flash_pairs`) per
+    (b, h)."""
+    return 4 * hd * B * H * flash_pairs(S, window, n_prefix, T=T, kind=kind,
+                                        chunk=chunk)
+
+
+# ------------------------------------------------------- the operator
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kind: str,
+              window: int, chunk: int, n_prefix: int, kv_block: int,
+              return_stats: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(out, m, l)``; without ``return_stats`` m and l are empty. On the
+    CPU: the plain version."""
+    got = flash_attention_plain(q, k, v, kind=kind, window=window,
+                                chunk=chunk, n_prefix=n_prefix,
+                                kv_block=kv_block, return_stats=return_stats)
+    return got if return_stats else (got, _no_stats(q), _no_stats(q))
+
+
+def _no_stats(q: torch.Tensor) -> torch.Tensor:
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_op_cuda(q, k, v, kind, window, chunk, n_prefix, kv_block,
+                   return_stats):
+    # the module attribute is read at each call, so a caller that swaps
+    # ``flash_attention_cuda`` (the smoke, to record each launch) sees
+    # the model's launches
+    got = flash_attention_cuda(q, k, v, kind=kind, window=window,
+                               chunk=chunk, n_prefix=n_prefix,
+                               return_stats=return_stats)
+    return got if return_stats else (got, _no_stats(q), _no_stats(q))
+
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, kind, window, chunk, n_prefix, kv_block,
+                   return_stats):
+    check_inputs(q, k, v, kind, window, chunk, n_prefix)
+    B, S, H, hd = q.shape
+    out = q.new_empty((B, S, H * hd))
+    if not return_stats:
+        return out, _no_stats(q), _no_stats(q)
+    return (out, q.new_empty((B, S, H), dtype=torch.float32),
+            q.new_empty((B, S, H), dtype=torch.float32))
+
+
+#: the operator as ``torch.ops`` holds it
+OP = torch.ops.repro_torch.flash_attention_fwd
+
+
+@register_flop_formula(OP)
+def _flash_op_flop(q_shape, k_shape, v_shape, kind, window, chunk, n_prefix,
+                   kv_block, return_stats, *, out_shape=None, **_kw) -> int:
+    B, S, H, hd = q_shape
+    return flash_flop(B, S, H, hd, window, n_prefix, T=k_shape[1],
+                      kind=kind, chunk=chunk)

@@ -219,24 +219,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     version's KV blocks; the kernel tiles by 128 keys in bf16 (64 at hd
     256), 64 in fp32.
 
+    It goes through the operator ``torch.ops.repro_torch.
+    flash_attention_fwd`` (:data:`.flash_attention.OP`), so a step traced
+    on fake tensors passes through it and ``FlopCounterMode`` counts it.
+
     Forward only: under grad with an input that requires it, this raises,
-    since a ctypes launch would cut the autograd graph without a word. To
-    train through it, call ``repro_torch.models.layers._Flash`` (the
-    port of the reference's ``_flash`` custom VJP, whose backward
-    recomputes the probabilities from the row stats)."""
+    since the operator has no backward and would cut the autograd graph
+    without a word. To train through it, call
+    ``repro_torch.models.layers._Flash`` (the port of the reference's
+    ``_flash`` custom VJP, whose backward recomputes the probabilities
+    from the row stats)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention is forward only: train through "
             "repro_torch.models.layers._Flash, whose backward is the "
             "blocked attention's (or run it under torch.no_grad())")
-    if _kind(q) == "cpu":
-        return _fa.flash_attention_plain(q, k, v, kind=kind, window=window,
-                                         chunk=chunk, n_prefix=n_prefix,
-                                         kv_block=kv_block,
-                                         return_stats=return_stats)
-    return _fa.flash_attention_cuda(q, k, v, kind=kind, window=window,
-                                    chunk=chunk, n_prefix=n_prefix,
-                                    return_stats=return_stats)
+    _kind(q)  # a device with no kernel raises here, as for every wrapper
+    out, m, l = _fa.OP(q, k, v, kind, window, chunk, n_prefix, kv_block,
+                       return_stats)
+    return (out, m, l) if return_stats else out
 
 
 # ------------------------------------------------------ host-staged bytes

@@ -70,12 +70,33 @@ def make_mesh(dims: Sequence[int], axes: Sequence[str],
     row-major order on ``device`` (the card unless the caller asks for the
     CPU; a card that is not there raises)."""
     from repro_torch.core.checkpoint import resolve_device
+    return Mesh(_virtual_ids(dims), axes, resolve_device(device))
 
+
+def _virtual_ids(dims: Sequence[int]) -> np.ndarray:
     dims: Tuple[int, ...] = tuple(int(d) for d in dims)
     if any(d < 1 for d in dims):
         raise ValueError(f"mesh dims must be >= 1, got {dims}")
-    ids = np.arange(math.prod(dims), dtype=np.int64).reshape(dims)
-    return Mesh(ids, axes, resolve_device(device))
+    return np.arange(math.prod(dims), dtype=np.int64).reshape(dims)
+
+
+def make_abstract_mesh(dims: Sequence[int], axes: Sequence[str]) -> Mesh:
+    """A mesh on the ``meta`` device, which holds no data: the layout of
+    state the dry run only counts, on a host with or without a card."""
+    return Mesh(_virtual_ids(dims), axes, torch.device("meta"))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: torch.device = "cuda") -> Mesh:
+    """16x16 = 256 devices ``("data", "model")``; multi-pod 2x16x16 = 512
+    with ``"pod"`` first (the reference's production mesh), on ``device``,
+    or on ``meta`` (:func:`make_abstract_mesh`) where the caller asks for
+    it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if torch.device(device).type == "meta":
+        return make_abstract_mesh(shape, axes)
+    return make_mesh(shape, axes, device)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, n_devices: int = 8,
@@ -85,3 +106,15 @@ def make_host_mesh(data: int = 1, model: int = 1, n_devices: int = 8,
     data = min(data, n_devices)
     model = min(model, n_devices // data)
     return make_mesh((data, model), ("data", "model"), device)
+
+
+# The roofline's rates, one NVIDIA H100 80GB HBM3 (SXM) at its 700.00 W
+# power limit, from NVIDIA's H100 data sheet (dense, without sparsity).
+#: bf16 tensor-core peak, FLOP/s a card
+PEAK_FLOPS_BF16 = 989e12
+#: HBM3 bandwidth, bytes/s a card
+HBM_BW = 3.35e12
+#: NVLink 4, one direction, bytes/s a card (900 GB/s both ways)
+NVLINK_BW = 450e9
+#: the card these rates are for
+HW_NAME = "NVIDIA H100 80GB HBM3, 700.00 W"

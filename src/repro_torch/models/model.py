@@ -468,3 +468,51 @@ def loss_fn(cfg, params: Dict[str, Any],
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
     return (logz - gold).mean() + cfg.router_aux_coef * aux
+
+
+# --------------------------------------------------------------- accounting
+def count_params_analytic(cfg, active_only: bool = False) -> int:
+    """The reference's parameter count from the config alone (norms,
+    attention, ``xattn``, MoE — ``top_k`` experts when ``active_only`` —
+    ``rec``, ``rwkv`` and codebooks), the ``N`` of the dry run's
+    ``6·N·D``. It leaves out the projection biases and the recurrent
+    blocks' per-channel vectors that :func:`param_shapes` holds, so it
+    lies a little under the tree's size."""
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    n_emb = cfg.n_codebooks or 1
+    total = n_emb * V * d
+    if not cfg.tie_embeddings:
+        total += d * n_emb * V
+
+    def ffn_params():
+        mats = 2 if cfg.act == "gelu_mlp" else 3
+        return mats * d * f
+
+    def attn_params():
+        return d * H * hd + 2 * d * KV * hd + H * hd * d
+
+    for pattern, count in cfg.layer_groups:
+        for btype in pattern:
+            n = 2 * d  # norms
+            if btype in ATTN_TYPES:
+                n += attn_params()
+                if btype == "xattn":
+                    n += attn_params() + d
+                if is_moe(btype):
+                    E = cfg.top_k if active_only else cfg.n_experts
+                    n += E * 3 * d * f + d * cfg.n_experts
+                    if cfg.shared_expert:
+                        n += ffn_params()
+                else:
+                    n += ffn_params()
+            elif btype == "rec":
+                dr = cfg.d_rnn
+                n += 2 * d * dr + 2 * dr * dr + dr * d + cfg.conv_width * dr
+                n += ffn_params()
+            elif btype == "rwkv":
+                n += 5 * d * d + d * (5 * rwkv6.MIX_LORA) \
+                    + 5 * rwkv6.MIX_LORA * d + 2 * d * cfg.rwkv_decay_lora
+                n += 2 * d * f + d * d  # channel mix
+            total += n * count
+    return int(total)

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -48,6 +48,29 @@ class IterationRecord:
 
 def _trainable(params: Any) -> Any:
     return map_leaves(lambda t: t.detach().requires_grad_(True), params)
+
+
+def _loss_and_grads(cfg, params: Any, batch: Dict[str, torch.Tensor]
+                    ) -> Tuple[torch.Tensor, Any]:
+    """The loss (detached) and the gradients of every leaf of ``params``
+    (which require grad), in the params' tree."""
+    flat, unflatten = flatten_with_path(params)
+    loss = M.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, [t for _p, t in flat])
+    return loss.detach(), unflatten(list(grads))
+
+
+def make_train_step(cfg, hp: AdamWConfig) -> Callable:
+    """The fused step the dry run traces (the reference's
+    ``make_train_step``): loss and gradients, then the in-place AdamW
+    update; returns ``(params, opt_state, loss)``, the first two the very
+    tensors passed in, updated. :class:`Trainer` runs the same two halves
+    with the capture barrier between them."""
+    def train_step(params, opt_state, batch):
+        loss, grads = _loss_and_grads(cfg, params, batch)
+        apply_updates(params, opt_state, grads, hp)
+        return params, opt_state, loss
+    return train_step
 
 
 class Trainer:
@@ -107,13 +130,6 @@ class Trainer:
         self.last_resume_stats = self.manager.last_restore_stats
         return self.step
 
-    def _grad_step(self, batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[torch.Tensor, Any]:
-        flat, unflatten = flatten_with_path(self.params)
-        loss = M.loss_fn(self.cfg, self.params, batch)
-        grads = torch.autograd.grad(loss, [t for _p, t in flat])
-        return loss.detach(), unflatten(list(grads))
-
     def run(self, n_steps: int,
             ckpt_interval: int = 0) -> List[IterationRecord]:
         ckpt_pending = False
@@ -127,7 +143,7 @@ class Trainer:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev0.record()
             t_g = time.perf_counter()
-            loss, grads = self._grad_step(batch)
+            loss, grads = _loss_and_grads(self.cfg, self.params, batch)
             if on_card:
                 ev1.record()
             else:
