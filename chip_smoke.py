@@ -114,7 +114,8 @@ Phases, any failure exits non-zero:
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
    Kernel launch counts are zeroed just before each of phases 4, 5, 6,
-   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b, 12c and 13
+   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b, 12c, 13 and
+   14
    and read just after; each
    kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
@@ -211,7 +212,22 @@ Phases, any failure exits non-zero:
    device memory beyond the arguments, the step time beside the dry
    run's bound, and one ``run_dryrun("gemma3-27b", "prefill_32k")``
    record's trace time and terms. One ``dryrun report`` JSON line.
-14. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+14. The examples (slice 16), after phase 13, each under
+   ``build/chip_smoke_examples/<name>/``: the six ``examples/torch``
+   programs a user runs first, in process on the card through their
+   public entry points at their smallest setting — ``quickstart``,
+   ``differential_checkpointing``, ``elastic_resume`` and
+   ``serve_restore`` as they are, ``train_100m --fast --steps 5
+   --ckpt-interval 3`` (one save before the crash, the resume, two
+   steps), and ``engine_comparison.run_engine`` at 1 step for each of
+   the four engines. Fails if a ``main`` does not return 0 or
+   a gate of its own fails (bit-exact chain restore, equal resumed
+   losses, the model-only resume's bytes, the flipped mesh's shards, the
+   completions' shape, every engine's steps committed), if
+   ``checksum_u32`` never launched, or if the differential example
+   launched no ``xor_checksum_u32`` or ``delta_xor``. One ``examples
+   report`` JSON line: each example's seconds, launches and gate line.
+15. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -334,6 +350,12 @@ INT8_ROWS = 128_256 * 2048 // 256
 REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 2, 3
 #: the reducer phase's depth (full width)
 REDUCE_LAYERS = 1
+#: the examples phase: ``train_100m``'s flags and the steps
+#: ``engine_comparison.run_engine`` takes for each engine, both cut from
+#: 6 and 2 for the smoke's time (5 steps is the least that saves once
+#: before ``train_100m``'s crash at two thirds; PERF.md, phase 14)
+EXAMPLES_TRAIN_100M = ("--fast", "--steps", "5", "--ckpt-interval", "3")
+EXAMPLES_ENGINE_STEPS = 1
 SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
            for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
                      "quantize_checksum_int8", "dequantize_checksum_int8",
@@ -3377,8 +3399,114 @@ def run_dryrun_phase(cfg, path_launches: dict) -> dict:
     return report
 
 
+def _example(name: str):
+    """``examples/torch/<name>.py`` loaded as a module."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", "torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_captured(fn) -> tuple:
+    """``(fn(), stdout lines)``: what ``fn`` prints is kept and echoed
+    indented, also when it raises."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    finally:
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"  | {line}")
+    return out, lines
+
+
+def _gate_line(lines: list, what: str) -> str:
+    for line in reversed(lines):
+        if "✓" in line:
+            return line.strip()
+    fail(f"example {what} printed no gate line")
+
+
+def run_examples_path(device: str, workroot: str) -> dict:
+    """Phase 14: each ``examples/torch`` program's public entry point on
+    ``device``, each under ``workroot/<name>/`` (made and removed here).
+    Returns each example's seconds, launches and the line it printed for
+    its gate; any ``main`` that does not return 0 fails the run, and a
+    gate that fails raises out of it."""
+    report = {}
+    names = ("quickstart", "differential_checkpointing", "elastic_resume",
+             "serve_restore", "train_100m", "engine_comparison")
+    for name in names:
+        mod = _example(name)
+        wd = os.path.join(workroot, name)
+        shutil.rmtree(wd, ignore_errors=True)
+        os.makedirs(wd)
+        before = _launches()
+        t0 = time.perf_counter()
+        log(f"example {name}:")
+        argv = ["--device", device]
+        if name == "train_100m":
+            argv += list(EXAMPLES_TRAIN_100M) + [
+                "--ckpt-dir", os.path.join(wd, "ckpt")]
+        else:
+            argv += ["--workdir", wd]
+        if name == "engine_comparison":
+            # main runs run_engine(mode, steps, device) for each engine
+            argv += ["--steps", str(EXAMPLES_ENGINE_STEPS)]
+        try:
+            rc, lines = _run_captured(lambda: mod.main(argv))
+            # engine_comparison's gate is its last line, the speedup
+            gate = lines[-1].strip() if name == "engine_comparison" \
+                else _gate_line(lines, name)
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+        if rc != 0:
+            fail(f"example {name} returned {rc}")
+        report[name] = {"s": time.perf_counter() - t0,
+                        "launches": _launch_diff(before), "gate": gate}
+    return report
+
+
+def run_examples_phase(path_launches: dict) -> dict:
+    """Phase 14 on the card, with the launch counts zeroed just before and
+    read into ``path_launches`` just after."""
+    import torch
+    workroot = os.path.join(ROOT, "build", "chip_smoke_examples")
+    shutil.rmtree(workroot, ignore_errors=True)
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        report = run_examples_path("cuda", workroot)
+    finally:
+        shutil.rmtree(workroot, ignore_errors=True)
+    launches = path_launches["examples"] = _launches()
+    phase_s = time.perf_counter() - t0
+    if launches["checksum_u32"] == 0:
+        fail("kernel checksum_u32 was never launched on the examples path")
+    diff = report["differential_checkpointing"]["launches"]
+    for k in ("xor_checksum_u32", "delta_xor"):
+        if diff[k] == 0:
+            fail(f"kernel {k} was never launched by the differential "
+                 f"example")
+    log(f"examples path: {phase_s:.1f} s ("
+        + ", ".join(f"{k} {r['s']:.1f} s" for k, r in report.items())
+        + f"); launches {json.dumps(launches)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase_s": phase_s, "launches": launches, "examples": report}
+
+
 def main() -> None:
     t_start = time.perf_counter()
+    # the examples print non-ASCII marks (✓, →); never fail on a narrow
+    # locale's stdout
+    sys.stdout.reconfigure(errors="backslashreplace")
     # before CUDA starts: cuBLAS picks its workspace once per handle
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
@@ -3628,8 +3756,11 @@ def main() -> None:
     # -- phase 13: the dry run against the card (slice 15) ----------------
     log("dryrun report " + json.dumps(run_dryrun_phase(cfg, path_launches)))
 
+    # -- phase 14: the examples (slice 16) --------------------------------
+    log("examples report " + json.dumps(run_examples_phase(path_launches)))
+
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of every phase (1-13; phase 10 runs after 6)")
+        f"end of every phase (1-14; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],

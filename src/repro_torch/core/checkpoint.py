@@ -42,8 +42,11 @@ visible only once every rank and node voted. Restore is elastic: an
 N-rank step restores onto any mesh and any world (plain tensors or
 :class:`~repro_torch.sharding.ShardedTensor` templates).
 
-Not ported: the JAX package's deprecated flat-kwarg constructor
-(``CheckpointManager(directory, mode=..., tiers=...)``); compose a policy.
+The JAX package's deprecated flat-kwarg constructor
+(``CheckpointManager(directory, mode=..., tiers=..., device="cpu")``) is
+kept: each kwarg maps onto one policy field
+(:data:`~repro_torch.core.policy.LEGACY_KWARG_MAP`) and warns with a
+``DeprecationWarning``; compose a policy instead.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -63,6 +67,7 @@ from repro_torch.obs import trace as obs
 from repro_torch.obs.metrics import metrics as obs_metrics
 from repro_torch.storage.backend import BackendError
 from repro_torch.storage.repository import (CheckpointRepository,
+                                            RetentionPolicy, Tier,
                                             committed_steps)
 
 from .baselines import (BaseCheckpointEngine, DataStatesEngine,
@@ -74,6 +79,8 @@ from .policy import CheckpointPolicy, DeltaPolicy
 from .restore import RestoreEngine, RestoreError, RestoreStats
 from .state_provider import DeltaSaveSpec
 
+
+_UNSET: Any = object()
 
 ENGINES = {
     "datastates": DataStatesEngine,          # this paper
@@ -290,8 +297,55 @@ class CheckpointManager:
     """Checkpoint manager (one writer, or N ranks through a coordinator);
     build it with :meth:`from_policy`."""
 
-    def __init__(self, directory: str, policy: CheckpointPolicy,
-                 device: torch.device):
+    def __init__(self, directory: str, mode: str = _UNSET,
+                 host_cache_bytes: int = _UNSET,
+                 flush_threads: int = _UNSET,
+                 chunk_bytes: int = _UNSET,
+                 throttle_mbps: Optional[float] = _UNSET,
+                 restore_threads: Optional[int] = _UNSET,
+                 tiers: Sequence[Tier] = _UNSET,
+                 retention: Optional[RetentionPolicy] = _UNSET,
+                 manifest_checksums: bool = _UNSET,
+                 world: Optional[int] = _UNSET,
+                 coordinator: Optional[Any] = _UNSET,
+                 ack_timeout_s: Optional[float] = _UNSET,
+                 delta: Optional[DeltaPolicy] = _UNSET,
+                 *, policy: Optional[CheckpointPolicy] = None,
+                 device: torch.device = "cuda"):
+        """Construct a manager on ``device`` (the card unless the caller
+        asks for ``"cpu"``).
+
+        .. deprecated::
+            The flat-kwarg surface (``mode=``, ``tiers=``, ``world=``,
+            ``delta=``, ...) is deprecated: every kwarg maps onto exactly
+            one field of a :class:`~repro_torch.core.policy.CheckpointPolicy`
+            (``LEGACY_KWARG_MAP``). Compose a policy and call
+            :meth:`from_policy` instead; legacy kwargs keep working through
+            :meth:`CheckpointPolicy.from_legacy_kwargs` but emit a
+            ``DeprecationWarning``.
+        """
+        legacy = {k: v for k, v in dict(
+            mode=mode, host_cache_bytes=host_cache_bytes,
+            flush_threads=flush_threads, chunk_bytes=chunk_bytes,
+            throttle_mbps=throttle_mbps, restore_threads=restore_threads,
+            tiers=tiers, retention=retention,
+            manifest_checksums=manifest_checksums, world=world,
+            coordinator=coordinator, ack_timeout_s=ack_timeout_s,
+            delta=delta).items() if v is not _UNSET}
+        if policy is not None and legacy:
+            raise ValueError(
+                f"pass either policy= or legacy constructor kwargs, not "
+                f"both (got {sorted(legacy)} alongside a policy)")
+        if policy is None:
+            if legacy:
+                warnings.warn(
+                    "CheckpointManager(directory, mode=..., tiers=..., "
+                    "world=..., delta=..., ...) flat kwargs are "
+                    "deprecated; compose a CheckpointPolicy and use "
+                    "CheckpointManager.from_policy(directory, policy, "
+                    "device=...) — see the README migration table",
+                    DeprecationWarning, stacklevel=2)
+            policy = CheckpointPolicy.from_legacy_kwargs(**legacy)
         ep, sp, dp = policy.engine, policy.storage, policy.dist
         self.device = resolve_device(device)
         if ep.mode not in ENGINES:
@@ -386,7 +440,8 @@ class CheckpointManager:
         :class:`~repro_torch.core.policy.CheckpointPolicy` (``None`` means
         all defaults) and the device the checkpoint kernels run on — the
         card unless the caller asks for ``"cpu"``."""
-        return cls(directory, policy or CheckpointPolicy(), device)
+        return cls(directory, policy=policy or CheckpointPolicy(),
+                   device=device)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Any, blocking: bool = False

@@ -12,7 +12,9 @@ One frozen config object per subsystem, composed into one
   state leaf to its provider.
 
 Fields and defaults are the JAX package's. Build a manager with
-``CheckpointManager.from_policy(directory, policy, device=...)``.
+``CheckpointManager.from_policy(directory, policy, device=...)``; the
+deprecated flat kwargs map onto these fields through
+:data:`LEGACY_KWARG_MAP` and :meth:`CheckpointPolicy.from_legacy_kwargs`.
 """
 
 from __future__ import annotations
@@ -107,6 +109,25 @@ class DeltaPolicy:
                 f"keyframe_every must be >= 1, got {self.keyframe_every}")
 
 
+# Legacy CheckpointManager kwarg → (policy section, field) — the migration
+# table in README mirrors this mapping.
+LEGACY_KWARG_MAP = {
+    "mode": ("engine", "mode"),
+    "host_cache_bytes": ("engine", "host_cache_bytes"),
+    "flush_threads": ("engine", "flush_threads"),
+    "chunk_bytes": ("engine", "chunk_bytes"),
+    "throttle_mbps": ("engine", "throttle_mbps"),
+    "restore_threads": ("engine", "restore_threads"),
+    "tiers": ("storage", "tiers"),
+    "retention": ("storage", "retention"),
+    "manifest_checksums": ("storage", "manifest_checksums"),
+    "world": ("dist", "world"),
+    "coordinator": ("dist", "coordinator"),
+    "ack_timeout_s": ("dist", "ack_timeout_s"),
+    "delta": (None, "delta"),
+}
+
+
 @dataclasses.dataclass(frozen=True)
 class CheckpointPolicy:
     """The complete declarative configuration of a checkpoint manager."""
@@ -116,6 +137,24 @@ class CheckpointPolicy:
     dist: DistPolicy = dataclasses.field(default_factory=DistPolicy)
     delta: Optional[DeltaPolicy] = None
     providers: Optional[StateProviderRegistry] = None
+
+    @classmethod
+    def from_legacy_kwargs(cls, **kwargs) -> "CheckpointPolicy":
+        """Build a policy from the deprecated flat-kwarg constructor
+        surface. Every legacy kwarg maps onto exactly one policy field;
+        unknown names raise ``TypeError`` like a normal bad kwarg."""
+        sections: dict = {"engine": {}, "storage": {}, "dist": {}}
+        top: dict = {}
+        for name, value in kwargs.items():
+            where = LEGACY_KWARG_MAP.get(name)
+            if where is None:
+                raise TypeError(
+                    f"unknown CheckpointManager argument {name!r}")
+            section, field = where
+            (top if section is None else sections[section])[field] = value
+        return cls(engine=EnginePolicy(**sections["engine"]),
+                   storage=StoragePolicy(**sections["storage"]),
+                   dist=DistPolicy(**sections["dist"]), **top)
 
     def replace(self, **kw) -> "CheckpointPolicy":
         return dataclasses.replace(self, **kw)

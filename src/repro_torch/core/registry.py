@@ -31,7 +31,7 @@ per leaf at shard-planning time (``core.distributed.plan_shards``); the
 resolved :class:`ProviderRoute` rides each
 :class:`~repro_torch.core.distributed.ShardRecord`, so single-writer engines and
 every rank lane of a multi-writer
-coordinator (not yet ported) honor the same routing
+:class:`~repro_torch.dist.coordinator.Coordinator` honor the same routing
 without re-consulting the registry.
 """
 

@@ -9,10 +9,12 @@
 
 from .trace import (Tracer, add_span, counter, disable, enable, enabled,
                     flow_id, get_tracer, instant, span, tracing)
-from .metrics import (MetricsRegistry, RestoreReport, SaveReport, metrics)
+from .metrics import (MetricsRegistry, RestoreReport, SaveReport,
+                      cascade_report, metrics)
 
 __all__ = [
     "Tracer", "add_span", "counter", "disable", "enable", "enabled",
     "flow_id", "get_tracer", "instant", "span", "tracing",
-    "MetricsRegistry", "RestoreReport", "SaveReport", "metrics",
+    "MetricsRegistry", "RestoreReport", "SaveReport", "cascade_report",
+    "metrics",
 ]

@@ -30,7 +30,8 @@ from typing import Any, Dict, List, Optional
 
 from repro_torch.analysis.locks import declares_lock
 
-__all__ = ["MetricsRegistry", "SaveReport", "RestoreReport", "metrics"]
+__all__ = ["MetricsRegistry", "SaveReport", "RestoreReport", "cascade_report",
+           "metrics"]
 
 _HIST_SAMPLE_CAP = 512  # bounded reservoir per histogram
 
@@ -189,3 +190,12 @@ class RestoreReport:
         return {"kind": self.kind, "step": self.step,
                 "phases": _clean(self.phases), "bytes": dict(self.bytes),
                 "counts": dict(self.counts), "extra": dict(self.extra)}
+
+
+def cascade_report(event: Any) -> Dict[str, Any]:
+    """A :class:`~repro_torch.storage.repository.CascadeEvent` in the same
+    schema (``kind="cascade"``)."""
+    return {"kind": "cascade", "step": event.step,
+            "phases": {"upload_s": event.t_end - event.t_start},
+            "bytes": {"uploaded": event.nbytes},
+            "counts": {}, "extra": {"tier": event.tier}}

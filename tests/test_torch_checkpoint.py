@@ -667,9 +667,50 @@ def test_plan_shards_names_match_reference(states):
     assert count[0].shape == () and count[0].nbytes == 4
 
 
+#: the port's programs outside its package: every file of these
+#: directories, and the smoke run
+PORT_PROGRAM_DIRS = ("examples/torch", "scripts/torch")
+PORT_PROGRAMS = ("chip_smoke.py",)
+
+
+def _port_files():
+    root = os.path.join(SRC, "..")
+    files = [os.path.join(d, f) for top in ("src/repro_torch",)
+             for d, _dirs, fs in os.walk(os.path.join(root, top))
+             for f in fs if f.endswith(".py")]
+    for top in PORT_PROGRAM_DIRS:
+        files += [os.path.join(root, top, f)
+                  for f in sorted(os.listdir(os.path.join(root, top)))
+                  if f.endswith(".py")]
+    return files + [os.path.join(root, f) for f in PORT_PROGRAMS]
+
+
+def _imported_tops(path):
+    import ast
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
 def test_port_imports_neither_jax_nor_repro():
+    """The package, its examples and scripts and the smoke run import
+    neither JAX nor the JAX package: no import statement names them
+    (function-local ones included), and each module and program imports
+    with them blocked."""
+    files = _port_files()
+    assert sum("examples/torch" in f for f in files) == 6
+    assert sum("scripts/torch" in f for f in files) == 3
+    for path in files:
+        bad = {m for m in _imported_tops(path)
+               if m in ("jax", "jaxlib", "repro")}
+        assert not bad, f"{path} imports {sorted(bad)}"
+    programs = [f for f in files if "src/repro_torch" not in f]
     code = (
-        "import sys, pkgutil, importlib\n"
+        "import sys, pkgutil, importlib, importlib.util\n"
         "for m in ('jax', 'repro', 'msgpack', 'ml_dtypes', 'triton'):\n"
         "    sys.modules[m] = None\n"
         "import repro_torch\n"
@@ -677,9 +718,12 @@ def test_port_imports_neither_jax_nor_repro():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "for i, path in enumerate(sys.argv[1:]):\n"
+        "    spec = importlib.util.spec_from_file_location(f'p{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=SRC)
-    out = subprocess.run([sys.executable, "-c", code], env=env,
+    out = subprocess.run([sys.executable, "-c", code] + programs, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 30
