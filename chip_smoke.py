@@ -68,11 +68,12 @@ Phases, any failure exits non-zero:
 4. Checkpoint path (slice 1): llama3.2-1b at full width (d_model 2048,
    d_ff 8192, vocab 128,256, 32/8 heads, tied embeddings) cut to 2 layers:
    384.3 M params, bf16 params plus fp32 master/m/v, about 5.4 GB per save,
-   made on the card from a seeded generator. Three steps of the two-phase
+   made on the card from a seeded generator. Two steps of the two-phase
    loop (seeded gradients on the card; ``wait_for_capture``; in-place
    AdamW; ``save``) under ``DeltaPolicy(keyframe_every=3)`` give a keyframe
-   and two deltas; then step 3 (chain verify + XOR fold) and step 1 restore
-   onto the card and must equal the saved states bit for bit.
+   and a delta (once a second delta too, cut for the smoke's time);
+   then step 2 (chain verify + XOR fold) and step 1 restore onto the card
+   and must equal the saved states bit for bit.
 5. Training path (slice 2): the same model trained by ``Trainer`` (forward,
    backward, ``wait_for_capture``, in-place AdamW, ``save``) on batches of
    4 x 2048 tokens for 6 steps, saving at 2 (keyframe), 4 and 6 (deltas)
@@ -94,7 +95,8 @@ Phases, any failure exits non-zero:
    AdamW steps on seeded gradients, each followed by saves of two
    ``DifferentialCheckpointer`` streams (keyframe every 3: K, delta):
    ``quant="bf16"`` of the fp32 master (stacked leaves folded to 2-D) and
-   ``quant="int8"`` of the fp32 first moment (each leaf as rows of 256);
+   ``quant="int8"`` of the fp32 first moment (each leaf as rows of 256),
+   both without the embedding table (cut for the smoke's time);
    then steps 1-2 restore and must equal, bit for bit, the working arrays
    the plain versions give on the card; then the ``dequantize_int8``
    kernel on step 2's restored q is within one scale of the saved
@@ -227,7 +229,27 @@ Phases, any failure exits non-zero:
    ``checksum_u32`` never launched, or if the differential example
    launched no ``xor_checksum_u32`` or ``delta_xor``. One ``examples
    report`` JSON line: each example's seconds, launches and gate line.
-15. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+15. Sharded model compute (slice 17), last: four ranks spawned on the one
+   card (``repro_torch.launch.spmd``; spawned and set up on a thread of
+   their own while phase 14 runs), one ``torch.distributed`` group
+   over gloo (NCCL refuses two ranks on one GPU), as a ``(data 2, model
+   2)`` ``DeviceMesh`` in ``2d`` mode. Every rank builds llama3.2-1b at
+   full width, cut to 2 layers, from the seed and lays its params,
+   AdamW state and a batch of 4 x 512 tokens out as ``DTensor``s; one
+   sharded train step, its loss and gathered params held against the same
+   step run unsharded in this process (loss within 4 and params within 2
+   bf16 units of 2^-8, relative); each rank saves its shards
+   (``DistPolicy(group=True)``) once blocking and once lazily beside the
+   next step, the capture barrier before its in-place update; this
+   process restores the lazily saved step at world 1 on the card,
+   bit-exact to the gathered state; the ranks restore it elastically onto
+   a ``(1, 4)`` mesh; and they prefill 2 prompts of 2,304 tokens (past
+   the direct path's 2,048, so the attention kernel runs on each rank's
+   local heads). Fails unless every rank launched ``flash_attention``
+   and ``checksum_u32``; one rank's local attention is held against its
+   plain version. One ``sharded report`` JSON line (step time, save
+   stall and persist, bytes by rank, restore times, launches by rank).
+16. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -298,6 +320,10 @@ DRYRUN_CLI = ("gemma3-27b", "prefill_32k")
 #: at this depth; the training, serving, engines, process-rank and tiers
 #: phases at 2 layers (phase 10 reads phase 5's chain)
 CKPT_LAYERS = 1
+#: the checkpoint phase's saves (K, delta; once K, delta, delta, cut for
+#: the smoke's time: each delta save took about 32 s of phase 4's 119.5 s
+#: and of 9a's 127.6 s on the H100, PERF.md)
+MAIN_SAVES = 2
 #: the zoo phase: gemma3-27b served at 2 layers (one ``window``, one
 #: ``full``: both masks, the ring's wrap and the per-layer check at a
 #: third of its pattern's bytes), musicgen-medium trained at 4 layers on
@@ -350,12 +376,45 @@ INT8_ROWS = 128_256 * 2048 // 256
 REDUCE_STEPS, REDUCE_KEYFRAME_EVERY = 2, 3
 #: the reducer phase's depth (full width)
 REDUCE_LAYERS = 1
+#: the state subtree the reducers leave out, cut for the
+#: smoke's time: the (128,256 x 2,048) embedding table, 1.05 GB of the
+#: 1.29 GB fp32 master (and first moment) at one layer, whose keyframe
+#: took most of phase 7's 126-153 s; every other leaf is reduced at its
+#: full width, through the same folds and kernels
+REDUCE_SKIP = "embed"
 #: the examples phase: ``train_100m``'s flags and the steps
 #: ``engine_comparison.run_engine`` takes for each engine, both cut from
 #: 6 and 2 for the smoke's time (5 steps is the least that saves once
 #: before ``train_100m``'s crash at two thirds; PERF.md, phase 14)
 EXAMPLES_TRAIN_100M = ("--fast", "--steps", "5", "--ckpt-interval", "3")
 EXAMPLES_ENGINE_STEPS = 1
+#: the sharded phase (slice 17): the mesh of ranks on the one card, the
+#: train step's batch rows and tokens (4 x 512: the direct
+#: attention path), the gradient pass's and the sharded prefill's rows
+#: and tokens (past the 2,048 of the direct path, so the kernel runs on
+#: the local heads, under grad with its backward there too), the ranks'
+#: pinned caches each
+SHARD_DIMS, SHARD_AXES = (2, 2), ("data", "model")
+SHARD_ELASTIC_DIMS = (1, 4)
+SHARD_BATCH, SHARD_SEQ = 4, 512
+SHARD_GRAD_BATCH, SHARD_GRAD_SEQ = 2, 2304
+SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ = 2, 2304
+SHARD_CACHE_BYTES = 2 << 30
+#: bf16's unit roundoff: the sharded step adds its partial sums in other
+#: orders than the unsharded one, so its loss and the gradients' global
+#: norm lie within a few units, each bf16 param within one unit (a
+#: last-bit flip of the cast), and the gradients, after a chain of bf16
+#: roundings, within five (2e-2, the model tests' bound) over the tree
+BF16_U = 2.0 ** -8
+SHARD_LOSS_RTOL, SHARD_PARAM_RTOL = 4 * BF16_U, 2 * BF16_U
+SHARD_GRAD_RTOL = 5 * BF16_U
+#: the update the step applied (the fp32 master after less before)
+#: against the unsharded one's. AdamW's first step moves each element
+#: by ``lr`` times the sign of its gradient (``|g| >> eps``), so an
+#: element whose gradient lies within the rounding noise of zero flips:
+#: a share f of flips reads 2 sqrt(f). A step that leaves the params as
+#: they were reads 1; the limit lies between
+SHARD_UPDATE_RTOL = 0.5
 SOURCES = {k: "src/repro_torch/kernels/csrc/ckpt_kernels.cu"
            for k in ("checksum_u32", "xor_checksum_u32", "delta_xor",
                      "quantize_checksum_int8", "dequantize_checksum_int8",
@@ -1220,6 +1279,24 @@ def _mem_available_bytes() -> int:
     return 0
 
 
+def _rss_bytes() -> int:
+    """This process's resident set (its pinned host memory included)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def _release_pinned() -> None:
+    """Hand back the pinned host blocks that PyTorch's host allocator
+    keeps for reuse once they are free (this process's earlier phases'
+    staging), before phase 15's four ranks share the host."""
+    import torch
+    torch.cuda.synchronize()
+    torch._C._host_emptyCache()
+
+
 def _tensors(tree):
     import torch
     from repro_torch.core.tree import leaves
@@ -1265,8 +1342,9 @@ def _encode_text(saves: list) -> str:
 
 def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                   flush_threads: int, dist=None) -> dict:
-    """Three steps of the two-phase loop with saves K, delta, delta; then
-    restore steps 3 and 1 onto ``device`` and compare bit for bit. The
+    """:data:`MAIN_SAVES` steps of the two-phase loop with saves K, delta;
+    then restore the last step and step 1 onto ``device`` and compare
+    bit for bit. The
     saves run under tracing, for the ``encode.delta`` time of each.
 
     With ``dist`` (a ``DistPolicy``) the saves go through its writer ranks
@@ -1309,7 +1387,7 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
         step1 = None
         stall = 0.0
         with obs.tracing() as tracer:
-            for step in (1, 2, 3):
+            for step in range(1, MAIN_SAVES + 1):
                 grads = unflatten([
                     (torch.randn(t.shape, generator=gen, device=device)
                      * 1e-2).to(t.dtype) for _p, t in flat])
@@ -1362,7 +1440,8 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
             mgr = CheckpointManager.from_policy(workdir, CheckpointPolicy(
                 engine=EnginePolicy(host_cache_bytes=64 << 20,
                                     flush_threads=1)), device=device)
-        for step, want in ((3, _tensors(state(3))), (1, step1)):
+        for step, want in ((MAIN_SAVES, _tensors(state(MAIN_SAVES))),
+                           (1, step1)):
             before = _launches()
             t0 = time.perf_counter()
             out = mgr.restore(state(0), step=step)
@@ -1385,7 +1464,7 @@ def run_main_path(device: str, cfg, workdir: str, host_cache_bytes: int,
                 f"{st.fold_s:.3f} s, assemble {st.assemble_s:.3f} s), "
                 f"{st.bytes_read} bytes read, bit-exact")
             del out
-        for s in (1, 2, 3):
+        for s in range(1, MAIN_SAVES + 1):
             res = mgr.repository.verify_step(s, check_checksums=False)
             if not res.ok:
                 fail(f"step {s} incomplete on disk: {res.problems}")
@@ -2541,8 +2620,11 @@ def run_reduction_path(device: str, cfg, workdir: str,
     opt = init_opt_state(params)
     flat, unflatten = flatten_with_path(params)
     hp = AdamWConfig()
-    views = {"bf16": lambda: map_leaves(_fold_2d, opt["master"]),
-             "int8": lambda: map_leaves(_rows_256, opt["m"])}
+    def subtree(tree):
+        return {k: v for k, v in tree.items() if k != REDUCE_SKIP}
+
+    views = {"bf16": lambda: map_leaves(_fold_2d, subtree(opt["master"])),
+             "int8": lambda: map_leaves(_rows_256, subtree(opt["m"]))}
     ckpts = {q: R.DifferentialCheckpointer(
         os.path.join(workdir, q), keyframe_every=REDUCE_KEYFRAME_EVERY,
         quant=q, device=device) for q in views}
@@ -3502,6 +3584,649 @@ def run_examples_phase(path_launches: dict) -> dict:
     return {"phase_s": phase_s, "launches": launches, "examples": report}
 
 
+# ------------------------------------------- phase 15: sharded compute
+#: one rank's state between the calls of the sharded phase
+_SHARD: dict = {}
+
+
+def _shard_tokens(cfg, device: str, batch: int, seq: int, seed: int):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (batch, seq), generator=gen,
+                         device=device, dtype=torch.int32)
+
+
+def _shard_rank_setup(cfg, device: str, batch: int, seq: int,
+                      grad_batch: int, grad_seq: int) -> dict:
+    """This rank's mesh, and the params, AdamW state and the two batches
+    (the step's, the gradient pass's) built from the seed and laid out as
+    DTensors by the partition rules."""
+    import torch
+    from repro_torch.core.tree import map_leaves
+    from repro_torch.launch.mesh import make_device_mesh, virtual_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                opt_pspecs, param_pspecs)
+    dm = make_device_mesh(SHARD_DIMS, SHARD_AXES, device)
+    vm = virtual_mesh(dm)
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, dev)
+    opt = init_opt_state(params)
+    batch_t = {"tokens": _shard_tokens(cfg, dev, batch, seq, SEED + 1)}
+    grad_t = {"tokens": _shard_tokens(cfg, dev, grad_batch, grad_seq,
+                                      SEED + 3)}
+    _SHARD.clear()
+    _SHARD.update(
+        cfg=cfg, mesh=dm, device=dev,
+        params=distribute_tree(map_leaves(lambda t: t.requires_grad_(True),
+                                          params),
+                               param_pspecs(cfg, params, vm), dm),
+        opt=distribute_tree(opt, opt_pspecs(cfg, params, vm), dm),
+        batch=distribute_tree(batch_t, batch_pspecs(cfg, "train", batch_t,
+                                                    vm), dm),
+        grad_batch=distribute_tree(grad_t, batch_pspecs(cfg, "train",
+                                                        grad_t, vm), dm))
+    del params, opt, batch_t, grad_t
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    from repro_torch.core.tree import leaves
+    return {"local_bytes": sum(t.to_local().numel()
+                               * t.to_local().element_size()
+                               for t in leaves({"p": _SHARD["params"],
+                                                "o": _SHARD["opt"]}))}
+
+
+def _shard_sync() -> None:
+    import torch
+    import torch.distributed as dist
+    if _SHARD["device"].type == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _shard_rank_step() -> dict:
+    """The gradient pass at the long batch (attention through the kernel
+    and its backward on the local heads), then one train step (loss and
+    gradients, then AdamW in place), both from the seeded params; the
+    launch counts zeroed just before: the phase's main path starts here.
+    Keeps, for :func:`_shard_rank_errs`, this rank's own regions of the
+    long batch's gradients, of the step's update to the fp32 master, of
+    the first moment and of the params before and after."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         global_norm)
+    from repro_torch.sharding import context as shctx
+    from repro_torch.training.loop import _loss_and_grads
+    params, opt = _SHARD["params"], _SHARD["opt"]
+
+    def own(ts):
+        return [(_owned_region(t), t.to_local().detach()) for t in ts]
+
+    _zero_launches()
+    _shard_sync()
+    t0 = time.perf_counter()
+    with shctx.activate(_SHARD["mesh"]):
+        loss2, grads2 = _loss_and_grads(_SHARD["cfg"], params,
+                                        _SHARD["grad_batch"])
+        norm2 = float(global_norm(grads2).full_tensor())
+        loss2 = float(loss2.full_tensor())
+        grads2 = [g if g.placements == p.placements
+                  else g.redistribute(p.device_mesh, p.placements)
+                  for g, p in zip(leaves(grads2), leaves(params))]
+    _shard_sync()
+    grad_s = time.perf_counter() - t0
+    flash_in_grad = _launches()["flash_attention"]
+    rss = [_rss_bytes()]  # host memory after the pass and after the step
+    cmp = {"grads2": own(grads2),
+           "params_before": [(i, t.clone())
+                             for i, t in own(leaves(params))]}
+    master_before = [t.to_local().clone() for t in leaves(opt["master"])]
+    del grads2
+    _shard_sync()
+    t0 = time.perf_counter()
+    with shctx.activate(_SHARD["mesh"]):
+        loss, grads = _loss_and_grads(_SHARD["cfg"], params, _SHARD["batch"])
+        norm = float(global_norm(grads).full_tensor())
+        apply_updates(params, opt, grads, AdamWConfig())
+        loss = float(loss.full_tensor())
+    _shard_sync()
+    step_s = time.perf_counter() - t0
+    rss.append(_rss_bytes())
+    cmp["delta"] = [(i, t - b) for (i, t), b in
+                    zip(own(leaves(opt["master"])), master_before)]
+    cmp["m"] = own(leaves(opt["m"]))
+    cmp["params"] = own(leaves(params))
+    _SHARD["cmp"] = cmp
+    return {"loss": loss, "grad_norm": norm, "grad_loss": loss2,
+            "grad2_norm": norm2, "step_s": step_s, "grad_s": grad_s,
+            "flash_in_grad": flash_in_grad, "rss": rss}
+
+
+def _owned_region(t):
+    """The index of this rank's shard of DTensor ``t``, or ``None`` when
+    another rank of its replica group counts it (the rank whose mesh
+    coordinate is 0 along every axis ``t`` is replicated over)."""
+    from torch.distributed.tensor import Replicate
+    from repro_torch.sharding.partition import local_index
+    coord = t.device_mesh.get_coordinate()
+    if any(isinstance(p, Replicate) and c for p, c in zip(t.placements,
+                                                          coord)):
+        return None
+    return local_index(t)
+
+
+#: what the ranks hold against the unsharded run: (this rank's kept
+#: name, the unsharded run's); ``params_before`` is the control, a step
+#: that left the params as they were
+SHARD_CMP = (("grads2", "grads2"), ("delta", "delta"), ("m", "m"),
+             ("params", "params"), ("params_before", "params"))
+
+
+def _shard_rank_errs(ref: dict) -> dict:
+    """For each pair of :data:`SHARD_CMP`, ``(sum of squared differences,
+    sum of squares)`` of this rank's own regions kept by
+    :func:`_shard_rank_step` against the unsharded run's ``ref`` (whole
+    tensors, on a card by CUDA IPC handle); each region is counted on
+    one rank."""
+    out = {}
+    for name, ref_name in SHARD_CMP:
+        num = den = 0.0
+        for (index, g), w in zip(_SHARD["cmp"][name], ref[ref_name]):
+            if index is None:
+                continue
+            g, w = g.double(), w[index].double()
+            num += float(((g - w) ** 2).sum())
+            den += float((w ** 2).sum())
+        out[name] = (num, den)
+    _SHARD.pop("cmp")
+    return out
+
+
+def _shard_rank_snapshot() -> None:
+    """A copy of this rank's shards, the state the lazy save writes."""
+    from repro_torch.core.tree import leaves
+    _SHARD["snapshot"] = [t.to_local().detach().clone() for t in leaves(
+        {"model": _SHARD["params"], "optimizer": _SHARD["opt"]})]
+
+
+def _shard_rank_check_restore(restored: list) -> list:
+    """Every leaf of the world-1 restore (whole tensors) against this
+    rank's snapshot of its shard of it, bit for bit: the paths of those
+    that differ."""
+    import torch
+    from repro_torch.core.tree import flatten_with_path, path_str
+    from repro_torch.sharding.partition import local_index
+    flat = flatten_with_path({"model": _SHARD["params"],
+                              "optimizer": _SHARD["opt"]})[0]
+    bad = []
+    for (path, t), snap, got in zip(flat, _SHARD["snapshot"], restored):
+        if not torch.equal(got[local_index(t)], snap):
+            bad.append(path_str(path))
+    return bad
+
+
+def _shard_manager(root: str):
+    from repro_torch.core import (CheckpointManager, CheckpointPolicy,
+                                  DistPolicy, EnginePolicy)
+    return CheckpointManager.from_policy(root, CheckpointPolicy(
+        engine=EnginePolicy(host_cache_bytes=SHARD_CACHE_BYTES,
+                            flush_threads=2),
+        dist=DistPolicy(group=True)), device=_SHARD["device"])
+
+
+def _shard_state(step: int) -> dict:
+    return {"model": _SHARD["params"], "optimizer": _SHARD["opt"],
+            "meta": {"step": step, "arch": _SHARD["cfg"].name}}
+
+
+def _shard_rank_save(root: str) -> dict:
+    """Step 1 saved blocking; step 2 saved lazily while the next step's
+    forward and backward run, the capture barrier before its in-place
+    update; every rank's file bytes."""
+    import torch.distributed as dist
+    from repro_torch.core.baselines import rank_file
+    from repro_torch.optim.adamw import AdamWConfig, apply_updates
+    from repro_torch.sharding import context as shctx
+    from repro_torch.training.loop import _loss_and_grads
+    out = {}
+    mgr = _shard_manager(root)
+    _SHARD["manager"] = mgr
+    _shard_sync()
+    t0 = time.perf_counter()
+    fut = mgr.save(1, _shard_state(1), blocking=True)
+    out["blocking"] = {"save_s": time.perf_counter() - t0,
+                       "persist_s": fut.stats.persist_latency_s}
+    _shard_rank_snapshot()
+    t0 = time.perf_counter()
+    fut = mgr.save(2, _shard_state(2))
+    prologue = time.perf_counter() - t0
+    with shctx.activate(_SHARD["mesh"]):
+        _loss, grads = _loss_and_grads(_SHARD["cfg"], _SHARD["params"],
+                                       _SHARD["batch"])
+        stall = mgr.wait_for_capture()
+        apply_updates(_SHARD["params"], _SHARD["opt"], grads, AdamWConfig())
+    _shard_sync()
+    step_s = time.perf_counter() - t0
+    mgr.wait_for_commit(2)
+    if mgr.commit_errors:
+        raise RuntimeError(f"commit errors: {mgr.commit_errors}")
+    out["lazy"] = {"prologue_s": prologue, "capture_stall_s": stall,
+                   "persist_s": fut.stats.persist_latency_s,
+                   "step_with_save_s": step_s}
+    out["file_bytes"] = {
+        step: os.path.getsize(rank_file(os.path.join(root,
+                                                     f"global_step{step}"),
+                                        dist.get_rank()))
+        for step in (1, 2)}
+    return out
+
+
+def _shard_rank_elastic(root: str) -> dict:
+    """Step 2 restored onto a (1, 4) mesh: DTensor templates laid out by
+    the same rules there, each rank reading its own region."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.launch.mesh import make_device_mesh, virtual_mesh
+    from repro_torch.sharding.partition import (local_region, opt_pspecs,
+                                                param_pspecs,
+                                                placements_for)
+    from repro_torch.sharding.sharded import _spec_at
+    cfg = _SHARD["cfg"]
+    dm = make_device_mesh(SHARD_ELASTIC_DIMS, SHARD_AXES,
+                          _SHARD["device"].type)
+    vm = virtual_mesh(dm)
+    specs = {"model": param_pspecs(cfg, _SHARD["params"], vm),
+             "optimizer": opt_pspecs(cfg, _SHARD["params"], vm)}
+    flat, unflatten = flatten_with_path({"model": _SHARD["params"],
+                                         "optimizer": _SHARD["opt"]})
+    tpl = []
+    for path, t in flat:
+        spec = _spec_at(specs, path)
+        index = local_region(tuple(t.shape), spec, dm, dist.get_rank())
+        shape = [len(range(*s.indices(n))) for s, n in zip(index, t.shape)]
+        tpl.append(DTensor.from_local(
+            torch.empty(shape, dtype=t.dtype, device=_SHARD["device"]), dm,
+            placements_for(spec, dm), run_check=False, shape=t.shape,
+            stride=t.stride()))
+    tree = unflatten(tpl)
+    tree["meta"] = {"step": 0, "arch": ""}
+    _shard_sync()
+    t0 = time.perf_counter()
+    got = _SHARD["manager"].restore(tree, step=2)
+    _shard_sync()
+    restore_s = time.perf_counter() - t0
+    # each leaf's sum over this rank's own region (the parent adds them
+    # up against the world-1 restore's)
+    from repro_torch.core.tree import leaves
+    import torch.distributed as dist
+    sums = []
+    for t in leaves({"model": got["model"], "optimizer": got["optimizer"]}):
+        index = _owned_region(t)
+        sums.append(0.0 if index is None
+                    else float(t.to_local().double().sum()))
+    return {"restore_s": restore_s, "meta": got["meta"],
+            "local_sums": sums, "rank": dist.get_rank(),
+            "local_embed": tuple(got["model"]["embed"]["embed"]
+                                 .to_local().shape)}
+
+
+def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
+    """The sharded prefill (the caches laid out by ``cache_pspecs``); the
+    launch counts read just after (the main path ends here). Rank 0 then
+    holds the first local attention call's output against the plain
+    version on the same local q, k, v."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import make_prefill_step
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import batch_pspecs, distribute_tree
+    from repro_torch.launch.mesh import virtual_mesh
+    cfg = dataclasses.replace(_SHARD["cfg"], max_decode_len=16)
+    dev = _SHARD["device"]
+    prompt = {"tokens": _shard_tokens(cfg, dev, batch, prompt_len,
+                                      SEED + 2)}
+    b = distribute_tree(prompt, batch_pspecs(cfg, "prefill", prompt,
+                                             virtual_mesh(_SHARD["mesh"])),
+                        _SHARD["mesh"])
+    calls = []
+    orig = fa.flash_attention_cuda
+
+    def record(q, k, v, **kw):
+        if not calls:
+            calls.append((q.clone(), k.clone(), v.clone(), dict(kw)))
+        return orig(q, k, v, **kw)
+
+    fa.flash_attention_cuda = record
+    _shard_sync()
+    t0 = time.perf_counter()
+    try:
+        with shctx.activate(_SHARD["mesh"]), torch.no_grad():
+            logits, caches = make_prefill_step(cfg)(
+                {k: v for k, v in _SHARD["params"].items()}, b)
+            last = logits.full_tensor()
+    finally:
+        fa.flash_attention_cuda = orig
+    _shard_sync()
+    out = {"prefill_s": time.perf_counter() - t0,
+           "launches": _launches(),
+           "finite": bool(torch.isfinite(last.float()).all()),
+           "cache": (str(caches[0][0]["k"].placements),
+                     tuple(caches[0][0]["k"].to_local().shape))}
+    if calls and dist.get_rank() == 0:
+        q, k, v, kw = calls[0]
+        got = orig(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        out["local_flash"] = {"shape": [tuple(q.shape), tuple(k.shape)],
+                              "max_abs_err": _flash_err(
+                                  got, want, FLASH_TOL["bfloat16"])}
+    return out
+
+
+def _shard_rank_close() -> None:
+    mgr = _SHARD.pop("manager", None)
+    if mgr is not None:
+        mgr.close()
+    _SHARD.clear()
+
+
+def start_sharded_ranks(device: str, cfg, batch: int, seq: int,
+                        grad_batch: int, grad_seq: int) -> tuple:
+    """Phase 15's ranks spawned and set up (imports, the card, the mesh,
+    the seeded state laid out): ``(group, {"spawn_s", "setup_s",
+    "local_bytes"})``. The smoke runs it on a thread of its own while
+    phase 14 runs."""
+    from repro_torch.launch.spmd import SpmdGroup
+    t0 = time.perf_counter()
+    group = SpmdGroup(math.prod(SHARD_DIMS), device=device,
+                      threads=None if device == "cuda" else 1,
+                      timeout_s=600)
+    info = {"spawn_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    try:
+        setup = group.run(_shard_rank_setup, cfg, device, batch, seq,
+                          grad_batch, grad_seq)
+    except BaseException:
+        group.close(force=True)
+        raise
+    info["setup_s"] = time.perf_counter() - t0
+    info["local_bytes"] = [r["local_bytes"] for r in setup]
+    return group, info
+
+
+def _unsharded_reference(device: str, cfg, batch: int, seq: int,
+                         grad_batch: int, grad_seq: int) -> dict:
+    """The ranks' gradient pass and train step run unsharded in this
+    process from the same seeded params: the losses, the gradients'
+    global norms and the whole tensors :data:`SHARD_CMP` names."""
+    import torch
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
+                                         global_norm, init_opt_state)
+    from repro_torch.training.loop import _loss_and_grads
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = map_leaves(lambda t: t.requires_grad_(True),
+                        init_params(cfg, gen, device))
+    opt = init_opt_state(params)
+    t0 = time.perf_counter()
+    loss2, grads2 = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
+        cfg, device, grad_batch, grad_seq, SEED + 3)})
+    out = {"grad_loss": float(loss2), "grad2_norm": float(global_norm(grads2)),
+           "grads2": leaves(grads2)}
+    out["grad_s"] = time.perf_counter() - t0
+    master_before = [t.clone() for t in leaves(opt["master"])]
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
+        cfg, device, batch, seq, SEED + 1)})
+    out["grad_norm"] = float(global_norm(grads))
+    apply_updates(params, opt, grads, AdamWConfig())
+    out["loss"] = float(loss)
+    out["step_s"] = time.perf_counter() - t0
+    out["delta"] = [t - b for t, b in zip(leaves(opt["master"]),
+                                          master_before)]
+    out["m"] = leaves(opt["m"])
+    out["params"] = [t.detach() for t in leaves(params)]
+    return out
+
+
+def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
+                     grad_batch: int, grad_seq: int, prefill_batch: int,
+                     prefill_len: int, started: tuple = None) -> dict:
+    """Phase 15 on ``device`` (the CPU rehearses it at a smoke config):
+    the unsharded gradient pass and step here, then the four ranks'
+    sharded ones, saves, restores and prefill; this process restores the
+    lazily saved step at world 1. ``started`` is
+    :func:`start_sharded_ranks`' result (started here when ``None``).
+    Fails on a mismatch; returns the report with every rank's
+    launches."""
+    import torch
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.layout import FileReader
+    from repro_torch.core.tree import leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import init_opt_state
+
+    report = {}
+    ref = _unsharded_reference(device, cfg, batch, seq, grad_batch,
+                               grad_seq)
+    report["unsharded_step_s"] = ref.pop("step_s")
+    report["unsharded_grad_s"] = ref.pop("grad_s")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    world = math.prod(SHARD_DIMS)
+    group, info = started or start_sharded_ranks(device, cfg, batch, seq,
+                                                 grad_batch, grad_seq)
+    report.update(info)
+    with group:
+        steps = group.run(_shard_rank_step)
+        for k in ("step_s", "grad_s", "flash_in_grad", "rss"):
+            report[k] = [r[k] for r in steps]
+        # the scalars: every rank holds the same; the gradients' global
+        # norm sees their scale, which AdamW's clipped, normalised first
+        # step does not (a sum over ``data`` for its mean reads 1 here)
+        for k, rtol in (("loss", SHARD_LOSS_RTOL),
+                        ("grad_loss", SHARD_LOSS_RTOL),
+                        ("grad_norm", SHARD_LOSS_RTOL),
+                        ("grad2_norm", SHARD_LOSS_RTOL)):
+            got = {r[k] for r in steps}
+            if len(got) != 1:
+                fail(f"sharded step: the ranks disagree on the {k}: {got}")
+            got = got.pop()
+            err = abs(got - ref[k]) / abs(ref[k])
+            report[k] = {"sharded": got, "unsharded": ref[k],
+                         "rel_err": err, "rtol": rtol}
+            if not math.isfinite(got) or not err <= rtol:
+                fail(f"sharded step: {k} {got} against {ref[k]} unsharded "
+                     f"(rtol {rtol})")
+        report["grad_norm"]["sum_over_data_control"] = abs(
+            2 * report["grad_norm"]["sharded"] - ref["grad_norm"]) \
+            / ref["grad_norm"]
+        import torch.multiprocessing  # noqa: F401 — CUDA tensors by handle
+        errs = group.run(_shard_rank_errs,
+                         {k: ref[k] for _n, k in SHARD_CMP})
+        rel = {name: math.sqrt(sum(e[name][0] for e in errs)
+                               / sum(e[name][1] for e in errs))
+               for name, _k in SHARD_CMP}
+        report["rel_l2"] = rel
+        del ref
+        # gated: the gradients, the first moment, the master's update and
+        # the params; logged: ``params_before``, the control (a step that
+        # left the params as they were reads 1 on the update)
+        for name, rtol in (("grads2", SHARD_GRAD_RTOL),
+                           ("m", SHARD_GRAD_RTOL),
+                           ("delta", SHARD_UPDATE_RTOL),
+                           ("params", SHARD_PARAM_RTOL)):
+            if not rel[name] <= rtol:
+                fail(f"sharded step: {name}'s relative L2 error "
+                     f"{rel[name]} against the unsharded run past {rtol}")
+        saves = group.run(_shard_rank_save, workdir)
+        report["saves"] = saves
+        # this process, world 1: step 2, every rank's region bit-exact to
+        # its shard as the lazy save found it
+        tpl = {"model": init_params(
+            cfg, torch.Generator(device=device).manual_seed(0), device)}
+        tpl["optimizer"] = init_opt_state(tpl["model"])
+        tpl["meta"] = {"step": 0, "arch": ""}
+        t0 = time.perf_counter()
+        with CheckpointManager.from_policy(workdir, device=device) as mgr:
+            got = mgr.restore(tpl, step=2)
+        report["world1_restore_s"] = time.perf_counter() - t0
+        if got["meta"]["step"] != 2:
+            fail(f"sharded save: restored meta {got['meta']}")
+        restored = leaves({"model": got["model"],
+                           "optimizer": got["optimizer"]})
+        bad = group.run(_shard_rank_check_restore, restored)
+        if any(bad):
+            fail(f"sharded save: the world-1 restore differs from the "
+                 f"ranks' shards: {bad}")
+        # bytes by rank: the unique shards, each written once
+        sdir = os.path.join(workdir, "global_step2")
+        rank_bytes = [sum(e.nbytes for e in FileReader(os.path.join(
+            sdir, f"rank{r:05d}.dsllm")).tensors.values())
+            for r in range(world)]
+        unique = sum(t.numel() * t.element_size() for t in restored)
+        report["bytes"] = {"by_rank": rank_bytes, "sum": sum(rank_bytes),
+                           "unique": unique}
+        if sum(rank_bytes) != unique:
+            fail(f"sharded save: rank bytes {rank_bytes} sum to "
+                 f"{sum(rank_bytes)}, the unique shards are {unique}")
+        leaf_sums = [float(t.double().sum()) for t in restored]
+        del got, tpl, restored
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        elastic = group.run(_shard_rank_elastic, workdir)
+        report["elastic"] = [{k: v for k, v in r.items()
+                              if k != "local_sums"} for r in elastic]
+        for r in elastic:
+            if r["meta"]["step"] != 2:
+                fail(f"sharded elastic restore: meta {r['meta']}")
+        # the (1, 4) regions, each counted once, sum to every leaf's sum
+        for i, want in enumerate(leaf_sums):
+            got_sum = sum(r["local_sums"][i] for r in elastic)
+            if abs(got_sum - want) > 1e-9 * max(1.0, abs(want)):
+                fail(f"sharded elastic restore: leaf {i} sums to {got_sum}"
+                     f", the world-1 restore's to {want}")
+        pre = group.run(_shard_rank_prefill, prefill_batch, prefill_len)
+        group.run(_shard_rank_close)
+    report["prefill"] = [{k: v for k, v in r.items() if k != "launches"}
+                         for r in pre]
+    report["launches_by_rank"] = [r["launches"] for r in pre]
+    for r in pre:
+        if not r["finite"]:
+            fail("sharded prefill: logits not finite")
+    return report
+
+
+def run_sharded_phase(cfg, path_launches: dict, card: str,
+                      started=None) -> dict:
+    """Phase 15 on the card; each rank zeroes its counts just before the
+    main path (the step) and reads them just after (the prefill); the
+    sum over the ranks goes into ``path_launches``. ``card`` (the card's
+    name and power limit as ``nvidia-smi`` gives them) ends every line it
+    logs. ``started``: a future of :func:`start_sharded_ranks` (``None``:
+    start them here)."""
+    import torch
+    workdir = os.path.join(ROOT, "build", "chip_smoke_sharded")
+    shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    host = {"rss": _rss_bytes(), "available": _mem_available_bytes()}
+    _release_pinned()
+    host.update(rss_released=_rss_bytes(),
+                available_released=_mem_available_bytes())
+    t0 = time.perf_counter()
+    try:
+        if started is not None:
+            try:
+                started = started.result()
+            except BaseException as exc:  # noqa: BLE001 — the phase fails
+                fail(f"sharded ranks did not start: {exc!r}")
+        report = run_sharded_path("cuda", cfg, workdir, SHARD_BATCH,
+                                  SHARD_SEQ, SHARD_GRAD_BATCH,
+                                  SHARD_GRAD_SEQ, SHARD_PREFILL_BATCH,
+                                  SHARD_PREFILL_SEQ, started)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    report["phase_s"] = time.perf_counter() - t0
+    report["host_bytes"] = host
+    by_rank = report["launches_by_rank"]
+    for r, launches in enumerate(by_rank):
+        for k in ("flash_attention", "checksum_u32"):
+            if launches[k] == 0:
+                fail(f"kernel {k} was never launched by rank {r} on the "
+                     f"sharded path")
+    for r, n in enumerate(report["flash_in_grad"]):
+        if n == 0:
+            fail(f"kernel flash_attention was never launched by rank {r} "
+                 f"in the sharded gradient pass")
+    path_launches["sharded"] = {k: sum(l[k] for l in by_rank)
+                                for k in by_rank[0]}
+    local = [r["local_flash"] for r in report["prefill"]
+             if "local_flash" in r]
+    if not local or not math.isfinite(local[0]["max_abs_err"]):
+        fail(f"sharded prefill: rank 0's local attention against its "
+             f"plain version: {local}")
+    log(f"sharded path: {report['phase_s']:.1f} s after the ranks' spawn "
+        f"{report['spawn_s']:.1f} s and setup {report['setup_s']:.1f} s "
+        f"(those beside phase 14); "
+        f"step by rank " + ", ".join(f"{s:.3f}" for s in report["step_s"])
+        + f" s (unsharded {report['unsharded_step_s']:.3f} s); gradient "
+        f"pass at {SHARD_GRAD_BATCH} x {SHARD_GRAD_SEQ} by rank " + ", ".join(
+            f"{s:.3f}" for s in report["grad_s"])
+        + f" s (unsharded {report['unsharded_grad_s']:.3f} s), its "
+        f"flash_attention launches by rank {report['flash_in_grad']}; "
+        + "; ".join(f"{k} {report[k]['sharded']:.6f} vs "
+                    f"{report[k]['unsharded']:.6f} (rel "
+                    f"{report[k]['rel_err']:.3e}, rtol "
+                    f"{report[k]['rtol']:.3e})"
+                    for k in ("loss", "grad_loss", "grad_norm", "grad2_norm"))
+        + f"; grad norm's sum-over-data control "
+        f"{report['grad_norm']['sum_over_data_control']:.3e}; rel L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in report["rel_l2"].items())
+        + f" (rtol grads2 and m {SHARD_GRAD_RTOL:.3e}, delta "
+        f"{SHARD_UPDATE_RTOL}, params {SHARD_PARAM_RTOL:.3e}; params_before"
+        f" is the unchanged-step control, which reads 1 on delta) ({card})")
+    log(f"sharded host memory (GiB): this process resident "
+        f"{host['rss'] / 2**30:.1f}, {host['rss_released'] / 2**30:.1f} "
+        f"once its pinned cache went back (host available "
+        f"{host['available'] / 2**30:.1f}, then "
+        f"{host['available_released'] / 2**30:.1f}); each rank resident "
+        f"after the gradient pass and after the step: " + "; ".join(
+            "/".join(f"{b / 2**30:.1f}" for b in r) for r in report["rss"])
+        + f" ({card})")
+    log("sharded launches by rank: " + "; ".join(
+        f"rank {r}: flash_attention {l['flash_attention']}, checksum_u32 "
+        f"{l['checksum_u32']}" for r, l in enumerate(by_rank))
+        + f"; rank 0's local attention {local[0]['shape']} max |diff| "
+        f"{local[0]['max_abs_err']:.3e} (tol {FLASH_TOL['bfloat16']}) "
+        f"({card})")
+    log("sharded saves by rank: " + "; ".join(
+        f"rank {r}: blocking {s['blocking']['save_s']:.3f} s (persist "
+        f"{s['blocking']['persist_s']:.3f}), lazy prologue "
+        f"{s['lazy']['prologue_s']:.3f} s, capture stall "
+        f"{s['lazy']['capture_stall_s']:.3f} s, persist "
+        f"{s['lazy']['persist_s']:.3f} s" for r, s in
+        enumerate(report["saves"]))
+        + f"; bytes by rank {report['bytes']['by_rank']} (sum "
+        f"{report['bytes']['sum']} = unique {report['bytes']['unique']}); "
+        f"world-1 restore {report['world1_restore_s']:.3f} s; elastic "
+        f"(1 x 4) restore by rank " + ", ".join(
+            f"{r['restore_s']:.3f}" for r in report["elastic"])
+        + f" s ({card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # the examples print non-ASCII marks (✓, →); never fail on a narrow
@@ -3756,11 +4481,26 @@ def main() -> None:
     # -- phase 13: the dry run against the card (slice 15) ----------------
     log("dryrun report " + json.dumps(run_dryrun_phase(cfg, path_launches)))
 
+    # phase 15's four ranks spawn and set up (about 25 s of imports, CUDA
+    # start-up and their seeded state) on a thread of their own while
+    # phase 14 runs
+    import concurrent.futures
+    _release_pinned()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    started = pool.submit(start_sharded_ranks, "cuda", cfg, SHARD_BATCH,
+                          SHARD_SEQ, SHARD_GRAD_BATCH, SHARD_GRAD_SEQ)
+
     # -- phase 14: the examples (slice 16) --------------------------------
     log("examples report " + json.dumps(run_examples_phase(path_launches)))
 
+    # -- phase 15: sharded model compute (slice 17) -----------------------
+    log(f"sharded report "
+        f"{json.dumps(run_sharded_phase(cfg, path_launches, smi, started))}"
+        f" ({smi})")
+    pool.shutdown()
+
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "
-        f"end of every phase (1-14; phase 10 runs after 6)")
+        f"end of every phase (1-15; phase 10 runs after 6)")
     # launches: summed over the paths, each counted from zero
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": SOURCES[k],

@@ -6,11 +6,14 @@ RWKV6 and RG-LRU fields, the modality stubs ``n_prefix_embeds``,
 ``n_memory_embeds`` and ``n_codebooks``, ``dtype``), the two the serving
 path reads (``attn_kv_block``, ``max_decode_len``) and the one the
 partition rules read (``sharding_mode``), and ``long_context_ok``, which
-the dry run reads. The reference's remat, scan-unroll and mesh fields
-(``remat``, ``analysis_unroll``, ``decode_kv_seq_shard``,
-``ulysses_attention``, ``seq_parallel_residual``) are left out: they steer
-XLA's compilation of a sharded step, the port runs its layers eagerly in a
-Python loop on one card, and nothing in it reads them. Block types:
+the dry run reads, and the three mesh fields the sharded model reads
+(``decode_kv_seq_shard``, ``ulysses_attention``,
+``seq_parallel_residual``: activation constraints that only act under an
+active mesh, :mod:`repro_torch.sharding.context`). The reference's
+``remat`` and ``analysis_unroll`` are left out: the port runs its layers
+eagerly in a Python loop and keeps every activation, and its dry run
+still traces one logical device (its collective term is the next
+slice). Block types:
 ``full``, ``window`` (sliding-window causal), ``chunked`` (block-local
 causal), ``xattn`` (full self-attention plus cross-attention to a
 conditioning memory), ``*_moe`` (the same attention, the FFN replaced by
@@ -84,6 +87,15 @@ class ModelConfig:
     dtype: str = "bfloat16"
     sharding_mode: str = "2d"        # "2d" (beyond-paper) | "tp_zero1" (paper)
     attn_kv_block: int = 1024        # KV block size for blocked attention
+    # beyond-paper: shard the decode KV cache on the sequence dim over
+    # 'model' (heads and hd stay whole)
+    decode_kv_seq_shard: bool = False
+    # beyond-paper: DeepSpeed-Ulysses sequence-parallel attention — q, k, v
+    # enter attention sequence-sharded over 'model'
+    ulysses_attention: bool = False
+    # beyond-paper: Megatron sequence parallelism — the residual stream
+    # stays sequence-sharded over 'model' between blocks
+    seq_parallel_residual: bool = False
     max_decode_len: int = 0          # decode-cache headroom after prefill
     long_context_ok: bool = False    # may run long_500k
 

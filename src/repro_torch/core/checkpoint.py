@@ -42,6 +42,17 @@ visible only once every rank and node voted. Restore is elastic: an
 N-rank step restores onto any mesh and any world (plain tensors or
 :class:`~repro_torch.sharding.ShardedTensor` templates).
 
+``DistPolicy(group=True)`` runs one manager on each rank of a
+``torch.distributed`` group, over ``DTensor`` state: rank *r* writes its
+own shards (the ones the planner's writer rule gives it) to
+``rank{r:05d}.dsllm`` and casts its vote; the votes meet in an
+``all_gather`` on a gloo group of the manager's own (its committer thread
+must not share the training's group); rank 0 writes the step's manifest
+last, after every rank's file and vote, and every rank learns the
+outcome. The step is the format every other save writes, so either
+package restores it. A restore into ``DTensor`` templates reads each
+rank's own region.
+
 The JAX package's deprecated flat-kwarg constructor
 (``CheckpointManager(directory, mode=..., tiers=..., device="cpu")``) is
 kept: each kwarg maps onto one policy field
@@ -373,6 +384,16 @@ class CheckpointManager:
             directory, remote_tiers=sp.tiers, device=self.device,
             retention=sp.retention, checksum=sp.manifest_checksums)
         coordinator = dp.coordinator
+        self._group = None
+        if dp.group:
+            import torch.distributed as dist
+            if delta is not None:
+                raise ValueError("group=True saves take no delta policy")
+            # the votes' group: the committer thread's collectives must
+            # not interleave with the training thread's on its group
+            self._group = dist.new_group(backend="gloo")
+            self._group_rank = dist.get_rank()
+            self._group_world = dist.get_world_size()
         if coordinator is None and dp.world is not None and dp.world > 1:
             from repro_torch.dist.coordinator import Coordinator
 
@@ -461,7 +482,8 @@ class CheckpointManager:
         self.wait_for_commit(step)
         records, objects = plan_shards(state, group="state",
                                        registry=self.registry)
-        world = self.coordinator.world if self.coordinator is not None else 1
+        world = self.coordinator.world if self.coordinator is not None \
+            else self._group_world if self._group is not None else 1
         objects["__checkpoint_meta__"] = {"step": step, "mode": self.mode,
                                           "n_shards": len(records),
                                           "world": world}
@@ -483,10 +505,24 @@ class CheckpointManager:
         # instances, so it can never drift from the per-file footers)
         # in-flight marker first: a crash at any later point leaves an
         # identifiable orphan, never a resume-eligible directory.
-        self.repository.begin_step(step)
+        if self._group is None or self._group_rank == 0:
+            self.repository.begin_step(step)
+        if self._group is not None:
+            # no rank writes before rank 0 has cleared the step's
+            # directory; on the caller's group (the votes' group belongs
+            # to the committer thread)
+            torch.distributed.barrier()
         os.makedirs(future.directory, exist_ok=True)
         try:
-            if self.coordinator is not None:
+            if self._group is not None:
+                # this rank's records (the planner's writer rule) in its
+                # own file, the object log in rank 0's
+                me = self._group_rank
+                future.stats.extra["world"] = world
+                self.engine.save(future.directory,
+                                 {me: [r for r in records if r.rank == me]},
+                                 objects if me == 0 else {}, future)
+            elif self.coordinator is not None:
                 future.stats.extra["world"] = world
                 # the commit topology of *this* save (surviving writers +
                 # node membership) rides the future so phase 2 validates
@@ -520,6 +556,91 @@ class CheckpointManager:
             future.wait_persisted()
             self.wait_for_commit(step)
         return future
+
+    def _group_commit(self, future: CheckpointFuture) -> None:
+        """Phase 1 and 2 of a group save, on every rank's committer: this
+        rank's vote (its file durable, sizes and checksums), every rank's
+        outcome gathered, then rank 0 commits the manifest and every rank
+        learns whether it did. A rank whose save failed still meets the
+        gather, so no rank waits for it."""
+        import torch.distributed as dist
+
+        from repro_torch.storage.manifest import RankManifest
+
+        from .baselines import rank_file
+        me, world = self._group_rank, self._group_world
+        vote: Dict[str, Any]
+        try:
+            future.wait_persisted()
+            name = os.path.basename(rank_file(future.directory, me))
+            RankManifest.build(
+                future.directory, rank=me, world=world, step=future.step,
+                filenames=[name], device=self.device,
+                checksum=self.repository.checksum,
+                precomputed=future.stats.extra.get("file_checksums")
+            ).write(future.directory)
+            st = future.stats
+            vote = {"ok": True, "n_files": st.n_files,
+                    "n_tensors": st.n_tensors,
+                    "bytes_tensors": st.bytes_tensors,
+                    "bytes_objects": st.bytes_objects,
+                    "file_checksums": st.extra.get("file_checksums") or {},
+                    "domains": st.extra.get("domains") or {},
+                    "file_domains": st.extra.get("file_domains") or {}}
+        except BaseException as exc:  # noqa: BLE001 — voted as a failure
+            vote = {"ok": False, "error": repr(exc)}
+        votes: List[Any] = [None] * world
+        dist.all_gather_object(votes, vote, group=self._group)
+        future.stats.extra["group_votes"] = votes
+        outcome = [None]
+        if me == 0:
+            failed = [(r, v["error"]) for r, v in enumerate(votes)
+                      if not v["ok"]]
+            try:
+                if failed:
+                    raise CheckpointError(f"step {future.step}: ranks "
+                                          f"failed their save: {failed}")
+                self._commit_group_step(future, votes)
+                outcome[0] = None
+            except BaseException as exc:  # noqa: BLE001 — every rank
+                outcome[0] = repr(exc)
+                self.repository.abort_step(future.step)
+        dist.broadcast_object_list(outcome, src=0, group=self._group)
+        if outcome[0] is not None:
+            raise CheckpointError(f"step {future.step}: group commit "
+                                  f"failed: {outcome[0]}")
+
+    def _commit_group_step(self, future: CheckpointFuture,
+                           votes: List[Dict[str, Any]]) -> None:
+        tc0 = time.perf_counter()
+        domains: Dict[str, Any] = {}
+        for v in votes:
+            for dom, e in v["domains"].items():
+                d = domains.setdefault(dom, {"providers": [], "codecs": []})
+                for key in ("providers", "codecs"):
+                    d[key] += [x for x in e.get(key, []) if x not in d[key]]
+        meta: Dict[str, Any] = {
+            key: sum(v[key] for v in votes)
+            for key in ("n_files", "n_tensors", "bytes_tensors",
+                        "bytes_objects")}
+        meta["save"] = {"blocking_s": future.stats.blocking_s,
+                        "capture_s": future.stats.capture_latency_s,
+                        "persist_s": future.stats.persist_latency_s,
+                        "persist_to_commit_s":
+                            tc0 - future.stats.t_persisted}
+        if domains:
+            meta["domains"] = domains
+            meta["file_domains"] = {k: e for v in votes
+                                    for k, e in v["file_domains"].items()}
+        meta["file_checksums"] = {k: c for v in votes
+                                  for k, c in v["file_checksums"].items()}
+        self.repository.commit_step(
+            future.step, engine_mode=self.mode,
+            expect_ranks=self._group_world,
+            writers=list(range(self._group_world)), meta=meta)
+        tc1 = time.perf_counter()
+        future.stats.commit_s = tc1 - tc0
+        future.stats.t_committed = tc1
 
     # -------------------------------------------------------- barriers
     def wait_for_capture(self) -> float:
@@ -568,6 +689,9 @@ class CheckpointManager:
                 self._commit_q.task_done()
                 return
             try:
+                if self._group is not None:
+                    self._group_commit(future)
+                    continue
                 try:
                     future.wait_persisted()
                 except BaseException:  # engine failed: orphan, not commit

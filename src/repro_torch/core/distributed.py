@@ -8,8 +8,14 @@ each, balanced over their replica group by byte count
 virtual device of its mesh, read exactly as the JAX package reads a
 ``jax.Array``'s ``addressable_shards`` (replicas deduplicated, writers
 balanced, the owning rank the virtual device id); a plain torch tensor is
-one shard owned by its device's index. The shard boundaries are whatever
-the training layout dictates — the planner never reshards (paper §IV-C).
+one shard owned by its device's index. A ``DTensor`` leaf (one rank of a
+``torch.distributed`` group, :mod:`repro_torch.sharding.context`) is laid
+out the same way: every rank of its mesh is the virtual device of the
+same id, the replicas and writers come out of the same rule on every
+rank, and only this rank's own shard carries data (its local tensor);
+another rank's record names its shard and holds ``None``. The shard
+boundaries are whatever the training layout dictates — the planner never
+reshards (paper §IV-C).
 
 Leaf paths, tensor names (``"{group}/{path}@[lo:hi,...]"``) and dtype
 names (numpy-style, ``"bfloat16"`` included) match the JAX package's
@@ -24,6 +30,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.context import is_dtensor
 from repro_torch.sharding.sharded import ShardedTensor
 
 from . import dtypes
@@ -135,7 +142,13 @@ def plan_shards(tree, group: str, registry=None
         p = path_str(path)
         pstr = f"{group}/{p}"
         domain = state_domain(p, group)
-        if isinstance(leaf, ShardedTensor):
+        if is_dtensor(leaf):
+            shapes[pstr] = tuple(leaf.shape)
+            dtype_names[pstr] = dtypes.BY_TORCH[leaf.dtype].name
+            domains[pstr] = domain
+            for dev, idx, data in _dtensor_shards(leaf):
+                replicas.setdefault((pstr, idx), {})[dev] = data
+        elif isinstance(leaf, ShardedTensor):
             shapes[pstr] = tuple(leaf.shape)
             dtype_names[pstr] = dtypes.BY_TORCH[leaf.dtype].name
             domains[pstr] = domain
@@ -199,6 +212,25 @@ def plan_shards(tree, group: str, registry=None
                 data=by_dev[dev_id], device_resident=True,
                 domain=domains[pstr], route=route))
     return records, objects
+
+
+def _dtensor_shards(leaf):
+    """``(rank, region, data)`` for every rank of a ``DTensor``'s mesh:
+    its region by the virtual device of that id, the data this rank's
+    local tensor (contiguous) and ``None`` for every other rank."""
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.sharding.partition import spec_of
+    from repro_torch.sharding.sharded import spec_indices
+    mesh = leaf.device_mesh
+    me = torch.distributed.get_rank()
+    local = leaf.to_local()
+    if not local.is_contiguous():
+        local = local.contiguous()
+    spec = spec_of(leaf.placements, mesh, leaf.ndim)
+    shape = tuple(leaf.shape)
+    for dev, index in spec_indices(shape, virtual_mesh(mesh), spec).items():
+        yield dev, normalize_index(index, shape), \
+            (local if dev == me else None)
 
 
 def group_by_rank(records: Sequence[ShardRecord]

@@ -66,15 +66,25 @@ class DistPolicy:
     """Multi-rank writer world: ``world`` writer ranks (or a ready
     ``coordinator``), run as threads or spawned processes (``runtime``),
     committing through nodes of ``node_size`` ranks; ``ack_timeout_s``
-    arms the watchdog that fails a save whose ranks do not all ack."""
+    arms the watchdog that fails a save whose ranks do not all ack.
+
+    ``group=True``: the manager is one of the ranks of the initialised
+    ``torch.distributed`` group, built on every rank alike; each rank
+    writes its own ``DTensor`` shards to its own rank file, votes, and
+    rank 0 commits the step once every rank has voted."""
 
     world: Optional[int] = None
     coordinator: Optional[Any] = None
     ack_timeout_s: Optional[float] = None
     runtime: str = "thread"
     node_size: Optional[int] = None
+    group: bool = False
 
     def __post_init__(self):
+        if self.group and (self.world is not None
+                           or self.coordinator is not None):
+            raise ValueError("group=True takes its world from the process "
+                             "group; leave world and coordinator unset")
         if self.world is not None and self.world < 1:
             raise ValueError(f"world must be >= 1, got {self.world}")
         if self.runtime not in ("thread", "process"):

@@ -16,7 +16,10 @@
    one target region per unique shard of its own mesh and spec, and
    assembled as a sharded tensor on that mesh — so a step written by N
    ranks on one layout restores onto any other layout and world (elastic
-   re-sharding, chain steps too).
+   re-sharding, chain steps too). A ``DTensor`` template (one rank of a
+   ``torch.distributed`` group) is planned as this rank's region alone
+   and assembled with ``DTensor.from_local``: each rank reads its own
+   bytes.
 
 Differential steps replay as a chain (:meth:`RestoreEngine.restore_chain`):
 the keyframe restores like a full snapshot, then each delta step's payloads
@@ -53,6 +56,7 @@ import torch
 
 from repro_torch.kernels.ops import lane_stream
 from repro_torch.obs import trace as obs
+from repro_torch.sharding.context import is_dtensor
 from repro_torch.sharding.sharded import ShardedTensor
 
 from . import dtypes, pickle_compat
@@ -588,6 +592,9 @@ class RestoreEngine:
         tensor or numpy array lives whole on one device)."""
         shape = tuple(leaf.shape)
         full = tuple((0, d) for d in shape)
+        if is_dtensor(leaf):  # this rank's own region only
+            from repro_torch.sharding.partition import local_index
+            return [normalize_index(local_index(leaf), shape)], "dtensor"
         if isinstance(leaf, ShardedTensor):
             regions: List[Region] = []
             for index in leaf.devices_indices_map().values():
@@ -791,6 +798,15 @@ class RestoreEngine:
                            if pstr in idx.objects else leaf)
             elif kind == "numpy":
                 out.append(next(iter(aux.values())))
+            elif kind == "dtensor":  # this rank's region, on its device
+                from torch.distributed.tensor import DTensor
+                local = dtypes.host_to_tensor(next(iter(aux.values())),
+                                              _leaf_dtype_name(leaf),
+                                              leaf.to_local().device)
+                out.append(DTensor.from_local(
+                    local, leaf.device_mesh, leaf.placements,
+                    run_check=False, shape=leaf.shape,
+                    stride=leaf.stride()))
             elif kind == "sharded":  # one tensor a region, on the mesh
                 name = _leaf_dtype_name(leaf)
                 out.append(ShardedTensor(

@@ -525,7 +525,11 @@ class Coordinator:
                  checksum_files: bool = True,
                  ack_timeout_s: Optional[float] = None,
                  fault_hook: Optional[FaultHook] = None,
-                 fault: Optional[ProcessFaultSpec] = None):
+                 fault: Optional[ProcessFaultSpec] = None,
+                 torch_distributed: bool = False):
+        """``torch_distributed``: each process rank joins the
+        ``torch.distributed`` group its environment configures (the
+        reference's ``jax_distributed``); process runtime only."""
         from repro_torch.core.checkpoint import resolve_device
 
         if world < 1:
@@ -544,6 +548,10 @@ class Coordinator:
         self._dead_lock = threading.Lock()
         self.dead_ranks: Set[int] = set()
         if runtime == "thread":
+            if torch_distributed:
+                raise ValueError("torch_distributed=True requires "
+                                 "runtime='process': thread ranks share "
+                                 "one process")
             if fault is not None:
                 raise ValueError(
                     "fault= (ProcessFaultSpec) requires runtime="
@@ -573,7 +581,8 @@ class Coordinator:
                     checksum_files=checksum_files,
                     fault=fault if fault is not None
                     and fault.rank == r else None,
-                    on_dead=self._note_dead)
+                    on_dead=self._note_dead,
+                    torch_distributed=torch_distributed)
                 for r in range(world)]
 
     # ------------------------------------------------------- writer census

@@ -23,7 +23,10 @@ rank that speaks the save protocol on the child's behalf:
   so one Perfetto export shows every process's lanes on one timeline.
 
 Children are spawned, never forked: a fork after CUDA has started in the
-parent breaks the child's CUDA. Each child builds its engine on the
+parent breaks the child's CUDA. With ``torch_distributed`` each child
+first joins the ``torch.distributed`` group the environment configures
+(:func:`repro_torch.dist.worker.join_process_group`, the reference's
+``jax_distributed``). Each child builds its engine on the
 parent's device. On a card the proxy waits for the event the save
 recorded on the caller's stream before it copies the shards to the host,
 and the node aggregation it may run enters a stream of its own.
@@ -74,7 +77,8 @@ class ProcessRankRuntime(BaseRankRuntime):
                  throttle_mbps: Optional[float] = None,
                  checksum_files: bool = True,
                  fault: Optional[ProcessFaultSpec] = None,
-                 on_dead: Optional[Callable[[int], None]] = None):
+                 on_dead: Optional[Callable[[int], None]] = None,
+                 torch_distributed: bool = False):
         if mode not in RANK_ENGINES:
             raise ValueError(
                 f"coordinator ranks require a DataMovementEngine mode, "
@@ -90,6 +94,9 @@ class ProcessRankRuntime(BaseRankRuntime):
         self._closed = False
         self._clock_offset = 0.0
         self._pid: Optional[int] = None
+        #: the world of the process group the child joined (``None``: it
+        #: joined none), known after the ``ready`` handshake
+        self.group_world: Optional[int] = None
         engine_kw = dict(host_cache_bytes=host_cache_bytes,
                          flush_threads=flush_threads,
                          chunk_bytes=chunk_bytes,
@@ -100,7 +107,7 @@ class ProcessRankRuntime(BaseRankRuntime):
         self._proc = ctx.Process(
             target=worker_main,
             args=(child_conn, rank, world, mode, str(self.device),
-                  engine_kw, checksum_files, fault),
+                  engine_kw, checksum_files, fault, torch_distributed),
             daemon=True, name=f"dsllm-rankproc-{rank}")
         self._proc.start()
         child_conn.close()  # parent keeps exactly one end
@@ -180,6 +187,7 @@ class ProcessRankRuntime(BaseRankRuntime):
                     raise self._died()
                 if msg[0] == "ready":
                     self._pid = msg[1]
+                    self.group_world = msg[3]
                     # perf_counter is per-process on some OSes; the
                     # offset maps child span times onto this process's
                     # timeline (≈ pipe latency where clocks are shared)

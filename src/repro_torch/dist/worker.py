@@ -19,7 +19,9 @@ half size) so the orphaned step carries real on-disk damage.
 The child builds its engine on the device the parent names: its host
 cache is pinned for that card and its checksum launches run there, on a
 stream of the child's own. A child that cannot reach the card dies before
-``ready``; the parent sees the corpse and the save fails. Each ``prepared``
+``ready``; the parent sees the corpse and the save fails, and so does a
+child whose configured rendezvous fails (``torch_distributed``). Each
+``prepared``
 reply carries the save's kernel launches (counted from zero at the save)
 and, on a card, the child's peak device memory.
 
@@ -58,10 +60,40 @@ def _fire_fault(fault: Any, point: str, rank: int, step: int,
     os.kill(os.getpid(), signal.SIGKILL)
 
 
+#: seconds a rank waits for the process group's rendezvous
+RENDEZVOUS_TIMEOUT_S = 60.0
+
+
+def join_process_group(rank: int, world: int) -> Optional[int]:
+    """Join the ``torch.distributed`` group the environment configures
+    (``env://``: ``MASTER_ADDR`` and ``MASTER_PORT``; gloo, which takes
+    host and CUDA tensors alike) as ``rank`` of ``world``, so a device
+    mesh can span the rank processes; the counterpart of the reference's
+    ``jax.distributed.initialize()``. With no rendezvous configured it
+    joins nothing and returns ``None``, as the reference's rank does; a
+    rendezvous that is configured and fails raises (the reference
+    swallows every error). :data:`RENDEZVOUS_TIMEOUT_S` bounds the
+    rendezvous. Returns the group's world."""
+    if not os.environ.get("MASTER_ADDR"):
+        return None
+    import datetime
+
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method="env://", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    return dist.get_world_size()
+
+
 def worker_main(conn: Any, rank: int, world: int, mode: str,
                 device: str, engine_kw: Dict[str, Any],
-                checksum_files: bool, fault: Optional[Any] = None) -> None:
-    """Serve one rank's saves over ``conn`` until close/EOF."""
+                checksum_files: bool, fault: Optional[Any] = None,
+                torch_distributed: bool = False) -> None:
+    """Serve one rank's saves over ``conn`` until close/EOF; with
+    ``torch_distributed``, first join the configured process group
+    (:func:`join_process_group`)."""
+    group_world = join_process_group(rank, world) if torch_distributed \
+        else None
     from repro_torch.core.baselines import rank_file
     from repro_torch.core.checkpoint import resolve_device
     from repro_torch.core.engine import CheckpointFuture
@@ -75,7 +107,7 @@ def worker_main(conn: Any, rank: int, world: int, mode: str,
     lane = f"rank{rank:05d}"
     dev = resolve_device(device)
     engine = RANK_ENGINES[mode](device=dev, label=lane, **engine_kw)
-    conn.send(("ready", os.getpid(), time.perf_counter()))
+    conn.send(("ready", os.getpid(), time.perf_counter(), group_world))
     try:
         with lane_stream(dev):
             while True:
@@ -148,3 +180,6 @@ def worker_main(conn: Any, rank: int, world: int, mode: str,
         except (OSError, ValueError, BrokenPipeError):
             pass
         conn.close()
+        if group_world is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()

@@ -27,9 +27,11 @@ The terms are those of the reference::
     collective term = collective bytes(per device) / link bandwidth
 
 with the card's rates (:mod:`repro_torch.launch.mesh`). The collective
-term is zero: one process drives one card and the port's step program
-holds no collective (``ROADMAP.md``, model-parallel compute), so
-``collectives`` keeps the reference's kinds at zero and says why. The
+term is zero: the port runs its model sharded over a ``DeviceMesh`` of
+ranks, but the dry run still traces one logical device, whose step
+program holds no collective (counting the sharded trace's is the next
+slice, ``ROADMAP.md``), so ``collectives`` keeps the reference's kinds at
+zero and says why. The
 reference's HLO-text parsers (``shape_bytes``, ``collective_bytes``) have
 no counterpart: there is no HLO text.
 """
@@ -50,8 +52,9 @@ from .mesh import HBM_BW, HW_NAME, NVLINK_BW, PEAK_FLOPS_BF16
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
-COLLECTIVES_NOTE = ("one process drives one card: the port's step program "
-                    "holds no collective")
+COLLECTIVES_NOTE = ("the dry run traces one logical device, so its step "
+                    "program holds no collective; the sharded trace's "
+                    "collective term is the next slice")
 
 
 def _tensors(tree: Any) -> Iterable[torch.Tensor]:

@@ -29,9 +29,12 @@ lowers and compiles a jitted step against 512 placeholder host devices
   ``--multi-pod``) of virtual devices on ``meta``; ``REPRO_DRYRUN_MESH``
   (e.g. ``"4,4"``) sets a small one, as in the reference. The partition
   specs are :mod:`repro_torch.sharding.partition`'s.
-- **Per-device numbers.** The port runs no model-parallel compute (one
-  process drives one card), so the traced FLOPs, bytes and temp bytes
-  are spread evenly over the mesh's devices. Argument bytes per device
+- **Per-device numbers.** The port runs its model sharded over a
+  ``DeviceMesh`` of ranks (:mod:`repro_torch.sharding.context`), but the
+  dry run still traces one logical device, so the traced FLOPs, bytes
+  and temp bytes are spread evenly over the mesh's devices, and the
+  collective term stays 0: counting it on the sharded trace is the next
+  slice. Argument bytes per device
   are exact: the largest device's share of params, optimizer state or
   decode cache, and batch under the partition specs, which is also what
   that rank checkpoints. Outputs that alias an argument (the in-place

@@ -118,3 +118,50 @@ HBM_BW = 3.35e12
 NVLINK_BW = 450e9
 #: the card these rates are for
 HW_NAME = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def make_device_mesh(dims: Sequence[int], axes: Sequence[str],
+                     device: torch.device = "cuda"):
+    """A ``torch.distributed`` ``DeviceMesh`` of ``dims`` named ``axes``
+    over the initialised process group, ranks laid out row-major, so rank
+    ``r`` is virtual device ``r`` of :func:`make_mesh` of the same dims
+    and owns the same region of every leaf. ``device`` is the card unless
+    the caller asks for the CPU; every rank of a ``cuda`` mesh uses the
+    card ``rank % device_count`` (all of them the one card of a one-card
+    host). Raises unless a group is initialised and its world is
+    ``prod(dims)``. A ``cuda`` mesh over a ``gloo`` group routes
+    ``DTensor``'s collectives through gloo's own
+    (:mod:`repro_torch.sharding.gloo_cuda`)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.checkpoint import resolve_device
+    dims = tuple(int(d) for d in dims)
+    if len(dims) != len(tuple(axes)):
+        raise ValueError(f"mesh of dims {dims} needs {len(dims)} axis "
+                         f"names, got {tuple(axes)}")
+    if not dist.is_initialized():
+        raise RuntimeError("make_device_mesh needs an initialised process "
+                           "group (repro_torch.launch.spmd)")
+    world = dist.get_world_size()
+    if world != math.prod(dims):
+        raise ValueError(f"a mesh of dims {dims} needs a world of "
+                         f"{math.prod(dims)} ranks, the group has {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+        if dist.get_backend() == "gloo":
+            from repro_torch.sharding import gloo_cuda
+            gloo_cuda.install()
+    return init_device_mesh(dev.type, dims, mesh_dim_names=tuple(axes))
+
+
+def virtual_mesh(device_mesh) -> Mesh:
+    """The port's :class:`Mesh` of a ``DeviceMesh``: its ranks as virtual
+    ids (row-major, as :func:`make_device_mesh` lays them out; another
+    layout raises) on the ``meta`` device."""
+    ranks = np.asarray(device_mesh.mesh.tolist(), dtype=np.int64)
+    if not np.array_equal(ranks.reshape(-1), np.arange(ranks.size)):
+        raise ValueError(f"device mesh ranks {ranks.tolist()} are not "
+                         f"0 .. n-1 in row-major order")
+    return Mesh(ranks, device_mesh.mesh_dim_names, torch.device("meta"))

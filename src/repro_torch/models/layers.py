@@ -17,10 +17,21 @@ the blocked path q is scaled in fp32 before the product
 (:mod:`repro_torch.kernels.flash_attention`). A Python scalar that JAX
 applies to a bf16 array is cast to bf16 first (weak typing), so it is
 applied here as a 0-d tensor of the working dtype.
+
+Under an active mesh (:mod:`repro_torch.sharding.context`) the tensors
+are ``DTensor``s and the reference's activation constraints apply: the
+Ulysses entry and exit of attention, the decode cache's layout and the
+FFN's hidden layer. The self-attention core runs on each rank's local
+q, k and v (:func:`_on_local_shards`): batch over the batch axes, heads
+over ``model`` when the KV heads divide, so every q head's KV head is
+local; the kernel launches on the local shard and nothing gathers the
+heads. A decode step writes its cache slot into the local block of the
+rank that holds it (:func:`_write_slot`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -29,6 +40,11 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.flash_attention import allowed as _allowed
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.context import constrain
+
+#: the batch dimension's logical axes
+BATCH = ("pod", "data")
 
 #: the longest sequence on the direct (materialised-logits) attention
 #: path; longer ones take the blocked online-softmax path
@@ -233,13 +249,63 @@ def full_seq_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal self-attention over the whole sequence with the ``kind``
     mask (and the bidirectional prefix of ``n_prefix`` positions): the
     direct masked path up to :data:`DIRECT_SDPA_MAX_SEQ` tokens, the
-    blocked path beyond."""
+    blocked path beyond. ``DTensor`` inputs run on their local shards
+    (:func:`_on_local_shards`)."""
+    if shctx.is_dtensor(q):
+        return _on_local_shards(
+            functools.partial(full_seq_sdpa, kind=kind, window=window,
+                              chunk=chunk, n_prefix=n_prefix,
+                              kv_block=kv_block), q, k, v)
     S = q.shape[1]
     if S <= DIRECT_SDPA_MAX_SEQ:
         return _sdpa(q, k, v, make_mask(S, q.device, kind, window=window,
                                         chunk=chunk, n_prefix=n_prefix))
     return blocked_sdpa(q, k, v, kind=kind, window=window, chunk=chunk,
                         n_prefix=n_prefix, kv_block=kv_block)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose backward makes the gradient contiguous. On the
+    way into a ``local_map`` body a ``DTensor``'s gradient is the local
+    tensor of whatever layout the redistribution left (a ``sum``'s is
+    expanded, stride 0), and on the way out the redistribution views the
+    local gradient; either fails on a layout a view cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _on_local_shards(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention core: q (B,S,H,hd), k/v (B,T,KV,hd)
+    -> (B,S,H*hd)) on each rank's local shards of ``DTensor`` inputs, by
+    ``local_map``: the batch over the batch axes, and the heads over
+    ``model`` when the KV heads divide by its size (each local q head's
+    KV head is then local), else whole. The inputs are redistributed to
+    that layout first (from Ulysses' sequence-sharded layout: the
+    all-to-all); the output comes back with the same layout on its heads
+    (the flattened ``H * hd``, heads major). Autograd goes through it,
+    so :class:`_Flash`'s backward runs on the local shards too."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = shctx.active_mesh()
+    in_spec = shctx._divisible(
+        shctx._resolve((BATCH, None, "model", None), mesh) or (None,) * 4,
+        k.shape, mesh)
+    out_spec = in_spec[:2] + (in_spec[2],)
+    from repro_torch.sharding.partition import placements_for
+    # one list of placements a tensor (a tuple would read as one a value)
+    pin = list(placements_for(in_spec, mesh))
+
+    def local(q, k, v):
+        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
+        return _ContiguousGrad.apply(fn(q, k, v))
+    return local_map(local, out_placements=list(placements_for(out_spec, mesh)),
+                     in_placements=(pin, pin, pin), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
 
 
 def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -265,9 +331,20 @@ def attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
     positions also seeing each other. x: (B,S,d). Returns ``(out, (k,
     v))`` with k after RoPE, for the decode cache."""
     q, k, v = project_qkv(cfg, p, x, positions)
+    ulysses = cfg.ulysses_attention and x.shape[1] % 128 == 0
+    if ulysses:
+        # Ulysses sequence parallelism (reference layers.py:290-298): q,
+        # k, v enter attention sequence-sharded over 'model'; the local
+        # attention's head layout then takes them by an all-to-all
+        seq_spec = (BATCH, "model", None, None)
+        q = constrain(q, seq_spec)
+        k = constrain(k, seq_spec)
+        v = constrain(v, seq_spec)
     out = full_seq_sdpa(q, k, v, kind=kind, window=cfg.window,
                         chunk=cfg.chunk, n_prefix=n_prefix,
                         kv_block=cfg.attn_kv_block)
+    if ulysses:
+        out = constrain(out, (BATCH, "model", None))
     return _proj(out, p["wo"], p.get("bo")), (k, v)
 
 
@@ -302,8 +379,18 @@ def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         raise ValueError(mode)
     posv = torch.full((x.shape[0], 1), pos, device=x.device)
     q, k, v = project_qkv(cfg, p, x, posv)
-    cache_k[:, slot:slot + 1] = k
-    cache_v[:, slot:slot + 1] = v
+    _write_slot(cache_k, slot, k)
+    _write_slot(cache_v, slot, v)
+    # the cache's layout for the attention (reference layers.py:332-342);
+    # the tensors written in place are the ones that come back
+    if shctx.seq_axis_active():
+        cache_spec = (None, "seq", None, None)   # context parallelism (B 1)
+    elif cfg.decode_kv_seq_shard and T % 128 == 0:
+        cache_spec = (BATCH, "model", None, None)
+    else:
+        cache_spec = (BATCH, None, None, None)
+    ck = constrain(cache_k, cache_spec)
+    cv = constrain(cache_v, cache_spec)
     idx = torch.arange(T, device=x.device)
     if mode == "window":
         valid = idx < min(pos + 1, T)
@@ -311,8 +398,30 @@ def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         valid = idx <= pos % T
     else:
         valid = idx <= pos
-    out = _sdpa(q, cache_k, cache_v, valid)
+    out = _sdpa(q, ck, cv, valid)
     return _proj(out, p["wo"], p.get("bo")), cache_k, cache_v
+
+
+def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` in place (new: (B, 1, ...)). On a
+    ``DTensor`` cache the write is per shard by construction: ``new`` is
+    laid out as the cache with its slot dimension whole, and the rank
+    whose block of slots holds ``slot`` writes it into its local tensor
+    (``DTensor`` has no sharding rule for a slice assignment)."""
+    if not shctx.is_dtensor(cache):
+        cache[:, slot:slot + 1] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.partition import local_index
+    want = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == 1
+                 else pl for pl in cache.placements)
+    local_new = new.redistribute(cache.device_mesh, want).to_local()
+    index = local_index(cache)
+    lo = index[1].start or 0
+    hi = cache.shape[1] if index[1].stop is None else index[1].stop
+    if lo <= slot < hi:
+        cache.to_local()[:, slot - lo:slot - lo + 1] = local_new
 
 
 def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -354,6 +463,7 @@ def apply_ffn(cfg, p: Dict[str, torch.Tensor],
             h = torch.square(torch.relu(gate)) * up
         else:
             raise ValueError(cfg.act)
+    h = constrain(h, (BATCH, None, "model"))  # reference layers.py:404
     return _proj(h, p["w_down"], p.get("b_down"))
 
 
@@ -364,11 +474,25 @@ def embed_tokens(cfg, p: Dict[str, torch.Tensor],
     c's token t is row ``c * vocab + t`` and the K rows are summed ->
     (B,S,d)."""
     tokens = tokens.long()
+    table = p["embed"]
+    if shctx.is_dtensor(table):
+        # the lookup (reference layers.py:422-428) on a replicated table
+        # and index, redistributed explicitly: DTensor's rules for a
+        # vocab-sharded table give a masked partial sum whose reduction
+        # breaks on a batch-sharded index, and PyTorch 2.11's rule for
+        # indexing's backward (``index_put``) fails on one; every rank
+        # then gathers the table and looks the whole batch up, and the
+        # caller's constraint takes its own rows
+        from torch.distributed.tensor import Replicate
+        whole = [Replicate()] * table.device_mesh.ndim
+        table = table.redistribute(table.device_mesh, whole)
+        if shctx.is_dtensor(tokens):
+            tokens = tokens.redistribute(tokens.device_mesh, whole)
     if cfg.n_codebooks:
         offs = torch.arange(cfg.n_codebooks, device=tokens.device) \
             * cfg.vocab
-        return p["embed"][tokens + offs].sum(dim=2)
-    return p["embed"][tokens]
+        return table[tokens + offs].sum(dim=2)
+    return table[tokens]
 
 
 def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.core import dtypes
 from repro_torch.core.tree import map_leaves
+from repro_torch.sharding.context import constrain
 
 from . import layers, moe, rglru, rwkv6
 
@@ -295,7 +296,7 @@ def _cache_from_kv(cfg, btype: str, k: torch.Tensor,
     chunk)``. A prompt shorter than the ring is padded."""
     B, S = k.shape[0], k.shape[1]
     kind = attn_kind(btype)
-    pad = torch.nn.functional.pad
+    pad = _pad_slots
     if kind == "full":
         if cfg.max_decode_len:
             tail = (0, 0, 0, 0, 0, cfg.max_decode_len)
@@ -318,6 +319,30 @@ def _cache_from_kv(cfg, btype: str, k: torch.Tensor,
             ck[:, :r] = k[:, -r:]
             cv[:, :r] = v[:, -r:]
     return {"k": ck, "v": cv}
+
+
+def _pad_slots(t: torch.Tensor, pad: Tuple[int, ...]) -> torch.Tensor:
+    """``torch.nn.functional.pad`` of a (B, S, ...) cache tensor along S
+    (``pad`` ends with ``(0, n)``). A ``DTensor`` is padded on its local
+    shard, S whole there (PyTorch 2.11's sharding rule for ``pad`` fails
+    on a sharded tensor): zeros added to every shard of a partial sum
+    still sum to zeros."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        return torch.nn.functional.pad(t, pad)
+    mesh = t.device_mesh
+    if any(isinstance(p, Shard) and p.dim % t.ndim == 1
+           for p in t.placements):
+        t = t.redistribute(mesh, [Replicate() if isinstance(p, Shard)
+                                  and p.dim % t.ndim == 1 else p
+                                  for p in t.placements])
+    local = torch.nn.functional.pad(t.to_local(), pad)
+    shape = list(t.shape)
+    shape[1] += pad[-1]
+    return DTensor.from_local(local, mesh, t.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=local.new_empty(shape,
+                                                     device="meta").stride())
 
 
 def _embed(cfg, params: Dict[str, Any],
@@ -344,6 +369,7 @@ def _embed_inputs(cfg, params: Dict[str, Any],
         n_prefix = cfg.n_prefix_embeds
     if cfg.n_memory_embeds:
         memory = batch["memory_embeds"].to(x.dtype)
+    x = constrain(x, (layers.BATCH, None, None))  # reference model.py:218
     return x, n_prefix, memory
 
 
@@ -363,10 +389,17 @@ def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     positions = layers.positions_for(B, S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    # Megatron sequence parallelism (reference model.py:243-253): the
+    # residual stream is sequence-sharded over 'model' at the start and
+    # the end of each repeat of a group's pattern
+    sp_spec = (layers.BATCH, "model", None) \
+        if cfg.seq_parallel_residual and S % 128 == 0 else None
     for (pattern, count), stacked in zip(cfg.layer_groups,
                                          params["groups"]):
         per_pos = [[] for _ in pattern]
         for i in range(count):
+            if sp_spec is not None:
+                x = constrain(x, sp_spec)
             for j, (btype, pp) in enumerate(zip(pattern, stacked)):
                 x, cache, aux = block_forward(
                     cfg, btype, map_leaves(lambda t: t[i], pp), x,
@@ -374,6 +407,8 @@ def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                     collect_cache=collect_caches)
                 aux_total = aux_total + aux
                 per_pos[j].append(cache)
+            if sp_spec is not None:
+                x = constrain(x, sp_spec)
         if collect_caches:
             caches.append(tuple(
                 {key: torch.stack([c[key] for c in cs]) for key in cs[0]}
@@ -464,7 +499,11 @@ def loss_fn(cfg, params: Dict[str, Any],
     if cfg.n_prefix_embeds:
         logits = logits[:, cfg.n_prefix_embeds:]
     tgt = batch["tokens"][:, 1:].long()
-    lg = logits[:, :-1].to(torch.float32)
+    # the vocab dimension whole for the gold logit's gather (reference
+    # model.py:300-303): DTensor has no sharding rule that gathers along
+    # a sharded dimension of a batch-sharded index
+    lg = constrain(logits[:, :-1].to(torch.float32),
+                   (layers.BATCH, None, None))
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
     return (logz - gold).mean() + cfg.router_aux_coef * aux

@@ -12,6 +12,12 @@ load-balance loss are fp32; the expert products run in the input dtype.
 ``jax.lax.top_k`` breaks ties toward the lower expert index; so does the
 stable descending sort that :func:`route` takes the top k from
 (``torch.topk`` on a card promises no order among equal values).
+
+Under an active mesh the reference's three constraints apply (the groups
+over the batch axes, the expert inputs and outputs over ``model``), and
+the router runs on each rank's local groups (:func:`_route_on_local_groups`):
+routing is per group by construction, and ``DTensor`` has no sharding
+rule for its sort, one-hots and cumsum.
 """
 
 from __future__ import annotations
@@ -20,6 +26,9 @@ import math
 from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.sharding import context as shctx
+from repro_torch.sharding.context import constrain
 
 from . import layers
 
@@ -72,9 +81,14 @@ def apply_moe(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor
     G = max(tokens // gs, 1)
     gs = tokens // G
     xg = x.reshape(G, gs, d)
-    disp, comb, aux = route(cfg, p, xg)
+    xg = constrain(xg, (layers.BATCH, None, None))   # reference moe.py:86
+    if shctx.is_dtensor(xg):
+        disp, comb, aux = _route_on_local_groups(cfg, p, xg)
+    else:
+        disp, comb, aux = route(cfg, p, xg)
     dt = x.dtype
     expert_in = torch.einsum("gsec,gsd->egcd", disp.to(dt), xg)
+    expert_in = constrain(expert_in, ("model", layers.BATCH, None, None))
     h = torch.einsum("egcd,edf->egcf", expert_in, p["w_gate"])
     u = torch.einsum("egcd,edf->egcf", expert_in, p["w_up"])
     if cfg.act == "gelu":
@@ -82,8 +96,39 @@ def apply_moe(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor
     else:
         h = torch.nn.functional.silu(h) * u
     expert_out = torch.einsum("egcf,efd->egcd", h, p["w_down"])
+    expert_out = constrain(expert_out, ("model", layers.BATCH, None, None))
     out = torch.einsum("gsec,egcd->gsd", comb.to(dt), expert_out)
     out = out.reshape(B, S, d)
     if cfg.shared_expert:
         out = out + layers.apply_ffn(cfg, p["shared"], x)
     return out, aux.to(torch.float32)
+
+
+def _route_on_local_groups(cfg, p: Dict[str, torch.Tensor],
+                           xg: torch.Tensor):
+    """:func:`route` on each rank's local groups of a ``DTensor`` ``xg``
+    (G, S, d), by ``local_map``: the groups over the batch axes when they
+    divide (else every rank routes them all), the router whole. The aux
+    loss is the mean over groups, so the local means come back as a
+    ``Partial("avg")`` over the axes the groups are split on."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.partition import placements_for
+    mesh = shctx.active_mesh()
+    spec = shctx._divisible(
+        shctx._resolve((layers.BATCH, None, None), mesh) or (None,) * 3,
+        xg.shape, mesh)
+    axes = spec[0] if isinstance(spec[0], tuple) else \
+        (() if spec[0] is None else (spec[0],))
+    pin = list(placements_for(spec, mesh))
+    prep = list(placements_for((None, None), mesh))
+    pout = list(placements_for(spec + (None,), mesh))
+    paux = [Partial("avg") if a in axes else Replicate()
+            for a in shctx.axis_names(mesh)]
+
+    def local(router, x):
+        return route(cfg, {"router": router}, x)
+    return local_map(local, out_placements=(pout, pout, paux),
+                     in_placements=(prep, pin), device_mesh=mesh,
+                     redistribute_inputs=True)(p["router"], xg)

@@ -14,6 +14,14 @@ attention path over a linear cache (``full``) or a ring (``window``,
 ``chunked``), the recurrent blocks by one step of their recurrence from
 the carried state. Cache templates are ``meta`` tensors, PyTorch's
 shape-and-dtype stand-ins for ``jax.ShapeDtypeStruct``.
+
+Under an active mesh (:mod:`repro_torch.sharding.context`) with
+``DTensor`` params and prompt, the prefill lays its caches out by
+:func:`~repro_torch.sharding.partition.cache_pspecs` (the batch over the
+batch axes, or for a long-context batch-1 prompt the KV sequence over
+``data`` once ``set_seq_axis("data")`` maps the ``seq`` axis; the KV
+sequence over ``model`` under ``decode_kv_seq_shard``), and decode writes
+each new slot into the rank that holds it.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from repro_torch.core.tree import leaves
 from repro_torch.fleet import FleetFabric
 from repro_torch.models import model as M
 from repro_torch.models.model import ATTN_TYPES, attn_kind
+from repro_torch.sharding import context as shctx
 from repro_torch.storage.repository import CheckpointRepository
 
 
@@ -108,8 +117,28 @@ def make_prefill_step(cfg) -> Callable:
         with torch.no_grad():
             logits, caches = M.forward(cfg, params, batch,
                                        collect_caches=True)
+            if shctx.active_mesh() is not None:
+                caches = lay_out_caches(cfg, caches, shctx.active_mesh())
         return logits[:, -1:, :], caches
     return prefill_step
+
+
+def lay_out_caches(cfg, caches, device_mesh):
+    """``DTensor`` caches redistributed to the layout
+    :func:`~repro_torch.sharding.partition.cache_pspecs` gives them on
+    ``device_mesh`` (the reference places its caches by the same specs),
+    long-context when the ``seq`` axis is mapped."""
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.sharding.partition import cache_pspecs, placements_for
+    from repro_torch.sharding.sharded import _spec_at
+    specs = cache_pspecs(cfg, caches, virtual_mesh(device_mesh),
+                         long_context=shctx.seq_axis_active())
+    flat, unflatten = flatten_with_path(caches)
+    return unflatten([
+        leaf.redistribute(device_mesh,
+                          placements_for(_spec_at(specs, path), device_mesh))
+        for path, leaf in flat])
 
 
 def make_decode_step(cfg) -> Callable:

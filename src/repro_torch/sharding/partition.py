@@ -14,6 +14,13 @@ Rules match on the leaf's key name; scan-stacked params (under
 ``groups``) get a leading ``None``. A spec is a plain tuple with one entry
 a dimension: ``None``, an axis name, or a tuple of axis names. The rules
 and their outcomes are the JAX package's, entry for entry.
+
+:func:`placements_for` turns a spec into ``DTensor`` placements on a
+``DeviceMesh``, and :func:`distribute_tree` lays a tree out as
+``DTensor``s (the reference's ``shardings_for`` plus ``jax.device_put``):
+each rank keeps the region :func:`~repro_torch.sharding.sharded.
+spec_indices` gives its id, so a ``DTensor``'s local tensor holds what a
+:class:`~repro_torch.sharding.ShardedTensor`'s shard of that id holds.
 """
 
 from __future__ import annotations
@@ -21,8 +28,12 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Tuple
 
+import torch
+
 from repro_torch.core.tree import flatten_with_path
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, virtual_mesh
+
+from .context import axis_names
 
 # name -> (spec for 2d mode, spec for tp_zero1 mode)
 _RULES: Dict[str, Tuple[Tuple, Tuple]] = {
@@ -214,3 +225,113 @@ def batch_pspecs(cfg, shape_kind: str, batch_template: Dict[str, Any],
         return (first,) + (None,) * (len(v.shape) - 1)
 
     return {k: spec(v) for k, v in batch_template.items()}
+
+
+def placements_for(spec, device_mesh) -> Tuple:
+    """``DTensor`` placements of ``spec`` on ``device_mesh`` (anything
+    with ``axis_names`` or ``mesh_dim_names``): ``Shard(i)`` on every mesh
+    dimension that splits tensor dimension ``i``, ``Replicate()`` on the
+    rest. A tuple of axes must be in the mesh's axis order (JAX splits
+    major to minor, a ``DTensor`` in mesh order); an axis the mesh lacks
+    or one used twice raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(device_mesh)
+    out = [Replicate()] * len(names)
+    seen = set()
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        pos = []
+        for a in axes:
+            if a not in names:
+                raise ValueError(f"spec {spec}: no mesh axis {a!r} in "
+                                 f"{names}")
+            if a in seen:
+                raise ValueError(f"spec {spec}: axis {a!r} used twice")
+            seen.add(a)
+            pos.append(names.index(a))
+        if pos != sorted(pos):
+            raise ValueError(
+                f"spec {spec}: axes {axes} of dimension {dim} are not in "
+                f"the mesh's order {names}; a DTensor splits a dimension "
+                f"over mesh dimensions in mesh order only")
+        for p in pos:
+            out[p] = Shard(dim)
+    return tuple(out)
+
+
+def spec_of(placements, device_mesh, ndim: int) -> Tuple:
+    """The spec a ``DTensor``'s ``placements`` give (the inverse of
+    :func:`placements_for`): each ``Shard(i)`` puts its mesh axis on
+    dimension ``i``, in mesh order. A ``Partial`` placement (a sum not
+    yet reduced) has no spec and raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = axis_names(device_mesh)
+    entries = [[] for _ in range(ndim)]
+    for name, p in zip(names, placements):
+        if isinstance(p, Shard):
+            entries[p.dim % max(ndim, 1)].append(name)
+        elif not isinstance(p, Replicate):
+            raise ValueError(f"placement {p} on mesh axis {name!r} has no "
+                             f"spec (reduce it first)")
+    return tuple(None if not e else e[0] if len(e) == 1 else tuple(e)
+                 for e in entries)
+
+
+def local_region(shape: Tuple[int, ...], spec, device_mesh,
+                 rank: int) -> Tuple[slice, ...]:
+    """The index (one slice a dimension) of rank ``rank``'s shard of a
+    ``shape`` tensor laid out by ``spec``: its virtual device id is its
+    rank (:func:`~repro_torch.launch.mesh.virtual_mesh`)."""
+    from .sharded import spec_indices
+    return spec_indices(shape, virtual_mesh(device_mesh), spec)[rank]
+
+
+def local_index(t) -> Tuple[slice, ...]:
+    """The index of this rank's shard of ``DTensor`` ``t``: its region
+    by its placements (:func:`spec_of`, :func:`local_region`)."""
+    mesh = t.device_mesh
+    return local_region(tuple(t.shape), spec_of(t.placements, mesh, t.ndim),
+                        mesh, torch.distributed.get_rank())
+
+
+def distribute_tree(tree: Any, specs: Any, device_mesh) -> Any:
+    """``tree`` with every tensor leaf a ``DTensor`` on ``device_mesh``
+    laid out by its spec in ``specs`` (a tree of the same structure whose
+    leaves are plain tuples). Every rank passes the same full tree; each
+    keeps a contiguous copy of its own region on the mesh's device and
+    builds the ``DTensor`` from it (``DTensor.from_local``; no collective).
+    A leaf's ``requires_grad`` carries over. Other leaves stay as they
+    are."""
+    from torch.distributed.tensor import DTensor
+
+    from .sharded import _spec_at
+    rank = torch.distributed.get_rank()
+    device = mesh_device(device_mesh)
+    flat, unflatten = flatten_with_path(tree)
+    out = []
+    for path, leaf in flat:
+        if not isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+            continue
+        spec = _spec_at(specs, path)
+        shape = tuple(leaf.shape)
+        index = local_region(shape, spec, device_mesh, rank)
+        local = leaf.detach()[index].to(device, copy=True,
+                                        memory_format=torch.contiguous_format)
+        d = DTensor.from_local(local, device_mesh,
+                               placements_for(spec, device_mesh),
+                               run_check=False, shape=torch.Size(shape),
+                               stride=torch.empty(shape,
+                                                  device="meta").stride())
+        out.append(d.requires_grad_(leaf.requires_grad))
+    return unflatten(out)
+
+
+def mesh_device(device_mesh) -> torch.device:
+    """The device this rank's shards live on: the current card of a
+    ``cuda`` mesh, else the CPU."""
+    if device_mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device_mesh.device_type)

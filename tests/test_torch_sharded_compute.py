@@ -1,0 +1,235 @@
+"""Sharded model compute on ``DTensor``s held against the JAX package.
+
+One group of four spawned ranks (gloo on the CPU, one thread each) serves
+every case of this file as a ``(data 2, model 2)`` ``DeviceMesh``; the
+functions they run are in ``tests/test_torch_spmd.py``. Each
+case builds the same JAX-initialised parameters (carried over by
+``repro_torch.convert``) and the same batch in every rank, lays them out
+by the partition rules (``distribute_tree``) and runs the port's own entry
+point under ``sharding.context.activate``; the gathered results are held
+against ``repro``'s unsharded result for the same weights and against the
+port's unsharded one, in fp32:
+
+* the llama3.2-1b smoke variant's train step in ``2d``, ``tp_zero1`` and
+  ``fsdp`` (batch over both axes), and starcoder2's with
+  ``ulysses_attention`` at S 256: the loss and every updated parameter;
+* decode with ``decode_kv_seq_shard`` over a 256-slot cache, and one
+  long-context prompt with the ``seq`` axis on ``data``: the prefill's
+  last logits and four teacher-forced decode steps' logits;
+* the forward with ``seq_parallel_residual`` (S 128), and dbrx's MoE
+  forward: logits and the MoE aux loss.
+
+Logits and loss within 1e-5 relative L2 error, and the updated
+parameters within 1e-5 relative L2 error over the whole tree (XLA, ATen
+and the ranks' partial sums add in other orders). Not leaf by leaf: a
+leaf whose gradient is zero in exact arithmetic (the key bias ``bk``: a
+constant added to every logit of a row leaves its softmax as it is) has
+a gradient of rounding noise, which AdamW's first step normalises to an
+update of up to ``lr``, different in every summation order. The partition
+modes only lay the same step out, so the three llama3.2-1b cases share
+one reference. ``repro``'s own tests pin that its results do not depend
+on the mesh, so its unsharded result is the reference for every layout.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget_config
+from repro.configs import smoke_variant as jsmoke
+from repro.models import model as JM
+from repro.optim import adamw as jadamw
+from repro.serving import engine as JE
+from repro.training import loop as jloop
+from repro_torch.configs import get_config, smoke_variant
+from repro_torch.convert import from_numpy_state, to_numpy_state
+from repro_torch.core.tree import leaves, map_leaves
+from repro_torch.launch.spmd import SpmdGroup
+from repro_torch.models import model as TM
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+from repro_torch.serving import engine as TE
+from repro_torch.training.loop import make_train_step
+from test_torch_spmd import _rank_decode, _rank_forward, _rank_train
+
+RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def group():
+    with SpmdGroup(4, device="cpu", threads=1, timeout_s=300) as g:
+        yield g
+
+
+def _configs(name, **kw):
+    jcfg = dataclasses.replace(jsmoke(jget_config(name)), dtype="float32",
+                               **kw)
+    cfg = dataclasses.replace(smoke_variant(get_config(name)),
+                              dtype="float32", **kw)
+    return jcfg, cfg
+
+
+def _rel(got, want) -> float:
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.linalg.norm(got - want) / (np.linalg.norm(want) + 1e-30))
+
+
+def _inputs(jcfg, B, S, seed=0):
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    params_np = jax.tree_util.tree_map(np.asarray, jparams)
+    tokens = np.random.default_rng(seed).integers(
+        0, jcfg.vocab, (B, S)).astype(np.int32)
+    return jparams, params_np, tokens
+
+
+# ------------------------------------------------------------ rank bodies
+
+
+# ------------------------------------------------------------- references
+def _jax_train(jcfg, jparams, tokens):
+    jopt = jadamw.init_opt_state(jparams)
+    step = jax.jit(jloop.make_train_step(jcfg, jadamw.AdamWConfig()))
+    jp, _jo, jloss = step(jparams, jopt, {"tokens": jnp.asarray(tokens)})
+    return float(jloss), jax.tree_util.tree_map(np.asarray, jp)
+
+
+def _port_train(cfg, params_np, tokens):
+    params = map_leaves(lambda t: t.requires_grad_(True),
+                        from_numpy_state(params_np, "cpu"))
+    opt = init_opt_state(params)
+    p, _o, loss = make_train_step(cfg, AdamWConfig())(
+        params, opt, {"tokens": torch.from_numpy(tokens)})
+    return loss.item(), to_numpy_state(map_leaves(lambda t: t.detach(), p))
+
+
+def _check_params(got, want, what):
+    got, want = leaves(got), leaves(want)
+    assert [g.shape for g in got] == [w.shape for w in want], what
+    flat = [np.concatenate([np.ravel(a).astype(np.float64) for a in t])
+            for t in (got, want)]
+    assert _rel(*flat) <= RTOL, (what, _rel(*flat))
+
+
+_REFERENCES = {}
+
+
+def _case_inputs(name, S, **kw):
+    """``(cfg, params_np, tokens)`` of a train case."""
+    jcfg, cfg = _configs(name, **kw)
+    return (cfg,) + _inputs(jcfg, 4, S)[1:]
+
+
+def _references(name, S, **kw):
+    """``((loss, params, what) of repro, of the port)``: the unsharded
+    step, once for every partition mode."""
+    key = (name, S, tuple(sorted((k, v) for k, v in kw.items()
+                                 if k != "sharding_mode")))
+    if key not in _REFERENCES:
+        jcfg, cfg = _configs(name, **kw)
+        jparams, params_np, tokens = _inputs(jcfg, 4, S)
+        _REFERENCES[key] = (
+            (*_jax_train(jcfg, jparams, tokens), "repro"),
+            (*_port_train(cfg, params_np, tokens), "port unsharded"))
+    return _REFERENCES[key]
+
+
+TRAIN_CASES = {
+    "2d": ("llama3.2-1b", {"sharding_mode": "2d"}, 32),
+    "tp_zero1": ("llama3.2-1b", {"sharding_mode": "tp_zero1"}, 32),
+    "fsdp": ("llama3.2-1b", {"sharding_mode": "fsdp"}, 32),
+    "ulysses": ("starcoder2-7b", {"ulysses_attention": True}, 256),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_sharded_train_step_matches_reference(group, case):
+    name, kw, S = TRAIN_CASES[case]
+    cfg, params_np, tokens = _case_inputs(name, S, **kw)
+    group.start(_rank_train, cfg, params_np, tokens)  # refs meanwhile
+    refs = _references(name, S, **kw)
+    res = group.results()
+    losses = [r[0] for r in res]
+    assert len(set(losses)) == 1  # every rank holds the same loss
+    got = res[0][1]
+    for ref_loss, ref, what in refs:
+        assert abs(losses[0] - ref_loss) <= RTOL * abs(ref_loss), what
+        _check_params(got, ref, f"{case} vs {what}")
+    # the layout is real: the stacked wq (1, d, H*hd) is split in four in
+    # 2d, over model in tp_zero1 (its momentum also over data), over the
+    # whole mesh in fsdp
+    d, hdh = cfg.d_model, cfg.n_heads * cfg.hd
+    expect = {"2d": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2)),
+              "tp_zero1": ((1, d, hdh // 2), (1, d // 2, hdh // 2)),
+              "fsdp": ((1, d // 4, hdh), (1, d // 4, hdh)),
+              "ulysses": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2))}
+    assert res[0][2] == expect[case]
+
+
+#: decode cases: (config overrides, batch, the ``seq`` axis, the first
+#: cache's k (1, B, T, KV, hd) as each rank holds it): the 256-slot
+#: cache's sequence over model and the batch over data, or for one
+#: long-context prompt the sequence over data (context parallelism)
+DECODE_CASES = {
+    "decode_kv_seq_shard": ({"decode_kv_seq_shard": True}, 4, None,
+                            (1, 2, 128, 2, 64)),
+    "long_context": ({}, 1, "data", (1, 1, 128, 2, 64)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_sharded_decode_with_seq_sharded_cache(group, case):
+    kw, B, seq_axis, local_k = DECODE_CASES[case]
+    jcfg, cfg = _configs("llama3.2-1b", max_decode_len=4, **kw)
+    jparams, params_np, prompt = _inputs(jcfg, B, 252)
+    steps = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (B, 4)).astype(np.int32)
+    group.start(_rank_decode, cfg, params_np, prompt, steps, seq_axis)
+    jl, jc = JE.make_prefill_step(jcfg)(jparams,
+                                        {"tokens": jnp.asarray(prompt)})
+    want = [np.asarray(jl)]
+    tl, tc = TE.make_prefill_step(cfg)(from_numpy_state(params_np, "cpu"),
+                                       {"tokens": torch.from_numpy(prompt)})
+    port = [tl.numpy()]
+    tparams = from_numpy_state(params_np, "cpu")
+    for i in range(steps.shape[1]):
+        pos = prompt.shape[1] + i
+        jl, jc = JE.make_decode_step(jcfg)(
+            jparams, jnp.asarray(steps[:, i:i + 1]), jc, pos)
+        want.append(np.asarray(jl))
+        tl, tc = TE.make_decode_step(cfg)(
+            tparams, torch.from_numpy(steps[:, i:i + 1]), tc, pos)
+        port.append(tl.numpy())
+    got, layout = group.results()[0]
+    assert layout[1] == local_k
+    for g, w, p in zip(got, want, port):
+        assert _rel(g, w) <= RTOL and _rel(g, p) <= RTOL
+
+
+FORWARD_CASES = {
+    "seq_parallel_residual": ("llama3.2-1b",
+                              {"seq_parallel_residual": True}, 128),
+    "moe": ("dbrx-132b", {}, 32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+def test_sharded_forward_matches_reference(group, case):
+    name, kw, S = FORWARD_CASES[case]
+    jcfg, cfg = _configs(name, **kw)
+    jparams, params_np, tokens = _inputs(jcfg, 4, S)
+    group.start(_rank_forward, cfg, params_np, tokens)
+    jl, jaux, _ = JM.forward(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    with torch.no_grad():
+        tl, taux, _ = TM.forward_aux(cfg, from_numpy_state(params_np, "cpu"),
+                                     {"tokens": torch.from_numpy(tokens)})
+    got, aux = group.results()[0]
+    assert _rel(got, np.asarray(jl)) <= RTOL
+    assert _rel(got, tl.numpy()) <= RTOL
+    assert _rel(aux, float(jaux)) <= RTOL and _rel(aux, float(taux)) <= RTOL
+    if case == "moe":
+        assert float(jaux) > 0
