@@ -399,7 +399,15 @@ SHARD_ELASTIC_DIMS = (1, 4)
 SHARD_BATCH, SHARD_SEQ = 4, 512
 SHARD_GRAD_BATCH, SHARD_GRAD_SEQ = 2, 2304
 SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ = 2, 2304
+#: the decode headroom of the sharded prefill's caches
+SHARD_DECODE_LEN = 16
 SHARD_CACHE_BYTES = 2 << 30
+#: phase 15's recurrent gradient passes (slice 18), at full width on the
+#: ranks against the same pass unsharded in this process: the configs
+#: cut to one repetition of their pattern, at this many rows and tokens
+SHARD_ZOO_PATTERNS = {"recurrentgemma-2b": ("rec", "rec", "window"),
+                      "rwkv6-7b": ("rwkv",)}
+SHARD_ZOO_BATCH, SHARD_ZOO_SEQ = 2, 128
 #: bf16's unit roundoff: the sharded step adds its partial sums in other
 #: orders than the unsharded one, so its loss and the gradients' global
 #: norm lie within a few units, each bf16 param within one unit (a
@@ -3021,7 +3029,9 @@ def run_zoo_train_path(device: str, cfg, workdir: str, batch: int,
     phase 8's check of one engine (``datastates``, raw policy: 3 steps
     saving at 2, a fresh manager verifies and a fresh trainer resumes
     step 2 bit for bit, step 3's loss bit-equal), with every step
-    launching the kernel once a layer with stats and nothing else."""
+    launching the kernel once a layer with stats and nothing else, and
+    once more a layer under ``cfg.remat`` (the recompute in the
+    backward pass)."""
     from repro_torch.kernels import flash_attention as fa
     before = collections.Counter(fa.LAUNCHES_BY)
     t0 = time.perf_counter()
@@ -3029,11 +3039,12 @@ def run_zoo_train_path(device: str, cfg, workdir: str, batch: int,
                                 HOST_CACHE_BYTES, 8, batch, seq_len, None)
     by_kind = _flash_by_kind(before)
     steps = ENGINE_STEPS + 1     # three, then one after the resume
-    want = {f"{cfg.hd}/full/stats": steps * cfg.n_layers} \
+    runs = 2 if cfg.remat else 1
+    want = {f"{cfg.hd}/full/stats": steps * cfg.n_layers * runs} \
         if device == "cuda" else {}
     if by_kind != want:
         fail(f"zoo training: the attention kernel ran {by_kind} over "
-             f"{steps} steps, not {want} (once a layer and step, with "
+             f"{steps} steps, not {want} ({runs} a layer and step, with "
              f"stats, under grad)")
     if not math.isfinite(row["loss"]):
         fail(f"zoo training: loss {row['loss']!r}")
@@ -3358,19 +3369,27 @@ def _timed_steps(device: str, fn, reps: int) -> float:
     return ev0.elapsed_time(ev1) / 1e3 / reps
 
 
-def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
+def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
+                    card: str = "") -> dict:
     """Phase 13: the dry run (``repro_torch.launch.dryrun``) against the
-    card. Each of two steps of ``cfg`` at ``batch`` x ``seq_len`` tokens,
-    phase 6's prefill and a training step (``make_train_step``), is
-    traced on fake tensors on a (1, 1) mesh, then run for real from
-    seeded params: once to warm up, once under ``FlopCounterMode``, and
-    :data:`DRYRUN_TIMED` times timed. Fails unless the traced FLOPs equal
-    the counted FLOPs exactly, the dry run's argument bytes equal the real
-    arguments' bytes exactly, and the attention kernel launched in each
-    real step. Logs, with no gate, the predicted temp bytes against the
-    peak device memory beyond the arguments, and the step time against
-    the dry run's bound. Then one CLI-equivalent record of
-    :data:`DRYRUN_CLI` at full depth on the production mesh."""
+    card. Each of three steps of ``cfg`` at ``batch`` x ``seq_len``
+    tokens, phase 6's prefill and a training step (``make_train_step``)
+    with ``remat`` on (the config's default) and off, is traced on fake
+    tensors on a (1, 1) mesh, then run for real from seeded params: the
+    gradients once, then the step once to warm up, once under
+    ``FlopCounterMode``, and :data:`DRYRUN_TIMED` times timed. Fails
+    unless the traced FLOPs equal the counted FLOPs exactly, the dry run's
+    argument bytes equal the real arguments' bytes exactly, the attention
+    kernel launched in each real step, the remat step launched it once
+    more a layer and a step (the recompute), and the two training steps'
+    gradients agree within one bf16 unit of relative L2 error (logged:
+    whether they are bit-equal). Logs, with no gate, the predicted temp
+    bytes against the peak device memory beyond the arguments, and the
+    step time against the dry run's bound. Then one CLI-equivalent
+    record of :data:`DRYRUN_CLI` at full depth on the production mesh.
+    ``card`` (the card's name and power limit) ends every line logged."""
+    import dataclasses
+
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs.base import InputShape
@@ -3381,34 +3400,42 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.serving.engine import make_prefill_step
-    from repro_torch.training.loop import make_train_step
+    from repro_torch.training.loop import _loss_and_grads, make_train_step
 
     mesh = make_abstract_mesh((1, 1), ("data", "model"))
     on_card = device == "cuda"
+    tail = f" ({card})" if card else ""
     out = {}
-    for kind in ("prefill", "train"):
+    grads = {}
+    steps = (("prefill", cfg), ("train", dataclasses.replace(cfg, remat=True)),
+             ("train_no_remat", dataclasses.replace(cfg, remat=False)))
+    for name, c in steps:
+        kind = name.split("_")[0]
         shape = InputShape(f"{kind}_{batch}x{seq_len}", seq_len, batch, kind)
-        rec = dryrun.dryrun_record(cfg, shape, mesh)
+        rec = dryrun.dryrun_record(c, shape, mesh)
         roof = rec["roofline"]
         gen = torch.Generator(device=device).manual_seed(SEED)
-        params = M.init_params(cfg, gen, torch.device(device))
-        tokens = torch.randint(0, cfg.vocab, (batch, seq_len),
+        params = M.init_params(c, gen, torch.device(device))
+        tokens = torch.randint(0, c.vocab, (batch, seq_len),
                                dtype=torch.int32, device=device,
                                generator=gen)
         if kind == "train":
             params = map_leaves(lambda t: t.requires_grad_(True), params)
+            _loss, g = _loss_and_grads(c, params, {"tokens": tokens})
+            grads[name] = leaves(g)
+            del g
             args = (params, init_opt_state(params), {"tokens": tokens})
-            step = make_train_step(cfg, AdamWConfig())
+            step = make_train_step(c, AdamWConfig())
         else:
             args = (params, {"tokens": tokens})
-            step = make_prefill_step(cfg)
+            step = make_prefill_step(c)
         arg_bytes = sum(t.numel() * t.element_size() for t in leaves(args))
+        launches0 = fa.KERNEL.launches
         step(*args)  # warm-up
         if on_card:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-        launches0 = fa.KERNEL.launches
         with FlopCounterMode(display=False) as fc:
             step(*args)
         counted = fc.get_total_flops()
@@ -3417,16 +3444,16 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
         step_s = _timed_steps(device, lambda: step(*args), DRYRUN_TIMED)
         launched = fa.KERNEL.launches - launches0
         if counted != roof["traced_flops_global"]:
-            fail(f"dry run {kind}: traced {roof['traced_flops_global']!r} "
+            fail(f"dry run {name}: traced {roof['traced_flops_global']!r} "
                  f"FLOPs, the real step counted {counted}")
         if arg_bytes != roof["memory"]["argument_size_in_bytes"]:
-            fail(f"dry run {kind}: argument_size_in_bytes "
+            fail(f"dry run {name}: argument_size_in_bytes "
                  f"{roof['memory']['argument_size_in_bytes']}, the real "
                  f"arguments hold {arg_bytes} bytes")
-        if on_card and launched < 1 + DRYRUN_TIMED:
-            fail(f"dry run {kind}: the attention kernel launched {launched} "
-                 f"times in {1 + DRYRUN_TIMED} real steps")
-        out[kind] = {
+        if on_card and launched < 2 + DRYRUN_TIMED:
+            fail(f"dry run {name}: the attention kernel launched {launched} "
+                 f"times in {2 + DRYRUN_TIMED} real steps")
+        out[name] = {
             "fake_device": rec["fake_device"], "trace_s": rec["trace_s"],
             "flops": counted, "argument_bytes": arg_bytes,
             "predicted_temp_bytes": roof["memory"]["temp_size_in_bytes"],
@@ -3434,19 +3461,49 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
             "bound_s": roof["bound_s"], "dominant": roof["dominant"],
             "terms": roof["terms"], "step_over_bound": step_s
             / roof["bound_s"], "flash_launches": launched}
-        log(f"dry run {kind} at {batch} x {seq_len} tokens: traced on fake "
+        log(f"dry run {name} at {batch} x {seq_len} tokens: traced on fake "
             f"{rec['fake_device']} tensors in {rec['trace_s']:.3f} s; "
             f"FLOPs {counted} traced and counted; argument bytes {arg_bytes} "
             f"predicted and real; temp bytes predicted "
             f"{roof['memory']['temp_size_in_bytes']}, peak beyond the "
             f"arguments {peak_temp}; step {step_s * 1e3:.3f} ms against a "
             f"bound of {roof['bound_s'] * 1e3:.3f} ms "
-            f"({out[kind]['step_over_bound']:.3f}x, {roof['dominant']}); "
-            f"attention kernel launches {launched}")
+            f"({out[name]['step_over_bound']:.3f}x, {roof['dominant']}); "
+            f"attention kernel launches {launched}{tail}")
         del args, params, step
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
+    # remat: the recompute re-runs each layer's attention forward in every
+    # step's backward (the warm-up, the counted and the timed steps); the
+    # gradients are the same arithmetic
+    extra = out["train"]["flash_launches"] \
+        - out["train_no_remat"]["flash_launches"]
+    if on_card and extra != cfg.n_layers * (2 + DRYRUN_TIMED):
+        fail(f"dry run remat: the attention kernel launched {extra} times "
+             f"more with remat, the recompute is "
+             f"{cfg.n_layers * (2 + DRYRUN_TIMED)}")
+    num = den = 0.0
+    same = True
+    for a, b in zip(grads["train"], grads["train_no_remat"]):
+        same = same and torch.equal(a, b)
+        a, b = a.double(), b.double()
+        num += float(((a - b) ** 2).sum())
+        den += float((b ** 2).sum())
+    del grads
+    rel = math.sqrt(num / den)
+    out["remat"] = {"extra_flash_launches": extra, "grad_rel_l2": rel,
+                    "grad_bit_equal": same, "rtol": BF16_U}
+    if not rel <= BF16_U:
+        fail(f"dry run remat: gradients with remat on and off differ by "
+             f"{rel} relative L2 (limit one bf16 unit, {BF16_U})")
+    log(f"dry run remat: {extra} more attention launches with remat; "
+        f"gradients on and off: relative L2 {rel:.3e} (limit {BF16_U:.3e}), "
+        f"bit-equal {same}; peak temp bytes beyond the arguments "
+        f"{out['train']['peak_temp_bytes']} with remat (predicted "
+        f"{out['train']['predicted_temp_bytes']}), "
+        f"{out['train_no_remat']['peak_temp_bytes']} without (predicted "
+        f"{out['train_no_remat']['predicted_temp_bytes']}){tail}")
     rec = dryrun.run_dryrun(*DRYRUN_CLI, verbose=False)
     out["cli"] = {"arch": DRYRUN_CLI[0], "shape": DRYRUN_CLI[1],
                   "trace_s": rec["trace_s"],
@@ -3456,26 +3513,69 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int) -> dict:
     log(f"dry run {DRYRUN_CLI[0]} x {DRYRUN_CLI[1]} x {rec['mesh']}: traced "
         f"in {rec['trace_s']:.3f} s; terms "
         f"{json.dumps(rec['roofline']['terms'])}; dominant "
-        f"{rec['roofline']['dominant']}")
+        f"{rec['roofline']['dominant']}{tail}")
     return out
 
 
-def run_dryrun_phase(cfg, path_launches: dict) -> dict:
-    """Phase 13 on the card, last, with the launch counts zeroed just
-    before and read into ``path_launches`` just after."""
+def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
+                        prefill_len: int) -> dict:
+    """Phase 15's ``2d`` train step (``batch`` x ``seq``) and prefill
+    (``prefill_batch`` x ``prefill_len``, :data:`SHARD_DECODE_LEN` of
+    decode headroom) traced by the dry run on a fake (2, 2) mesh in this
+    process, which holds no process group before or after: by step, what
+    :func:`_counted` reads of a real rank, the collective term and the
+    trace's seconds."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    mesh = make_abstract_mesh(SHARD_DIMS, SHARD_AXES)
+    out = {}
+    for kind, c, b, n in (
+            ("train", dataclasses.replace(cfg, sharding_mode="2d"), batch,
+             seq),
+            ("prefill", dataclasses.replace(
+                cfg, sharding_mode="2d", max_decode_len=SHARD_DECODE_LEN),
+             prefill_batch, prefill_len)):
+        rec = dryrun.dryrun_record(c, InputShape(kind, n, b, kind), mesh)
+        if dist.is_initialized():
+            fail("the sharded trace left a process group behind")
+        roof = rec["roofline"]
+        out[kind] = {"flops": roof["per_device"]["flops"],
+                     "collectives": {k: roof["collectives"][k] for k in (
+                         "bytes_per_device", "by_kind", "counts")},
+                     "collective_s": roof["terms"]["collective_s"],
+                     "bound_s": roof["bound_s"],
+                     "dominant": roof["dominant"],
+                     "trace_s": rec["trace_s"]}
+    return out
+
+
+def run_dryrun_phase(cfg, path_launches: dict, card: str = "") -> dict:
+    """Phase 13 on the card, with the launch counts zeroed just before and
+    read into ``path_launches`` just after; ``card`` ends every line
+    logged."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
     t0 = time.perf_counter()
-    report = run_dryrun_path("cuda", cfg, SERVE_BATCH, SERVE_PROMPT)
+    report = run_dryrun_path("cuda", cfg, SERVE_BATCH, SERVE_PROMPT, card)
     launches = path_launches["dryrun"] = _launches()
-    report["phase_s"] = time.perf_counter() - t0
     if launches["flash_attention"] == 0:
         fail("kernel flash_attention was never launched on the dry run's "
              "path")
     report["launches"] = launches
-    log(f"dry run path: {report['phase_s']:.1f} s; launches "
-        f"{json.dumps(launches)}")
+    # phase 15's step and prefill traced sharded, before its ranks start
+    t1 = time.perf_counter()
+    report["sharded_trace"] = trace_sharded_steps(
+        cfg, SHARD_BATCH, SHARD_SEQ, SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ)
+    report["sharded_trace_s"] = time.perf_counter() - t1
+    report["phase_s"] = time.perf_counter() - t0
+    log(f"dry run path: {report['phase_s']:.1f} s (the sharded trace of "
+        f"phase 15's step and prefill {report['sharded_trace_s']:.1f} s); "
+        f"launches {json.dumps(launches)} ({card})")
     gc.collect()
     torch.cuda.empty_cache()
     return report
@@ -3657,6 +3757,7 @@ def _shard_rank_step() -> dict:
     long batch's gradients, of the step's update to the fp32 master, of
     the first moment and of the params before and after."""
     from repro_torch.core.tree import leaves
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          global_norm)
     from repro_torch.sharding import context as shctx
@@ -3688,10 +3789,15 @@ def _shard_rank_step() -> dict:
     del grads2
     _shard_sync()
     t0 = time.perf_counter()
+    # the train step (``make_train_step``'s two halves) under the dry
+    # run's counter: this rank's FLOPs and collectives, for the trace
+    counter = TraceCounter((params, opt, _SHARD["batch"]))
     with shctx.activate(_SHARD["mesh"]):
-        loss, grads = _loss_and_grads(_SHARD["cfg"], params, _SHARD["batch"])
+        with counter:
+            loss, grads = _loss_and_grads(_SHARD["cfg"], params,
+                                          _SHARD["batch"])
+            apply_updates(params, opt, grads, AdamWConfig())
         norm = float(global_norm(grads).full_tensor())
-        apply_updates(params, opt, grads, AdamWConfig())
         loss = float(loss.full_tensor())
     _shard_sync()
     step_s = time.perf_counter() - t0
@@ -3703,7 +3809,17 @@ def _shard_rank_step() -> dict:
     _SHARD["cmp"] = cmp
     return {"loss": loss, "grad_norm": norm, "grad_loss": loss2,
             "grad2_norm": norm2, "step_s": step_s, "grad_s": grad_s,
-            "flash_in_grad": flash_in_grad, "rss": rss}
+            "flash_in_grad": flash_in_grad, "rss": rss,
+            "counted": _counted(counter)}
+
+
+def _counted(counter) -> dict:
+    """What :func:`repro_torch.launch.dryrun`'s record holds of a step:
+    the FLOPs a device and its collectives."""
+    coll = counter.collectives()
+    return {"flops": float(counter.flops),
+            "collectives": {k: coll[k] for k in ("bytes_per_device",
+                                                 "by_kind", "counts")}}
 
 
 def _owned_region(t):
@@ -3886,11 +4002,13 @@ def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.serving.engine import make_prefill_step
     from repro_torch.sharding import context as shctx
     from repro_torch.sharding.partition import batch_pspecs, distribute_tree
     from repro_torch.launch.mesh import virtual_mesh
-    cfg = dataclasses.replace(_SHARD["cfg"], max_decode_len=16)
+    cfg = dataclasses.replace(_SHARD["cfg"],
+                              max_decode_len=SHARD_DECODE_LEN)
     dev = _SHARD["device"]
     prompt = {"tokens": _shard_tokens(cfg, dev, batch, prompt_len,
                                       SEED + 2)}
@@ -3908,16 +4026,18 @@ def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
     fa.flash_attention_cuda = record
     _shard_sync()
     t0 = time.perf_counter()
+    params = dict(_SHARD["params"])
+    counter = TraceCounter((params, b))
     try:
         with shctx.activate(_SHARD["mesh"]), torch.no_grad():
-            logits, caches = make_prefill_step(cfg)(
-                {k: v for k, v in _SHARD["params"].items()}, b)
+            with counter:
+                logits, caches = make_prefill_step(cfg)(params, b)
             last = logits.full_tensor()
     finally:
         fa.flash_attention_cuda = orig
     _shard_sync()
     out = {"prefill_s": time.perf_counter() - t0,
-           "launches": _launches(),
+           "launches": _launches(), "counted": _counted(counter),
            "finite": bool(torch.isfinite(last.float()).all()),
            "cache": (str(caches[0][0]["k"].placements),
                      tuple(caches[0][0]["k"].to_local().shape))}
@@ -3929,6 +4049,72 @@ def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
                               "max_abs_err": _flash_err(
                                   got, want, FLASH_TOL["bfloat16"])}
     return out
+
+
+def _shard_rank_zoo_grads(cfg, ref: list) -> dict:
+    """A gradient pass of ``cfg`` on the mesh from the seeded params, laid
+    out ``2d``: ``(sum of squared differences, sum of squares)`` of this
+    rank's own gradient regions against the unsharded pass's ``ref``
+    (whole tensors, on a card by CUDA IPC handle), the loss and the
+    seconds."""
+    import torch
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                param_pspecs)
+    from repro_torch.training.loop import _loss_and_grads
+    dm, dev = _SHARD["mesh"], _SHARD["device"]
+    vm = virtual_mesh(dm)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         dev)
+    batch = {"tokens": _shard_tokens(cfg, dev, SHARD_ZOO_BATCH,
+                                     SHARD_ZOO_SEQ, SEED + 4)}
+    dp = distribute_tree(map_leaves(lambda t: t.requires_grad_(True),
+                                    params), param_pspecs(cfg, params, vm),
+                         dm)
+    db = distribute_tree(batch, batch_pspecs(cfg, "train", batch, vm), dm)
+    del params
+    _shard_sync()
+    t0 = time.perf_counter()
+    with shctx.activate(dm):
+        loss, grads = _loss_and_grads(cfg, dp, db)
+        loss = float(loss.full_tensor())
+        grads = [g if g.placements == p.placements
+                 else g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(leaves(grads), leaves(dp))]
+    _shard_sync()
+    out = {"grad_s": time.perf_counter() - t0, "loss": loss}
+    num = den = 0.0
+    for g, w in zip(grads, ref):
+        index = _owned_region(g)
+        if index is None:
+            continue
+        g, w = g.to_local().double(), w[index].double()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    out["err"] = (num, den)
+    del dp, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_reference_grads(cfg, device: str) -> tuple:
+    """:func:`_shard_rank_zoo_grads`' pass unsharded in this process: the
+    loss, the gradients (whole tensors) and the seconds."""
+    import torch
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.training.loop import _loss_and_grads
+    params = map_leaves(lambda t: t.requires_grad_(True), init_params(
+        cfg, torch.Generator(device=device).manual_seed(SEED), device))
+    t0 = time.perf_counter()
+    loss, grads = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
+        cfg, device, SHARD_ZOO_BATCH, SHARD_ZOO_SEQ, SEED + 4)})
+    return float(loss), leaves(grads), time.perf_counter() - t0
 
 
 def _shard_rank_close() -> None:
@@ -4000,13 +4186,19 @@ def _unsharded_reference(device: str, cfg, batch: int, seq: int,
 
 def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                      grad_batch: int, grad_seq: int, prefill_batch: int,
-                     prefill_len: int, started: tuple = None) -> dict:
+                     prefill_len: int, started: tuple = None,
+                     traced: dict = None, zoo: dict = None) -> dict:
     """Phase 15 on ``device`` (the CPU rehearses it at a smoke config):
     the unsharded gradient pass and step here, then the four ranks'
     sharded ones, saves, restores and prefill; this process restores the
-    lazily saved step at world 1. ``started`` is
-    :func:`start_sharded_ranks`' result (started here when ``None``).
-    Fails on a mismatch; returns the report with every rank's
+    lazily saved step at world 1. Each rank counts its step and prefill
+    with the dry run's counter, held exactly against ``traced``
+    (:func:`trace_sharded_steps`' record, traced here when ``None``).
+    Then the ranks' gradient passes of ``zoo`` (name -> config; ``None``:
+    :data:`SHARD_ZOO_PATTERNS` at full width) against the same passes
+    unsharded here.
+    ``started`` is :func:`start_sharded_ranks`' result (started here when
+    ``None``). Fails on a mismatch; returns the report with every rank's
     launches."""
     import torch
     from repro_torch.core import CheckpointManager
@@ -4016,6 +4208,10 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
     from repro_torch.optim.adamw import init_opt_state
 
     report = {}
+    if traced is None:
+        traced = trace_sharded_steps(cfg, batch, seq, prefill_batch,
+                                     prefill_len)
+    report["traced"] = traced
     ref = _unsharded_reference(device, cfg, batch, seq, grad_batch,
                                grad_seq)
     report["unsharded_step_s"] = ref.pop("step_s")
@@ -4031,6 +4227,8 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
         steps = group.run(_shard_rank_step)
         for k in ("step_s", "grad_s", "flash_in_grad", "rss"):
             report[k] = [r[k] for r in steps]
+        _check_counted("train", [r["counted"] for r in steps],
+                       traced["train"])
         # the scalars: every rank holds the same; the gradients' global
         # norm sees their scale, which AdamW's clipped, normalised first
         # step does not (a sum over ``data`` for its mean reads 1 here)
@@ -4117,8 +4315,14 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                 fail(f"sharded elastic restore: leaf {i} sums to {got_sum}"
                      f", the world-1 restore's to {want}")
         pre = group.run(_shard_rank_prefill, prefill_batch, prefill_len)
+        _check_counted("prefill", [r["counted"] for r in pre],
+                       traced["prefill"])
+        report["zoo"] = _sharded_zoo_grads(device, group, zoo or {
+            name: _zoo_cfg(name, len(p), p)
+            for name, p in SHARD_ZOO_PATTERNS.items()})
         group.run(_shard_rank_close)
-    report["prefill"] = [{k: v for k, v in r.items() if k != "launches"}
+    report["prefill"] = [{k: v for k, v in r.items()
+                          if k not in ("launches", "counted")}
                          for r in pre]
     report["launches_by_rank"] = [r["launches"] for r in pre]
     for r in pre:
@@ -4127,14 +4331,54 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
     return report
 
 
+def _check_counted(kind: str, ranks: list, traced: dict) -> None:
+    """Every rank's counted FLOPs and collectives (counts and bytes by
+    kind) against the fake trace's, exactly."""
+    want = {k: traced[k] for k in ("flops", "collectives")}
+    for r, got in enumerate(ranks):
+        if got != want:
+            fail(f"sharded {kind}: rank {r} counted {json.dumps(got)}, the "
+                 f"fake (2, 2) trace {json.dumps(want)}")
+
+
+def _sharded_zoo_grads(device: str, group, cfgs: dict) -> dict:
+    """The ranks' gradient passes of each config of ``cfgs`` against the
+    same passes unsharded here, by relative L2 error over the whole tree
+    (:data:`SHARD_GRAD_RTOL`); every rank must reach the end."""
+    import torch
+    out = {}
+    for name, cfg in cfgs.items():
+        loss, ref, ref_s = _zoo_reference_grads(cfg, device)
+        ranks = group.run(_shard_rank_zoo_grads, cfg, ref)
+        del ref
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if len(ranks) != math.prod(SHARD_DIMS):
+            fail(f"sharded {name}: {len(ranks)} ranks reached the end")
+        rel = math.sqrt(sum(r["err"][0] for r in ranks)
+                        / sum(r["err"][1] for r in ranks))
+        losses = {r["loss"] for r in ranks}
+        out[name] = {"rel_l2": rel, "rtol": SHARD_GRAD_RTOL,
+                     "pattern": cfg.layer_groups[0][0],
+                     "loss": sorted(losses), "unsharded_loss": loss,
+                     "grad_s": [r["grad_s"] for r in ranks],
+                     "unsharded_grad_s": ref_s}
+        if not rel <= SHARD_GRAD_RTOL or len(losses) != 1:
+            fail(f"sharded {name}: gradients' relative L2 error {rel} "
+                 f"against the unsharded pass (rtol {SHARD_GRAD_RTOL}), "
+                 f"losses {sorted(losses)}")
+    return out
+
+
 def run_sharded_phase(cfg, path_launches: dict, card: str,
-                      started=None) -> dict:
+                      started=None, traced: dict = None) -> dict:
     """Phase 15 on the card; each rank zeroes its counts just before the
     main path (the step) and reads them just after (the prefill); the
     sum over the ranks goes into ``path_launches``. ``card`` (the card's
     name and power limit as ``nvidia-smi`` gives them) ends every line it
     logs. ``started``: a future of :func:`start_sharded_ranks` (``None``:
-    start them here)."""
+    start them here); ``traced``: phase 13's :func:`trace_sharded_steps`
+    (``None``: trace here)."""
     import torch
     workdir = os.path.join(ROOT, "build", "chip_smoke_sharded")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -4153,7 +4397,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         report = run_sharded_path("cuda", cfg, workdir, SHARD_BATCH,
                                   SHARD_SEQ, SHARD_GRAD_BATCH,
                                   SHARD_GRAD_SEQ, SHARD_PREFILL_BATCH,
-                                  SHARD_PREFILL_SEQ, started)
+                                  SHARD_PREFILL_SEQ, started, traced)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t0
@@ -4195,6 +4439,28 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         + f" (rtol grads2 and m {SHARD_GRAD_RTOL:.3e}, delta "
         f"{SHARD_UPDATE_RTOL}, params {SHARD_PARAM_RTOL:.3e}; params_before"
         f" is the unchanged-step control, which reads 1 on delta) ({card})")
+    tr = report["traced"]
+    log("sharded collectives, counted by each rank's dry-run counter and "
+        "equal on every rank to the fake (2, 2) trace: " + "; ".join(
+            f"{k}: FLOPs {tr[k]['flops']:.6g} a device, counts "
+            f"{json.dumps(tr[k]['collectives']['counts'])}, bytes "
+            f"{json.dumps(tr[k]['collectives']['by_kind'])}, collective "
+            f"term {tr[k]['collective_s'] * 1e3:.4f} ms (bound "
+            f"{tr[k]['bound_s'] * 1e3:.4f} ms, {tr[k]['dominant']}; traced "
+            f"in {tr[k]['trace_s']:.2f} s)" for k in ("train", "prefill"))
+        + "; the step took " + ", ".join(f"{x:.3f}" for x in
+                                         report["step_s"])
+        + " s by rank, the prefill " + ", ".join(
+            f"{r['prefill_s']:.3f}" for r in report["prefill"])
+        + f" s ({card})")
+    log("sharded recurrent gradient passes at "
+        f"{SHARD_ZOO_BATCH} x {SHARD_ZOO_SEQ} tokens: " + "; ".join(
+            f"{k} ({'/'.join(v['pattern'])}) rel L2 "
+            f"{v['rel_l2']:.3e} (rtol {v['rtol']:.3e}), loss "
+            f"{v['loss'][0]:.6f} vs {v['unsharded_loss']:.6f} unsharded, "
+            "pass " + ", ".join(f"{x:.3f}" for x in v["grad_s"])
+            + f" s by rank (unsharded {v['unsharded_grad_s']:.3f} s)"
+            for k, v in report["zoo"].items()) + f" ({card})")
     log(f"sharded host memory (GiB): this process resident "
         f"{host['rss'] / 2**30:.1f}, {host['rss_released'] / 2**30:.1f} "
         f"once its pinned cache went back (host available "
@@ -4478,8 +4744,9 @@ def main() -> None:
     # -- phase 12: the rest of the zoo (slice 14) --------------------------
     log("zoo rest report " + json.dumps(run_zoo_rest_phase(path_launches)))
 
-    # -- phase 13: the dry run against the card (slice 15) ----------------
-    log("dryrun report " + json.dumps(run_dryrun_phase(cfg, path_launches)))
+    # -- phase 13: the dry run against the card (slices 15, 18) -----------
+    dry = run_dryrun_phase(cfg, path_launches, smi)
+    log("dryrun report " + json.dumps(dry))
 
     # phase 15's four ranks spawn and set up (about 25 s of imports, CUDA
     # start-up and their seeded state) on a thread of their own while
@@ -4494,9 +4761,9 @@ def main() -> None:
     log("examples report " + json.dumps(run_examples_phase(path_launches)))
 
     # -- phase 15: sharded model compute (slice 17) -----------------------
-    log(f"sharded report "
-        f"{json.dumps(run_sharded_phase(cfg, path_launches, smi, started))}"
-        f" ({smi})")
+    log(f"sharded report " + json.dumps(run_sharded_phase(
+        cfg, path_launches, smi, started, dry["sharded_trace"]))
+        + f" ({smi})")
     pool.shutdown()
 
     log(f"smoke: {time.perf_counter() - t_start:.1f} s from start to the "

@@ -6,14 +6,15 @@ RWKV6 and RG-LRU fields, the modality stubs ``n_prefix_embeds``,
 ``n_memory_embeds`` and ``n_codebooks``, ``dtype``), the two the serving
 path reads (``attn_kv_block``, ``max_decode_len``) and the one the
 partition rules read (``sharding_mode``), and ``long_context_ok``, which
-the dry run reads, and the three mesh fields the sharded model reads
+the dry run reads, the three mesh fields the sharded model reads
 (``decode_kv_seq_shard``, ``ulysses_attention``,
 ``seq_parallel_residual``: activation constraints that only act under an
-active mesh, :mod:`repro_torch.sharding.context`). The reference's
-``remat`` and ``analysis_unroll`` are left out: the port runs its layers
-eagerly in a Python loop and keeps every activation, and its dry run
-still traces one logical device (its collective term is the next
-slice). Block types:
+active mesh, :mod:`repro_torch.sharding.context`), and ``remat``: each
+repeat of a layer group's pattern runs under activation checkpointing
+in training (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body). The reference's
+``analysis_unroll`` is left out: the port runs its layers in a Python
+loop, always unrolled, so there is nothing to unroll. Block types:
 ``full``, ``window`` (sliding-window causal), ``chunked`` (block-local
 causal), ``xattn`` (full self-attention plus cross-attention to a
 conditioning memory), ``*_moe`` (the same attention, the FFN replaced by
@@ -97,6 +98,8 @@ class ModelConfig:
     # stays sequence-sharded over 'model' between blocks
     seq_parallel_residual: bool = False
     max_decode_len: int = 0          # decode-cache headroom after prefill
+    # recompute each repeat of a layer group in the backward pass
+    remat: bool = True
     long_context_ok: bool = False    # may run long_500k
 
     @property
@@ -165,7 +168,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     when grouped), d_ff <= 512, vocab <= 512, at most 4 experts and top
     2 with dispatch groups of 16, window and chunk <= 16, the RG-LRU at
     d_model, RWKV6 chunks of 4, at most 4 prefix and memory embeddings;
-    codebooks as they are."""
+    codebooks as they are; no remat."""
     heads = 4 if cfg.n_heads else 0
     kv = min(cfg.n_kv_heads, heads) or (1 if heads else 0)
     if heads and cfg.n_kv_heads > 1:
@@ -188,4 +191,5 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         chunk=min(cfg.chunk, 16) if cfg.chunk else 0,
         lru_width=0, moe_group_size=16,
         n_prefix_embeds=min(cfg.n_prefix_embeds, 4),
-        n_memory_embeds=min(cfg.n_memory_embeds, 4), rwkv_chunk=4)
+        n_memory_embeds=min(cfg.n_memory_embeds, 4), rwkv_chunk=4,
+        remat=False)

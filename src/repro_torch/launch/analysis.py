@@ -1,24 +1,48 @@
-"""Traced-step analysis: FLOPs, bytes, memory and the roofline (port of
-``repro/launch/analysis.py``).
+"""Traced-step analysis: FLOPs, bytes, collectives, memory and the
+roofline (port of ``repro/launch/analysis.py``).
 
-The reference derives its roofline from XLA's compiled HLO
+The reference derives its roofline from XLA's compiled per-device HLO
 (``cost_analysis``, ``memory_analysis`` and collective bytes parsed from
 the HLO text). The port has no compiler between the step and the card, so
-it counts a step traced once on fake tensors
-(``torch._subclasses.FakeTensorMode``: shapes and dtypes, no data, no
-card) instead:
+it counts a step traced on fake tensors (``torch._subclasses.
+FakeTensorMode``: shapes and dtypes, no data, no card) instead, with one
+dispatch mode, :class:`TraceCounter`. On a mesh of several devices the
+step runs on ``DTensor``s over a fake process group
+(:mod:`repro_torch.launch.dryrun`), and the counter sees one rank's
+*local* program: a ``DTensor`` operator is passed on to ``DTensor``
+(the mode returns ``NotImplemented``), which runs it as operators on the
+local shards and collectives, and those the counter counts. So every
+figure is rank 0's, as the reference's are one device's:
 
-- **FLOPs** come from ``torch.utils.flop_counter.FlopCounterMode``, which
-  counts matrix products, convolutions and attention by formula; the
-  attention kernel's operator registers its own
-  (:func:`repro_torch.kernels.flash_attention.flash_flop`). Elementwise
-  work is not counted, as XLA's ``flops`` counts it only in part.
-- **Bytes accessed** come from :class:`TraceCounter`, a dispatch mode
-  that adds up every operator's tensor inputs and outputs (views move
-  nothing and are skipped). Like XLA's "bytes accessed" this is an upper
-  bound: an input read by two operators counts twice.
-- **Temp bytes** are the peak of live storage the step allocates beyond
-  its arguments, followed by weak references to each output's storage.
+- **FLOPs** by ``torch.utils.flop_counter``'s formulas (matrix
+  products, convolutions, attention; the attention kernel's operator
+  registers its own, :func:`repro_torch.kernels.flash_attention.
+  flash_flop`), on the local shapes; the mode decomposes what it has no
+  formula for as ``FlopCounterMode`` does, so an unsharded trace counts
+  what ``FlopCounterMode`` counts. Elementwise work is not counted, as
+  XLA's ``flops`` counts it only in part. ``FlopCounterMode`` itself
+  cannot wrap a ``DTensor`` program: it would count the global shapes.
+- **Bytes accessed**: every operator's tensor inputs and outputs (views
+  move nothing and are skipped). Like XLA's "bytes accessed" this is an
+  upper bound: an input read by two operators counts twice.
+- **Collectives**: the ``_c10d_functional`` operators ``DTensor``'s
+  redistributions issue, by the reference's kinds
+  (``all_gather_into_tensor`` all-gather, ``all_reduce`` all-reduce,
+  ``reduce_scatter_tensor`` reduce-scatter, ``all_to_all_single``
+  all-to-all; coalesced and in-place forms under the same kind), each
+  counted with its result's bytes, as the reference sums result shapes.
+  ``wait_tensor`` is not counted, as the reference skips ``-done``.
+- **Temp bytes**: the peak of live storage the step allocates beyond its
+  arguments, followed by weak references to each output's storage.
+
+``DTensor`` also runs operators no device runs: its sharding
+propagation learns an operator's output shape the first time it meets a
+layout by running it on fake tensors at global shapes (cached
+afterwards), and it works out a strided shard's size and offsets with
+small index tensors on the host. The counter leaves out, and runs
+unfaked, every operator dispatched from those (:func:`bookkeeping`), so
+a cold trace counts what a warm one does, and a trace what a real rank
+does.
 
 The terms are those of the reference::
 
@@ -26,35 +50,48 @@ The terms are those of the reference::
     memory term     = bytes(per device) / HBM bandwidth
     collective term = collective bytes(per device) / link bandwidth
 
-with the card's rates (:mod:`repro_torch.launch.mesh`). The collective
-term is zero: the port runs its model sharded over a ``DeviceMesh`` of
-ranks, but the dry run still traces one logical device, whose step
-program holds no collective (counting the sharded trace's is the next
-slice, ``ROADMAP.md``), so ``collectives`` keeps the reference's kinds at
-zero and says why. The
-reference's HLO-text parsers (``shape_bytes``, ``collective_bytes``) have
-no counterpart: there is no HLO text.
+with the card's rates (:mod:`repro_torch.launch.mesh`; NVLink for the
+link). The reference's HLO-text parsers (``shape_bytes``,
+``collective_bytes``) have no counterpart: there is no HLO text.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 import weakref
-from typing import Any, Callable, Dict, Iterable, Set
+from typing import Any, Callable, Dict, Iterable, Optional, Set
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from .mesh import HBM_BW, HW_NAME, NVLINK_BW, PEAK_FLOPS_BF16
 
 _COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                 "collective-permute")
-COLLECTIVES_NOTE = ("the dry run traces one logical device, so its step "
-                    "program holds no collective; the sharded trace's "
-                    "collective term is the next slice")
+#: ``_c10d_functional`` operator name prefix -> the reference's kind
+_KIND_OF = (("all_gather", "all-gather"), ("all_reduce", "all-reduce"),
+            ("reduce_scatter", "reduce-scatter"),
+            ("all_to_all", "all-to-all"))
+COLLECTIVES_NOTE = ("rank 0's local program: the _c10d_functional "
+                    "collectives DTensor's redistributions issue, each with "
+                    "its result's bytes; collective-permute stays 0, as "
+                    "DTensor emits none")
+#: DTensor's host bookkeeping: the sharding propagation's source files,
+#: and the function that works out a shard's size and offsets
+BOOKKEEPING_FILES = ("_sharding_prop.py", "_decompositions.py")
+BOOKKEEPING_FUNCTIONS = ("local_shard_size_and_offset",)
+#: size and stride queries ``FlopCounterMode`` passes on uncounted
+_QUERIES = {getattr(torch.ops.aten, n).default for n in (
+    "sym_is_contiguous", "is_contiguous", "is_strides_like_format",
+    "is_non_overlapping_and_dense", "size", "sym_size", "stride",
+    "sym_stride", "storage_offset", "sym_storage_offset", "numel",
+    "sym_numel", "dim") if hasattr(torch.ops.aten, n)} \
+    | {torch.ops.aten.is_contiguous.memory_format,
+       torch.ops.prim.layout.default}
 
 
 def _tensors(tree: Any) -> Iterable[torch.Tensor]:
@@ -66,22 +103,82 @@ def nbytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard, or ``t`` itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def local_nbytes(tree: Any) -> int:
+    """Bytes this rank holds of every tensor in ``tree`` (a ``DTensor``'s
+    local shard)."""
+    return nbytes([local(t) for t in _tensors(tree)])
+
+
 def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
 
 
-class TraceCounter(TorchDispatchMode):
-    """Adds up each operator's tensor input and output bytes
-    (``bytes_accessed``) and follows the storage the operators allocate:
-    ``peak_temp_bytes`` is the most that was live at once beyond the
-    storages in ``arguments``."""
+def _dtensor_type():
+    if not torch.distributed.is_available():
+        return None
+    from torch.distributed.tensor import DTensor
+    return DTensor
 
-    def __init__(self, arguments: Any):
+
+def bookkeeping() -> bool:
+    """Whether the operator being dispatched is DTensor's host
+    bookkeeping: called from a frame of :data:`BOOKKEEPING_FILES` within
+    torch's ``distributed/tensor``, or of a function of
+    :data:`BOOKKEEPING_FUNCTIONS`."""
+    f = sys._getframe(2)
+    for _ in range(24):
+        if f is None:
+            return False
+        code = f.f_code
+        if code.co_name in BOOKKEEPING_FUNCTIONS or (
+                code.co_filename.endswith(BOOKKEEPING_FILES)
+                and "tensor" in code.co_filename):
+            return True
+        f = f.f_back
+    return False
+
+
+def collective_kind(func) -> Optional[str]:
+    """The reference's kind of a ``_c10d_functional`` collective, or
+    ``None`` (another operator, ``wait_tensor``)."""
+    if func.namespace != "_c10d_functional":
+        return None
+    name = func._opname
+    for prefix, kind in _KIND_OF:
+        if name.startswith(prefix):
+            return kind
+    return None
+
+
+class TraceCounter(TorchDispatchMode):
+    """Counts a program's FLOPs, bytes accessed and collectives on plain
+    (local) tensors and follows the storage its operators allocate:
+    ``peak_temp_bytes`` is the most that was live at once beyond the
+    storages of ``arguments`` (a ``DTensor``'s local shard). Works on
+    fake and on real tensors alike, so a real rank's step is counted as
+    its trace is. ``fake_mode``: the fake-tensor mode a trace's operators
+    run under (entered for each counted operator, so a factory makes a
+    fake tensor). It stays off the mode stack between operators, so
+    DTensor's bookkeeping computes on real index tensors and makes its
+    own fake tensors, as it does in a real run."""
+
+    def __init__(self, arguments: Any, fake_mode=None):
         super().__init__()
+        self.fake_mode = fake_mode
+        self.flops = 0
         self.bytes_accessed = 0
         self.live_bytes = 0
         self.peak_temp_bytes = 0
-        self._known: Set[int] = {_storage_key(t) for t in _tensors(arguments)}
+        self.collective_bytes = {k: 0 for k in _COLLECTIVES}
+        self.collective_counts = {k: 0 for k in _COLLECTIVES}
+        self._dtensor = _dtensor_type()
+        self._known: Set[int] = {_storage_key(local(t))
+                                 for t in _tensors(arguments)}
         self._refs: Dict[int, Any] = {}
 
     def _freed(self, key: int, n: int) -> None:
@@ -89,11 +186,42 @@ class TraceCounter(TorchDispatchMode):
         self._known.discard(key)
         self.live_bytes -= n
 
+    def collectives(self) -> Dict[str, Any]:
+        """The reference's ``collective_bytes`` record: bytes a device,
+        bytes and counts by kind."""
+        return {"bytes_per_device": sum(self.collective_bytes.values()),
+                "by_kind": dict(self.collective_bytes),
+                "counts": dict(self.collective_counts)}
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        if func in _QUERIES or (self._dtensor is not None and any(
+                issubclass(t, self._dtensor) for t in types)):
+            return NotImplemented   # DTensor runs it on the local shards
+        if bookkeeping():
+            return func(*args, **kwargs)
+        if func not in flop_registry \
+                and func is not torch.ops.prim.device.default:
+            # FlopCounterMode's rule: count a decomposition's parts
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        if self.fake_mode is None:
+            out = func(*args, **kwargs)
+        else:
+            with self.fake_mode:
+                out = func(*args, **kwargs)
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += formula(*args, **kwargs, out_val=out)
         if func.is_view:
             return out
         self.bytes_accessed += nbytes((args, kwargs)) + nbytes(out)
+        kind = collective_kind(func)
+        if kind is not None:
+            self.collective_bytes[kind] += nbytes(out)
+            self.collective_counts[kind] += 1
         for t in _tensors(out):
             st = t.untyped_storage()
             key = st._cdata
@@ -111,43 +239,43 @@ class TraceCounter(TorchDispatchMode):
 
 @dataclasses.dataclass
 class Traced:
-    """What one traced call of a step gives: its outputs (fake tensors),
-    FLOPs, bytes accessed, peak temp bytes and the trace's seconds."""
+    """What one traced call of a step gives: its outputs (fake tensors,
+    ``DTensor``s on a mesh), rank 0's FLOPs, bytes accessed, peak temp
+    bytes and collectives, and the trace's seconds."""
 
     outputs: Any
     flops: int
     bytes_accessed: int
     peak_temp_bytes: int
+    collectives: Dict[str, Any]
     trace_s: float
 
 
 def trace_step(step: Callable, args: tuple, mode) -> Traced:
-    """Call ``step(*args)`` once under the fake-tensor ``mode`` (whose
-    tensors ``args`` holds), counting FLOPs, bytes and temp storage."""
+    """Call ``step(*args)`` once on the fake tensors of ``mode`` that
+    ``args`` holds, counting with :class:`TraceCounter`."""
     t0 = time.perf_counter()
-    counter = TraceCounter(args)
-    with mode, counter, FlopCounterMode(display=False) as flops:
+    counter = TraceCounter(args, fake_mode=mode)
+    with counter:
         outputs = step(*args)
-    return Traced(outputs, flops.get_total_flops(), counter.bytes_accessed,
-                  counter.peak_temp_bytes, time.perf_counter() - t0)
+    return Traced(outputs, counter.flops, counter.bytes_accessed,
+                  counter.peak_temp_bytes, counter.collectives(),
+                  time.perf_counter() - t0)
 
 
 def roofline(traced: Traced, *, n_devices: int, model_flops_global: float,
              memory: Dict[str, int]) -> Dict[str, Any]:
-    """The reference's roofline record for a traced step. FLOPs and bytes
-    are the traced totals spread evenly over ``n_devices``; ``memory``
+    """The reference's roofline record for a traced step. FLOPs, bytes
+    and collectives are one device's (the local program's); ``memory``
     holds the per-device ``argument_size_in_bytes``,
     ``output_size_in_bytes``, ``alias_size_in_bytes`` and
     ``temp_size_in_bytes``."""
-    flops_dev = traced.flops / n_devices
-    bytes_dev = traced.bytes_accessed / n_devices
-    coll = {"bytes_per_device": 0,
-            "by_kind": {k: 0 for k in _COLLECTIVES},
-            "counts": {k: 0 for k in _COLLECTIVES},
-            "note": COLLECTIVES_NOTE}
+    flops_dev = float(traced.flops)
+    bytes_dev = float(traced.bytes_accessed)
+    coll = dict(traced.collectives, note=COLLECTIVES_NOTE)
     terms = {"compute_s": flops_dev / PEAK_FLOPS_BF16,
              "memory_s": bytes_dev / HBM_BW,
-             "collective_s": 0.0}
+             "collective_s": coll["bytes_per_device"] / NVLINK_BW}
     dominant = max(terms, key=terms.get)
     # the least HBM traffic: live arguments read once, outputs written
     # once (outputs that alias an argument counted once)
@@ -155,10 +283,10 @@ def roofline(traced: Traced, *, n_devices: int, model_flops_global: float,
                 + memory["output_size_in_bytes"]
                 - memory["alias_size_in_bytes"])
     terms["memory_lb_s"] = max(lb_bytes, 0) / HBM_BW
-    traced_flops_global = float(traced.flops)
+    traced_flops_global = flops_dev * n_devices
     return {
         "per_device": {"flops": flops_dev, "bytes": bytes_dev,
-                       "collective_bytes": 0},
+                       "collective_bytes": coll["bytes_per_device"]},
         "collectives": coll,
         "terms": terms,
         "dominant": dominant,

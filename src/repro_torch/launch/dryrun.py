@@ -10,7 +10,8 @@ Usage::
 
 It needs no card and runs the same with or without one. The reference
 lowers and compiles a jitted step against 512 placeholder host devices
-(its ``XLA_FLAGS`` preamble); the port has no compiler to ask, so:
+(its ``XLA_FLAGS`` preamble) with sharded ``in_shardings``; the port has
+no compiler to ask, so:
 
 - The step's inputs are **fake CUDA tensors** (``FakeTensorMode``: shapes
   and dtypes, nothing allocated) built from the templates:
@@ -20,35 +21,45 @@ lowers and compiles a jitted step against 512 placeholder host devices
   whatever it says. PyTorch built without CUDA cannot index a fake CUDA
   tensor (its device guard needs CUDA), so there the fake tensors say
   ``cpu`` (:func:`template_device`; the record's ``fake_device``).
-- The step (``training.loop.make_train_step``,
-  ``serving.engine.make_prefill_step`` or ``make_decode_step``) is
-  **traced once at global shapes on one logical device**, and
-  :mod:`.analysis` counts its FLOPs, bytes and temp storage. The
-  reference's ``lower_s`` and ``compile_s`` are one ``trace_s``.
 - The **mesh** is the production mesh (16 x 16, or 2 x 16 x 16 with
-  ``--multi-pod``) of virtual devices on ``meta``; ``REPRO_DRYRUN_MESH``
-  (e.g. ``"4,4"``) sets a small one, as in the reference. The partition
-  specs are :mod:`repro_torch.sharding.partition`'s.
-- **Per-device numbers.** The port runs its model sharded over a
-  ``DeviceMesh`` of ranks (:mod:`repro_torch.sharding.context`), but the
-  dry run still traces one logical device, so the traced FLOPs, bytes
-  and temp bytes are spread evenly over the mesh's devices, and the
-  collective term stays 0: counting it on the sharded trace is the next
-  slice. Argument bytes per device
-  are exact: the largest device's share of params, optimizer state or
-  decode cache, and batch under the partition specs, which is also what
-  that rank checkpoints. Outputs that alias an argument (the in-place
-  AdamW update, the decode cache written in place) count that share;
+  ``--multi-pod``); ``REPRO_DRYRUN_MESH`` (e.g. ``"4,4"``) sets a small
+  one, as in the reference. On a mesh of several devices the step is
+  **traced sharded**, as one rank of a run: a fake process group of the
+  mesh's size (``torch.distributed``'s ``fake`` backend: no process
+  a rank, no communication) holds a ``DeviceMesh`` of the fake tensors'
+  device type; the inputs are laid out by the partition specs
+  (:mod:`repro_torch.sharding.partition`: ``param_pspecs``,
+  ``opt_pspecs``, ``batch_pspecs``, ``cache_pspecs``) as ``DTensor``s
+  (``distribute_tree``, rank 0's shards), and the step runs under
+  ``sharding.context.activate``, with the ``seq`` axis on ``data`` for
+  long-context decode and the batch over ``("data", "model")`` in
+  ``fsdp``, as the reference sets them. :mod:`.analysis` counts rank 0's
+  local program: its FLOPs, bytes, collectives and temp storage. A mesh
+  of one device traces the plain step, with no group and no collective.
+  The reference's ``lower_s`` and ``compile_s`` are one ``trace_s``.
+- **The process group.** The dry run owns the default group while it
+  traces and destroys it on the way out, also on an error; a process
+  that already has a default group (a rank of a run) cannot trace a
+  sharded step and gets a ``RuntimeError``. One dry run at a time in a
+  process.
+- **Per-device numbers** are rank 0's: argument bytes are its shards of
+  params, optimizer state or decode cache, and batch (what that rank
+  checkpoints); outputs that alias an argument (the in-place AdamW
+  update, the decode cache written in place) count that share, and
   ``--no-donate`` reports no alias, as the reference does without
   donation.
+- ``remat`` is the config's (on by default, as in the reference; ``--set
+  remat=false`` keeps every activation). The reference's
+  ``analysis_unroll`` has no counterpart: the port's layer loop is
+  always unrolled.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
-import math
 import os
 import sys
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -58,7 +69,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.core import dtypes
-from repro_torch.core.tree import flatten_with_path, leaves, map_leaves
+from repro_torch.core.tree import leaves, map_leaves
 from repro_torch.launch import analysis
 from repro_torch.launch.mesh import Mesh, make_abstract_mesh, \
     make_production_mesh
@@ -66,9 +77,10 @@ from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.serving.engine import cache_template, make_decode_step, \
     make_prefill_step
+from repro_torch.sharding import context as shctx
 from repro_torch.sharding.partition import (batch_pspecs, cache_pspecs,
-                                            opt_pspecs, param_pspecs)
-from repro_torch.sharding.sharded import _spec_at
+                                            distribute_tree, opt_pspecs,
+                                            param_pspecs)
 from repro_torch.training.loop import make_train_step
 
 #: a decode longer than this is long-context (the reference's threshold)
@@ -155,73 +167,101 @@ def model_flops_global(cfg, shape) -> float:
     return 2.0 * n_active * shape.global_batch  # decode: one token a seq
 
 
-def device_bytes(tree: Any, specs: Any, mesh: Mesh) -> int:
-    """Bytes one device holds of every tensor in ``tree``, each laid out
-    by its spec in ``specs`` (a tree of the same structure whose leaves
-    are plain tuples). Every split divides its dimension (the partition
-    rules drop those that do not), so each device holds the same bytes of
-    a leaf: ``nbytes`` over the product of its splits."""
-    sizes = mesh.shape
-    total = 0
-    for path, t in flatten_with_path(tree)[0]:
-        if not isinstance(t, torch.Tensor):
-            continue
-        spec = _spec_at(specs, path)
-        n = t.numel() * t.element_size()
-        for dim, entry in zip(t.shape, spec):
-            if entry is None:
-                continue
-            split = math.prod(sizes[a] for a in
-                              (entry if isinstance(entry, tuple) else (entry,)))
-            if dim % split:
-                raise ValueError(f"{path}: spec {spec} does not split "
-                                 f"{tuple(t.shape)}")
-            n //= split
-        total += n
-    return total
-
-
 def _storages(tree: Any) -> set:
-    return {t.untyped_storage()._cdata for t in leaves(tree)
+    return {analysis.local(t).untyped_storage()._cdata for t in leaves(tree)
             if isinstance(t, torch.Tensor)}
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """The default process group, a fake one of ``world`` ranks with this
+    process as rank 0 (``torch.distributed``'s ``fake`` backend: every
+    collective returns at once and moves nothing), destroyed on the way
+    out. Raises ``RuntimeError`` when a default group exists already."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        raise RuntimeError(
+            "the sharded dry run traces on a fake process group of its own, "
+            "and this process already has a default process group (a rank "
+            "of a run?): run the dry run in a process without one")
+    # registers the ``fake`` backend where PyTorch does not build it in
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def _mesh_axes(shape, mode: str):
+    """The reference's settings for the trace: the logical ``seq`` axis on
+    ``data`` for long-context decode, the batch over ``("data",
+    "model")`` in ``fsdp``; both cleared on the way out."""
+    long_ctx = shape.kind == "decode" and shape.seq_len > LONG_CONTEXT_SEQ
+    shctx.set_seq_axis("data" if long_ctx else None)
+    shctx.set_batch_axes(("data", "model") if mode == "fsdp" else None)
+    try:
+        yield
+    finally:
+        shctx.set_seq_axis(None)
+        shctx.set_batch_axes(None)
+
+
+def _step_for(cfg, kind: str):
+    """The step of ``kind`` and the positions of its arguments it updates
+    in place."""
+    if kind == "train":
+        return make_train_step(cfg, AdamWConfig()), (0, 1)
+    if kind == "prefill":
+        return make_prefill_step(cfg), ()
+    return make_decode_step(cfg), (2,)
 
 
 def dryrun_record(cfg, shape, mesh: Mesh, *,
                   donate: bool = True) -> Dict[str, Any]:
-    """Trace ``cfg``'s step for ``shape`` once and return the record's
-    step, ``fake_device``, ``trace_s``, ``roofline``, ``n_params`` and
-    ``n_active_params``."""
+    """Trace ``cfg``'s step for ``shape`` once, sharded on ``mesh``
+    when it has several devices (a fake process group of its size, owned
+    for the trace), and return the record's step, ``fake_device``,
+    ``trace_s``, ``roofline``, ``n_params`` and ``n_active_params``."""
     mode = FakeTensorMode()
     args, specs, meta = input_specs(cfg, shape, mesh, mode)
-    if shape.kind == "train":
-        step = make_train_step(cfg, AdamWConfig())
-        aliased = (0, 1)
-    elif shape.kind == "prefill":
-        step = make_prefill_step(cfg)
-        aliased = ()
-    else:
-        step = make_decode_step(cfg)
-        aliased = (2,)
-    traced = analysis.trace_step(step, args, mode)
+    step, aliased = _step_for(cfg, shape.kind)
     n_dev = int(mesh.devices.size)
-    held = [device_bytes(a, sp, mesh) if sp is not None else 0
-            for a, sp in zip(args, specs)]
+    if n_dev == 1:
+        traced = analysis.trace_step(step, args, mode)
+        return _record(cfg, shape, meta, args, traced, aliased, n_dev,
+                       donate)
+    from torch.distributed.device_mesh import init_device_mesh
+    with fake_process_group(n_dev), _mesh_axes(shape, cfg.sharding_mode):
+        dm = init_device_mesh(template_device().type,
+                              tuple(mesh.devices.shape),
+                              mesh_dim_names=tuple(mesh.axis_names))
+        # the fake tensors carry their mode; the mesh's rank grid is real
+        args = distribute_tree(args, specs, dm)
+        with shctx.activate(dm):
+            traced = analysis.trace_step(step, args, mode)
+        return _record(cfg, shape, meta, args, traced, aliased, n_dev,
+                       donate)
+
+
+def _record(cfg, shape, meta, args, traced, aliased, n_dev: int,
+            donate: bool) -> Dict[str, Any]:
+    # every figure is rank 0's: its shards of the arguments, of the
+    # outputs in storage of their own, and its temp storage; an output
+    # that is an argument updated in place counts that argument's share
+    held = [analysis.local_nbytes(a) for a in args]
     aliased_dev = sum(held[i] for i in aliased)
-    alias_dev = aliased_dev if donate else 0
-    # an output that is an argument updated in place counts that
-    # argument's share; outputs in storage of their own are spread
-    # evenly, like the compute
     arg_storage = _storages(args)
-    fresh = sum(t.numel() * t.element_size()
-                for t in leaves(traced.outputs)
+    fresh = sum(analysis.local_nbytes(t) for t in leaves(traced.outputs)
                 if isinstance(t, torch.Tensor)
-                and t.untyped_storage()._cdata not in arg_storage)
-    out_dev = aliased_dev + fresh // n_dev
-    arg_dev = sum(held)
-    memory = {"argument_size_in_bytes": arg_dev,
-              "output_size_in_bytes": out_dev,
-              "alias_size_in_bytes": alias_dev,
-              "temp_size_in_bytes": traced.peak_temp_bytes // n_dev}
+                and analysis.local(t).untyped_storage()._cdata
+                not in arg_storage)
+    memory = {"argument_size_in_bytes": sum(held),
+              "output_size_in_bytes": aliased_dev + fresh,
+              "alias_size_in_bytes": aliased_dev if donate else 0,
+              "temp_size_in_bytes": traced.peak_temp_bytes}
     record = dict(meta)
     record["fake_device"] = template_device().type
     record["trace_s"] = traced.trace_s
@@ -247,8 +287,10 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
     cfg = get_config(arch)
     unknown = sorted(set(kw) - {f.name for f in dataclasses.fields(cfg)})
     if unknown:
-        raise ValueError(f"the port's ModelConfig has no field {unknown}: "
-                         f"it carries no remat, unroll or mesh field")
+        raise ValueError(
+            f"the port's ModelConfig has no field {unknown}: it carries no "
+            f"mesh field, and no analysis_unroll (its layer loop is always "
+            f"unrolled)")
     cfg = dataclasses.replace(cfg, **kw)
     if shape.kind == "decode" and shape.seq_len > LONG_CONTEXT_SEQ \
             and not cfg.long_context_ok:
@@ -303,7 +345,8 @@ def main(argv=None) -> int:
     ap.add_argument("--set", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="ModelConfig override, e.g. --set "
-                         "attn_kv_block=2048 (repeatable)")
+                         "attn_kv_block=2048 --set remat=false "
+                         "(repeatable)")
     args = ap.parse_args(argv)
     overrides = {}
     for kv in args.set:

@@ -156,11 +156,20 @@ def make_device_mesh(dims: Sequence[int], axes: Sequence[str],
     return init_device_mesh(dev.type, dims, mesh_dim_names=tuple(axes))
 
 
+def mesh_ranks(device_mesh) -> np.ndarray:
+    """A ``DeviceMesh``'s grid of ranks, read with every dispatch mode
+    set aside: the grid is a real tensor, which a fake-tensor mode (the
+    dry run's trace) refuses and a counting mode would count."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        return np.asarray(device_mesh.mesh.tolist(), dtype=np.int64)
+
+
 def virtual_mesh(device_mesh) -> Mesh:
     """The port's :class:`Mesh` of a ``DeviceMesh``: its ranks as virtual
     ids (row-major, as :func:`make_device_mesh` lays them out; another
     layout raises) on the ``meta`` device."""
-    ranks = np.asarray(device_mesh.mesh.tolist(), dtype=np.int64)
+    ranks = mesh_ranks(device_mesh)
     if not np.array_equal(ranks.reshape(-1), np.arange(ranks.size)):
         raise ValueError(f"device mesh ranks {ranks.tolist()} are not "
                          f"0 .. n-1 in row-major order")

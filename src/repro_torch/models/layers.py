@@ -264,48 +264,20 @@ def full_seq_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         n_prefix=n_prefix, kv_block=kv_block)
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity whose backward makes the gradient contiguous. On the
-    way into a ``local_map`` body a ``DTensor``'s gradient is the local
-    tensor of whatever layout the redistribution left (a ``sum``'s is
-    expanded, stride 0), and on the way out the redistribution views the
-    local gradient; either fails on a layout a view cannot take."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g.contiguous()
-
-
 def _on_local_shards(fn, q, k, v):
     """``fn(q, k, v)`` (an attention core: q (B,S,H,hd), k/v (B,T,KV,hd)
-    -> (B,S,H*hd)) on each rank's local shards of ``DTensor`` inputs, by
-    ``local_map``: the batch over the batch axes, and the heads over
-    ``model`` when the KV heads divide by its size (each local q head's
-    KV head is then local), else whole. The inputs are redistributed to
-    that layout first (from Ulysses' sequence-sharded layout: the
-    all-to-all); the output comes back with the same layout on its heads
-    (the flattened ``H * hd``, heads major). Autograd goes through it,
-    so :class:`_Flash`'s backward runs on the local shards too."""
-    from torch.distributed.tensor.experimental import local_map
-    mesh = shctx.active_mesh()
-    in_spec = shctx._divisible(
-        shctx._resolve((BATCH, None, "model", None), mesh) or (None,) * 4,
-        k.shape, mesh)
-    out_spec = in_spec[:2] + (in_spec[2],)
-    from repro_torch.sharding.partition import placements_for
-    # one list of placements a tensor (a tuple would read as one a value)
-    pin = list(placements_for(in_spec, mesh))
-
-    def local(q, k, v):
-        q, k, v = (_ContiguousGrad.apply(t) for t in (q, k, v))
-        return _ContiguousGrad.apply(fn(q, k, v))
-    return local_map(local, out_placements=list(placements_for(out_spec, mesh)),
-                     in_placements=(pin, pin, pin), device_mesh=mesh,
-                     redistribute_inputs=True)(q, k, v)
+    -> (B,S,H*hd)) on each rank's local shards of ``DTensor`` inputs
+    (:func:`repro_torch.sharding.context.on_local_shards`): the batch
+    over the batch axes, and the heads over ``model`` when the KV heads
+    divide by its size (each local q head's KV head is then local), else
+    whole. The inputs are redistributed to that layout first (from
+    Ulysses' sequence-sharded layout: the all-to-all); the output comes
+    back with the same layout on its heads (the flattened ``H * hd``,
+    heads major). Autograd goes through it, so :class:`_Flash`'s
+    backward runs on the local shards too."""
+    in_spec = shctx.local_spec((BATCH, None, "model", None), k.shape)
+    return shctx.on_local_shards(fn, (q, k, v), (in_spec,) * 3,
+                                 (in_spec[:3],))
 
 
 def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -313,11 +285,10 @@ def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q (B,S,H,hd), k and v (B,S,KV,hd) of x (B,S,d), with the biases
     where the params hold them, q and k rotated at ``positions`` (B,S)."""
-    B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, H, hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, KV, hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, KV, hd)
+    q = shctx.unflatten_last(_proj(x, p["wq"], p.get("bq")), H, hd)
+    k = shctx.unflatten_last(_proj(x, p["wk"], p.get("bk")), KV, hd)
+    v = shctx.unflatten_last(_proj(x, p["wv"], p.get("bv")), KV, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -428,18 +399,17 @@ def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                     mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
     """Cross-attention of x (B,S,d) to precomputed memory K/V
     (B,M,KV,hd): no mask, no RoPE."""
-    B, S, _ = x.shape
-    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, cfg.n_heads, cfg.hd)
+    q = shctx.unflatten_last(_proj(x, p["wq"], p.get("bq")), cfg.n_heads,
+                             cfg.hd)
     return _proj(_sdpa(q, mem_k, mem_v, None), p["wo"], p.get("bo"))
 
 
 def memory_kv(cfg, p: Dict[str, torch.Tensor], memory: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The conditioning memory (B,M,d) projected to K/V once (prefill)."""
-    B, M, _ = memory.shape
     KV, hd = cfg.n_kv_heads, cfg.hd
-    k = _proj(memory, p["wk"], p.get("bk")).reshape(B, M, KV, hd)
-    v = _proj(memory, p["wv"], p.get("bv")).reshape(B, M, KV, hd)
+    k = shctx.unflatten_last(_proj(memory, p["wk"], p.get("bk")), KV, hd)
+    v = shctx.unflatten_last(_proj(memory, p["wv"], p.get("bv")), KV, hd)
     return k, v
 
 
@@ -500,8 +470,7 @@ def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],
     """(B,S,vocab), or (B,S,K,vocab) with codebooks."""
     logits = x @ (p["embed"].T if cfg.tie_embeddings else p["head"])
     if cfg.n_codebooks:
-        B, S, _ = x.shape
-        logits = logits.reshape(B, S, cfg.n_codebooks, cfg.vocab)
+        logits = shctx.unflatten_last(logits, cfg.n_codebooks, cfg.vocab)
     return logits
 
 

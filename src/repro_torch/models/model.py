@@ -27,14 +27,17 @@ With ``collect_caches`` it also returns the decode caches that
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core import dtypes
 from repro_torch.core.tree import map_leaves
+from repro_torch.sharding import context as shctx
 from repro_torch.sharding.context import constrain
 
 from . import layers, moe, rglru, rwkv6
@@ -293,8 +296,10 @@ def _cache_from_kv(cfg, btype: str, k: torch.Tensor,
     ``cfg.window`` slots holding the last ``window`` positions at slots
     ``pos % window``. ``chunked``: a ring of ``cfg.chunk`` slots holding
     the current (possibly empty) partial chunk at slots ``[0, S %
-    chunk)``. A prompt shorter than the ring is padded."""
-    B, S = k.shape[0], k.shape[1]
+    chunk)``. A prompt shorter than the ring is padded. The ring is built
+    from slices of k and v joined along S (no slot-indexed write), so a
+    ``DTensor`` keeps its layout through it."""
+    S = k.shape[1]
     kind = attn_kind(btype)
     pad = _pad_slots
     if kind == "full":
@@ -306,19 +311,21 @@ def _cache_from_kv(cfg, btype: str, k: torch.Tensor,
     if S <= T:
         return {"k": pad(k, (0, 0, 0, 0, 0, T - S)),
                 "v": pad(v, (0, 0, 0, 0, 0, T - S))}
-    ck = torch.zeros((B, T) + tuple(k.shape[2:]), dtype=k.dtype,
-                     device=k.device)
-    cv = torch.zeros_like(ck)
+    r = S % T
     if kind == "window":
-        slots = torch.arange(S - T, S, device=k.device) % T
-        ck[:, slots] = k[:, -T:]
-        cv[:, slots] = v[:, -T:]
+        # position p in slot p % T: the last r positions fill slots
+        # [0, r), the T - r before them slots [r, T)
+        def ring(t):
+            if not r:
+                return t[:, S - T:]
+            return torch.cat([t[:, S - r:], t[:, S - T:S - r]], dim=1)
     else:
-        r = S % T
-        if r:
-            ck[:, :r] = k[:, -r:]
-            cv[:, :r] = v[:, -r:]
-    return {"k": ck, "v": cv}
+        # the current partial chunk in slots [0, r), the rest empty
+        def ring(t):
+            if not r:
+                return torch.zeros_like(t[:, :T])
+            return pad(t[:, S - r:], (0, 0, 0, 0, 0, T - r))
+    return {"k": ring(k), "v": ring(v)}
 
 
 def _pad_slots(t: torch.Tensor, pad: Tuple[int, ...]) -> torch.Tensor:
@@ -327,15 +334,11 @@ def _pad_slots(t: torch.Tensor, pad: Tuple[int, ...]) -> torch.Tensor:
     shard, S whole there (PyTorch 2.11's sharding rule for ``pad`` fails
     on a sharded tensor): zeros added to every shard of a partial sum
     still sum to zeros."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor import DTensor
     if not isinstance(t, DTensor):
         return torch.nn.functional.pad(t, pad)
+    t = shctx.unsplit(t, (1,))
     mesh = t.device_mesh
-    if any(isinstance(p, Shard) and p.dim % t.ndim == 1
-           for p in t.placements):
-        t = t.redistribute(mesh, [Replicate() if isinstance(p, Shard)
-                                  and p.dim % t.ndim == 1 else p
-                                  for p in t.placements])
     local = torch.nn.functional.pad(t.to_local(), pad)
     shape = list(t.shape)
     shape[1] += pad[-1]
@@ -373,6 +376,25 @@ def _embed_inputs(cfg, params: Dict[str, Any],
     return x, n_prefix, memory
 
 
+def _repeat(cfg, pattern, ps, x, aux_total, positions, n_prefix, memory,
+            collect_caches, sp_spec):
+    """One repeat of a layer group's pattern (the reference's scan body):
+    ``(x, aux_total, caches)`` after its blocks, the residual stream
+    constrained before and after it under ``sp_spec``."""
+    if sp_spec is not None:
+        x = constrain(x, sp_spec)
+    caches = []
+    for btype, pp in zip(pattern, ps):
+        x, cache, aux = block_forward(
+            cfg, btype, pp, x, positions=positions, n_prefix=n_prefix,
+            memory=memory, collect_cache=collect_caches)
+        aux_total = aux_total + aux
+        caches.append(cache)
+    if sp_spec is not None:
+        x = constrain(x, sp_spec)
+    return x, aux_total, caches
+
+
 def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 *, collect_caches: bool = False):
     """The reference's ``forward``: ``(logits, aux, caches)``, the logits
@@ -382,7 +404,10 @@ def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     ``None``): one tuple per layer group of one dict per pattern position
     (``k``, ``v``, and ``mk``, ``mv`` for ``xattn``; ``h``, ``conv`` for
     ``rec``; ``x_t``, ``S``, ``x_c`` for ``rwkv``), each leaf stacked over
-    the group's repeat index."""
+    the group's repeat index. With ``cfg.remat`` and grad enabled each
+    repeat runs under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward pass, the gradients the
+    same bit for bit; prefill and decode (no grad) are unchanged."""
     check_supported(cfg)
     x, n_prefix, memory = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -394,21 +419,27 @@ def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     # the end of each repeat of a group's pattern
     sp_spec = (layers.BATCH, "model", None) \
         if cfg.seq_parallel_residual and S % 128 == 0 else None
+    # the reference's ``jax.checkpoint`` of its scan body (model.py:256):
+    # a repeat's activations are recomputed in the backward pass
+    remat = cfg.remat and torch.is_grad_enabled()
     for (pattern, count), stacked in zip(cfg.layer_groups,
                                          params["groups"]):
         per_pos = [[] for _ in pattern]
         for i in range(count):
-            if sp_spec is not None:
-                x = constrain(x, sp_spec)
-            for j, (btype, pp) in enumerate(zip(pattern, stacked)):
-                x, cache, aux = block_forward(
-                    cfg, btype, map_leaves(lambda t: t[i], pp), x,
-                    positions=positions, n_prefix=n_prefix, memory=memory,
-                    collect_cache=collect_caches)
-                aux_total = aux_total + aux
+            ps = [map_leaves(lambda t: t[i], pp) for pp in stacked]
+            args = (cfg, pattern, ps, x, aux_total, positions, n_prefix,
+                    memory, collect_caches, sp_spec)
+            if remat:
+                # the recompute runs where autograd runs it (on a card,
+                # a thread of its own) under this thread's mesh
+                x, aux_total, cs = torch.utils.checkpoint.checkpoint(
+                    _repeat, *args, use_reentrant=False,
+                    preserve_rng_state=False, context_fn=lambda: (
+                        contextlib.nullcontext(), shctx.current()))
+            else:
+                x, aux_total, cs = _repeat(*args)
+            for j, cache in enumerate(cs):
                 per_pos[j].append(cache)
-            if sp_spec is not None:
-                x = constrain(x, sp_spec)
         if collect_caches:
             caches.append(tuple(
                 {key: torch.stack([c[key] for c in cs]) for key in cs[0]}

@@ -25,6 +25,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import context as shctx
+
 C_FACTOR = 8.0
 
 
@@ -33,12 +35,12 @@ def causal_conv1d(p: Dict[str, torch.Tensor], x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal convolution of width W over x (B, T, dr).
     ``conv_state`` (B, W-1, dr) holds the previous segment's last inputs
-    (zeros when ``None``); returns ``(y, new_conv_state)``."""
+    (zeros when ``None``, made like x, so a ``DTensor`` keeps x's
+    layout); returns ``(y, new_conv_state)``."""
     W = p["conv_w"].shape[0]
-    B, T, dr = x.shape
+    T = x.shape[1]
     if conv_state is None:
-        conv_state = torch.zeros((B, W - 1, dr), dtype=x.dtype,
-                                 device=x.device)
+        conv_state = torch.zeros_like(x[:, :1]).expand(-1, W - 1, -1)
     xp = torch.cat([conv_state, x], dim=1)             # (B, T+W-1, dr)
     y = 0
     for i in range(W):
@@ -80,8 +82,18 @@ def rg_lru(p: Dict[str, torch.Tensor], u: torch.Tensor,
         # the carried state folded in as a virtual step 0: b_0 += a_0 h0
         b = torch.cat([b[:, :1] + a[:, :1] * h0.to(f32)[:, None], b[:, 1:]],
                       dim=1)
-    h = linear_scan(a, b)
+    h = _scan(a, b)
     return h.to(u.dtype), h[:, -1, :]
+
+
+def _scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`linear_scan`; on ``DTensor``s each rank scans its local
+    channels of its batch rows (the recurrence is diagonal), the sequence
+    whole: :func:`repro_torch.sharding.context.on_local_shards`."""
+    if not shctx.is_dtensor(a):
+        return linear_scan(a, b)
+    spec = shctx.local_spec((("pod", "data"), None, "model"), a.shape)
+    return shctx.on_local_shards(linear_scan, (a, b), (spec, spec), (spec,))
 
 
 def apply_rglru_block(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,

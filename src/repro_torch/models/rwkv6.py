@@ -29,6 +29,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding import context as shctx
+
 LOG_DECAY_CLAMP = -5.0  # e^-5/step ≈ 0.0067: effectively zero in a chunk
 MIX_LORA = 32
 
@@ -44,7 +46,7 @@ def _group_norm_heads(x: torch.Tensor, scale: torch.Tensor, H: int,
                       eps: float = 64e-5) -> torch.Tensor:
     """Per-head group norm over the output (RWKV's ln_x). x: (B, T, d)."""
     B, T, d = x.shape
-    xs = x.reshape(B, T, H, d // H).to(torch.float32)
+    xs = shctx.unflatten_last(x, H, d // H).to(torch.float32)
     mu = xs.mean(-1, keepdim=True)
     var = xs.var(-1, keepdim=True, unbiased=False)
     xs = (xs - mu) * torch.rsqrt(var + eps)
@@ -119,15 +121,36 @@ def reference_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, T, H, hs), S
 
 
+def _wkv(r, k, v, lw, u, state, chunk: Optional[int]):
+    """:func:`chunked_wkv6` at ``chunk``, or with ``chunk`` ``None`` the
+    stepwise :func:`reference_wkv6` from ``state``. On ``DTensor``s each
+    rank runs the recurrence on its local heads of its batch rows (it
+    mixes neither), the sequence whole:
+    :func:`repro_torch.sharding.context.on_local_shards`."""
+    def core(r, k, v, lw, u, state):
+        if chunk is None:
+            return reference_wkv6(r, k, v, lw, u, initial_state=state)
+        return chunked_wkv6(r, k, v, lw, u, chunk)
+    if not shctx.is_dtensor(r):
+        return core(r, k, v, lw, u, state)
+    heads = shctx.local_spec((("pod", "data"), None, "model", None),
+                             r.shape)
+    st = (heads[0], heads[2], None, None)
+    return shctx.on_local_shards(
+        core, (r, k, v, lw, u, state),
+        (heads,) * 4 + ((heads[2], None), None if state is None else st),
+        (heads, st), shared=(4,))
+
+
 # ----------------------------------------------------------------- the block
 def _ddlerp(p: Dict[str, torch.Tensor], x: torch.Tensor,
             x_prev: torch.Tensor) -> torch.Tensor:
     """Data-dependent token-shift mixing (Finch): 5 mixed variants of x,
     (B, T, 5, d) fp32."""
-    B, T, d = x.shape
     delta = x_prev - x
     base = x + delta * p["mix_base"][0]          # seed mix (uses target 0)
-    lora = torch.tanh(_mm(base, p["mix_w1"])).reshape(B, T, 5, MIX_LORA)
+    lora = shctx.unflatten_last(torch.tanh(_mm(base, p["mix_w1"])), 5,
+                                MIX_LORA)
     dyn = torch.einsum("btki,kid->btkd", lora, p["mix_w2"].to(lora.dtype))
     mixes = p["mix_base"][None, None] + dyn      # (B, T, 5, d)
     return x[:, :, None, :] + delta[:, :, None, :] * mixes
@@ -148,16 +171,15 @@ def time_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     x_prev = torch.cat([x_prev_last[:, None, :], x[:, :-1, :]], dim=1)
     m = _ddlerp(p, x, x_prev)
     xr, xw, xk, xv, xg = (m[:, :, i, :] for i in range(5))
-    r = _mm(xr, p["wr"]).reshape(B, T, H, hs)
-    kk = _mm(xk, p["wk"]).reshape(B, T, H, hs)
-    vv = _mm(xv, p["wv"]).reshape(B, T, H, hs)
+    r = shctx.unflatten_last(_mm(xr, p["wr"]), H, hs)
+    kk = shctx.unflatten_last(_mm(xk, p["wk"]), H, hs)
+    vv = shctx.unflatten_last(_mm(xv, p["wv"]), H, hs)
     g = torch.nn.functional.silu(_mm(xg, p["wg"]))
     lw = -torch.exp(p["w0"] + _mm(torch.tanh(_mm(xw, p["w_a"])), p["w_b"]))
-    lw = lw.reshape(B, T, H, hs)
-    if decode or state is not None or T % cfg.rwkv_chunk != 0:
-        wkv, S = reference_wkv6(r, kk, vv, lw, p["u"], initial_state=state)
-    else:
-        wkv, S = chunked_wkv6(r, kk, vv, lw, p["u"], cfg.rwkv_chunk)
+    lw = shctx.unflatten_last(lw, H, hs)
+    stepwise = decode or state is not None or T % cfg.rwkv_chunk != 0
+    wkv, S = _wkv(r, kk, vv, lw, p["u"], state,
+                  None if stepwise else cfg.rwkv_chunk)
     out = _group_norm_heads(wkv.reshape(B, T, d).to(x.dtype),
                             p["ln_x_scale"], H)
     out = _mm(out * g, p["wo"])

@@ -15,6 +15,13 @@ tensor that meets a ``DTensor`` in an operator (a mask, the positions,
 RoPE's frequencies: constants each rank builds alike) counts as
 replicated (``implicit_replication``).
 
+Where ``DTensor`` has no rule for a computation, or one that PyTorch
+2.11 refuses, the model runs it on each rank's local shards
+(:func:`on_local_shards`: attention, the RG-LRU's scan, RWKV6's WKV) or
+makes a split dimension whole first (:func:`unsplit`,
+:func:`unflatten_last`). :func:`current` carries this thread's settings
+into an activation checkpoint's recompute.
+
 A spec is a plain tuple, one entry a tensor dimension: ``None``, an axis
 name, or a tuple of axis names, major first. JAX splits a dimension over
 a tuple of axes major to minor; a ``DTensor`` shards one dimension over
@@ -27,6 +34,8 @@ from __future__ import annotations
 import contextlib
 import threading
 from typing import Any, Optional, Sequence, Tuple
+
+import torch
 
 _state = threading.local()
 
@@ -62,6 +71,36 @@ def activate(mesh):
             yield None
     finally:
         _state.mesh = prev
+
+
+@contextlib.contextmanager
+def _reinstate(mesh, seq_axis, batch_axes):
+    prev = (active_mesh(), getattr(_state, "seq_axis", None),
+            getattr(_state, "batch_axes", None))
+    _state.mesh, _state.seq_axis, _state.batch_axes = \
+        mesh, seq_axis, batch_axes
+    dispatcher = None
+    if mesh is not None:
+        from torch.distributed.tensor import DTensor
+        dispatcher = DTensor._op_dispatcher
+        allowed = dispatcher._allow_implicit_replication
+        dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        _state.mesh, _state.seq_axis, _state.batch_axes = prev
+        if dispatcher is not None:
+            dispatcher._allow_implicit_replication = allowed
+
+
+def current():
+    """A context manager that puts this thread's settings (the active
+    mesh with its implicit replication, the ``seq`` axis, the batch axes)
+    in force wherever it is entered, and the previous ones back after:
+    an activation checkpoint's recompute runs the forward again in
+    autograd's thread, which on a card is not the caller's."""
+    return _reinstate(active_mesh(), getattr(_state, "seq_axis", None),
+                      getattr(_state, "batch_axes", None))
 
 
 def axis_names(mesh) -> Tuple[str, ...]:
@@ -138,7 +177,8 @@ def _divisible(spec: Spec, shape: Sequence[int], mesh) -> Spec:
     whole: GSPMD pads such a dimension, and a ``DTensor``'s uneven shards
     (a batch of 1 over 2 ranks leaves one rank none) break the views that
     follow. The values are the same either way; only the layout differs."""
-    sizes = dict(zip(axis_names(mesh), mesh.mesh.shape))
+    from repro_torch.launch.mesh import mesh_ranks
+    sizes = dict(zip(axis_names(mesh), mesh_ranks(mesh).shape))
     out = []
     for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
         axes = () if entry is None else \
@@ -169,3 +209,108 @@ def constrain(x, spec: Sequence):
                         f"{tuple(x.shape)}")
     resolved = _divisible(resolved, x.shape, mesh)
     return x.redistribute(mesh, placements_for(resolved, mesh))
+
+
+def unsplit(x, dims: Sequence[int]):
+    """``x`` with no mesh axis splitting any of ``dims``: a ``DTensor``
+    sharded on one of them is redistributed (that mesh axis replicated,
+    every other placement kept), anything else comes back as it is. For
+    the views and slices ``DTensor`` has no rule for on a split dimension
+    (an unflatten the axis does not divide, a slot write); not one of the
+    reference's activation constraints, which :func:`constrain` makes."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    want = [d % x.ndim for d in dims]
+    placements = [Replicate() if isinstance(p, Shard)
+                  and p.dim % x.ndim in want else p for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def unflatten_last(x, *shape: int):
+    """x (..., prod(shape)) viewed as (..., *shape). A ``DTensor``
+    unflattens a split dimension only where the split divides
+    ``shape[0]`` (GSPMD pads instead); otherwise the dimension is made
+    whole first (:func:`unsplit`)."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Shard
+
+        from repro_torch.launch.mesh import mesh_ranks
+        n = 1
+        for size, p in zip(mesh_ranks(x.device_mesh).shape, x.placements):
+            if isinstance(p, Shard) and p.dim % x.ndim == x.ndim - 1:
+                n *= size
+        if shape[0] % n:
+            x = unsplit(x, (-1,))
+    return x.reshape(tuple(x.shape[:-1]) + tuple(shape))
+
+
+def local_spec(spec: Sequence, shape: Sequence[int]) -> Spec:
+    """``spec`` (logical axes) resolved on the active mesh, each dimension
+    the axes do not divide left whole; all ``None`` when nothing
+    survives."""
+    mesh = active_mesh()
+    return _divisible(_resolve(spec, mesh) or (None,) * len(shape), shape,
+                      mesh)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose backward makes the gradient contiguous. On the
+    way into a ``local_map`` body a ``DTensor``'s gradient is the local
+    tensor of whatever layout the redistribution left (a ``sum``'s is
+    expanded, stride 0), and on the way out the redistribution views the
+    local gradient; either fails on a layout a view cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_local_shards(fn, args: Sequence, in_specs: Sequence,
+                    out_specs: Sequence, shared: Sequence[int] = ()):
+    """``fn(*args)`` on each rank's local shards of ``DTensor`` arguments,
+    by ``local_map``, for a computation that is local along the split
+    dimensions (the batch, heads, channels): each tensor argument is
+    redistributed to its resolved spec in ``in_specs`` first (``None``
+    for an argument that is not a tensor), each output comes back laid
+    out by its spec in ``out_specs``. ``shared``: the positions of
+    arguments every local row uses (a parameter), whose gradient on a
+    rank is a partial sum over each mesh axis the first output is split
+    on and they are not. Gradients cross the boundary contiguous. With no
+    ``DTensor`` among ``args``, ``fn(*args)``."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from .partition import placements_for
+    mesh = active_mesh()
+
+    def place(spec):
+        # one list of placements a tensor (a tuple reads as one a value)
+        return None if spec is None else list(placements_for(spec, mesh))
+
+    def local(*xs):
+        xs = [_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
+              else x for x in xs]
+        out = fn(*xs)
+        if isinstance(out, torch.Tensor):
+            return _ContiguousGrad.apply(out)
+        return tuple(_ContiguousGrad.apply(o) for o in out)
+
+    ins = [place(s) for s in in_specs]
+    split = place(out_specs[0])
+    grads = [[Partial() if p.is_replicate() and not q.is_replicate()
+              else p for p, q in zip(ins[i], split)] if i in shared
+             else ins[i] for i in range(len(ins))]
+    outs = [place(s) for s in out_specs]
+    return local_map(local, out_placements=tuple(outs) if len(outs) > 1
+                     else outs[0], in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

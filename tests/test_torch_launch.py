@@ -114,29 +114,32 @@ def test_batch_templates_and_model_flops_match_reference():
 
 
 # --------------------------------------------------------------- dry run
-#: RWKV6's sequence in the test's train and prefill traces. Its chunked
-#: WKV is a Python loop over chunks of at most 16 tokens (the decay clamp
-#: allows no more), each traced operator by operator on fake tensors, so
-#: ``train_4k`` and ``prefill_32k`` would trace 256 and 2,048 chunks a
-#: layer, minutes on a CPU; the test traces 512 tokens (32 chunks) of
-#: each, at the shape's batch. Its decode shapes are traced whole.
-RWKV_TEST_SEQ = 512
+#: the sweep's shapes, each at its kind: a few rows of a short sequence
+#: (the traced operators are what they are at any length, and DTensor
+#: works out a layout once a shape; RWKV6's chunk loop takes four chunks),
+#: and ``long_500k``'s decode just past the long-context threshold
+SWEEP_SHAPES = {"train_4k": (64, 4), "prefill_32k": (64, 4),
+                "decode_32k": (64, 4),
+                "long_500k": (dryrun.LONG_CONTEXT_SEQ + 64, 1)}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dryrun_records_every_shape(arch, monkeypatch):
-    """Each config's smoke variant at all four shapes on the production
-    mesh: every key of the reference's record, the card's rates in
-    ``hw``, and ``long_500k`` skipped exactly where the reference skips
-    it (a config not ``long_context_ok``)."""
+    """Each config's smoke variant at all four shapes (train, prefill,
+    decode, and ``long_500k``'s long-context decode) traced sharded on a
+    fake (2, 2) mesh (``REPRO_DRYRUN_MESH``; the production mesh is
+    ``test_dryrun_full_width_full_depth_llama_train_4k``'s): every key of
+    the reference's record, the card's rates in ``hw``, rank 0's
+    collectives and their term, and ``long_500k`` skipped exactly where
+    the reference skips it (a config not ``long_context_ok``)."""
     monkeypatch.setattr(dryrun, "get_config",
                         lambda name: smoke_variant(get_config(name)))
-    overrides = None
-    if get_config(arch).n_heads == 0:  # rwkv
-        overrides = {"rwkv_chunk": 16}
-        for name in ("train_4k", "prefill_32k"):
-            monkeypatch.setitem(INPUT_SHAPES, name, dataclasses.replace(
-                INPUT_SHAPES[name], seq_len=RWKV_TEST_SEQ))
+    monkeypatch.setenv("REPRO_DRYRUN_MESH", "2,2")
+    overrides = {"rwkv_chunk": 16} if get_config(arch).n_heads == 0 \
+        else None
+    for name, (seq, batch) in SWEEP_SHAPES.items():
+        monkeypatch.setitem(INPUT_SHAPES, name, dataclasses.replace(
+            INPUT_SHAPES[name], seq_len=seq, global_batch=batch))
     for name, shape in INPUT_SHAPES.items():
         rec = dryrun.run_dryrun(arch, name, verbose=False,
                                 overrides=overrides)
@@ -147,6 +150,7 @@ def test_dryrun_records_every_shape(arch, monkeypatch):
         want = RECORD_KEYS | ({"long_context"} if shape.kind == "decode"
                               else set())
         assert set(rec) == want, (arch, name)
+        assert rec.get("long_context", False) == (name == "long_500k")
         roof = rec["roofline"]
         assert set(roof) == ROOFLINE_KEYS
         assert set(roof["terms"]) == {"compute_s", "memory_s",
@@ -155,25 +159,37 @@ def test_dryrun_records_every_shape(arch, monkeypatch):
         assert roof["hw"]["peak_flops"] == PEAK_FLOPS_BF16 == 989e12
         assert roof["hw"]["hbm_bw"] == HBM_BW == 3.35e12
         assert roof["hw"]["link_bw"] == NVLINK_BW == 450e9
-        assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
-        assert roof["collectives"]["bytes_per_device"] == 0
-        assert roof["terms"]["collective_s"] == 0.0
+        assert rec["n_devices"] == 4 and rec["mesh"] == "2x2"
+        coll = roof["collectives"]
+        assert coll["bytes_per_device"] == sum(coll["by_kind"].values()) > 0
+        assert sum(coll["counts"].values()) > 0
+        assert roof["terms"]["collective_s"] \
+            == coll["bytes_per_device"] / NVLINK_BW
         assert roof["traced_flops_global"] > 0
-        assert roof["per_device"]["flops"] \
-            == roof["traced_flops_global"] / 256
+        assert roof["traced_flops_global"] \
+            == roof["per_device"]["flops"] * 4
         assert roof["bound_s"] == roof["terms"][roof["dominant"]]
         assert rec["step"] == shape.kind
         assert roof["memory"]["argument_size_in_bytes"] > 0
 
 
 def test_dryrun_full_width_full_depth_llama_train_4k():
+    """The CLI's record (``--arch llama3.2-1b --shape train_4k``): the
+    step traced sharded on the production 16 x 16 mesh over a fake
+    process group, counted as rank 0's local program, remat on."""
+    import torch.distributed as dist
     rec = dryrun.run_dryrun("llama3.2-1b", "train_4k", verbose=False)
     roof = rec["roofline"]
-    # 6·N·D is the products of the dense layers; the trace adds the
-    # attention's 4·hd a visible pair, three times over (forward, and the
-    # backward's two products a side)
-    assert roof["model_flops_global"] < roof["traced_flops_global"] \
-        < 1.5 * roof["model_flops_global"]
+    assert rec["n_devices"] == 256 and rec["mesh"] == "16x16"
+    assert not dist.is_initialized()
+    # every device does at least its share of 6·N·D (the attention, the
+    # forward recompute and the work a layout repeats come on top)
+    assert roof["per_device"]["flops"] > roof["model_flops_global"] / 256
+    assert roof["traced_flops_global"] == roof["per_device"]["flops"] * 256
+    coll = roof["collectives"]
+    for kind in ("all-gather", "all-reduce", "reduce-scatter"):
+        assert coll["counts"][kind] > 0 and coll["by_kind"][kind] > 0
+    assert roof["terms"]["collective_s"] > 0
     mem = roof["memory"]
     assert mem["alias_size_in_bytes"] > 0
     assert mem["output_size_in_bytes"] >= mem["alias_size_in_bytes"]
@@ -224,6 +240,9 @@ def test_traced_flops_and_argument_bytes_equal_a_real_cpu_run(kind):
     assert fc.get_total_flops() == rec["roofline"]["traced_flops_global"]
     assert fa.OP in {k for v in fc.get_flop_counts().values() for k in v}
     assert rec["roofline"]["memory"]["argument_size_in_bytes"] == arg_bytes
+    # one device: no group, no collective
+    assert rec["roofline"]["collectives"]["bytes_per_device"] == 0
+    assert rec["roofline"]["terms"]["collective_s"] == 0.0
 
 
 @pytest.mark.parametrize("mode", ["2d", "tp_zero1"])
@@ -267,10 +286,11 @@ def test_main_writes_out(tmp_path, monkeypatch, capsys):
     assert dryrun.main(["--arch", "llama3.2-1b", "--shape", "decode_32k",
                         "--mode", "tp_zero1", "--no-donate",
                         "--set", "attn_kv_block=2048",
+                        "--set", "remat=false",
                         "--out", str(out)]) == 0
     rec = json.loads(out.read_text())
     assert rec["mesh"] == "2x2" and rec["mode"] == "tp_zero1"
-    assert rec["overrides"] == {"attn_kv_block": 2048}
+    assert rec["overrides"] == {"attn_kv_block": 2048, "remat": False}
     assert rec["step"] == "decode" and not rec["long_context"]
     assert rec["roofline"]["memory"]["alias_size_in_bytes"] == 0
     assert rec["roofline"]["hw"]["card"] \
@@ -278,9 +298,10 @@ def test_main_writes_out(tmp_path, monkeypatch, capsys):
     assert dryrun.main(["--arch", "llama3.2-1b", "--shape",
                         "long_500k"]) == 0
     assert "SKIPPED" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="remat"):
+    with pytest.raises(ValueError, match="analysis_unroll.*always "
+                                         "unrolled"):
         dryrun.run_dryrun("llama3.2-1b", "train_4k",
-                          overrides={"remat": False})
+                          overrides={"analysis_unroll": True})
 
 
 # ------------------------------------------------ the attention operator

@@ -54,7 +54,8 @@ from repro_torch.models import model as TM
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.serving import engine as TE
 from repro_torch.training.loop import make_train_step
-from test_torch_spmd import _rank_decode, _rank_forward, _rank_train
+from test_torch_spmd import (_rank_count, _rank_decode, _rank_forward,
+                             _rank_prefill_caches, _rank_train)
 
 RTOL = 1e-5
 
@@ -144,13 +145,23 @@ TRAIN_CASES = {
     "fsdp": ("llama3.2-1b", {"sharding_mode": "fsdp"}, 32),
     "ulysses": ("starcoder2-7b", {"ulysses_attention": True}, 256),
 }
+# the recurrent blocks (the RG-LRU's scan and RWKV6's WKV on each rank's
+# local channels or heads) in the three partition modes
+for _mode in ("2d", "tp_zero1", "fsdp"):
+    TRAIN_CASES[f"rec_{_mode}"] = ("recurrentgemma-2b",
+                                   {"sharding_mode": _mode}, 32)
+    TRAIN_CASES[f"rwkv_{_mode}"] = ("rwkv6-7b", {"sharding_mode": _mode}, 32)
+#: the first block's matrix whose local shape shows the layout, by config
+LAYOUT_MATRIX = {"recurrentgemma-2b": ("rec", "w_rec_in"),
+                 "rwkv6-7b": ("tmix", "wr")}
 
 
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
 def test_sharded_train_step_matches_reference(group, case):
     name, kw, S = TRAIN_CASES[case]
     cfg, params_np, tokens = _case_inputs(name, S, **kw)
-    group.start(_rank_train, cfg, params_np, tokens)  # refs meanwhile
+    matrix = LAYOUT_MATRIX.get(name, ("attn", "wq"))
+    group.start(_rank_train, cfg, params_np, tokens, matrix)  # refs
     refs = _references(name, S, **kw)
     res = group.results()
     losses = [r[0] for r in res]
@@ -159,15 +170,16 @@ def test_sharded_train_step_matches_reference(group, case):
     for ref_loss, ref, what in refs:
         assert abs(losses[0] - ref_loss) <= RTOL * abs(ref_loss), what
         _check_params(got, ref, f"{case} vs {what}")
-    # the layout is real: the stacked wq (1, d, H*hd) is split in four in
-    # 2d, over model in tp_zero1 (its momentum also over data), over the
-    # whole mesh in fsdp
-    d, hdh = cfg.d_model, cfg.n_heads * cfg.hd
+    # the layout is real: the stacked wq (1, d, H*hd) (or the recurrent
+    # block's input matrix) is split in four in 2d, over model in tp_zero1
+    # (its momentum also over data), over the whole mesh in fsdp
+    d, hdh = params_np["groups"][0][0][matrix[0]][matrix[1]].shape[1:]
     expect = {"2d": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2)),
               "tp_zero1": ((1, d, hdh // 2), (1, d // 2, hdh // 2)),
               "fsdp": ((1, d // 4, hdh), (1, d // 4, hdh)),
               "ulysses": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2))}
-    assert res[0][2] == expect[case]
+    assert res[0][2] == expect[case.split("_", 1)[-1]
+                               if name in LAYOUT_MATRIX else case]
 
 
 #: decode cases: (config overrides, batch, the ``seq`` axis, the first
@@ -233,3 +245,97 @@ def test_sharded_forward_matches_reference(group, case):
     assert _rel(aux, float(jaux)) <= RTOL and _rel(aux, float(taux)) <= RTOL
     if case == "moe":
         assert float(jaux) > 0
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "rwkv6-7b"])
+def test_sharded_recurrent_prefill_and_decode(group, name):
+    """The RG-LRU and RWKV6 blocks' prefill and three teacher-forced
+    decode steps on the mesh (their states laid out by ``cache_pspecs``:
+    channels or heads over ``model``), against ``repro``'s and the
+    port's unsharded logits."""
+    jcfg, cfg = _configs(name, max_decode_len=4)
+    jparams, params_np, prompt = _inputs(jcfg, 4, 32)
+    steps = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (4, 3)).astype(np.int32)
+    group.start(_rank_decode, cfg, params_np, prompt, steps)
+    jl, jc = JE.make_prefill_step(jcfg)(jparams,
+                                        {"tokens": jnp.asarray(prompt)})
+    want = [np.asarray(jl)]
+    tparams = from_numpy_state(params_np, "cpu")
+    tl, tc = TE.make_prefill_step(cfg)(tparams,
+                                       {"tokens": torch.from_numpy(prompt)})
+    port = [tl.numpy()]
+    for i in range(steps.shape[1]):
+        pos = prompt.shape[1] + i
+        jl, jc = JE.make_decode_step(jcfg)(
+            jparams, jnp.asarray(steps[:, i:i + 1]), jc, pos)
+        want.append(np.asarray(jl))
+        tl, tc = TE.make_decode_step(cfg)(
+            tparams, torch.from_numpy(steps[:, i:i + 1]), tc, pos)
+        port.append(tl.numpy())
+    got, layout = group.results()[0]
+    assert "Shard" in layout[0]
+    for g, w, p in zip(got, want, port):
+        assert _rel(g, w) <= RTOL and _rel(g, p) <= RTOL
+
+
+#: ring caches: (config, the prompt's length past a multiple of the ring)
+RING_CASES = {"window": ("gemma3-27b", 40), "chunked":
+              ("llama4-maverick-400b-a17b", 40)}
+
+
+@pytest.mark.parametrize("kind", sorted(RING_CASES))
+def test_sharded_ring_cache_prefill(group, kind):
+    """``window`` and ``chunked`` prefill write their ring caches under the
+    mesh: gathered, every cache equals the unsharded prefill's (within
+    1e-5 relative L2, the K/V projections add their partial sums in
+    another order; the empty slots exactly zero), and the last logits
+    ``repro``'s."""
+    name, S = RING_CASES[kind]
+    jcfg, cfg = _configs(name)
+    assert any(b.split("_")[0] == kind for p, _n in cfg.layer_groups
+               for b in p)
+    jparams, params_np, prompt = _inputs(jcfg, 4, S)
+    group.start(_rank_prefill_caches, cfg, params_np, prompt)
+    try:
+        jl, _jc = JE.make_prefill_step(jcfg)(
+            jparams, {"tokens": jnp.asarray(prompt)})
+        with torch.no_grad():
+            _tl, tc = TE.make_prefill_step(cfg)(
+                from_numpy_state(params_np, "cpu"),
+                {"tokens": torch.from_numpy(prompt)})
+    finally:
+        logits, caches, placements = group.results()[0]
+    assert "Shard" in placements
+    assert _rel(logits, np.asarray(jl)) <= RTOL
+    got, want = leaves(caches), leaves(to_numpy_state(tc))
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= RTOL
+        assert np.array_equal(g == 0, w == 0)
+
+
+@pytest.mark.parametrize("name", ["llama3.2-1b", "recurrentgemma-2b"])
+def test_fake_trace_counts_what_the_ranks_run(group, name):
+    """The dry run's trace of a ``2d`` train step on a fake (2, 2) mesh
+    (rank 0's local program) against the same step run by the four gloo
+    ranks under the same counter: per-device FLOPs, and collectives'
+    counts and bytes by kind, equal on every rank."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_abstract_mesh
+    cfg, params_np, tokens = _case_inputs(name, 32)
+    group.start(_rank_count, cfg, params_np, tokens, "train")
+    try:
+        rec = dryrun.dryrun_record(
+            cfg, InputShape("t", 32, 4, "train"),
+            make_abstract_mesh((2, 2), ("data", "model")))
+    finally:
+        ranks = group.results()
+    roof = rec["roofline"]
+    want = {"flops": roof["per_device"]["flops"],
+            "collectives": {k: roof["collectives"][k] for k in (
+                "bytes_per_device", "by_kind", "counts")}}
+    assert want["collectives"]["bytes_per_device"] > 0
+    for rank, got in enumerate(ranks):
+        assert got == want, rank

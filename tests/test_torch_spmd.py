@@ -41,10 +41,11 @@ def _rank_mesh(cfg):
     return dm, virtual_mesh(dm)
 
 
-def _rank_train(cfg, params_np, tokens):
+def _rank_train(cfg, params_np, tokens, matrix=("attn", "wq")):
     """One train step on the ranks: returns the loss and (rank 0) the
-    gathered params, with the local shape of one matrix and of its
-    momentum (to see the layout is real)."""
+    gathered params, with the local shape of one matrix of the first
+    block (``matrix``, its path there) and of its momentum (to see the
+    layout is real)."""
     import torch.distributed as dist
 
     from repro_torch.sharding import context as shctx
@@ -68,8 +69,8 @@ def _rank_train(cfg, params_np, tokens):
             dp, do, loss = make_train_step(cfg, AdamWConfig())(dp, do, db)
     finally:
         shctx.set_batch_axes(None)
-    wq = dp["groups"][0][0]["attn"]["wq"]
-    mq = do["m"]["groups"][0][0]["attn"]["wq"]
+    wq = dp["groups"][0][0][matrix[0]][matrix[1]]
+    mq = do["m"]["groups"][0][0][matrix[0]][matrix[1]]
     # the forward's ``map_leaves(lambda t: t[i], pp)`` keeps a DTensor's
     # layout: the stacked dim is never sharded, every other shifts by one
     from torch.distributed.tensor import Shard
@@ -125,7 +126,8 @@ def _rank_decode(cfg, params_np, prompt, steps, seq_axis=None):
         with shctx.activate(dm):
             logits, caches = TE.make_prefill_step(cfg)(dp, db)
             out.append(logits.full_tensor().numpy())
-            k = caches[0][0]["k"]
+            first = caches[0][0]
+            k = first["k" if "k" in first else sorted(first)[0]]
             layout = (str(k.placements), tuple(k.to_local().shape))
             decode = TE.make_decode_step(cfg)
             for i in range(steps.shape[1]):
@@ -135,6 +137,56 @@ def _rank_decode(cfg, params_np, prompt, steps, seq_axis=None):
     finally:
         shctx.set_seq_axis(None)
     return out, layout
+
+
+def _rank_prefill_caches(cfg, params_np, prompt):
+    """The sharded prefill of ``prompt``: its last logits and every decode
+    cache, gathered, and the placements of the first cache leaf."""
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                param_pspecs)
+    dm, vm = _rank_mesh(cfg)
+    params = from_numpy_state(params_np, "cpu")
+    batch = {"tokens": torch.from_numpy(prompt)}
+    dp = distribute_tree(params, param_pspecs(cfg, params, vm), dm)
+    db = distribute_tree(batch, batch_pspecs(cfg, "prefill", batch, vm), dm)
+    with shctx.activate(dm):
+        logits, caches = TE.make_prefill_step(cfg)(dp, db)
+    first = [t for t in caches[0][0].values()][0]
+    return (logits.full_tensor().numpy(),
+            to_numpy_state(map_leaves(lambda t: t.full_tensor(), caches)),
+            str(first.placements))
+
+
+def _rank_count(cfg, params_np, tokens, kind):
+    """The ``train`` step (or ``prefill``) of ``cfg`` on the ranks under
+    the dry run's counter (:class:`repro_torch.launch.analysis.
+    TraceCounter`): this rank's FLOPs and collectives."""
+    from repro_torch.launch.analysis import TraceCounter
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                opt_pspecs, param_pspecs)
+    dm, vm = _rank_mesh(cfg)
+    params = from_numpy_state(params_np, "cpu")
+    batch = {"tokens": torch.from_numpy(tokens)}
+    db = distribute_tree(batch, batch_pspecs(cfg, kind, batch, vm), dm)
+    if kind == "train":
+        args = (distribute_tree(
+            map_leaves(lambda t: t.requires_grad_(True), params),
+            param_pspecs(cfg, params, vm), dm),
+            distribute_tree(init_opt_state(params),
+                            opt_pspecs(cfg, params, vm), dm), db)
+        step = make_train_step(cfg, AdamWConfig())
+    else:
+        args = (distribute_tree(params, param_pspecs(cfg, params, vm), dm),
+                db)
+        step = TE.make_prefill_step(cfg)
+    counter = TraceCounter(args)
+    with shctx.activate(dm), counter:
+        step(*args)
+    return {"flops": counter.flops, "collectives": counter.collectives()}
 
 
 # ---------------------------------------- test_torch_sharded_checkpoint
