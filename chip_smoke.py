@@ -207,13 +207,16 @@ Phases, any failure exits non-zero:
    path, so both run the attention kernel), each traced by
    ``repro_torch.launch.dryrun`` on fake CUDA tensors on a (1, 1) mesh,
    then run for real from seeded params: a warm-up, one run under
-   ``FlopCounterMode`` and three timed with CUDA events. Fails unless
-   the traced FLOPs equal the counted ones and the dry run's argument
-   bytes equal the real arguments' bytes, both exactly, and the kernel
-   launched in both steps; logs the predicted temp bytes beside the peak
-   device memory beyond the arguments, the step time beside the dry
-   run's bound, and one ``run_dryrun("gemma3-27b", "prefill_32k")``
-   record's trace time and terms. One ``dryrun report`` JSON line.
+   ``FlopCounterMode``, one under the dry run's counter recording its
+   operators, and three timed with CUDA events. Fails unless the traced
+   FLOPs equal the counted ones, the real step's per-kind op profile
+   (each operator kind's count and result bytes) equals the trace's and
+   the dry run's argument bytes equal the real arguments' bytes, all
+   exactly, and the kernel launched in both steps; logs the predicted
+   temp bytes beside the peak device memory beyond the arguments, the
+   step time beside the dry run's bound, and one
+   ``run_dryrun("gemma3-27b", "prefill_32k")`` record's trace time and
+   terms. One ``dryrun report`` JSON line.
 14. The examples (slice 16), after phase 13, each under
    ``build/chip_smoke_examples/<name>/``: the six ``examples/torch``
    programs a user runs first, in process on the card through their
@@ -245,10 +248,23 @@ Phases, any failure exits non-zero:
    bit-exact to the gathered state; the ranks restore it elastically onto
    a ``(1, 4)`` mesh; and they prefill 2 prompts of 2,304 tokens (past
    the direct path's 2,048, so the attention kernel runs on each rank's
-   local heads). Fails unless every rank launched ``flash_attention``
-   and ``checksum_u32``; one rank's local attention is held against its
-   plain version. One ``sharded report`` JSON line (step time, save
-   stall and persist, bytes by rank, restore times, launches by rank).
+   local heads) from seeded serving params and decode 8 steps on the
+   ``DTensor`` caches, then a ``decode_kv_seq_shard`` prefill (the slots
+   over ``model``) and a long-context one (batch 1, the slots over
+   ``data``) decode 4 steps each (slice 19), every step teacher-forced
+   with the greedy tokens of the same decode run unsharded in this
+   process: every logits within :data:`SHARD_LOGIT_RTOL` relative L2,
+   every rank's first k cache as ``cache_pspecs`` lays it out. Each
+   rank's step, 2d prefill and first decode step are counted by the dry
+   run's counter and equal the fake (2, 2) trace in FLOPs, collectives
+   and the per-kind op profile. Then gradient passes of
+   recurrentgemma-2b, rwkv6-7b and dbrx-132b's MoE (slice 19; the
+   unsharded pass routed as the ranks did) at full width against the
+   same passes unsharded. Fails unless every rank launched
+   ``flash_attention`` and ``checksum_u32``; one rank's local attention
+   is held against its plain version. One ``sharded report`` JSON line
+   (step time, save stall and persist, bytes by rank, restore times, the
+   decode cases, the zoo passes, launches by rank).
 16. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -256,6 +272,7 @@ Phases, any failure exits non-zero:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -402,12 +419,26 @@ SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ = 2, 2304
 #: the decode headroom of the sharded prefill's caches
 SHARD_DECODE_LEN = 16
 SHARD_CACHE_BYTES = 2 << 30
-#: phase 15's recurrent gradient passes (slice 18), at full width on the
-#: ranks against the same pass unsharded in this process: the configs
-#: cut to one repetition of their pattern, at this many rows and tokens
+#: phase 15's sharded decode (slice 19), from seeded params: the 2d
+#: prefill's caches decoded this many steps, then a ``decode_kv_seq_shard``
+#: prefill (batch 2) and a long-context one (batch 1, the ``seq`` axis on
+#: ``data``) of the same length decoded this many steps each, every step
+#: teacher-forced with the unsharded decode's greedy tokens. The kv
+#: case's cache holds the prompt and its headroom up to a multiple of
+#: this many slots: the reference shards the slots over ``model`` only
+#: then (``T % 128 == 0``)
+SHARD_DECODE_STEPS, SHARD_CASE_STEPS = 8, 4
+SHARD_KV_ALIGN = 128
+#: phase 15's gradient passes of the rest of the zoo (slice 18; dbrx's
+#: MoE since slice 19), at full width on the ranks against the same pass
+#: unsharded in this process: the configs cut to one repetition of their
+#: pattern, at this many rows and tokens; the MoE at 2 x 256 tokens, two
+#: of dbrx's 256-token groups, so its groups split over ``data`` (at 2 x
+#: 128 the one group is whole on every rank)
 SHARD_ZOO_PATTERNS = {"recurrentgemma-2b": ("rec", "rec", "window"),
-                      "rwkv6-7b": ("rwkv",)}
+                      "rwkv6-7b": ("rwkv",), "dbrx-132b": ("full_moe",)}
 SHARD_ZOO_BATCH, SHARD_ZOO_SEQ = 2, 128
+SHARD_MOE_BATCH, SHARD_MOE_SEQ = 2, 256
 #: bf16's unit roundoff: the sharded step adds its partial sums in other
 #: orders than the unsharded one, so its loss and the gradients' global
 #: norm lie within a few units, each bf16 param within one unit (a
@@ -416,6 +447,13 @@ SHARD_ZOO_BATCH, SHARD_ZOO_SEQ = 2, 128
 BF16_U = 2.0 ** -8
 SHARD_LOSS_RTOL, SHARD_PARAM_RTOL = 4 * BF16_U, 2 * BF16_U
 SHARD_GRAD_RTOL = 5 * BF16_U
+#: the sharded decode's logits (prefill's last and each step's) against
+#: the unsharded decode's, by relative L2 error: bf16 logits after two
+#: layers whose partial sums and softmax add in other orders lie within
+#: a few units (1.1e-2 at the smoke config on the CPU, whose bf16
+#: products round more often than the card's); a wrong slot, mask or
+#: softmax reads O(1)
+SHARD_LOGIT_RTOL = 8 * BF16_U
 #: the update the step applied (the fp32 master after less before)
 #: against the unsharded one's. AdamW's first step moves each element
 #: by ``lr`` times the sign of its gradient (``|g| >> eps``), so an
@@ -3377,8 +3415,10 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
     with ``remat`` on (the config's default) and off, is traced on fake
     tensors on a (1, 1) mesh, then run for real from seeded params: the
     gradients once, then the step once to warm up, once under
-    ``FlopCounterMode``, and :data:`DRYRUN_TIMED` times timed. Fails
-    unless the traced FLOPs equal the counted FLOPs exactly, the dry run's
+    ``FlopCounterMode``, once under the dry run's counter recording its
+    operators, and :data:`DRYRUN_TIMED` times timed. Fails unless the
+    traced FLOPs equal the counted FLOPs exactly, the real step's per-kind
+    op profile equals the trace's, the dry run's
     argument bytes equal the real arguments' bytes exactly, the attention
     kernel launched in each real step, the remat step launched it once
     more a layer and a step (the recompute), and the two training steps'
@@ -3396,6 +3436,7 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
     from repro_torch.core.tree import leaves, map_leaves
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import dryrun
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.launch.mesh import make_abstract_mesh
     from repro_torch.models import model as M
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
@@ -3412,7 +3453,7 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
     for name, c in steps:
         kind = name.split("_")[0]
         shape = InputShape(f"{kind}_{batch}x{seq_len}", seq_len, batch, kind)
-        rec = dryrun.dryrun_record(c, shape, mesh)
+        rec = dryrun.dryrun_record(c, shape, mesh, record_ops=True)
         roof = rec["roofline"]
         gen = torch.Generator(device=device).manual_seed(SEED)
         params = M.init_params(c, gen, torch.device(device))
@@ -3441,6 +3482,13 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
         counted = fc.get_total_flops()
         peak_temp = (torch.cuda.max_memory_allocated() - base) \
             if on_card else None
+        # the same step under the dry run's counter, recording its
+        # operators: the per-kind op profile the trace predicts
+        profiler = TraceCounter(args, record_ops=True)
+        with profiler:
+            step(*args)
+        profile = profiler.profile()
+        del profiler
         step_s = _timed_steps(device, lambda: step(*args), DRYRUN_TIMED)
         launched = fa.KERNEL.launches - launches0
         if counted != roof["traced_flops_global"]:
@@ -3450,9 +3498,15 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
             fail(f"dry run {name}: argument_size_in_bytes "
                  f"{roof['memory']['argument_size_in_bytes']}, the real "
                  f"arguments hold {arg_bytes} bytes")
-        if on_card and launched < 2 + DRYRUN_TIMED:
+        if profile != rec["op_profile"]:
+            diff = {k: (profile.get(k), rec["op_profile"].get(k))
+                    for k in set(profile) | set(rec["op_profile"])
+                    if profile.get(k) != rec["op_profile"].get(k)}
+            fail(f"dry run {name}: the real step's op profile differs from "
+                 f"the trace's in (real, traced) {json.dumps(diff)}")
+        if on_card and launched < 3 + DRYRUN_TIMED:
             fail(f"dry run {name}: the attention kernel launched {launched} "
-                 f"times in {2 + DRYRUN_TIMED} real steps")
+                 f"times in {3 + DRYRUN_TIMED} real steps")
         out[name] = {
             "fake_device": rec["fake_device"], "trace_s": rec["trace_s"],
             "flops": counted, "argument_bytes": arg_bytes,
@@ -3460,7 +3514,10 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
             "peak_temp_bytes": peak_temp, "step_s": step_s,
             "bound_s": roof["bound_s"], "dominant": roof["dominant"],
             "terms": roof["terms"], "step_over_bound": step_s
-            / roof["bound_s"], "flash_launches": launched}
+            / roof["bound_s"], "flash_launches": launched,
+            "op_kinds": len(profile),
+            "op_count": sum(n for n, _b in profile.values()),
+            "op_result_bytes": sum(b for _n, b in profile.values())}
         log(f"dry run {name} at {batch} x {seq_len} tokens: traced on fake "
             f"{rec['fake_device']} tensors in {rec['trace_s']:.3f} s; "
             f"FLOPs {counted} traced and counted; argument bytes {arg_bytes} "
@@ -3469,7 +3526,10 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
             f"arguments {peak_temp}; step {step_s * 1e3:.3f} ms against a "
             f"bound of {roof['bound_s'] * 1e3:.3f} ms "
             f"({out[name]['step_over_bound']:.3f}x, {roof['dominant']}); "
-            f"attention kernel launches {launched}{tail}")
+            f"attention kernel launches {launched}; op profile "
+            f"{out[name]['op_count']} operators of {len(profile)} kinds, "
+            f"{out[name]['op_result_bytes']} result bytes, traced and "
+            f"run{tail}")
         del args, params, step
         gc.collect()
         if on_card:
@@ -3479,10 +3539,10 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
     # gradients are the same arithmetic
     extra = out["train"]["flash_launches"] \
         - out["train_no_remat"]["flash_launches"]
-    if on_card and extra != cfg.n_layers * (2 + DRYRUN_TIMED):
+    if on_card and extra != cfg.n_layers * (3 + DRYRUN_TIMED):
         fail(f"dry run remat: the attention kernel launched {extra} times "
              f"more with remat, the recompute is "
-             f"{cfg.n_layers * (2 + DRYRUN_TIMED)}")
+             f"{cfg.n_layers * (3 + DRYRUN_TIMED)}")
     num = den = 0.0
     same = True
     for a, b in zip(grads["train"], grads["train_no_remat"]):
@@ -3519,12 +3579,13 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
 
 def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
                         prefill_len: int) -> dict:
-    """Phase 15's ``2d`` train step (``batch`` x ``seq``) and prefill
+    """Phase 15's ``2d`` train step (``batch`` x ``seq``), prefill
     (``prefill_batch`` x ``prefill_len``, :data:`SHARD_DECODE_LEN` of
-    decode headroom) traced by the dry run on a fake (2, 2) mesh in this
-    process, which holds no process group before or after: by step, what
-    :func:`_counted` reads of a real rank, the collective term and the
-    trace's seconds."""
+    decode headroom) and decode step (a token a row against that cache)
+    traced by the dry run on a fake (2, 2) mesh in this process, which
+    holds no process group before or after: by step, what
+    :func:`_counted` reads of a real rank (FLOPs, collectives and the
+    per-kind op profile), the collective term and the trace's seconds."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3532,20 +3593,24 @@ def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_abstract_mesh
     mesh = make_abstract_mesh(SHARD_DIMS, SHARD_AXES)
+    serve = dataclasses.replace(cfg, sharding_mode="2d",
+                                max_decode_len=SHARD_DECODE_LEN)
     out = {}
     for kind, c, b, n in (
             ("train", dataclasses.replace(cfg, sharding_mode="2d"), batch,
              seq),
-            ("prefill", dataclasses.replace(
-                cfg, sharding_mode="2d", max_decode_len=SHARD_DECODE_LEN),
-             prefill_batch, prefill_len)):
-        rec = dryrun.dryrun_record(c, InputShape(kind, n, b, kind), mesh)
+            ("prefill", serve, prefill_batch, prefill_len),
+            ("decode", serve, prefill_batch,
+             prefill_len + SHARD_DECODE_LEN)):
+        rec = dryrun.dryrun_record(c, InputShape(kind, n, b, kind), mesh,
+                                   record_ops=True)
         if dist.is_initialized():
             fail("the sharded trace left a process group behind")
         roof = rec["roofline"]
         out[kind] = {"flops": roof["per_device"]["flops"],
                      "collectives": {k: roof["collectives"][k] for k in (
                          "bytes_per_device", "by_kind", "counts")},
+                     "profile": rec["op_profile"],
                      "collective_s": roof["terms"]["collective_s"],
                      "bound_s": roof["bound_s"],
                      "dominant": roof["dominant"],
@@ -3574,7 +3639,8 @@ def run_dryrun_phase(cfg, path_launches: dict, card: str = "") -> dict:
     report["sharded_trace_s"] = time.perf_counter() - t1
     report["phase_s"] = time.perf_counter() - t0
     log(f"dry run path: {report['phase_s']:.1f} s (the sharded trace of "
-        f"phase 15's step and prefill {report['sharded_trace_s']:.1f} s); "
+        f"phase 15's step, prefill and decode "
+        f"{report['sharded_trace_s']:.1f} s); "
         f"launches {json.dumps(launches)} ({card})")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3791,7 +3857,7 @@ def _shard_rank_step() -> dict:
     t0 = time.perf_counter()
     # the train step (``make_train_step``'s two halves) under the dry
     # run's counter: this rank's FLOPs and collectives, for the trace
-    counter = TraceCounter((params, opt, _SHARD["batch"]))
+    counter = TraceCounter((params, opt, _SHARD["batch"]), record_ops=True)
     with shctx.activate(_SHARD["mesh"]):
         with counter:
             loss, grads = _loss_and_grads(_SHARD["cfg"], params,
@@ -3815,11 +3881,13 @@ def _shard_rank_step() -> dict:
 
 def _counted(counter) -> dict:
     """What :func:`repro_torch.launch.dryrun`'s record holds of a step:
-    the FLOPs a device and its collectives."""
+    the FLOPs a device, its collectives and its per-kind op profile
+    (``counter`` records its operators)."""
     coll = counter.collectives()
     return {"flops": float(counter.flops),
             "collectives": {k: coll[k] for k in ("bytes_per_device",
-                                                 "by_kind", "counts")}}
+                                                 "by_kind", "counts")},
+            "profile": counter.profile()}
 
 
 def _owned_region(t):
@@ -3854,12 +3922,27 @@ def _shard_rank_errs(ref: dict) -> dict:
         for (index, g), w in zip(_SHARD["cmp"][name], ref[ref_name]):
             if index is None:
                 continue
-            g, w = g.double(), w[index].double()
-            num += float(((g - w) ** 2).sum())
-            den += float((w ** 2).sum())
+            a, b = _sq_err(g, w[index])
+            num += a
+            den += b
         out[name] = (num, den)
     _SHARD.pop("cmp")
     return out
+
+
+def _sq_err(got, want) -> tuple:
+    """``(sum of squared differences, sum of squares)`` of two tensors of
+    one shape in fp64, 2**24 elements at a time (four ranks' fp64 copies
+    of a full-width expert weight at once would not fit beside the
+    state)."""
+    got, want = got.reshape(-1), want.reshape(-1)
+    num = den = 0.0
+    for i in range(0, got.numel(), 1 << 24):
+        g = got[i:i + (1 << 24)].double()
+        w = want[i:i + (1 << 24)].double()
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+    return num, den
 
 
 def _shard_rank_snapshot() -> None:
@@ -3992,29 +4075,131 @@ def _shard_rank_elastic(root: str) -> dict:
                                  .to_local().shape)}
 
 
-def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
-    """The sharded prefill (the caches laid out by ``cache_pspecs``); the
-    launch counts read just after (the main path ends here). Rank 0 then
-    holds the first local attention call's output against the plain
-    version on the same local q, k, v."""
-    import dataclasses
+#: the seeds of phase 15's serving params and of its prompts (batch 2,
+#: then the long-context batch 1)
+SHARD_SERVE_SEED, SHARD_PROMPT_SEED, SHARD_LONG_SEED = SEED + 5, SEED + 2, \
+    SEED + 6
 
+
+def _init_sharded(cfg, seed: int, dm):
+    """``init_params(cfg)`` from ``seed`` laid out by ``param_pspecs`` on
+    ``dm``, a leaf at a time: this rank makes each leaf whole (the draws
+    ``init_params`` makes) and keeps its region, so it never holds the
+    whole tree (dbrx's one layer is 8.98 GB)."""
+    import torch
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.models.model import init_params, param_shapes
+    from repro_torch.sharding.partition import (distribute_tree,
+                                                mesh_device, param_pspecs)
+    from repro_torch.sharding.sharded import _spec_at
+    dev = mesh_device(dm)
+    specs = param_pspecs(cfg, param_shapes(cfg), virtual_mesh(dm))
+
+    def place(path, leaf):
+        return distribute_tree({"x": leaf}, {"x": _spec_at(specs, path)},
+                               dm)["x"]
+    return init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                       dev, place=place)
+
+
+def _serve_cfg(decode_len: int, **kw):
+    import dataclasses
+    return dataclasses.replace(_SHARD["cfg"], sharding_mode="2d",
+                               max_decode_len=decode_len, **kw)
+
+
+def _kv_decode_len(prompt_len: int) -> int:
+    """The ``decode_kv_seq_shard`` case's headroom: the cache's slots up
+    to the next multiple of :data:`SHARD_KV_ALIGN` past the prompt."""
+    return SHARD_KV_ALIGN - prompt_len % SHARD_KV_ALIGN
+
+
+def _decode_cases(batch: int, prompt_len: int) -> dict:
+    """Phase 15's decode cases: name -> (config overrides, decode
+    headroom, batch, prompt seed, the ``seq`` axis, steps)."""
+    return {"2d": ({}, SHARD_DECODE_LEN, batch, SHARD_PROMPT_SEED, None,
+                   SHARD_DECODE_STEPS),
+            "decode_kv_seq_shard": ({"decode_kv_seq_shard": True},
+                                    _kv_decode_len(prompt_len), batch,
+                                    SHARD_PROMPT_SEED, None,
+                                    SHARD_CASE_STEPS),
+            "long_context": ({}, SHARD_DECODE_LEN, 1, SHARD_LONG_SEED,
+                             "data", SHARD_CASE_STEPS)}
+
+
+def _expected_local_cache(case: str, batch: int, slots: int, cfg) -> tuple:
+    """The first group's k as each rank holds it, by ``cache_pspecs``:
+    (repeats, B, T, KV, hd) with the batch over ``data`` and the KV heads
+    over ``model`` (2d), the slots over ``model`` (kv), or for batch 1 the
+    slots over ``data`` (long context)."""
+    n, KV, hd = cfg.layer_groups[0][1], cfg.n_kv_heads, cfg.hd
+    return {"2d": (n, batch // 2, slots, KV // 2, hd),
+            "decode_kv_seq_shard": (n, batch // 2, slots // 2, KV, hd),
+            "long_context": (n, 1, slots // 2, KV, hd)}[case]
+
+
+def _decode_reference(cfg, device: str, batch: int, prompt_len: int,
+                      seed: int, n: int) -> tuple:
+    """The unsharded prefill of the seeded prompt and ``n`` greedy decode
+    steps from the seeded serving params, in this process: the tokens
+    (B, n) and every logits (the prefill's last, then each step's), on
+    the host in fp32, and the seconds."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import (make_decode_step,
+                                            make_prefill_step)
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(
+        SHARD_SERVE_SEED), device)
+    prompt = _shard_tokens(cfg, device, batch, prompt_len, seed)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = make_prefill_step(cfg)(params, {"tokens": prompt})
+        decode = make_decode_step(cfg)
+        out, toks = [logits.float().cpu()], []
+        for i in range(n):
+            nxt = torch.argmax(logits[:, -1].float(), dim=-1) \
+                .to(torch.int32).reshape(batch, 1)
+            toks.append(nxt)
+            logits, caches = decode(params, nxt, caches, prompt_len + i)
+            out.append(logits.float().cpu())
+    seconds = time.perf_counter() - t0
+    return torch.cat(toks, dim=1).cpu(), out, seconds
+
+
+def _shard_rank_decode(case: str, batch: int, prompt_len: int,
+                       steps) -> dict:
+    """One of :func:`_decode_cases` on the mesh from the seeded serving
+    params: the sharded prefill (caches laid out by ``cache_pspecs``),
+    then a decode step a column of ``steps`` (B, n) on its ``DTensor``
+    caches. In ``2d`` the prefill and the first decode step run under the
+    dry run's counter, and rank 0 keeps the first local attention call's
+    q, k, v for :func:`_shard_rank_local_flash`. Returns
+    rank 0's logits on the host (fp32), the first layer's k as this rank
+    holds it, the seconds and the launch counts so far (the main path
+    ends with the last case)."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch.analysis import TraceCounter
-    from repro_torch.serving.engine import make_prefill_step
+    from repro_torch.launch.mesh import virtual_mesh
+    from repro_torch.serving.engine import (make_decode_step,
+                                            make_prefill_step)
     from repro_torch.sharding import context as shctx
     from repro_torch.sharding.partition import batch_pspecs, distribute_tree
-    from repro_torch.launch.mesh import virtual_mesh
-    cfg = dataclasses.replace(_SHARD["cfg"],
-                              max_decode_len=SHARD_DECODE_LEN)
-    dev = _SHARD["device"]
-    prompt = {"tokens": _shard_tokens(cfg, dev, batch, prompt_len,
-                                      SEED + 2)}
-    b = distribute_tree(prompt, batch_pspecs(cfg, "prefill", prompt,
-                                             virtual_mesh(_SHARD["mesh"])),
-                        _SHARD["mesh"])
+    kw, decode_len, batch, seed, seq_axis, n = _decode_cases(
+        batch, prompt_len)[case]
+    cfg = _serve_cfg(decode_len, **kw)
+    dm, dev = _SHARD["mesh"], _SHARD["device"]
+    vm = virtual_mesh(dm)
+    if "serve_params" not in _SHARD:
+        _SHARD["serve_params"] = _init_sharded(cfg, SHARD_SERVE_SEED, dm)
+    params = _SHARD["serve_params"]
+    prompt = {"tokens": _shard_tokens(cfg, dev, batch, prompt_len, seed)}
+    b = distribute_tree(prompt, batch_pspecs(cfg, "prefill", prompt, vm), dm)
+    cols = [{"t": steps[:, i:i + 1].contiguous().to(dev)} for i in range(n)]
+    cols = [distribute_tree(c, batch_pspecs(cfg, "decode", c, vm), dm)["t"]
+            for c in cols]
+    counted = case == "2d"
     calls = []
     orig = fa.flash_attention_cuda
 
@@ -4023,88 +4208,165 @@ def _shard_rank_prefill(batch: int, prompt_len: int) -> dict:
             calls.append((q.clone(), k.clone(), v.clone(), dict(kw)))
         return orig(q, k, v, **kw)
 
+    out = {"logits": []}
     fa.flash_attention_cuda = record
+    shctx.set_seq_axis(seq_axis)
     _shard_sync()
     t0 = time.perf_counter()
-    params = dict(_SHARD["params"])
-    counter = TraceCounter((params, b))
     try:
-        with shctx.activate(_SHARD["mesh"]), torch.no_grad():
-            with counter:
+        with shctx.activate(dm), torch.no_grad():
+            counter = TraceCounter((params, b), record_ops=True)
+            with counter if counted else contextlib.nullcontext():
                 logits, caches = make_prefill_step(cfg)(params, b)
-            last = logits.full_tensor()
+            out["logits"].append(logits.full_tensor().float().cpu())
+            _shard_sync()
+            out["prefill_s"] = time.perf_counter() - t0
+            if counted:
+                out["counted_prefill"] = _counted(counter)
+            decode = make_decode_step(cfg)
+            t0 = time.perf_counter()
+            for i in range(n):
+                counter = TraceCounter((params, cols[i], caches),
+                                       record_ops=True)
+                with counter if counted and i == 0 \
+                        else contextlib.nullcontext():
+                    logits, caches = decode(params, cols[i], caches,
+                                            prompt_len + i)
+                if counted and i == 0:
+                    out["counted_decode"] = _counted(counter)
+                out["logits"].append(logits.full_tensor().float().cpu())
+            _shard_sync()
+            out["decode_s"] = time.perf_counter() - t0
     finally:
         fa.flash_attention_cuda = orig
-    _shard_sync()
-    out = {"prefill_s": time.perf_counter() - t0,
-           "launches": _launches(), "counted": _counted(counter),
-           "finite": bool(torch.isfinite(last.float()).all()),
-           "cache": (str(caches[0][0]["k"].placements),
-                     tuple(caches[0][0]["k"].to_local().shape))}
-    if calls and dist.get_rank() == 0:
-        q, k, v, kw = calls[0]
-        got = orig(q, k, v, **kw)
-        want = fa.flash_attention_plain(q, k, v, **kw)
-        out["local_flash"] = {"shape": [tuple(q.shape), tuple(k.shape)],
-                              "max_abs_err": _flash_err(
-                                  got, want, FLASH_TOL["bfloat16"])}
+        shctx.set_seq_axis(None)
+    k = caches[0][0]["k"]
+    out["cache"] = (str(k.placements), tuple(k.to_local().shape))
+    out["slots"] = k.shape[2]
+    out["finite"] = all(bool(torch.isfinite(x).all()) for x in out["logits"])
+    out["launches"] = _launches()
+    if dist.get_rank():
+        out.pop("logits")
+    elif counted and calls:
+        _SHARD["flash_call"] = calls[0]
+    del caches
     return out
 
 
-def _shard_rank_zoo_grads(cfg, ref: list) -> dict:
+def _shard_rank_local_flash():
+    """Rank 0's first local attention call of the 2d prefill held against
+    the plain version on the same local q, k, v (after the main path's
+    launch counts are read: this launch is a check's)."""
+    from repro_torch.kernels import flash_attention as fa
+    call = _SHARD.pop("flash_call", None)
+    if call is None:
+        return None
+    q, k, v, kw = call
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    return {"shape": [tuple(q.shape), tuple(k.shape)],
+            "max_abs_err": _flash_err(got, want, FLASH_TOL["bfloat16"])}
+
+
+def _shard_rank_drop_serving() -> None:
+    _SHARD.pop("serve_params", None)
+    if _SHARD["device"].type == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _moe_routing(forced=None):
+    """``repro_torch.models.moe.route`` patched for the MoE pass: with
+    ``forced`` (G, S, K) every call routes each token to those experts
+    (the teacher-forced reference); either way each call's own top-k
+    experts (the router's choice) are kept, on the host, in the list
+    this yields."""
+    from repro_torch.models import moe
+    orig = moe.route
+    seen = []
+
+    def route(cfg, p, x, topk_idx=None):
+        seen.append(moe.top_k(cfg, p, x)[1].cpu())
+        if forced is not None:
+            topk_idx = forced.to(x.device)
+        return orig(cfg, p, x, topk_idx)
+    moe.route = route
+    try:
+        yield seen
+    finally:
+        moe.route = orig
+
+
+def _shard_rank_zoo_grads(cfg) -> dict:
     """A gradient pass of ``cfg`` on the mesh from the seeded params, laid
-    out ``2d``: ``(sum of squared differences, sum of squares)`` of this
-    rank's own gradient regions against the unsharded pass's ``ref``
-    (whole tensors, on a card by CUDA IPC handle), the loss and the
-    seconds."""
+    out ``2d``; the gradients are kept for :func:`_shard_rank_zoo_errs`.
+    Returns the loss, the seconds, the peak device memory and for a MoE
+    the experts the router chose for this rank's groups: ``(index of its
+    first group, (G_local, S, K))``."""
     import torch
     from repro_torch.core.tree import leaves, map_leaves
     from repro_torch.launch.mesh import virtual_mesh
-    from repro_torch.models.model import init_params
     from repro_torch.sharding import context as shctx
-    from repro_torch.sharding.partition import (batch_pspecs,
-                                                distribute_tree,
-                                                param_pspecs)
+    from repro_torch.sharding.partition import batch_pspecs, distribute_tree
     from repro_torch.training.loop import _loss_and_grads
     dm, dev = _SHARD["mesh"], _SHARD["device"]
     vm = virtual_mesh(dm)
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                         dev)
-    batch = {"tokens": _shard_tokens(cfg, dev, SHARD_ZOO_BATCH,
-                                     SHARD_ZOO_SEQ, SEED + 4)}
-    dp = distribute_tree(map_leaves(lambda t: t.requires_grad_(True),
-                                    params), param_pspecs(cfg, params, vm),
-                         dm)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dp = map_leaves(lambda t: t.requires_grad_(True),
+                    _init_sharded(cfg, SEED, dm))
+    batch = {"tokens": _shard_tokens(cfg, dev, *_zoo_tokens(cfg), SEED + 4)}
     db = distribute_tree(batch, batch_pspecs(cfg, "train", batch, vm), dm)
-    del params
     _shard_sync()
     t0 = time.perf_counter()
-    with shctx.activate(dm):
+    with shctx.activate(dm), _moe_routing() as seen:
         loss, grads = _loss_and_grads(cfg, dp, db)
         loss = float(loss.full_tensor())
         grads = [g if g.placements == p.placements
                  else g.redistribute(p.device_mesh, p.placements)
                  for g, p in zip(leaves(grads), leaves(dp))]
     _shard_sync()
-    out = {"grad_s": time.perf_counter() - t0, "loss": loss}
-    num = den = 0.0
-    for g, w in zip(grads, ref):
-        index = _owned_region(g)
-        if index is None:
-            continue
-        g, w = g.to_local().double(), w[index].double()
-        num += float(((g - w) ** 2).sum())
-        den += float((w ** 2).sum())
-    out["err"] = (num, den)
-    del dp, grads
+    out = {"grad_s": time.perf_counter() - t0, "loss": loss,
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None, "routes": None}
+    if seen:
+        # the groups split over ``data`` (mesh dimension 0) where they
+        # divide; the recompute routes them again, the same
+        local = seen[0]
+        out["routes"] = (dm.get_coordinate()[0] * local.shape[0], local)
+    del dp
+    _SHARD["zoo_grads"] = grads
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return out
 
 
-def _zoo_reference_grads(cfg, device: str) -> tuple:
-    """:func:`_shard_rank_zoo_grads`' pass unsharded in this process: the
-    loss, the gradients (whole tensors) and the seconds."""
+def _shard_rank_zoo_errs(ref: list) -> tuple:
+    """``(sum of squared differences, sum of squares)`` of this rank's own
+    regions of the kept gradients against the unsharded pass's ``ref``
+    (whole tensors, on a card by CUDA IPC handle)."""
+    import torch
+    grads = _SHARD.pop("zoo_grads")
+    num = den = 0.0
+    for g, w in zip(grads, ref):
+        index = _owned_region(g)
+        if index is None:
+            continue
+        a, b = _sq_err(g.to_local(), w[index])
+        num += a
+        den += b
+    del grads
+    if _SHARD["device"].type == "cuda":
+        torch.cuda.empty_cache()
+    return num, den
+
+
+def _zoo_reference_grads(cfg, device: str, routes=None) -> tuple:
+    """:func:`_shard_rank_zoo_grads`' pass unsharded in this process, a
+    MoE's tokens routed to the experts ``routes`` (G, S, K) gives: the
+    loss, the gradients (whole tensors), the seconds and the experts its
+    own router chose (``None`` without a MoE)."""
     import torch
     from repro_torch.core.tree import leaves, map_leaves
     from repro_torch.models.model import init_params
@@ -4112,9 +4374,20 @@ def _zoo_reference_grads(cfg, device: str) -> tuple:
     params = map_leaves(lambda t: t.requires_grad_(True), init_params(
         cfg, torch.Generator(device=device).manual_seed(SEED), device))
     t0 = time.perf_counter()
-    loss, grads = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
-        cfg, device, SHARD_ZOO_BATCH, SHARD_ZOO_SEQ, SEED + 4)})
-    return float(loss), leaves(grads), time.perf_counter() - t0
+    with _moe_routing(routes) as seen:
+        loss, grads = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
+            cfg, device, *_zoo_tokens(cfg), SEED + 4)})
+    return (float(loss), leaves(grads), time.perf_counter() - t0,
+            seen[0] if seen else None)
+
+
+def _zoo_tokens(cfg) -> tuple:
+    """The rows and tokens of a zoo gradient pass: the MoE's
+    :data:`SHARD_MOE_BATCH` x :data:`SHARD_MOE_SEQ`, else
+    :data:`SHARD_ZOO_BATCH` x :data:`SHARD_ZOO_SEQ`."""
+    if cfg.arch_type == "moe":
+        return SHARD_MOE_BATCH, SHARD_MOE_SEQ
+    return SHARD_ZOO_BATCH, SHARD_ZOO_SEQ
 
 
 def _shard_rank_close() -> None:
@@ -4190,13 +4463,15 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                      traced: dict = None, zoo: dict = None) -> dict:
     """Phase 15 on ``device`` (the CPU rehearses it at a smoke config):
     the unsharded gradient pass and step here, then the four ranks'
-    sharded ones, saves, restores and prefill; this process restores the
-    lazily saved step at world 1. Each rank counts its step and prefill
-    with the dry run's counter, held exactly against ``traced``
-    (:func:`trace_sharded_steps`' record, traced here when ``None``).
-    Then the ranks' gradient passes of ``zoo`` (name -> config; ``None``:
-    :data:`SHARD_ZOO_PATTERNS` at full width) against the same passes
-    unsharded here.
+    sharded ones, saves and restores; this process restores the lazily
+    saved step at world 1. Then the decode cases (:func:`_sharded_decode`:
+    the 2d prefill and decode, ``decode_kv_seq_shard``, long context)
+    against the unsharded decode here. Each rank counts its step, its 2d
+    prefill and first decode step with the dry run's counter, held
+    exactly against ``traced`` (:func:`trace_sharded_steps`' record,
+    traced here when ``None``). Then the ranks' gradient passes of
+    ``zoo`` (name -> config; ``None``: :data:`SHARD_ZOO_PATTERNS` at full
+    width) against the same passes unsharded here.
     ``started`` is :func:`start_sharded_ranks`' result (started here when
     ``None``). Fails on a mismatch; returns the report with every rank's
     launches."""
@@ -4257,6 +4532,8 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                for name, _k in SHARD_CMP}
         report["rel_l2"] = rel
         del ref
+        if device == "cuda":
+            torch.cuda.ipc_collect()
         # gated: the gradients, the first moment, the master's update and
         # the params; logged: ``params_before``, the control (a step that
         # left the params as they were reads 1 on the update)
@@ -4301,6 +4578,7 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
         leaf_sums = [float(t.double().sum()) for t in restored]
         del got, tpl, restored
         if device == "cuda":
+            torch.cuda.ipc_collect()
             torch.cuda.empty_cache()
         elastic = group.run(_shard_rank_elastic, workdir)
         report["elastic"] = [{k: v for k, v in r.items()
@@ -4314,55 +4592,139 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
             if abs(got_sum - want) > 1e-9 * max(1.0, abs(want)):
                 fail(f"sharded elastic restore: leaf {i} sums to {got_sum}"
                      f", the world-1 restore's to {want}")
-        pre = group.run(_shard_rank_prefill, prefill_batch, prefill_len)
-        _check_counted("prefill", [r["counted"] for r in pre],
+        report["decode"] = _sharded_decode(device, cfg, group, prefill_batch,
+                                           prefill_len)
+        pre = report["decode"].pop("ranks")
+        report["local_flash"] = group.run(_shard_rank_local_flash)[0]
+        log("sharded decode: " + "; ".join(
+            f"{k} logits rel L2 max {max(v['rel_l2']):.3e}, k "
+            f"{v['local_k'][0]}" for k, v in report["decode"].items()
+            if k != "launches_by_rank"))
+        group.run(_shard_rank_drop_serving)
+        _check_counted("prefill", [r["counted_prefill"] for r in pre],
                        traced["prefill"])
+        _check_counted("decode", [r["counted_decode"] for r in pre],
+                       traced["decode"])
         report["zoo"] = _sharded_zoo_grads(device, group, zoo or {
             name: _zoo_cfg(name, len(p), p)
             for name, p in SHARD_ZOO_PATTERNS.items()})
         group.run(_shard_rank_close)
     report["prefill"] = [{k: v for k, v in r.items()
-                          if k not in ("launches", "counted")}
+                          if k not in ("launches", "counted_prefill",
+                                       "counted_decode")}
                          for r in pre]
-    report["launches_by_rank"] = [r["launches"] for r in pre]
-    for r in pre:
-        if not r["finite"]:
-            fail("sharded prefill: logits not finite")
     return report
 
 
+def _sharded_decode(device: str, cfg, group, batch: int,
+                    prompt_len: int) -> dict:
+    """Phase 15's decode cases (:func:`_decode_cases`): for each, the
+    unsharded prefill and greedy decode in this process, then the ranks'
+    sharded prefill and decode teacher-forced with its tokens. Fails
+    unless every logits lies within :data:`SHARD_LOGIT_RTOL` relative L2
+    error of the unsharded decode's and every rank's first k cache is
+    laid out as :func:`_expected_local_cache` says; logs (no gate) the
+    share of steps whose argmax agrees. Returns by case the errors, the
+    layout and the seconds, the launch counts by rank after the last case
+    (the main path's end) and ``ranks``, the 2d case's rank reports."""
+    import dataclasses
+
+    import torch
+    out = {}
+    for case, (kw, decode_len, rows, seed, _axis, n) in \
+            _decode_cases(batch, prompt_len).items():
+        c = dataclasses.replace(cfg, sharding_mode="2d",
+                                max_decode_len=decode_len, **kw)
+        steps, want, ref_s = _decode_reference(c, device, rows, prompt_len,
+                                               seed, n)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        ranks = group.run(_shard_rank_decode, case, batch, prompt_len, steps)
+        got = ranks[0]["logits"]
+        errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+        agree = [bool(torch.equal(g[:, -1].argmax(-1), w[:, -1].argmax(-1)))
+                 for g, w in zip(got, want)]
+        slots = ranks[0]["slots"]
+        local = _expected_local_cache(case, rows, slots, c)
+        out[case] = {"steps": n, "batch": rows, "slots": slots,
+                     "rel_l2": errs, "rtol": SHARD_LOGIT_RTOL,
+                     "argmax_agree": sum(agree) / len(agree),
+                     "cache": ranks[0]["cache"],
+                     "local_k": [r["cache"][1] for r in ranks],
+                     "prefill_s": [r["prefill_s"] for r in ranks],
+                     "decode_s": [r["decode_s"] for r in ranks],
+                     "unsharded_s": ref_s}
+        if len(got) != n + 1 or not all(r["finite"] for r in ranks):
+            fail(f"sharded decode {case}: {len(got)} logits for {n} steps, "
+                 f"finite by rank {[r['finite'] for r in ranks]}")
+        if not max(errs) <= SHARD_LOGIT_RTOL:
+            fail(f"sharded decode {case}: logits' relative L2 error by step "
+                 f"{errs} against the unsharded decode (rtol "
+                 f"{SHARD_LOGIT_RTOL})")
+        for r, rank in enumerate(ranks):
+            if rank["cache"][1] != local:
+                fail(f"sharded decode {case}: rank {r} holds k "
+                     f"{rank['cache']}, the layout gives {local}")
+        if case == "2d":
+            out["ranks"] = [{k: v for k, v in r.items() if k != "logits"}
+                            for r in ranks]
+        out["launches_by_rank"] = [r["launches"] for r in ranks]
+    return out
+
+
 def _check_counted(kind: str, ranks: list, traced: dict) -> None:
-    """Every rank's counted FLOPs and collectives (counts and bytes by
-    kind) against the fake trace's, exactly."""
-    want = {k: traced[k] for k in ("flops", "collectives")}
+    """Every rank's counted FLOPs, collectives (counts and bytes by kind)
+    and per-kind op profile against the fake trace's, exactly."""
+    want = {k: traced[k] for k in ("flops", "collectives", "profile")}
     for r, got in enumerate(ranks):
         if got != want:
-            fail(f"sharded {kind}: rank {r} counted {json.dumps(got)}, the "
-                 f"fake (2, 2) trace {json.dumps(want)}")
+            diff = {k: (got["profile"].get(k), want["profile"].get(k))
+                    for k in set(got["profile"]) | set(want["profile"])
+                    if got["profile"].get(k) != want["profile"].get(k)}
+            keys = ("flops", "collectives")
+            fail(f"sharded {kind}: rank {r} counted "
+                 f"{json.dumps({k: got[k] for k in keys})}, the fake (2, 2) "
+                 f"trace {json.dumps({k: want[k] for k in keys})}; op kinds "
+                 f"that differ (rank, trace): {json.dumps(diff)}")
 
 
 def _sharded_zoo_grads(device: str, group, cfgs: dict) -> dict:
     """The ranks' gradient passes of each config of ``cfgs`` against the
     same passes unsharded here, by relative L2 error over the whole tree
-    (:data:`SHARD_GRAD_RTOL`); every rank must reach the end."""
+    (:data:`SHARD_GRAD_RTOL`); every rank must reach the end. A MoE's
+    router picks its experts by a top-k, which a last-bit difference in
+    its input flips, so the unsharded pass is teacher-forced: it routes
+    each token to the experts the ranks' router chose (their
+    probabilities still weigh them and carry the router's gradient), as
+    the decode is teacher-forced with greedy tokens; the share of tokens
+    for which its own router chose the same is logged, no gate."""
     import torch
     out = {}
     for name, cfg in cfgs.items():
-        loss, ref, ref_s = _zoo_reference_grads(cfg, device)
-        ranks = group.run(_shard_rank_zoo_grads, cfg, ref)
-        del ref
-        if device == "cuda":
-            torch.cuda.empty_cache()
+        ranks = group.run(_shard_rank_zoo_grads, cfg)
         if len(ranks) != math.prod(SHARD_DIMS):
             fail(f"sharded {name}: {len(ranks)} ranks reached the end")
-        rel = math.sqrt(sum(r["err"][0] for r in ranks)
-                        / sum(r["err"][1] for r in ranks))
+        routes = _gather_routes(name, [r["routes"] for r in ranks])
+        loss, ref, ref_s, own = _zoo_reference_grads(cfg, device, routes)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        errs = group.run(_shard_rank_zoo_errs, ref)
+        del ref
+        if device == "cuda":
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+        rel = math.sqrt(sum(e[0] for e in errs) / sum(e[1] for e in errs))
         losses = {r["loss"] for r in ranks}
         out[name] = {"rel_l2": rel, "rtol": SHARD_GRAD_RTOL,
                      "pattern": cfg.layer_groups[0][0],
+                     "tokens": _zoo_tokens(cfg),
                      "loss": sorted(losses), "unsharded_loss": loss,
                      "grad_s": [r["grad_s"] for r in ranks],
+                     "peak_bytes": [r["peak_bytes"] for r in ranks],
                      "unsharded_grad_s": ref_s}
+        if routes is not None:
+            same = (own.sort(-1).values == routes.sort(-1).values).all(-1)
+            out[name]["routes_agree"] = float(same.double().mean())
         if not rel <= SHARD_GRAD_RTOL or len(losses) != 1:
             fail(f"sharded {name}: gradients' relative L2 error {rel} "
                  f"against the unsharded pass (rtol {SHARD_GRAD_RTOL}), "
@@ -4370,15 +4732,37 @@ def _sharded_zoo_grads(device: str, group, cfgs: dict) -> dict:
     return out
 
 
+def _gather_routes(name: str, ranks: list):
+    """The experts the ranks' router chose, (G, S, K), from each rank's
+    ``(first group, local choice)`` (``None`` without a MoE); fails where
+    two ranks routed the same group differently."""
+    import torch
+    if ranks[0] is None:
+        return None
+    n = max(first + local.shape[0] for first, local in ranks)
+    full = torch.full((n,) + tuple(ranks[0][1].shape[1:]), -1,
+                      dtype=ranks[0][1].dtype)
+    for r, (first, local) in enumerate(ranks):
+        block = full[first:first + local.shape[0]]
+        if (block >= 0).any() and not torch.equal(block, local):
+            fail(f"sharded {name}: rank {r} routed its groups unlike "
+                 f"another rank holding them")
+        block.copy_(local)
+    routed = int((full >= 0).all(-1).all(-1).sum())
+    if routed != n:
+        fail(f"sharded {name}: the ranks routed {routed} of {n} groups")
+    return full
+
+
 def run_sharded_phase(cfg, path_launches: dict, card: str,
                       started=None, traced: dict = None) -> dict:
     """Phase 15 on the card; each rank zeroes its counts just before the
-    main path (the step) and reads them just after (the prefill); the
-    sum over the ranks goes into ``path_launches``. ``card`` (the card's
-    name and power limit as ``nvidia-smi`` gives them) ends every line it
-    logs. ``started``: a future of :func:`start_sharded_ranks` (``None``:
-    start them here); ``traced``: phase 13's :func:`trace_sharded_steps`
-    (``None``: trace here)."""
+    main path (the step) and reads them just after (the last decode
+    case); the sum over the ranks goes into ``path_launches``. ``card``
+    (the card's name and power limit as ``nvidia-smi`` gives them) ends
+    every line it logs. ``started``: a future of
+    :func:`start_sharded_ranks` (``None``: start them here); ``traced``:
+    phase 13's :func:`trace_sharded_steps` (``None``: trace here)."""
     import torch
     workdir = os.path.join(ROOT, "build", "chip_smoke_sharded")
     shutil.rmtree(workdir, ignore_errors=True)
@@ -4402,7 +4786,8 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         shutil.rmtree(workdir, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t0
     report["host_bytes"] = host
-    by_rank = report["launches_by_rank"]
+    by_rank = report["decode"].pop("launches_by_rank")
+    report["launches_by_rank"] = by_rank
     for r, launches in enumerate(by_rank):
         for k in ("flash_attention", "checksum_u32"):
             if launches[k] == 0:
@@ -4414,8 +4799,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
                  f"in the sharded gradient pass")
     path_launches["sharded"] = {k: sum(l[k] for l in by_rank)
                                 for k in by_rank[0]}
-    local = [r["local_flash"] for r in report["prefill"]
-             if "local_flash" in r]
+    local = [report["local_flash"]] if report["local_flash"] else []
     if not local or not math.isfinite(local[0]["max_abs_err"]):
         fail(f"sharded prefill: rank 0's local attention against its "
              f"plain version: {local}")
@@ -4447,19 +4831,36 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
             f"{json.dumps(tr[k]['collectives']['by_kind'])}, collective "
             f"term {tr[k]['collective_s'] * 1e3:.4f} ms (bound "
             f"{tr[k]['bound_s'] * 1e3:.4f} ms, {tr[k]['dominant']}; traced "
-            f"in {tr[k]['trace_s']:.2f} s)" for k in ("train", "prefill"))
+            f"in {tr[k]['trace_s']:.2f} s; {len(tr[k]['profile'])} op "
+            f"kinds)" for k in ("train", "prefill", "decode"))
         + "; the step took " + ", ".join(f"{x:.3f}" for x in
                                          report["step_s"])
         + " s by rank, the prefill " + ", ".join(
             f"{r['prefill_s']:.3f}" for r in report["prefill"])
         + f" s ({card})")
-    log("sharded recurrent gradient passes at "
-        f"{SHARD_ZOO_BATCH} x {SHARD_ZOO_SEQ} tokens: " + "; ".join(
-            f"{k} ({'/'.join(v['pattern'])}) rel L2 "
+    log("sharded decode against the unsharded decode, teacher-forced with "
+        "its greedy tokens: " + "; ".join(
+            f"{k} (batch {v['batch']}, {v['slots']} slots, k {v['cache'][0]}"
+            f" local {v['local_k'][0]}): {v['steps']} steps, logits rel L2 "
+            f"max {max(v['rel_l2']):.3e} (rtol {v['rtol']:.3e}; by step "
+            + ", ".join(f"{e:.2e}" for e in v["rel_l2"])
+            + f"), argmax agrees on {v['argmax_agree']:.3f} (no gate); "
+            f"prefill " + ", ".join(f"{x:.3f}" for x in v["prefill_s"])
+            + " s and decode " + ", ".join(f"{x:.3f}" for x in v["decode_s"])
+            + f" s by rank (unsharded prefill and decode "
+            f"{v['unsharded_s']:.3f} s)" for k, v in report["decode"].items())
+        + f" ({card})")
+    log("sharded zoo gradient passes: " + "; ".join(
+            f"{k} ({'/'.join(v['pattern'])}, {v['tokens'][0]} x "
+            f"{v['tokens'][1]} tokens) rel L2 "
             f"{v['rel_l2']:.3e} (rtol {v['rtol']:.3e}), loss "
             f"{v['loss'][0]:.6f} vs {v['unsharded_loss']:.6f} unsharded, "
             "pass " + ", ".join(f"{x:.3f}" for x in v["grad_s"])
-            + f" s by rank (unsharded {v['unsharded_grad_s']:.3f} s)"
+            + f" s by rank (unsharded {v['unsharded_grad_s']:.3f} s), "
+            f"peak device bytes by rank {v['peak_bytes']}"
+            + (f", the unsharded router's own choice agrees on "
+               f"{v['routes_agree']:.4f} of the tokens (no gate; the pass "
+               f"routes as the ranks did)" if "routes_agree" in v else "")
             for k, v in report["zoo"].items()) + f" ({card})")
     log(f"sharded host memory (GiB): this process resident "
         f"{host['rss'] / 2**30:.1f}, {host['rss_released'] / 2**30:.1f} "
@@ -4760,7 +5161,7 @@ def main() -> None:
     # -- phase 14: the examples (slice 16) --------------------------------
     log("examples report " + json.dumps(run_examples_phase(path_launches)))
 
-    # -- phase 15: sharded model compute (slice 17) -----------------------
+    # -- phase 15: sharded model compute (slices 17-19) -------------------
     log(f"sharded report " + json.dumps(run_sharded_phase(
         cfg, path_launches, smi, started, dry["sharded_trace"]))
         + f" ({smi})")

@@ -34,6 +34,15 @@ figure is rank 0's, as the reference's are one device's:
   ``wait_tensor`` is not counted, as the reference skips ``-done``.
 - **Temp bytes**: the peak of live storage the step allocates beyond its
   arguments, followed by weak references to each output's storage.
+- **The op profile** (opt-in, ``record_ops``): one :class:`OpRecord` an
+  operator the counter counts, in trace order: the operator, a name (its
+  own and its index), its kind, its local result's bytes and its type
+  string in the reference's HLO form (``bf16[2,4096,2048]``). It is the
+  counterpart of the compiled HLO's instruction list that
+  ``scripts/hlo_top_ops.py`` reads; :func:`op_profile` totals it by
+  kind. Views and DTensor's bookkeeping are left out, as from every
+  other figure, and so are a fake tensor's device queries and a
+  collective's ``wait_tensor``.
 
 ``DTensor`` also runs operators no device runs: its sharding
 propagation learns an operator's output shape the first time it meets a
@@ -61,7 +70,7 @@ import dataclasses
 import sys
 import time
 import weakref
-from typing import Any, Callable, Dict, Iterable, Optional, Set
+from typing import Any, Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -92,6 +101,24 @@ _QUERIES = {getattr(torch.ops.aten, n).default for n in (
     "sym_numel", "dim") if hasattr(torch.ops.aten, n)} \
     | {torch.ops.aten.is_contiguous.memory_format,
        torch.ops.prim.layout.default}
+
+
+#: the reference's HLO element type names
+_HLO_DTYPES = {torch.bool: "pred", torch.int8: "s8", torch.int16: "s16",
+               torch.int32: "s32", torch.int64: "s64", torch.uint8: "u8",
+               torch.uint16: "u16", torch.uint32: "u32",
+               torch.uint64: "u64", torch.float16: "f16",
+               torch.bfloat16: "bf16", torch.float32: "f32",
+               torch.float64: "f64", torch.complex64: "c64",
+               torch.complex128: "c128"}
+
+
+#: left out of the op records: a fake tensor's device query (it reaches
+#: the mode, a real tensor's does not) and a collective's wait (a real
+#: rank waits, a fake group's collective is done at once; the reference
+#: skips the ``-done`` half too)
+_UNRECORDED = {torch.ops.prim.device.default,
+               torch.ops._c10d_functional.wait_tensor.default}
 
 
 def _tensors(tree: Any) -> Iterable[torch.Tensor]:
@@ -143,6 +170,40 @@ def bookkeeping() -> bool:
     return False
 
 
+def type_string(tree: Any) -> str:
+    """The tensors of ``tree`` as the reference's HLO types:
+    ``bf16[2,4096,2048]``, a tuple of them in parentheses."""
+    parts = [f"{_HLO_DTYPES.get(t.dtype, str(t.dtype)[6:])}"
+             f"[{','.join(str(n) for n in t.shape)}]"
+             for t in _tensors(tree)]
+    return parts[0] if len(parts) == 1 else f"({', '.join(parts)})"
+
+
+@dataclasses.dataclass(frozen=True)
+class OpRecord:
+    """One counted operator of a trace: ``op`` its overload
+    (``aten.mm.default``), ``name`` its name and index in trace order
+    (``mm.17``), ``kind`` its operator without the overload
+    (``aten.mm``, ``_c10d_functional.all_gather_into_tensor``), ``bytes``
+    its local result's bytes, ``type`` their HLO type string."""
+
+    op: str
+    name: str
+    kind: str
+    bytes: int
+    type: str
+
+
+def op_profile(ops: Iterable[OpRecord]) -> Dict[str, List[int]]:
+    """Operator kind -> ``[count, result bytes]`` over ``ops``."""
+    out: Dict[str, List[int]] = {}
+    for o in ops:
+        entry = out.setdefault(o.kind, [0, 0])
+        entry[0] += 1
+        entry[1] += o.bytes
+    return out
+
+
 def collective_kind(func) -> Optional[str]:
     """The reference's kind of a ``_c10d_functional`` collective, or
     ``None`` (another operator, ``wait_tensor``)."""
@@ -165,11 +226,15 @@ class TraceCounter(TorchDispatchMode):
     run under (entered for each counted operator, so a factory makes a
     fake tensor). It stays off the mode stack between operators, so
     DTensor's bookkeeping computes on real index tensors and makes its
-    own fake tensors, as it does in a real run."""
+    own fake tensors, as it does in a real run. ``record_ops``: keep
+    :attr:`ops`, one :class:`OpRecord` a counted operator (else
+    ``None``)."""
 
-    def __init__(self, arguments: Any, fake_mode=None):
+    def __init__(self, arguments: Any, fake_mode=None,
+                 record_ops: bool = False):
         super().__init__()
         self.fake_mode = fake_mode
+        self.ops: Optional[List[OpRecord]] = [] if record_ops else None
         self.flops = 0
         self.bytes_accessed = 0
         self.live_bytes = 0
@@ -185,6 +250,10 @@ class TraceCounter(TorchDispatchMode):
         self._refs.pop(key, None)
         self._known.discard(key)
         self.live_bytes -= n
+
+    def profile(self) -> Dict[str, List[int]]:
+        """:func:`op_profile` of :attr:`ops`."""
+        return op_profile(self.ops)
 
     def collectives(self) -> Dict[str, Any]:
         """The reference's ``collective_bytes`` record: bytes a device,
@@ -218,6 +287,11 @@ class TraceCounter(TorchDispatchMode):
         if func.is_view:
             return out
         self.bytes_accessed += nbytes((args, kwargs)) + nbytes(out)
+        if self.ops is not None and func not in _UNRECORDED:
+            self.ops.append(OpRecord(
+                str(func), f"{func._opname}.{len(self.ops)}",
+                f"{func.namespace}.{func._opname}", nbytes(out),
+                type_string(out)))
         kind = collective_kind(func)
         if kind is not None:
             self.collective_bytes[kind] += nbytes(out)
@@ -241,7 +315,9 @@ class TraceCounter(TorchDispatchMode):
 class Traced:
     """What one traced call of a step gives: its outputs (fake tensors,
     ``DTensor``s on a mesh), rank 0's FLOPs, bytes accessed, peak temp
-    bytes and collectives, and the trace's seconds."""
+    bytes and collectives, the trace's seconds, and with ``record_ops``
+    its counted operators (:class:`OpRecord`, in trace order; else
+    ``None``)."""
 
     outputs: Any
     flops: int
@@ -249,18 +325,21 @@ class Traced:
     peak_temp_bytes: int
     collectives: Dict[str, Any]
     trace_s: float
+    ops: Optional[List[OpRecord]] = None
 
 
-def trace_step(step: Callable, args: tuple, mode) -> Traced:
+def trace_step(step: Callable, args: tuple, mode,
+               record_ops: bool = False) -> Traced:
     """Call ``step(*args)`` once on the fake tensors of ``mode`` that
-    ``args`` holds, counting with :class:`TraceCounter`."""
+    ``args`` holds, counting with :class:`TraceCounter` (keeping each
+    counted operator's record with ``record_ops``)."""
     t0 = time.perf_counter()
-    counter = TraceCounter(args, fake_mode=mode)
+    counter = TraceCounter(args, fake_mode=mode, record_ops=record_ops)
     with counter:
         outputs = step(*args)
     return Traced(outputs, counter.flops, counter.bytes_accessed,
                   counter.peak_temp_bytes, counter.collectives(),
-                  time.perf_counter() - t0)
+                  time.perf_counter() - t0, counter.ops)
 
 
 def roofline(traced: Traced, *, n_devices: int, model_flops_global: float,

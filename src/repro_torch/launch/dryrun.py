@@ -219,18 +219,21 @@ def _step_for(cfg, kind: str):
     return make_decode_step(cfg), (2,)
 
 
-def dryrun_record(cfg, shape, mesh: Mesh, *,
-                  donate: bool = True) -> Dict[str, Any]:
+def dryrun_record(cfg, shape, mesh: Mesh, *, donate: bool = True,
+                  record_ops: bool = False) -> Dict[str, Any]:
     """Trace ``cfg``'s step for ``shape`` once, sharded on ``mesh``
     when it has several devices (a fake process group of its size, owned
     for the trace), and return the record's step, ``fake_device``,
-    ``trace_s``, ``roofline``, ``n_params`` and ``n_active_params``."""
+    ``trace_s``, ``roofline``, ``n_params`` and ``n_active_params``;
+    with ``record_ops`` also ``ops`` (each counted operator's
+    :class:`~repro_torch.launch.analysis.OpRecord` as a dict, in trace
+    order) and ``op_profile`` (their kinds' counts and result bytes)."""
     mode = FakeTensorMode()
     args, specs, meta = input_specs(cfg, shape, mesh, mode)
     step, aliased = _step_for(cfg, shape.kind)
     n_dev = int(mesh.devices.size)
     if n_dev == 1:
-        traced = analysis.trace_step(step, args, mode)
+        traced = analysis.trace_step(step, args, mode, record_ops)
         return _record(cfg, shape, meta, args, traced, aliased, n_dev,
                        donate)
     from torch.distributed.device_mesh import init_device_mesh
@@ -241,7 +244,7 @@ def dryrun_record(cfg, shape, mesh: Mesh, *,
         # the fake tensors carry their mode; the mesh's rank grid is real
         args = distribute_tree(args, specs, dm)
         with shctx.activate(dm):
-            traced = analysis.trace_step(step, args, mode)
+            traced = analysis.trace_step(step, args, mode, record_ops)
         return _record(cfg, shape, meta, args, traced, aliased, n_dev,
                        donate)
 
@@ -270,16 +273,20 @@ def _record(cfg, shape, meta, args, traced, aliased, n_dev: int,
         model_flops_global=model_flops_global(cfg, shape), memory=memory)
     record["n_params"] = cfg.n_params()
     record["n_active_params"] = cfg.n_active_params()
+    if traced.ops is not None:
+        record["ops"] = [dataclasses.asdict(o) for o in traced.ops]
+        record["op_profile"] = analysis.op_profile(traced.ops)
     return record
 
 
 def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
                mode: str = "2d", donate: bool = True,
                overrides: Optional[Dict[str, Any]] = None,
-               verbose: bool = True) -> Dict[str, Any]:
+               verbose: bool = True,
+               record_ops: bool = False) -> Dict[str, Any]:
     """The reference's ``run_dryrun``: one (arch x shape x mesh) record,
     or the skip record of ``long_500k`` on a config that is not
-    ``long_context_ok``."""
+    ``long_context_ok``; ``record_ops`` as :func:`dryrun_record`'s."""
     shape = INPUT_SHAPES[shape_name]
     kvb = min(4096, max(1024, shape.seq_len // 8))
     kw = {"sharding_mode": mode, "attn_kv_block": kvb}
@@ -310,7 +317,8 @@ def run_dryrun(arch: str, shape_name: str, *, multi_pod: bool = False,
         "axes": list(mesh.axis_names), "n_devices": int(mesh.devices.size),
         "overrides": dict(overrides or {}),
     }
-    record.update(dryrun_record(cfg, shape, mesh, donate=donate))
+    record.update(dryrun_record(cfg, shape, mesh, donate=donate,
+                                record_ops=record_ops))
     if verbose:
         roof = record["roofline"]
         print(f"[{arch} x {shape_name} x {record['mesh']}] "

@@ -26,7 +26,9 @@ q, k and v (:func:`_on_local_shards`): batch over the batch axes, heads
 over ``model`` when the KV heads divide, so every q head's KV head is
 local; the kernel launches on the local shard and nothing gathers the
 heads. A decode step writes its cache slot into the local block of the
-rank that holds it (:func:`_write_slot`).
+rank that holds it (:func:`_write_slot`) and attends on each rank's
+local block of the cache (:func:`_decode_on_local_shards`), the softmax
+completed over the ranks that split the slots.
 """
 
 from __future__ import annotations
@@ -117,9 +119,15 @@ def _proj(x: torch.Tensor, w: torch.Tensor,
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          mask: Optional[torch.Tensor]) -> torch.Tensor:
+          mask: Optional[torch.Tensor],
+          split: Tuple[int, ...] = ()) -> torch.Tensor:
     """q: (B,S,H,hd), k/v: (B,T,KV,hd); GQA by grouping heads; ``mask``
-    broadcasts over (S, T), or ``None`` for none."""
+    broadcasts over (S, T), or ``None`` for none. ``split``: inside
+    :func:`repro_torch.sharding.context.on_local_shards`, the active
+    mesh's dimensions that split the keys among the ranks (the decode
+    cache's slots); the softmax's maximum and sum and the product with v
+    are then completed over them
+    (:func:`repro_torch.sharding.context.reduce_local`)."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     rep = H // KV
@@ -129,9 +137,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = logits.to(torch.float32)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bkrst,btkh->bskrh", probs, v)
-    return out.reshape(B, S, H * hd)
+    if split:
+        top = shctx.reduce_local(logits.amax(-1, keepdim=True), split, "max")
+        e = torch.exp(logits - top)
+        probs = e / shctx.reduce_local(e.sum(-1, keepdim=True), split)
+    else:
+        probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrst,btkh->bskrh", probs.to(v.dtype), v)
+    return shctx.reduce_local(out, split).reshape(B, S, H * hd)
 
 
 def _query_rows(lo: int, hi: int, S: int, kind: str, window: int,
@@ -362,15 +375,48 @@ def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
         cache_spec = (BATCH, None, None, None)
     ck = constrain(cache_k, cache_spec)
     cv = constrain(cache_v, cache_spec)
-    idx = torch.arange(T, device=x.device)
-    if mode == "window":
-        valid = idx < min(pos + 1, T)
-    elif mode == "chunked":
-        valid = idx <= pos % T
+    if shctx.is_dtensor(ck):
+        out = _decode_on_local_shards(q, ck, cv, pos, mode)
     else:
-        valid = idx <= pos
-    out = _sdpa(q, ck, cv, valid)
+        out = _sdpa(q, ck, cv, _decode_valid(
+            torch.arange(T, device=x.device), T, pos, mode))
     return _proj(out, p["wo"], p.get("bo")), cache_k, cache_v
+
+
+def _decode_valid(idx: torch.Tensor, T: int, pos: int,
+                  mode: str) -> torch.Tensor:
+    """Which of the cache slots ``idx`` (of ``T``) hold a position the
+    token at ``pos`` attends to."""
+    if mode == "window":
+        return idx < min(pos + 1, T)
+    if mode == "chunked":
+        return idx <= pos % T
+    return idx <= pos
+
+
+def _decode_on_local_shards(q: torch.Tensor, ck: torch.Tensor,
+                            cv: torch.Tensor, pos: int,
+                            mode: str) -> torch.Tensor:
+    """The decode attention core on each rank's local shards of a
+    ``DTensor`` cache laid out by :func:`decode_attention`'s constraint:
+    q takes the cache's batch and head layout; a rank's keys are its
+    block of slots, its validity mask starts at the block's first slot,
+    and where the slots are split among ranks (``decode_kv_seq_shard``,
+    long context) :func:`_sdpa` completes the softmax over them. PyTorch
+    2.11's ``DTensor`` refuses the einsum's flattening of q's heads split
+    over ``model``; here nothing is flattened on a split dimension."""
+    from repro_torch.sharding.partition import local_index, spec_of
+    spec = spec_of(ck.placements, ck.device_mesh, ck.ndim)
+    T = ck.shape[1]
+    lo = local_index(ck)[1].start or 0
+    split = shctx.split_dims(ck, 1)
+
+    def local(q, k, v):
+        idx = torch.arange(lo, lo + k.shape[1], device=q.device)
+        return _sdpa(q, k, v, _decode_valid(idx, T, pos, mode), split)
+    return shctx.on_local_shards(
+        local, (q, ck, cv), ((spec[0], None, spec[2], None), spec, spec),
+        ((spec[0], None, spec[2]),))
 
 
 def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
@@ -398,10 +444,16 @@ def _write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
 def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                     mem_k: torch.Tensor, mem_v: torch.Tensor) -> torch.Tensor:
     """Cross-attention of x (B,S,d) to precomputed memory K/V
-    (B,M,KV,hd): no mask, no RoPE."""
+    (B,M,KV,hd): no mask, no RoPE. ``DTensor`` inputs run on their local
+    shards (:func:`_on_local_shards`)."""
     q = shctx.unflatten_last(_proj(x, p["wq"], p.get("bq")), cfg.n_heads,
                              cfg.hd)
-    return _proj(_sdpa(q, mem_k, mem_v, None), p["wo"], p.get("bo"))
+    if shctx.is_dtensor(q):
+        out = _on_local_shards(functools.partial(_sdpa, mask=None), q,
+                               mem_k, mem_v)
+    else:
+        out = _sdpa(q, mem_k, mem_v, None)
+    return _proj(out, p["wo"], p.get("bo"))
 
 
 def memory_kv(cfg, p: Dict[str, torch.Tensor], memory: torch.Tensor
@@ -442,27 +494,52 @@ def embed_tokens(cfg, p: Dict[str, torch.Tensor],
                  tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B,S) int, or (B,S,K) with ``cfg.n_codebooks`` K: codebook
     c's token t is row ``c * vocab + t`` and the K rows are summed ->
-    (B,S,d)."""
+    (B,S,d). A ``DTensor`` table is looked up on each rank's local block
+    (:func:`_lookup_on_local_shards`)."""
     tokens = tokens.long()
     table = p["embed"]
-    if shctx.is_dtensor(table):
-        # the lookup (reference layers.py:422-428) on a replicated table
-        # and index, redistributed explicitly: DTensor's rules for a
-        # vocab-sharded table give a masked partial sum whose reduction
-        # breaks on a batch-sharded index, and PyTorch 2.11's rule for
-        # indexing's backward (``index_put``) fails on one; every rank
-        # then gathers the table and looks the whole batch up, and the
-        # caller's constraint takes its own rows
-        from torch.distributed.tensor import Replicate
-        whole = [Replicate()] * table.device_mesh.ndim
-        table = table.redistribute(table.device_mesh, whole)
-        if shctx.is_dtensor(tokens):
-            tokens = tokens.redistribute(tokens.device_mesh, whole)
     if cfg.n_codebooks:
         offs = torch.arange(cfg.n_codebooks, device=tokens.device) \
             * cfg.vocab
-        return table[tokens + offs].sum(dim=2)
-    return table[tokens]
+        tokens = tokens + offs
+    rows = _lookup_on_local_shards(table, tokens) \
+        if shctx.is_dtensor(table) else table[tokens]
+    return rows.sum(dim=2) if cfg.n_codebooks else rows
+
+
+def _lookup_on_local_shards(table: torch.Tensor,
+                            ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` for a ``DTensor`` table (V, d) (the reference's
+    lookup, layers.py:422-428), vocabulary-parallel on each rank's local
+    block: the ids whole on every rank, each rank reads the ids its rows
+    hold (zero for the rest) in its columns, the reads are summed over
+    the ranks that split the vocabulary
+    (:func:`repro_torch.sharding.context.reduce_local`) and the columns
+    gathered: what moves is the lookup, not the table. A rank's
+    gradient is its own block's whole. ``DTensor``'s own rules give a
+    masked partial sum whose reduction breaks on a batch-sharded index,
+    and PyTorch 2.11's rule for the lookup's backward (``index_put``)
+    fails on a split table."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.sharding.partition import local_index, spec_of
+    mesh = table.device_mesh
+    whole = [Replicate()] * mesh.ndim
+    if shctx.is_dtensor(ids):
+        ids = ids.redistribute(mesh, whole)
+    spec = spec_of(table.placements, mesh, 2)
+    lo = local_index(table)[0].start or 0
+    vocab_dims = shctx.split_dims(table, 0)
+
+    def local(t, i):
+        inside = (i >= lo) & (i < lo + t.shape[0])
+        rows = t[torch.where(inside, i - lo, 0)]
+        rows = torch.where(inside[..., None], rows, 0)
+        return shctx.reduce_local(rows, vocab_dims)
+    none = (None,) * ids.ndim
+    rows = shctx.on_local_shards(local, (table, ids), (spec, none),
+                                 (none + (spec[1],),))
+    return rows.redistribute(mesh, whole)
 
 
 def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],

@@ -30,13 +30,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.core import dtypes
-from repro_torch.core.tree import map_leaves
+from repro_torch.core.tree import flatten_with_path, map_leaves
 from repro_torch.sharding import context as shctx
 from repro_torch.sharding.context import constrain
 
@@ -211,13 +211,15 @@ def param_shapes(cfg) -> Dict[str, Any]:
     return {"embed": embed, "ln_f": _norm(cfg, ()), "groups": groups}
 
 
-def init_params(cfg, generator: torch.Generator,
-                device: torch.device) -> Dict[str, Any]:
+def init_params(cfg, generator: torch.Generator, device: torch.device,
+                place: Optional[Callable] = None) -> Dict[str, Any]:
     """Random parameters from ``generator`` (normal * scale, cast to the
     leaf dtype; norm scales ones, biases zeros), made on ``device``.
     Different numbers than JAX's for the same seed; tests that compare the
     packages feed both the same numpy state through
-    :mod:`repro_torch.convert`."""
+    :mod:`repro_torch.convert`. ``place(path, leaf)``: what to keep of each
+    leaf as it is made (a rank's shard, so the whole tree is never held
+    at once); the draws are the same."""
     def make(spec: ParamSpec) -> torch.Tensor:
         dt = dtypes.lookup(spec.dtype).torch
         if spec.init == "ones":
@@ -227,7 +229,10 @@ def init_params(cfg, generator: torch.Generator,
         draw = torch.rand if spec.init == "uniform" else torch.randn
         x = draw(spec.shape, generator=generator, device=device)
         return x.mul_(spec.scale).add_(spec.offset).to(dt)
-    return map_leaves(make, param_shapes(cfg))
+    if place is None:
+        return map_leaves(make, param_shapes(cfg))
+    flat, unflatten = flatten_with_path(param_shapes(cfg))
+    return unflatten([place(path, make(spec)) for path, spec in flat])
 
 
 # ------------------------------------------------------------------ forward
@@ -490,15 +495,17 @@ def block_decode(cfg, btype: str, p: Dict[str, Any], x: torch.Tensor,
         x = x + r.to(x.dtype)
         h2 = layers.apply_norm(p["ln2"], x)
         return x + layers.apply_ffn(cfg, p["ffn"], h2).to(x.dtype)
+    # the residual adds on reduced operands: PyTorch 2.11's DTensor cannot
+    # turn the cache-sharded carry's layout into a pending sum's
     t, (x_t, S) = rwkv6.time_mix(cfg, p["tmix"], h, cache["x_t"],
                                  cache["S"], decode=True)
-    x = x + t.to(x.dtype)
+    x = shctx.reduced(x) + shctx.reduced(t).to(x.dtype)
     h2 = layers.apply_norm(p["ln2"], x)
     c, x_c = rwkv6.channel_mix(cfg, p["cmix"], h2, cache["x_c"])
     cache["x_t"].copy_(x_t)
     cache["S"].copy_(S)
     cache["x_c"].copy_(x_c)
-    return x + c.to(x.dtype)
+    return shctx.reduced(x) + shctx.reduced(c).to(x.dtype)
 
 
 def decode(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],

@@ -17,9 +17,12 @@ replicated (``implicit_replication``).
 
 Where ``DTensor`` has no rule for a computation, or one that PyTorch
 2.11 refuses, the model runs it on each rank's local shards
-(:func:`on_local_shards`: attention, the RG-LRU's scan, RWKV6's WKV) or
-makes a split dimension whole first (:func:`unsplit`,
-:func:`unflatten_last`). :func:`current` carries this thread's settings
+(:func:`on_local_shards`: attention and decode attention, the RG-LRU's
+scan, RWKV6's WKV, the MoE's experts) or makes a split dimension whole
+first (:func:`unsplit`, :func:`unflatten_last`). A local computation
+whose result is a sum or a maximum over ranks (the experts split over
+``model``, a softmax over keys split over ranks) reduces it with
+:func:`reduce_local`. :func:`current` carries this thread's settings
 into an activation checkpoint's recompute.
 
 A spec is a plain tuple, one entry a tensor dimension: ``None``, an axis
@@ -229,6 +232,22 @@ def unsplit(x, dims: Sequence[int]):
     return x.redistribute(x.device_mesh, placements)
 
 
+def reduced(x):
+    """``x`` with every pending sum (a ``Partial`` placement) reduced
+    (that mesh axis replicated, every other placement kept); anything
+    else comes back as it is. For an elementwise operator whose other
+    operand is split where ``x`` is partial: PyTorch 2.11's ``DTensor``
+    cannot redistribute a split operand to a partial one."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    placements = [Replicate() if p.is_partial() else p
+                  for p in x.placements]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
 def unflatten_last(x, *shape: int):
     """x (..., prod(shape)) viewed as (..., *shape). A ``DTensor``
     unflattens a split dimension only where the split divides
@@ -256,15 +275,81 @@ def local_spec(spec: Sequence, shape: Sequence[int]) -> Spec:
                       mesh)
 
 
+class _ReduceLocal(torch.autograd.Function):
+    """A rank's local tensor reduced over mesh dimensions, through
+    ``DTensor``'s own collective (a ``Partial`` redistributed to
+    ``Replicate``). The sum's backward is the identity: each rank's part
+    of a sum gets the whole gradient of the replicated result (which
+    arrives whole, the result being replicated). A maximum is not
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims, op):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        ctx.op = op
+        rep = [Replicate()] * mesh.ndim
+        part = [Partial(op) if i in dims else p for i, p in enumerate(rep)]
+        return DTensor.from_local(x, mesh, part, run_check=False) \
+            .redistribute(mesh, rep).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op != "sum":
+            raise RuntimeError(f"reduce_local: no gradient for {ctx.op!r}")
+        return g, None, None, None
+
+
+def reduce_local(x: torch.Tensor, dims: Sequence[int],
+                 op: str = "sum") -> torch.Tensor:
+    """``x``, a rank's local tensor inside :func:`on_local_shards`,
+    reduced (``"sum"`` or ``"max"``) over the active mesh's dimensions
+    ``dims`` (indices) and replicated over them; ``x`` itself when
+    ``dims`` is empty. The sum is differentiable."""
+    if not dims:
+        return x
+    return _ReduceLocal.apply(x, active_mesh(), tuple(dims), op)
+
+
+def split_dims(x, dim: int) -> Tuple[int, ...]:
+    """The mesh dimensions (indices) that split dimension ``dim`` of
+    ``DTensor`` ``x``."""
+    from torch.distributed.tensor import Shard
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim % x.ndim == dim % x.ndim)
+
+
+def split_dims_of(entry) -> Tuple[int, ...]:
+    """The active mesh's dimensions (indices) of one resolved spec entry
+    (``None``, an axis name or a tuple of them)."""
+    axes = () if entry is None else \
+        entry if isinstance(entry, tuple) else (entry,)
+    names = axis_names(active_mesh())
+    return tuple(names.index(a) for a in axes)
+
+
+def _dense_strides(shape) -> Tuple[int, ...]:
+    out, n = [], 1
+    for size in reversed(tuple(shape)):
+        out.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(out))
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity whose backward makes the gradient contiguous. On the
     way into a ``local_map`` body a ``DTensor``'s gradient is the local
     tensor of whatever layout the redistribution left (a ``sum``'s is
     expanded, stride 0), and on the way out the redistribution views the
-    local gradient; either fails on a layout a view cannot take."""
+    local gradient; either fails on a layout a view cannot take. A
+    contiguous tensor comes out with the dense strides of its shape: a
+    size-1 dimension's stride is arbitrary (a fake tensor's can differ
+    from a real one's), and the ``DTensor`` made of a local output takes
+    its strides from it, which decide how a later ``matmul`` runs."""
 
     @staticmethod
     def forward(ctx, x):
+        if x.is_contiguous():
+            return x.as_strided(x.shape, _dense_strides(x.shape))
         return x.view_as(x)
 
     @staticmethod
@@ -273,7 +358,8 @@ class _ContiguousGrad(torch.autograd.Function):
 
 
 def on_local_shards(fn, args: Sequence, in_specs: Sequence,
-                    out_specs: Sequence, shared: Sequence[int] = ()):
+                    out_specs: Sequence, shared: Sequence[int] = (),
+                    partial: Optional[dict] = None):
     """``fn(*args)`` on each rank's local shards of ``DTensor`` arguments,
     by ``local_map``, for a computation that is local along the split
     dimensions (the batch, heads, channels): each tensor argument is
@@ -282,8 +368,12 @@ def on_local_shards(fn, args: Sequence, in_specs: Sequence,
     out by its spec in ``out_specs``. ``shared``: the positions of
     arguments every local row uses (a parameter), whose gradient on a
     rank is a partial sum over each mesh axis the first output is split
-    on and they are not. Gradients cross the boundary contiguous. With no
-    ``DTensor`` among ``args``, ``fn(*args)``."""
+    on and they are not. ``partial``: argument position -> the mesh
+    dimensions (indices) over which its gradient on a rank is a partial
+    sum (an input every rank takes whole into a sum ``fn`` splits over
+    those dimensions and completes with :func:`reduce_local`). Gradients
+    cross the boundary contiguous. With no ``DTensor`` among ``args``,
+    ``fn(*args)``."""
     if not any(is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import Partial
@@ -309,6 +399,9 @@ def on_local_shards(fn, args: Sequence, in_specs: Sequence,
     grads = [[Partial() if p.is_replicate() and not q.is_replicate()
               else p for p, q in zip(ins[i], split)] if i in shared
              else ins[i] for i in range(len(ins))]
+    for i, dims in (partial or {}).items():
+        grads[i] = [Partial() if d in dims else p
+                    for d, p in enumerate(grads[i])]
     outs = [place(s) for s in out_specs]
     return local_map(local, out_placements=tuple(outs) if len(outs) > 1
                      else outs[0], in_placements=tuple(ins),

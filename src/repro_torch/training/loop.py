@@ -1,9 +1,10 @@
 """Two-phase training loop with lazy checkpoint integration (port of
 ``repro/training/loop.py``, paper Fig 6).
 
-Each step runs forward and backward (the *immutable window*: params and
-optimizer state are only read), then the update. The update is AdamW in
-place under ``torch.no_grad()`` (:mod:`repro_torch.optim.adamw`): it
+Each step runs forward and backward (:func:`make_grad_step`, the
+*immutable window*: params and optimizer state are only read), then the
+update (:func:`make_update_step`). The update is AdamW in place under
+``torch.no_grad()`` (:mod:`repro_torch.optim.adamw`): it
 overwrites the very buffers a save requested at the previous iteration's
 end may still be copying to the host, so
 :meth:`CheckpointManager.wait_for_capture` sits between backward and
@@ -60,15 +61,42 @@ def _loss_and_grads(cfg, params: Any, batch: Dict[str, torch.Tensor]
     return loss.detach(), unflatten(list(grads))
 
 
+def make_grad_step(cfg) -> Callable:
+    """The immutable window (the reference's ``make_grad_step``):
+    ``grad_step(params, batch) -> (grads, loss)``, forward and backward;
+    params are only read. The loss is detached."""
+    def grad_step(params, batch):
+        loss, grads = _loss_and_grads(cfg, params, batch)
+        return grads, loss
+    return grad_step
+
+
+def make_update_step(cfg, hp: AdamWConfig) -> Callable:
+    """The mutation point (the reference's ``make_update_step``):
+    ``update_step(params, opt_state, grads) -> (params, opt_state)``, the
+    AdamW update in place, so what comes back are the very tensors passed
+    in. It is the counterpart of the reference's donation of ``params``
+    and ``opt_state``, and it is what makes the capture barrier
+    necessary: a save still copying those buffers must be waited for
+    first (:meth:`CheckpointManager.wait_for_capture`)."""
+    def update_step(params, opt_state, grads):
+        apply_updates(params, opt_state, grads, hp)
+        return params, opt_state
+    return update_step
+
+
 def make_train_step(cfg, hp: AdamWConfig) -> Callable:
     """The fused step the dry run traces (the reference's
-    ``make_train_step``): loss and gradients, then the in-place AdamW
-    update; returns ``(params, opt_state, loss)``, the first two the very
-    tensors passed in, updated. :class:`Trainer` runs the same two halves
-    with the capture barrier between them."""
+    ``make_train_step``): :func:`make_grad_step`'s half, then
+    :func:`make_update_step`'s; returns ``(params, opt_state, loss)``, the
+    first two the very tensors passed in, updated. :class:`Trainer` runs
+    the two halves with the capture barrier between them."""
+    grad_step = make_grad_step(cfg)
+    update_step = make_update_step(cfg, hp)
+
     def train_step(params, opt_state, batch):
-        loss, grads = _loss_and_grads(cfg, params, batch)
-        apply_updates(params, opt_state, grads, hp)
+        grads, loss = grad_step(params, batch)
+        update_step(params, opt_state, grads)
         return params, opt_state, loss
     return train_step
 
@@ -89,6 +117,8 @@ class Trainer:
         self.hp = hp or AdamWConfig()
         self.manager = manager
         self.pipeline = SyntheticTokenPipeline(cfg, batch, seq_len, seed=seed)
+        self.grad_step = make_grad_step(cfg)
+        self.update_step = make_update_step(cfg, self.hp)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = _trainable(M.init_params(cfg, gen, self.device))
         self.opt_state = init_opt_state(self.params)
@@ -143,7 +173,7 @@ class Trainer:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev0.record()
             t_g = time.perf_counter()
-            loss, grads = _loss_and_grads(self.cfg, self.params, batch)
+            grads, loss = self.grad_step(self.params, batch)
             if on_card:
                 ev1.record()
             else:
@@ -156,7 +186,7 @@ class Trainer:
                 obs.add_span("ckpt.capture_barrier", t_b, t_b + stall,
                              step=self.step)
                 ckpt_pending = False
-            apply_updates(self.params, self.opt_state, grads, self.hp)
+            self.update_step(self.params, self.opt_state, grads)
             del grads
             self.step += 1
             # --- checkpoint request (lazy: overlaps next fwd/bwd) ---------

@@ -11,11 +11,13 @@ against ``repro``'s unsharded result for the same weights and against the
 port's unsharded one, in fp32:
 
 * the llama3.2-1b smoke variant's train step in ``2d``, ``tp_zero1`` and
-  ``fsdp`` (batch over both axes), and starcoder2's with
-  ``ulysses_attention`` at S 256: the loss and every updated parameter;
-* decode with ``decode_kv_seq_shard`` over a 256-slot cache, and one
-  long-context prompt with the ``seq`` axis on ``data``: the prefill's
-  last logits and four teacher-forced decode steps' logits;
+  ``fsdp`` (batch over both axes), starcoder2's with
+  ``ulysses_attention`` at S 256, and dbrx's MoE in ``2d``: the loss and
+  every updated parameter;
+* decode with the batch-sharded cache, with ``decode_kv_seq_shard`` over
+  a 256-slot cache, and one long-context prompt with the ``seq`` axis on
+  ``data``: the prefill's last logits and four teacher-forced decode
+  steps' logits;
 * the forward with ``seq_parallel_residual`` (S 128), and dbrx's MoE
   forward: logits and the MoE aux loss.
 
@@ -144,6 +146,9 @@ TRAIN_CASES = {
     "tp_zero1": ("llama3.2-1b", {"sharding_mode": "tp_zero1"}, 32),
     "fsdp": ("llama3.2-1b", {"sharding_mode": "fsdp"}, 32),
     "ulysses": ("starcoder2-7b", {"ulysses_attention": True}, 256),
+    # the MoE's experts on each rank's local shards (their einsums under
+    # grad), dbrx's smoke variant
+    "moe_2d": ("dbrx-132b", {"sharding_mode": "2d"}, 32),
 }
 # the recurrent blocks (the RG-LRU's scan and RWKV6's WKV on each rank's
 # local channels or heads) in the three partition modes
@@ -153,7 +158,7 @@ for _mode in ("2d", "tp_zero1", "fsdp"):
     TRAIN_CASES[f"rwkv_{_mode}"] = ("rwkv6-7b", {"sharding_mode": _mode}, 32)
 #: the first block's matrix whose local shape shows the layout, by config
 LAYOUT_MATRIX = {"recurrentgemma-2b": ("rec", "w_rec_in"),
-                 "rwkv6-7b": ("tmix", "wr")}
+                 "rwkv6-7b": ("tmix", "wr"), "dbrx-132b": ("attn", "wq")}
 
 
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
@@ -183,10 +188,13 @@ def test_sharded_train_step_matches_reference(group, case):
 
 
 #: decode cases: (config overrides, batch, the ``seq`` axis, the first
-#: cache's k (1, B, T, KV, hd) as each rank holds it): the 256-slot
-#: cache's sequence over model and the batch over data, or for one
-#: long-context prompt the sequence over data (context parallelism)
+#: cache's k (1, B, T, KV, hd) as each rank holds it): the batch over
+#: data and the KV heads over model (the cache as ``cache_pspecs`` lays
+#: it out), the 256-slot cache's sequence over model and the batch over
+#: data, or for one long-context prompt the sequence over data (context
+#: parallelism)
 DECODE_CASES = {
+    "decode_2d": ({}, 4, None, (1, 2, 256, 1, 64)),
     "decode_kv_seq_shard": ({"decode_kv_seq_shard": True}, 4, None,
                             (1, 2, 128, 2, 64)),
     "long_context": ({}, 1, "data", (1, 1, 128, 2, 64)),
@@ -319,8 +327,9 @@ def test_sharded_ring_cache_prefill(group, kind):
 def test_fake_trace_counts_what_the_ranks_run(group, name):
     """The dry run's trace of a ``2d`` train step on a fake (2, 2) mesh
     (rank 0's local program) against the same step run by the four gloo
-    ranks under the same counter: per-device FLOPs, and collectives'
-    counts and bytes by kind, equal on every rank."""
+    ranks under the same counter: per-device FLOPs, collectives' counts
+    and bytes by kind, and the per-kind op profile (every operator kind's
+    count and result bytes), equal on every rank."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_abstract_mesh
@@ -329,13 +338,14 @@ def test_fake_trace_counts_what_the_ranks_run(group, name):
     try:
         rec = dryrun.dryrun_record(
             cfg, InputShape("t", 32, 4, "train"),
-            make_abstract_mesh((2, 2), ("data", "model")))
+            make_abstract_mesh((2, 2), ("data", "model")), record_ops=True)
     finally:
         ranks = group.results()
     roof = rec["roofline"]
     want = {"flops": roof["per_device"]["flops"],
             "collectives": {k: roof["collectives"][k] for k in (
-                "bytes_per_device", "by_kind", "counts")}}
+                "bytes_per_device", "by_kind", "counts")},
+            "profile": rec["op_profile"]}
     assert want["collectives"]["bytes_per_device"] > 0
     for rank, got in enumerate(ranks):
         assert got == want, rank

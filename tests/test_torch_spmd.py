@@ -162,7 +162,8 @@ def _rank_prefill_caches(cfg, params_np, prompt):
 def _rank_count(cfg, params_np, tokens, kind):
     """The ``train`` step (or ``prefill``) of ``cfg`` on the ranks under
     the dry run's counter (:class:`repro_torch.launch.analysis.
-    TraceCounter`): this rank's FLOPs and collectives."""
+    TraceCounter`, recording its operators): this rank's FLOPs,
+    collectives and per-kind op profile."""
     from repro_torch.launch.analysis import TraceCounter
     from repro_torch.sharding import context as shctx
     from repro_torch.sharding.partition import (batch_pspecs,
@@ -183,10 +184,11 @@ def _rank_count(cfg, params_np, tokens, kind):
         args = (distribute_tree(params, param_pspecs(cfg, params, vm), dm),
                 db)
         step = TE.make_prefill_step(cfg)
-    counter = TraceCounter(args)
+    counter = TraceCounter(args, record_ops=True)
     with shctx.activate(dm), counter:
         step(*args)
-    return {"flops": counter.flops, "collectives": counter.collectives()}
+    return {"flops": counter.flops, "collectives": counter.collectives(),
+            "profile": counter.profile()}
 
 
 # ---------------------------------------- test_torch_sharded_checkpoint
