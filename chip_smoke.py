@@ -414,6 +414,9 @@ EXAMPLES_ENGINE_STEPS = 1
 SHARD_DIMS, SHARD_AXES = (2, 2), ("data", "model")
 SHARD_ELASTIC_DIMS = (1, 4)
 SHARD_BATCH, SHARD_SEQ = 4, 512
+#: the most a rank's counted step or prefill FLOPs may be over a world-th
+#: of the same step counted unsharded
+SHARD_WORK_MAX = 1.10
 SHARD_GRAD_BATCH, SHARD_GRAD_SEQ = 2, 2304
 SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ = 2, 2304
 #: the decode headroom of the sharded prefill's caches
@@ -3876,7 +3879,8 @@ def _shard_rank_step() -> dict:
     return {"loss": loss, "grad_norm": norm, "grad_loss": loss2,
             "grad2_norm": norm2, "step_s": step_s, "grad_s": grad_s,
             "flash_in_grad": flash_in_grad, "rss": rss,
-            "counted": _counted(counter)}
+            "counted": _counted(counter),
+            "peak_bytes": counter.peak_temp_bytes}
 
 
 def _counted(counter) -> dict:
@@ -4085,8 +4089,12 @@ def _init_sharded(cfg, seed: int, dm):
     """``init_params(cfg)`` from ``seed`` laid out by ``param_pspecs`` on
     ``dm``, a leaf at a time: this rank makes each leaf whole (the draws
     ``init_params`` makes) and keeps its region, so it never holds the
-    whole tree (dbrx's one layer is 8.98 GB)."""
+    whole tree (dbrx's one layer is 8.98 GB). The ranks take turns, each
+    handing its whole leaves back to the card before the next starts:
+    four ranks drawing a full-width expert weight at once (fp32, 3.94
+    GiB each) do not fit beside the state on one card."""
     import torch
+    import torch.distributed as dist
     from repro_torch.launch.mesh import virtual_mesh
     from repro_torch.models.model import init_params, param_shapes
     from repro_torch.sharding.partition import (distribute_tree,
@@ -4098,8 +4106,15 @@ def _init_sharded(cfg, seed: int, dm):
     def place(path, leaf):
         return distribute_tree({"x": leaf}, {"x": _spec_at(specs, path)},
                                dm)["x"]
-    return init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                       dev, place=place)
+    out = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            out = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                seed), dev, place=place)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        _shard_sync()
+    return out
 
 
 def _serve_cfg(decode_len: int, **kw):
@@ -4139,30 +4154,46 @@ def _expected_local_cache(case: str, batch: int, slots: int, cfg) -> tuple:
 
 
 def _decode_reference(cfg, device: str, batch: int, prompt_len: int,
-                      seed: int, n: int) -> tuple:
+                      seed: int, n: int, count: dict = None) -> tuple:
     """The unsharded prefill of the seeded prompt and ``n`` greedy decode
     steps from the seeded serving params, in this process: the tokens
     (B, n) and every logits (the prefill's last, then each step's), on
-    the host in fp32, and the seconds."""
+    the host in fp32, and the seconds. With ``count`` (a dict) the
+    prefill and the first decode step run under the dry run's counter,
+    their FLOPs and peak bytes put in it under ``prefill`` and
+    ``decode``."""
     import torch
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.models.model import init_params
     from repro_torch.serving.engine import (make_decode_step,
                                             make_prefill_step)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(
         SHARD_SERVE_SEED), device)
-    prompt = _shard_tokens(cfg, device, batch, prompt_len, seed)
+    prompt = {"tokens": _shard_tokens(cfg, device, batch, prompt_len, seed)}
+
+    def counted(kind, args):
+        if count is None:
+            return contextlib.nullcontext()
+        counter = count[kind] = TraceCounter(args)
+        return counter
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, caches = make_prefill_step(cfg)(params, {"tokens": prompt})
+        with counted("prefill", (params, prompt)):
+            logits, caches = make_prefill_step(cfg)(params, prompt)
         decode = make_decode_step(cfg)
         out, toks = [logits.float().cpu()], []
         for i in range(n):
             nxt = torch.argmax(logits[:, -1].float(), dim=-1) \
                 .to(torch.int32).reshape(batch, 1)
             toks.append(nxt)
-            logits, caches = decode(params, nxt, caches, prompt_len + i)
+            with counted("decode", (params, nxt, caches)) if i == 0 \
+                    else contextlib.nullcontext():
+                logits, caches = decode(params, nxt, caches, prompt_len + i)
             out.append(logits.float().cpu())
     seconds = time.perf_counter() - t0
+    for kind, counter in (count or {}).items():
+        count[kind] = {"flops": float(counter.flops),
+                       "peak_bytes": counter.peak_temp_bytes}
     return torch.cat(toks, dim=1).cpu(), out, seconds
 
 
@@ -4428,6 +4459,7 @@ def _unsharded_reference(device: str, cfg, batch: int, seq: int,
     global norms and the whole tensors :data:`SHARD_CMP` names."""
     import torch
     from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          global_norm, init_opt_state)
@@ -4443,13 +4475,19 @@ def _unsharded_reference(device: str, cfg, batch: int, seq: int,
            "grads2": leaves(grads2)}
     out["grad_s"] = time.perf_counter() - t0
     master_before = [t.clone() for t in leaves(opt["master"])]
+    tokens = {"tokens": _shard_tokens(cfg, device, batch, seq, SEED + 1)}
+    # the step under the dry run's counter, as each rank counts its own:
+    # the work the ranks divide among them
+    counter = TraceCounter((params, opt, tokens))
     t0 = time.perf_counter()
-    loss, grads = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
-        cfg, device, batch, seq, SEED + 1)})
+    with counter:
+        loss, grads = _loss_and_grads(cfg, params, tokens)
+        apply_updates(params, opt, grads, AdamWConfig())
     out["grad_norm"] = float(global_norm(grads))
-    apply_updates(params, opt, grads, AdamWConfig())
     out["loss"] = float(loss)
     out["step_s"] = time.perf_counter() - t0
+    out["counted"] = {"flops": float(counter.flops),
+                      "peak_bytes": counter.peak_temp_bytes}
     out["delta"] = [t - b for t, b in zip(leaves(opt["master"]),
                                           master_before)]
     out["m"] = leaves(opt["m"])
@@ -4490,6 +4528,7 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
     ref = _unsharded_reference(device, cfg, batch, seq, grad_batch,
                                grad_seq)
     report["unsharded_step_s"] = ref.pop("step_s")
+    ref_counted = ref.pop("counted")
     report["unsharded_grad_s"] = ref.pop("grad_s")
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -4595,6 +4634,7 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
         report["decode"] = _sharded_decode(device, cfg, group, prefill_batch,
                                            prefill_len)
         pre = report["decode"].pop("ranks")
+        unsharded = report["decode"].pop("unsharded_counted")
         report["local_flash"] = group.run(_shard_rank_local_flash)[0]
         log("sharded decode: " + "; ".join(
             f"{k} logits rel L2 max {max(v['rel_l2']):.3e}, k "
@@ -4605,6 +4645,8 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                        traced["prefill"])
         _check_counted("decode", [r["counted_decode"] for r in pre],
                        traced["decode"])
+        report["work"] = _sharded_work(world, steps, pre, ref_counted,
+                                       unsharded)
         report["zoo"] = _sharded_zoo_grads(device, group, zoo or {
             name: _zoo_cfg(name, len(p), p)
             for name, p in SHARD_ZOO_PATTERNS.items()})
@@ -4635,8 +4677,9 @@ def _sharded_decode(device: str, cfg, group, batch: int,
             _decode_cases(batch, prompt_len).items():
         c = dataclasses.replace(cfg, sharding_mode="2d",
                                 max_decode_len=decode_len, **kw)
+        count = {} if case == "2d" else None
         steps, want, ref_s = _decode_reference(c, device, rows, prompt_len,
-                                               seed, n)
+                                               seed, n, count)
         if device == "cuda":
             torch.cuda.empty_cache()
         ranks = group.run(_shard_rank_decode, case, batch, prompt_len, steps)
@@ -4668,7 +4711,38 @@ def _sharded_decode(device: str, cfg, group, batch: int,
         if case == "2d":
             out["ranks"] = [{k: v for k, v in r.items() if k != "logits"}
                             for r in ranks]
+            out["unsharded_counted"] = count
         out["launches_by_rank"] = [r["launches"] for r in ranks]
+    return out
+
+
+def _sharded_work(world: int, steps: list, pre: list, step_ref: dict,
+                  serve_ref: dict) -> dict:
+    """Each rank's counted FLOPs of the step, the 2d prefill and its first
+    decode step over a ``world``-th of the same step counted unsharded
+    (the reference's sharded program reads 1.00 on the step: GSPMD splits
+    every product over the mesh), the step's all-gather bytes, peak bytes
+    (the counter's live storage beyond the arguments) and seconds a rank,
+    and the unsharded step's peak. Fails where the step or the prefill
+    reads over :data:`SHARD_WORK_MAX`; decode has no gate."""
+    out = {}
+    for kind, ranks, ref in (
+            ("step", [r["counted"] for r in steps], step_ref),
+            ("prefill", [r["counted_prefill"] for r in pre],
+             serve_ref["prefill"]),
+            ("decode", [r["counted_decode"] for r in pre],
+             serve_ref["decode"])):
+        out[kind] = [r["flops"] / (ref["flops"] / world) for r in ranks]
+        if kind != "decode" and not max(out[kind]) <= SHARD_WORK_MAX:
+            fail(f"sharded work: each rank's {kind} FLOPs over a {world}th "
+                 f"of the unsharded {kind}'s read {out[kind]}, past "
+                 f"{SHARD_WORK_MAX}: the ranks repeat work the mesh should "
+                 f"split")
+    out["all_gather_bytes"] = [r["counted"]["collectives"]["by_kind"][
+        "all-gather"] for r in steps]
+    out["peak_bytes"] = [r["peak_bytes"] for r in steps]
+    out["unsharded_peak_bytes"] = step_ref["peak_bytes"]
+    out["step_s"] = [r["step_s"] for r in steps]
     return out
 
 
@@ -4767,6 +4841,9 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
     workdir = os.path.join(ROOT, "build", "chip_smoke_sharded")
     shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
+    # the four ranks share the card with this process: what earlier
+    # phases left cached goes back first
+    torch.cuda.empty_cache()
     host = {"rss": _rss_bytes(), "available": _mem_available_bytes()}
     _release_pinned()
     host.update(rss_released=_rss_bytes(),
@@ -4838,6 +4915,16 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         + " s by rank, the prefill " + ", ".join(
             f"{r['prefill_s']:.3f}" for r in report["prefill"])
         + f" s ({card})")
+    work = report["work"]
+    log("sharded work: each rank's counted FLOPs over a quarter of the "
+        "unsharded count (1.00 when the mesh splits every product; gate "
+        f"{SHARD_WORK_MAX} on the step and the prefill, none on decode): "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.4f}" for x in work[k])
+                    for k in ("step", "prefill", "decode"))
+        + f" by rank; the step's all-gather bytes a rank "
+        f"{work['all_gather_bytes']}, peak bytes a rank {work['peak_bytes']}"
+        f" (unsharded {work['unsharded_peak_bytes']}), seconds a rank "
+        + ", ".join(f"{x:.3f}" for x in work["step_s"]) + f" ({card})")
     log("sharded decode against the unsharded decode, teacher-forced with "
         "its greedy tokens: " + "; ".join(
             f"{k} (batch {v['batch']}, {v['slots']} slots, k {v['cache'][0]}"

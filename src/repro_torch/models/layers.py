@@ -21,7 +21,12 @@ applied here as a 0-d tensor of the working dtype.
 Under an active mesh (:mod:`repro_torch.sharding.context`) the tensors
 are ``DTensor``s and the reference's activation constraints apply: the
 Ulysses entry and exit of attention, the decode cache's layout and the
-FFN's hidden layer. The self-attention core runs on each rank's local
+FFN's hidden layer. Every weight product runs on its ``model`` shard:
+q, k, v, the gate and up projections and the logits column-parallel
+(the logits split over the vocabulary), the attention's output and the
+FFN's down projection row-parallel
+(:func:`repro_torch.sharding.context.column_parallel`,
+``row_parallel``). The self-attention core runs on each rank's local
 q, k and v (:func:`_on_local_shards`): batch over the batch axes, heads
 over ``model`` when the KV heads divide, so every q head's KV head is
 local; the kernel launches on the local shard and nothing gathers the
@@ -112,10 +117,14 @@ def make_mask(seq_len: int, device: torch.device, kind: str = "full", *,
 
 
 # ----------------------------------------------------------------- attention
-def _proj(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w
-    return y if b is None else y + b
+def residual_spec(cfg, seq_len: int):
+    """The residual stream's layout (logical axes) that a row-parallel
+    product reduces onto: sequence-split over ``model`` under Megatron
+    sequence parallelism (the reference's ``sp_spec``, model.py:243-253),
+    else the batch split alone."""
+    if cfg.seq_parallel_residual and seq_len % 128 == 0:
+        return (BATCH, "model", None)
+    return (BATCH, None, None)
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -287,10 +296,46 @@ def _on_local_shards(fn, q, k, v):
     Ulysses' sequence-sharded layout: the all-to-all); the output comes
     back with the same layout on its heads (the flattened ``H * hd``,
     heads major). Autograd goes through it, so :class:`_Flash`'s
-    backward runs on the local shards too."""
-    in_spec = shctx.local_spec((BATCH, None, "model", None), k.shape)
-    return shctx.on_local_shards(fn, (q, k, v), (in_spec,) * 3,
-                                 (in_spec[:3],))
+    backward runs on the local shards too.
+
+    Where ``model`` divides the q heads but not the KV heads (more
+    tensor-parallel ranks than KV heads), the q heads are split and the
+    KV heads taken whole, each rank keeping the KV heads its q heads
+    read (Megatron's replicated KV heads): the attention is not repeated
+    on every rank. Each rank's gradient of k and v is then a partial sum
+    over ``model``."""
+    spec = (BATCH, None, "model", None)
+    kv_spec = shctx.local_spec(spec, k.shape)
+    q_spec = shctx.local_spec(spec, q.shape)
+    heads = _local_kv_heads(q, q_spec, k.shape[2]) \
+        if kv_spec[2] is None else None
+    if heads is None:
+        return shctx.on_local_shards(fn, (q, k, v), (kv_spec,) * 3,
+                                     (kv_spec[:3],))
+    a, b = heads
+    dims = shctx.split_dims_of(q_spec[2])
+    return shctx.on_local_shards(
+        lambda q, k, v: fn(q, k[:, :, a:b], v[:, :, a:b]), (q, k, v),
+        (q_spec, kv_spec, kv_spec), (q_spec[:3],),
+        partial={1: dims, 2: dims})
+
+
+def _local_kv_heads(q, q_spec, n_kv: int) -> Optional[Tuple[int, int]]:
+    """The KV heads ``[a, b)`` that this rank's q heads read when
+    ``q_spec`` splits q's heads (dimension 2) and the KV heads are
+    whole, if each rank's q heads are whole groups of one or more KV
+    heads, or one KV head's group split evenly; else ``None``."""
+    if q_spec[2] is None:
+        return None
+    from repro_torch.sharding.partition import local_region
+    mesh = shctx.active_mesh()
+    lo, hi = local_region(tuple(q.shape), q_spec, mesh,
+                          torch.distributed.get_rank())[2].indices(
+                              q.shape[2])[:2]
+    rep, n = q.shape[2] // n_kv, hi - lo
+    if rep % n and n % rep:
+        return None
+    return lo // rep, (hi - 1) // rep + 1
 
 
 def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -299,9 +344,10 @@ def project_qkv(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """q (B,S,H,hd), k and v (B,S,KV,hd) of x (B,S,d), with the biases
     where the params hold them, q and k rotated at ``positions`` (B,S)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = shctx.unflatten_last(_proj(x, p["wq"], p.get("bq")), H, hd)
-    k = shctx.unflatten_last(_proj(x, p["wk"], p.get("bk")), KV, hd)
-    v = shctx.unflatten_last(_proj(x, p["wv"], p.get("bv")), KV, hd)
+    col = shctx.column_parallel
+    q = shctx.unflatten_last(col(x, p["wq"], p.get("bq")), H, hd)
+    k = shctx.unflatten_last(col(x, p["wk"], p.get("bk")), KV, hd)
+    v = shctx.unflatten_last(col(x, p["wv"], p.get("bv")), KV, hd)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -329,7 +375,8 @@ def attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor, *,
                         kv_block=cfg.attn_kv_block)
     if ulysses:
         out = constrain(out, (BATCH, "model", None))
-    return _proj(out, p["wo"], p.get("bo")), (k, v)
+    return shctx.row_parallel(out, p["wo"], residual_spec(cfg, x.shape[1]),
+                              p.get("bo")), (k, v)
 
 
 def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -380,7 +427,8 @@ def decode_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         out = _sdpa(q, ck, cv, _decode_valid(
             torch.arange(T, device=x.device), T, pos, mode))
-    return _proj(out, p["wo"], p.get("bo")), cache_k, cache_v
+    return shctx.row_parallel(out, p["wo"], (BATCH, None, None),
+                              p.get("bo")), cache_k, cache_v
 
 
 def _decode_valid(idx: torch.Tensor, T: int, pos: int,
@@ -446,22 +494,24 @@ def cross_attention(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Cross-attention of x (B,S,d) to precomputed memory K/V
     (B,M,KV,hd): no mask, no RoPE. ``DTensor`` inputs run on their local
     shards (:func:`_on_local_shards`)."""
-    q = shctx.unflatten_last(_proj(x, p["wq"], p.get("bq")), cfg.n_heads,
-                             cfg.hd)
+    q = shctx.unflatten_last(shctx.column_parallel(x, p["wq"], p.get("bq")),
+                             cfg.n_heads, cfg.hd)
     if shctx.is_dtensor(q):
         out = _on_local_shards(functools.partial(_sdpa, mask=None), q,
                                mem_k, mem_v)
     else:
         out = _sdpa(q, mem_k, mem_v, None)
-    return _proj(out, p["wo"], p.get("bo"))
+    return shctx.row_parallel(out, p["wo"], residual_spec(cfg, x.shape[1]),
+                              p.get("bo"))
 
 
 def memory_kv(cfg, p: Dict[str, torch.Tensor], memory: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The conditioning memory (B,M,d) projected to K/V once (prefill)."""
     KV, hd = cfg.n_kv_heads, cfg.hd
-    k = shctx.unflatten_last(_proj(memory, p["wk"], p.get("bk")), KV, hd)
-    v = shctx.unflatten_last(_proj(memory, p["wv"], p.get("bv")), KV, hd)
+    col = shctx.column_parallel
+    k = shctx.unflatten_last(col(memory, p["wk"], p.get("bk")), KV, hd)
+    v = shctx.unflatten_last(col(memory, p["wv"], p.get("bv")), KV, hd)
     return k, v
 
 
@@ -471,12 +521,12 @@ def apply_ffn(cfg, p: Dict[str, torch.Tensor],
     """``gelu_mlp``: ``gelu(x @ w_up + b_up) @ w_down + b_down``; the
     gated ones: ``act(x @ w_gate) * (x @ w_up) @ w_down`` with ``silu``,
     ``gelu`` (tanh form, as ``jax.nn.gelu``) or ``relu_sq``."""
-    up = _proj(x, p["w_up"], p.get("b_up"))
+    up = shctx.column_parallel(x, p["w_up"], p.get("b_up"))
     gelu = torch.nn.functional.gelu
     if cfg.act == "gelu_mlp":
         h = gelu(up, approximate="tanh")
     else:
-        gate = x @ p["w_gate"]
+        gate = shctx.column_parallel(x, p["w_gate"])
         if cfg.act == "silu":
             h = torch.nn.functional.silu(gate) * up
         elif cfg.act == "gelu":
@@ -486,7 +536,8 @@ def apply_ffn(cfg, p: Dict[str, torch.Tensor],
         else:
             raise ValueError(cfg.act)
     h = constrain(h, (BATCH, None, "model"))  # reference layers.py:404
-    return _proj(h, p["w_down"], p.get("b_down"))
+    return shctx.row_parallel(h, p["w_down"], residual_spec(cfg, x.shape[1]),
+                              p.get("b_down"))
 
 
 # ----------------------------------------------------------------- embedding
@@ -510,42 +561,51 @@ def embed_tokens(cfg, p: Dict[str, torch.Tensor],
 def _lookup_on_local_shards(table: torch.Tensor,
                             ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for a ``DTensor`` table (V, d) (the reference's
-    lookup, layers.py:422-428), vocabulary-parallel on each rank's local
-    block: the ids whole on every rank, each rank reads the ids its rows
-    hold (zero for the rest) in its columns, the reads are summed over
-    the ranks that split the vocabulary
-    (:func:`repro_torch.sharding.context.reduce_local`) and the columns
-    gathered: what moves is the lookup, not the table. A rank's
-    gradient is its own block's whole. ``DTensor``'s own rules give a
-    masked partial sum whose reduction breaks on a batch-sharded index,
-    and PyTorch 2.11's rule for the lookup's backward (``index_put``)
-    fails on a split table."""
-    from torch.distributed.tensor import Replicate
+    lookup, layers.py:422-428) on each rank's local block, the ids split
+    as the batch is: along a mesh axis that splits the batch the table
+    is gathered (the FSDP unshard), along one that splits the
+    vocabulary and not the batch the lookup is vocabulary-parallel (each
+    rank reads the ids its rows hold, zero for the rest, and the reads
+    are summed over those ranks,
+    :func:`repro_torch.sharding.context.reduce_local`), and columns split
+    along any other axis are gathered after the read. The result keeps
+    the ids' batch split: no rank reads the whole batch. A rank's
+    gradient is its own block's, a partial sum over the batch's axes.
+    ``DTensor``'s own rules give a masked partial sum whose reduction
+    breaks on a batch-sharded index, and PyTorch 2.11's rule for the
+    lookup's backward (``index_put``) fails on a split table."""
+    from torch.distributed.tensor import Replicate, Shard
 
-    from repro_torch.sharding.partition import local_index, spec_of
+    from repro_torch.sharding.partition import local_region, spec_of
     mesh = table.device_mesh
-    whole = [Replicate()] * mesh.ndim
-    if shctx.is_dtensor(ids):
-        ids = ids.redistribute(mesh, whole)
-    spec = spec_of(table.placements, mesh, 2)
-    lo = local_index(table)[0].start or 0
-    vocab_dims = shctx.split_dims(table, 0)
+    ids = shctx.reduced(shctx.as_dtensor(ids, mesh))
+    want = []
+    for pt, pi in zip(table.placements, ids.placements):
+        if isinstance(pi, Shard):
+            want.append(Replicate())
+        else:
+            want.append(pt if isinstance(pt, Shard) else Replicate())
+    spec = spec_of(want, mesh, 2)
+    ids_spec = spec_of(ids.placements, mesh, ids.ndim)
+    lo = local_region(tuple(table.shape), spec, mesh,
+                      torch.distributed.get_rank())[0].start or 0
+    vocab_dims = shctx.split_dims_of(spec[0])
 
     def local(t, i):
         inside = (i >= lo) & (i < lo + t.shape[0])
         rows = t[torch.where(inside, i - lo, 0)]
         rows = torch.where(inside[..., None], rows, 0)
         return shctx.reduce_local(rows, vocab_dims)
-    none = (None,) * ids.ndim
-    rows = shctx.on_local_shards(local, (table, ids), (spec, none),
-                                 (none + (spec[1],),))
-    return rows.redistribute(mesh, whole)
+    rows = shctx.on_local_shards(local, (table, ids), (spec, ids_spec),
+                                 (ids_spec + (spec[1],),), shared=(0,))
+    return shctx.unsplit(rows, (-1,))
 
 
 def logits_from_hidden(cfg, p: Dict[str, torch.Tensor],
                        x: torch.Tensor) -> torch.Tensor:
     """(B,S,vocab), or (B,S,K,vocab) with codebooks."""
-    logits = x @ (p["embed"].T if cfg.tie_embeddings else p["head"])
+    logits = shctx.column_parallel(
+        x, p["embed"].T if cfg.tie_embeddings else p["head"])
     if cfg.n_codebooks:
         logits = shctx.unflatten_last(logits, cfg.n_codebooks, cfg.vocab)
     return logits

@@ -416,7 +416,9 @@ def forward_aux(cfg, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     check_supported(cfg)
     x, n_prefix, memory = _embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
-    positions = layers.positions_for(B, S, x.device)
+    # one row, broadcast over the batch: a DTensor's shape is global, so
+    # (B, S) would make every rank rotate the whole batch's positions
+    positions = layers.positions_for(1, S, x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     # Megatron sequence parallelism (reference model.py:243-253): the
@@ -537,14 +539,63 @@ def loss_fn(cfg, params: Dict[str, Any],
     if cfg.n_prefix_embeds:
         logits = logits[:, cfg.n_prefix_embeds:]
     tgt = batch["tokens"][:, 1:].long()
-    # the vocab dimension whole for the gold logit's gather (reference
-    # model.py:300-303): DTensor has no sharding rule that gathers along
-    # a sharded dimension of a batch-sharded index
-    lg = constrain(logits[:, :-1].to(torch.float32),
-                   (layers.BATCH, None, None))
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    return (logz - gold).mean() + cfg.router_aux_coef * aux
+    lg = logits[:, :-1].to(torch.float32)
+    if shctx.is_dtensor(lg):
+        ce = _mean_ce_on_local_shards(lg, tgt)
+    else:
+        ce = _token_ce(lg, tgt).mean()
+    return ce + cfg.router_aux_coef * aux
+
+
+def _token_ce(lg: torch.Tensor, tgt: torch.Tensor, lo: int = 0,
+              vocab_dims: Tuple[int, ...] = ()) -> torch.Tensor:
+    """Each token's ``logsumexp(lg) - lg[tgt]`` over the last dimension.
+    Inside :func:`repro_torch.sharding.context.on_local_shards`, ``lg``
+    is a rank's block of the vocabulary starting at ``lo``, split among
+    the ranks of the mesh dimensions ``vocab_dims``: the maximum and the
+    sum of the ``logsumexp`` and the gold logit (read by the rank whose
+    block holds it, zero elsewhere) are completed over them
+    (:func:`repro_torch.sharding.context.reduce_local`). The maximum only
+    shifts the exponentials, so it carries no gradient."""
+    if not vocab_dims:
+        logz = torch.logsumexp(lg, dim=-1)
+        return logz - torch.gather(lg, -1, tgt[..., None])[..., 0]
+    top = shctx.reduce_local(lg.detach().amax(-1), vocab_dims, "max")
+    total = shctx.reduce_local(torch.exp(lg - top[..., None]).sum(-1),
+                               vocab_dims)
+    inside = (tgt >= lo) & (tgt < lo + lg.shape[-1])
+    gold = torch.gather(lg, -1, torch.where(inside, tgt - lo, 0)[..., None])
+    gold = shctx.reduce_local(torch.where(inside, gold[..., 0], 0.0),
+                              vocab_dims)
+    return top + torch.log(total) - gold
+
+
+def _mean_ce_on_local_shards(lg: torch.Tensor,
+                             tgt: torch.Tensor) -> torch.Tensor:
+    """The mean of :func:`_token_ce` over every token of ``DTensor``
+    logits, on each rank's local shards and vocabulary-parallel: the
+    logits stay as the head's column-parallel product laid them out (the
+    vocabulary over ``model``, the batch over the batch axes), the
+    targets take the logits' layout on the leading dimensions, each rank
+    sums its tokens' losses and the sums are added over the ranks that
+    split the tokens (:func:`repro_torch.sharding.context.reduce_local`).
+    Nothing gathers the vocabulary or the batch, in the backward either
+    (``DTensor``'s own mean hands every rank the whole batch's
+    gradient)."""
+    from repro_torch.sharding.partition import local_index, spec_of
+    lg = shctx.reduced(lg)
+    spec = spec_of(lg.placements, lg.device_mesh, lg.ndim)
+    lo = local_index(lg)[-1].start or 0
+    vocab = shctx.split_dims(lg, -1)
+    tokens = tuple(d for i in range(lg.ndim - 1)
+                   for d in shctx.split_dims(lg, i))
+    n = tgt.numel()
+
+    def local(a, t):
+        return shctx.reduce_local(_token_ce(a, t, lo, vocab).sum(),
+                                  tokens) / n
+    return shctx.on_local_shards(local, (lg, tgt), (spec, spec[:-1]),
+                                 ((),))
 
 
 # --------------------------------------------------------------- accounting

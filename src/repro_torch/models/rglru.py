@@ -27,6 +27,8 @@ import torch
 
 from repro_torch.sharding import context as shctx
 
+from . import layers
+
 C_FACTOR = 8.0
 
 
@@ -71,8 +73,8 @@ def rg_lru(p: Dict[str, torch.Tensor], u: torch.Tensor,
     ``(y in u's dtype, h_last fp32)``."""
     f32 = torch.float32
     uf = u.to(f32)
-    r = torch.sigmoid(uf @ p["w_a"].to(f32) + p["b_a"])
-    i = torch.sigmoid(uf @ p["w_x"].to(f32) + p["b_x"])
+    r = torch.sigmoid(shctx.column_parallel(uf, p["w_a"]) + p["b_a"])
+    i = torch.sigmoid(shctx.column_parallel(uf, p["w_x"]) + p["b_x"])
     softplus = torch.logaddexp(p["lam"], torch.zeros_like(p["lam"]))
     log_a = -C_FACTOR * softplus * r                    # (B, T, dr) <= 0
     a = torch.exp(log_a)
@@ -102,13 +104,14 @@ def apply_rglru_block(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
                                                      torch.Tensor]]:
     """x: (B, T, d); ``state``: ``None`` or ``(h (B, dr) fp32, conv (B,
     W-1, dr))``. Returns ``(out (B, T, d), (h_last, conv))``."""
-    gate = torch.nn.functional.gelu(x @ p["w_gate_branch"],
-                                    approximate="tanh")
-    u = x @ p["w_rec_in"]
+    gate = torch.nn.functional.gelu(
+        shctx.column_parallel(x, p["w_gate_branch"]), approximate="tanh")
+    u = shctx.column_parallel(x, p["w_rec_in"])
     h0 = conv_state = None
     if state is not None:
         h0, conv_state = state
     u, new_conv = causal_conv1d(p, u, conv_state)
     rec, h_last = rg_lru(p, u, h0)
-    out = (gate * rec) @ p["w_out"]
+    out = shctx.row_parallel(gate * rec, p["w_out"],
+                             layers.residual_spec(cfg, x.shape[1]))
     return out, (h_last.to(torch.float32), new_conv)

@@ -31,14 +31,14 @@ import torch
 
 from repro_torch.sharding import context as shctx
 
+from . import layers
+
+#: ``x @ w`` in the promoted dtype of the two, as ``jnp.matmul``; on a mesh
+#: column-parallel
+_col = shctx.column_parallel
+
 LOG_DECAY_CLAMP = -5.0  # e^-5/step ≈ 0.0067: effectively zero in a chunk
 MIX_LORA = 32
-
-
-def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in the promoted dtype of the two, as ``jnp.matmul``."""
-    dt = torch.promote_types(x.dtype, w.dtype)
-    return x.to(dt) @ w.to(dt)
 
 
 # --------------------------------------------------------------------- wkv6
@@ -149,7 +149,7 @@ def _ddlerp(p: Dict[str, torch.Tensor], x: torch.Tensor,
     (B, T, 5, d) fp32."""
     delta = x_prev - x
     base = x + delta * p["mix_base"][0]          # seed mix (uses target 0)
-    lora = shctx.unflatten_last(torch.tanh(_mm(base, p["mix_w1"])), 5,
+    lora = shctx.unflatten_last(torch.tanh(_col(base, p["mix_w1"])), 5,
                                 MIX_LORA)
     dyn = torch.einsum("btki,kid->btkd", lora, p["mix_w2"].to(lora.dtype))
     mixes = p["mix_base"][None, None] + dyn      # (B, T, 5, d)
@@ -171,18 +171,20 @@ def time_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     x_prev = torch.cat([x_prev_last[:, None, :], x[:, :-1, :]], dim=1)
     m = _ddlerp(p, x, x_prev)
     xr, xw, xk, xv, xg = (m[:, :, i, :] for i in range(5))
-    r = shctx.unflatten_last(_mm(xr, p["wr"]), H, hs)
-    kk = shctx.unflatten_last(_mm(xk, p["wk"]), H, hs)
-    vv = shctx.unflatten_last(_mm(xv, p["wv"]), H, hs)
-    g = torch.nn.functional.silu(_mm(xg, p["wg"]))
-    lw = -torch.exp(p["w0"] + _mm(torch.tanh(_mm(xw, p["w_a"])), p["w_b"]))
+    r = shctx.unflatten_last(_col(xr, p["wr"]), H, hs)
+    kk = shctx.unflatten_last(_col(xk, p["wk"]), H, hs)
+    vv = shctx.unflatten_last(_col(xv, p["wv"]), H, hs)
+    g = torch.nn.functional.silu(_col(xg, p["wg"]))
+    lw = -torch.exp(p["w0"] + _col(torch.tanh(_col(xw, p["w_a"])),
+                                   p["w_b"]))
     lw = shctx.unflatten_last(lw, H, hs)
     stepwise = decode or state is not None or T % cfg.rwkv_chunk != 0
     wkv, S = _wkv(r, kk, vv, lw, p["u"], state,
                   None if stepwise else cfg.rwkv_chunk)
     out = _group_norm_heads(wkv.reshape(B, T, d).to(x.dtype),
                             p["ln_x_scale"], H)
-    out = _mm(out * g, p["wo"])
+    out = shctx.row_parallel(out * g, p["wo"],
+                             layers.residual_spec(cfg, T))
     return out, (x[:, -1, :], S.to(torch.float32))
 
 
@@ -195,6 +197,11 @@ def channel_mix(cfg, p: Dict[str, torch.Tensor], x: torch.Tensor,
     delta = x_prev - x
     xk = x + delta * p["mix_k"]
     xr = x + delta * p["mix_r"]
-    k = torch.square(torch.relu(_mm(xk, p["w_in"])))
-    r = torch.sigmoid(_mm(xr, p["w_r"]))
-    return r * _mm(k, p["w_out"]), x[:, -1, :]
+    k = torch.square(torch.relu(_col(xk, p["w_in"])))
+    r = torch.sigmoid(_col(xr, p["w_r"]))
+    # reduced onto r's layout (its channels over 'model') and the gated
+    # product made whole over them, the residual's layout: a
+    # reduce-scatter and an all-gather, an all-reduce's bytes
+    out = shctx.row_parallel(k, p["w_out"],
+                             (layers.BATCH, None, "model"))
+    return shctx.unsplit(r * out, (-1,)), x[:, -1, :]

@@ -15,6 +15,14 @@ tensor that meets a ``DTensor`` in an operator (a mask, the positions,
 RoPE's frequencies: constants each rank builds alike) counts as
 replicated (``implicit_replication``).
 
+``constrain`` runs after ``DTensor``'s per-operator strategy has chosen
+how to compute ``x``; ``with_sharding_constraint`` is a hint GSPMD
+carries back into the product that makes ``x``. So the model lays each
+weight product out before it runs, as GSPMD lays it out
+(:func:`column_parallel`, :func:`row_parallel`: Megatron's pair, the
+weight gathered over its FSDP axes only), and each product runs on the
+``model`` shard the partition rules give its weight.
+
 Where ``DTensor`` has no rule for a computation, or one that PyTorch
 2.11 refuses, the model runs it on each rank's local shards
 (:func:`on_local_shards`: attention and decode attention, the RG-LRU's
@@ -212,6 +220,109 @@ def constrain(x, spec: Sequence):
                         f"{tuple(x.shape)}")
     resolved = _divisible(resolved, x.shape, mesh)
     return x.redistribute(mesh, placements_for(resolved, mesh))
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a ``DTensor`` on ``mesh``: a plain tensor (a constant every
+    rank builds alike) counts as replicated, as under
+    ``implicit_replication``."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def column_parallel(x, w, b=None):
+    """``x @ w`` (+ ``b``) for a weight ``w`` (K, N) whose output columns
+    the partition rules split over ``model`` (``wq``, ``w_up``, the
+    head, ...), laid out as GSPMD lays the product out (Megatron's
+    column-parallel product): the weight is gathered over every mesh axis
+    but the ones that split its columns (the FSDP unshard; in
+    ``tp_zero1`` nothing moves), ``x`` is made whole over those (an
+    all-gather of a sequence-parallel residual) and keeps its batch
+    split, and the product runs on the local blocks: the result is split
+    on its last dimension as ``w``'s columns are, on its batch as ``x``'s
+    rows are. A mesh axis that splits ``x``'s batch (every axis in
+    ``fsdp``) takes the weight whole. In the promoted dtype of ``x`` and
+    ``w``, as ``jnp.matmul``. With no mesh active, or a weight that is
+    not a ``DTensor``, the plain product."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    mesh = active_mesh()
+    if mesh is None or not is_dtensor(w):
+        y = x.to(dt) @ w.to(dt)
+        return y if b is None else y + b
+    from torch.distributed.tensor import Replicate, Shard
+    x = reduced(as_dtensor(x, mesh))
+    nd, last = x.ndim, x.ndim - 1
+    wt, xt = [], []
+    for pw, px in zip(w.placements, x.placements):
+        if isinstance(px, Shard) and px.dim % nd == 0:   # x's batch split
+            wt.append(Replicate())
+            xt.append(px)
+        elif isinstance(pw, Shard) and pw.dim % w.ndim == 1:
+            wt.append(pw)
+            xt.append(Replicate())
+        else:
+            wt.append(Replicate())
+            xt.append(Replicate() if isinstance(px, Shard)
+                      and px.dim % nd == last else px)
+    y = x.redistribute(mesh, xt).to(dt) @ w.to(dt).redistribute(mesh, wt)
+    return y if b is None else y + b
+
+
+def row_parallel(x, w, out_spec: Sequence, b=None):
+    """``x @ w`` (+ ``b``) for a weight ``w`` (K, N) whose input rows the
+    partition rules split over ``model`` (``wo``, ``w_down``, ...): the
+    row-parallel half of Megatron's pair. ``x`` is split on its last
+    dimension as ``w``'s rows are (a column-parallel result already is,
+    a replicated one is sliced), the weight gathered over the other axes
+    (the FSDP unshard), and each rank's product is a partial sum over the
+    axes that split K, reduced once to ``out_spec`` (logical axes): an
+    all-reduce where it leaves N whole and the sequence unsplit, a
+    reduce-scatter where it splits one of them (Megatron sequence
+    parallelism). The bias is added after the reduction. A mesh axis that
+    splits another dimension of ``x`` (the batch; the sequence, as
+    Ulysses' exit constraint leaves it) takes the weight whole. Promoted
+    dtype and the unsharded case as :func:`column_parallel`."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    mesh = active_mesh()
+    if mesh is None or not is_dtensor(w):
+        y = x.to(dt) @ w.to(dt)
+        return y if b is None else y + b
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .partition import placements_for
+    x = reduced(as_dtensor(x, mesh))
+    nd, last = x.ndim, x.ndim - 1
+    wt, xt = [], []
+    for pw, px in zip(w.placements, x.placements):
+        k_split = (isinstance(pw, Shard) and pw.dim % w.ndim == 0) or \
+            (isinstance(px, Shard) and px.dim % nd == last)
+        if isinstance(px, Shard) and px.dim % nd != last:
+            wt.append(Replicate())
+            xt.append(px)
+        elif k_split:
+            wt.append(Shard(0))
+            xt.append(Shard(last))
+        else:
+            wt.append(Replicate())
+            xt.append(px)
+    x, w = x.redistribute(mesh, xt).to(dt), w.to(dt)
+    if any(isinstance(p, Shard) and 0 < p.dim % nd < last for p in xt):
+        # a sequence-split x: the product on the local blocks, the weight
+        # whole (PyTorch 2.11's DTensor refuses the matmul's flatten of a
+        # split sequence)
+        from .partition import spec_of
+        spec = spec_of(xt, mesh, nd)
+        y = on_local_shards(torch.matmul, (x, w), (spec, (None, None)),
+                            (spec[:-1] + (None,),), shared=(1,))
+    else:
+        y = x @ w.redistribute(mesh, wt)
+    resolved = _divisible(_resolve(out_spec, mesh) or (None,) * y.ndim,
+                          y.shape, mesh)
+    y = y.redistribute(mesh, placements_for(resolved, mesh))
+    return y if b is None else y + b
 
 
 def unsplit(x, dims: Sequence[int]):

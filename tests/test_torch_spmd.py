@@ -102,6 +102,30 @@ def _rank_forward(cfg, params_np, tokens):
     return logits.full_tensor().numpy(), float(aux)
 
 
+def _rank_loss_grads(cfg, params_np, batch_np):
+    """``loss_fn`` and its gradients on the ranks: returns the loss and
+    (rank 0) the gathered gradient tree."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                param_pspecs)
+    dm, vm = _rank_mesh(cfg)
+    params = map_leaves(lambda t: t.requires_grad_(True),
+                        from_numpy_state(params_np, "cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    dp = distribute_tree(params, param_pspecs(cfg, params, vm), dm)
+    db = distribute_tree(batch, batch_pspecs(cfg, "train", batch, vm), dm)
+    flat, unflatten = flatten_with_path(dp)
+    with shctx.activate(dm):
+        loss = TM.loss_fn(cfg, dp, db)
+        grads = torch.autograd.grad(loss, [leaf for _path, leaf in flat])
+    full = unflatten([g.full_tensor().detach() for g in grads])
+    return loss.full_tensor().item(), (to_numpy_state(full)
+                                       if dist.get_rank() == 0 else None)
+
+
 def _rank_decode(cfg, params_np, prompt, steps, seq_axis=None):
     """Prefill ``prompt``, then decode the tokens of ``steps`` (B, n)
     teacher-forced, the logical ``seq`` axis mapped to ``seq_axis`` (the
