@@ -216,7 +216,10 @@ Phases, any failure exits non-zero:
    temp bytes beside the peak device memory beyond the arguments, the
    step time beside the dry run's bound, and one
    ``run_dryrun("gemma3-27b", "prefill_32k")`` record's trace time and
-   terms. One ``dryrun report`` JSON line.
+   terms. Then phase 15's ranks start spawning (after the timed steps),
+   and phase 15's steps are traced on a fake (2, 2) mesh: the 2d step,
+   prefill and decode step, and each of :data:`SHARD_MODES`' steps. One
+   ``dryrun report`` JSON line.
 14. The examples (slice 16), after phase 13, each under
    ``build/chip_smoke_examples/<name>/``: the six ``examples/torch``
    programs a user runs first, in process on the card through their
@@ -234,8 +237,10 @@ Phases, any failure exits non-zero:
    report`` JSON line: each example's seconds, launches and gate line.
 15. Sharded model compute (slice 17), last: four ranks spawned on the one
    card (``repro_torch.launch.spmd``; spawned and set up on a thread of
-   their own while phase 14 runs), one ``torch.distributed`` group
-   over gloo (NCCL refuses two ranks on one GPU), as a ``(data 2, model
+   their own while phase 13's sharded traces and phase 14 run), one
+   ``torch.distributed`` group over gloo (NCCL refuses two ranks on one
+   GPU; the collectives' bytes move through staging buffers on the card
+   that the ranks share, ``sharding/gloo_cuda.py``), as a ``(data 2, model
    2)`` ``DeviceMesh`` in ``2d`` mode. Every rank builds llama3.2-1b at
    full width, cut to 2 layers, from the seed and lays its params,
    AdamW state and a batch of 4 x 512 tokens out as ``DTensor``s; one
@@ -260,11 +265,24 @@ Phases, any failure exits non-zero:
    and the per-kind op profile. Then gradient passes of
    recurrentgemma-2b, rwkv6-7b and dbrx-132b's MoE (slice 19; the
    unsharded pass routed as the ranks did) at full width against the
-   same passes unsharded. Fails unless every rank launched
-   ``flash_attention`` and ``checksum_u32``; one rank's local attention
-   is held against its plain version. One ``sharded report`` JSON line
-   (step time, save stall and persist, bytes by rank, restore times, the
-   decode cases, the zoo passes, launches by rank).
+   same passes unsharded. Between the two, the other partition modes
+   and sequence-parallel flags (slice 21, :data:`SHARD_MODES`):
+   ``fsdp``, ``2d`` with Ulysses attention, ``2d`` with the
+   sequence-parallel residual and ``tp_zero1``, each from the seeded
+   state laid out again in the mode, its train step held as the 2d step
+   is, counted equal to its own fake trace (traced in phase 13), a
+   prefill of 2 x 2,304 tokens against the same prefill unsharded (but
+   ``tp_zero1``, which prefills its decode); Ulysses' collectives must
+   hold all-to-alls, the sequence-parallel residual's more
+   reduce-scatters than the 2d step's; ``tp_zero1``'s state saved
+   lazily, restored at world 1 and onto the 2d layout bit-exactly, its
+   prefill and 4 decode steps against the unsharded decode. Fails unless
+   every rank launched ``flash_attention`` (in every mode) and
+   ``checksum_u32``; one rank's local attention is held against its
+   plain version. One ``sharded
+   report`` JSON line (step time, save stall and persist, bytes by rank,
+   restore times, the decode cases, the modes, the zoo passes, launches
+   by rank) and one ``sharded modes`` line.
 16. Report: a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 """
@@ -423,15 +441,31 @@ SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ = 2, 2304
 SHARD_DECODE_LEN = 16
 SHARD_CACHE_BYTES = 2 << 30
 #: phase 15's sharded decode (slice 19), from seeded params: the 2d
-#: prefill's caches decoded this many steps, then a ``decode_kv_seq_shard``
+#: prefill's caches decoded this many steps (8 until slice 21, cut for the
+#: smoke's time), then a ``decode_kv_seq_shard``
 #: prefill (batch 2) and a long-context one (batch 1, the ``seq`` axis on
 #: ``data``) of the same length decoded this many steps each, every step
 #: teacher-forced with the unsharded decode's greedy tokens. The kv
 #: case's cache holds the prompt and its headroom up to a multiple of
 #: this many slots: the reference shards the slots over ``model`` only
 #: then (``T % 128 == 0``)
-SHARD_DECODE_STEPS, SHARD_CASE_STEPS = 8, 4
+SHARD_DECODE_STEPS, SHARD_CASE_STEPS = 4, 4
 SHARD_KV_ALIGN = 128
+#: phase 15's other partition modes and sequence-parallel flags (slice
+#: 21), after the 2d cases: name -> config overrides. Each lays the
+#: seeded state out again in its mode and runs the train step, held
+#: against the same unsharded step. ``tp_zero1``, the paper's layout,
+#: also saves beside its next step, restores at world 1 and onto the 2d
+#: layout, and prefills and decodes :data:`SHARD_CASE_STEPS` steps
+#: from the serving params; every other mode prefills the gradient
+#: pass's 2 x 2,304 tokens from the seeded params before its step (the
+#: kernel on the local heads), against the same prefill unsharded.
+#: ``tp_zero1`` runs last, so its save persists beside its own decode,
+#: not beside another mode's timed step
+SHARD_MODES = {"fsdp": {"sharding_mode": "fsdp"},
+               "ulysses": {"ulysses_attention": True},
+               "seq_parallel": {"seq_parallel_residual": True},
+               "tp_zero1": {"sharding_mode": "tp_zero1"}}
 #: phase 15's gradient passes of the rest of the zoo (slice 18; dbrx's
 #: MoE since slice 19), at full width on the ranks against the same pass
 #: unsharded in this process: the configs cut to one repetition of their
@@ -3580,15 +3614,13 @@ def run_dryrun_path(device: str, cfg, batch: int, seq_len: int,
     return out
 
 
-def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
-                        prefill_len: int) -> dict:
-    """Phase 15's ``2d`` train step (``batch`` x ``seq``), prefill
-    (``prefill_batch`` x ``prefill_len``, :data:`SHARD_DECODE_LEN` of
-    decode headroom) and decode step (a token a row against that cache)
-    traced by the dry run on a fake (2, 2) mesh in this process, which
-    holds no process group before or after: by step, what
-    :func:`_counted` reads of a real rank (FLOPs, collectives and the
-    per-kind op profile), the collective term and the trace's seconds."""
+def _trace(cfg, kinds: tuple, batch: int, seq: int, prefill_batch: int,
+           prefill_len: int) -> dict:
+    """``cfg``'s steps of ``kinds`` traced by the dry run on a fake (2, 2)
+    mesh in this process, which holds no process group before or after:
+    by kind, what :func:`_counted` reads of a real rank (FLOPs,
+    collectives and the per-kind op profile), the collective term and
+    the trace's seconds."""
     import dataclasses
 
     import torch.distributed as dist
@@ -3596,15 +3628,14 @@ def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_abstract_mesh
     mesh = make_abstract_mesh(SHARD_DIMS, SHARD_AXES)
-    serve = dataclasses.replace(cfg, sharding_mode="2d",
-                                max_decode_len=SHARD_DECODE_LEN)
     out = {}
-    for kind, c, b, n in (
-            ("train", dataclasses.replace(cfg, sharding_mode="2d"), batch,
-             seq),
-            ("prefill", serve, prefill_batch, prefill_len),
-            ("decode", serve, prefill_batch,
-             prefill_len + SHARD_DECODE_LEN)):
+    for kind in kinds:
+        b, n = {"train": (batch, seq),
+                "prefill": (prefill_batch, prefill_len),
+                "decode": (prefill_batch,
+                           prefill_len + SHARD_DECODE_LEN)}[kind]
+        c = cfg if kind == "train" else \
+            dataclasses.replace(cfg, max_decode_len=SHARD_DECODE_LEN)
         rec = dryrun.dryrun_record(c, InputShape(kind, n, b, kind), mesh,
                                    record_ops=True)
         if dist.is_initialized():
@@ -3621,10 +3652,38 @@ def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
     return out
 
 
-def run_dryrun_phase(cfg, path_launches: dict, card: str = "") -> dict:
+def trace_sharded_steps(cfg, batch: int, seq: int, prefill_batch: int,
+                        prefill_len: int) -> dict:
+    """Phase 15's ``2d`` train step (``batch`` x ``seq``), prefill
+    (``prefill_batch`` x ``prefill_len``, :data:`SHARD_DECODE_LEN` of
+    decode headroom) and decode step (a token a row against that cache),
+    by :func:`_trace`."""
+    import dataclasses
+    return _trace(dataclasses.replace(cfg, sharding_mode="2d"),
+                  ("train", "prefill", "decode"), batch, seq,
+                  prefill_batch, prefill_len)
+
+
+def trace_sharded_modes(cfg, batch: int, seq: int, prefill_batch: int,
+                        prefill_len: int) -> dict:
+    """:func:`trace_sharded_steps` for each of :data:`SHARD_MODES`: its
+    train step, and ``tp_zero1``'s prefill and decode step."""
+    import dataclasses
+    return {name: _trace(dataclasses.replace(cfg, **{"sharding_mode": "2d",
+                                                     **kw}),
+                         ("train", "prefill", "decode")
+                         if name == "tp_zero1" else ("train",),
+                         batch, seq, prefill_batch, prefill_len)
+            for name, kw in SHARD_MODES.items()}
+
+
+def run_dryrun_phase(cfg, path_launches: dict, card: str = "",
+                     start=None) -> dict:
     """Phase 13 on the card, with the launch counts zeroed just before and
     read into ``path_launches`` just after; ``card`` ends every line
-    logged."""
+    logged. ``start`` (no arguments) is called once the timed steps are
+    done, before phase 15's steps are traced sharded (it starts phase
+    15's ranks, which then do not run beside the timed steps)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
@@ -3635,16 +3694,21 @@ def run_dryrun_phase(cfg, path_launches: dict, card: str = "") -> dict:
         fail("kernel flash_attention was never launched on the dry run's "
              "path")
     report["launches"] = launches
-    # phase 15's step and prefill traced sharded, before its ranks start
+    if start is not None:
+        start()
+    # phase 15's 2d step, prefill and decode step and every mode's step
+    # traced sharded, while its ranks spawn
     t1 = time.perf_counter()
-    report["sharded_trace"] = trace_sharded_steps(
+    traced = report["sharded_trace"] = trace_sharded_steps(
+        cfg, SHARD_BATCH, SHARD_SEQ, SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ)
+    traced["modes"] = trace_sharded_modes(
         cfg, SHARD_BATCH, SHARD_SEQ, SHARD_PREFILL_BATCH, SHARD_PREFILL_SEQ)
     report["sharded_trace_s"] = time.perf_counter() - t1
     report["phase_s"] = time.perf_counter() - t0
-    log(f"dry run path: {report['phase_s']:.1f} s (the sharded trace of "
-        f"phase 15's step, prefill and decode "
-        f"{report['sharded_trace_s']:.1f} s); "
-        f"launches {json.dumps(launches)} ({card})")
+    log(f"dry run path: {report['phase_s']:.1f} s (the sharded traces of "
+        f"phase 15's 2d step, prefill and decode and of its other modes' "
+        f"steps {report['sharded_trace_s']:.1f} s, beside its ranks' "
+        f"spawn); launches {json.dumps(launches)} ({card})")
     gc.collect()
     torch.cuda.empty_cache()
     return report
@@ -3767,30 +3831,47 @@ def _shard_tokens(cfg, device: str, batch: int, seq: int, seed: int):
 
 def _shard_rank_setup(cfg, device: str, batch: int, seq: int,
                       grad_batch: int, grad_seq: int) -> dict:
-    """This rank's mesh, and the params, AdamW state and the two batches
-    (the step's, the gradient pass's) built from the seed and laid out as
-    DTensors by the partition rules."""
+    """This rank's mesh, and :func:`_shard_rank_layout` of ``cfg``."""
     import torch
-    from repro_torch.core.tree import map_leaves
-    from repro_torch.launch.mesh import make_device_mesh, virtual_mesh
+    from repro_torch.launch.mesh import make_device_mesh
+    dm = make_device_mesh(SHARD_DIMS, SHARD_AXES, device)
+    dev = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    _SHARD.clear()
+    _SHARD.update(base_cfg=cfg, mesh=dm, device=dev,
+                  shapes=(batch, seq, grad_batch, grad_seq))
+    return _shard_rank_layout(cfg)
+
+
+def _shard_rank_layout(cfg) -> dict:
+    """The params, AdamW state and the two batches (the step's, the
+    gradient pass's) built from the seed and laid out as DTensors by
+    ``cfg``'s partition rules, in place of what this rank held: every
+    mode starts from the same state, whatever an earlier one's step
+    updated in place."""
+    import torch
+    from repro_torch.core.tree import leaves, map_leaves
+    from repro_torch.launch.mesh import virtual_mesh
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.sharding.partition import (batch_pspecs,
                                                 distribute_tree,
                                                 opt_pspecs, param_pspecs)
-    dm = make_device_mesh(SHARD_DIMS, SHARD_AXES, device)
+    dm, dev = _SHARD["mesh"], _SHARD["device"]
+    batch, seq, grad_batch, grad_seq = _SHARD["shapes"]
+    for k in ("params", "opt", "batch", "grad_batch"):
+        _SHARD.pop(k, None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     vm = virtual_mesh(dm)
-    dev = torch.device(device, torch.cuda.current_device()) \
-        if device == "cuda" else torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = init_params(cfg, gen, dev)
     opt = init_opt_state(params)
     batch_t = {"tokens": _shard_tokens(cfg, dev, batch, seq, SEED + 1)}
     grad_t = {"tokens": _shard_tokens(cfg, dev, grad_batch, grad_seq,
                                       SEED + 3)}
-    _SHARD.clear()
     _SHARD.update(
-        cfg=cfg, mesh=dm, device=dev,
+        cfg=cfg,
         params=distribute_tree(map_leaves(lambda t: t.requires_grad_(True),
                                           params),
                                param_pspecs(cfg, params, vm), dm),
@@ -3802,11 +3883,24 @@ def _shard_rank_setup(cfg, device: str, batch: int, seq: int,
     del params, opt, batch_t, grad_t
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    from repro_torch.core.tree import leaves
     return {"local_bytes": sum(t.to_local().numel()
                                * t.to_local().element_size()
                                for t in leaves({"p": _SHARD["params"],
                                                 "o": _SHARD["opt"]}))}
+
+
+@contextlib.contextmanager
+def _computing():
+    """The mesh active, and in ``fsdp`` the batch over both axes (as the
+    reference's dry run sets it), for this rank's compute."""
+    from repro_torch.sharding import context as shctx
+    shctx.set_batch_axes(("data", "model")
+                         if _SHARD["cfg"].sharding_mode == "fsdp" else None)
+    try:
+        with shctx.activate(_SHARD["mesh"]):
+            yield
+    finally:
+        shctx.set_batch_axes(None)
 
 
 def _shard_sync() -> None:
@@ -3817,70 +3911,94 @@ def _shard_sync() -> None:
     dist.barrier()
 
 
-def _shard_rank_step() -> dict:
-    """The gradient pass at the long batch (attention through the kernel
-    and its backward on the local heads), then one train step (loss and
-    gradients, then AdamW in place), both from the seeded params; the
-    launch counts zeroed just before: the phase's main path starts here.
-    Keeps, for :func:`_shard_rank_errs`, this rank's own regions of the
-    long batch's gradients, of the step's update to the fp32 master, of
-    the first moment and of the params before and after."""
+def _shard_rank_step(grad_pass: bool = True) -> dict:
+    """With ``grad_pass`` (the 2d case: the phase's main path starts here,
+    the launch counts zeroed just before) the gradient pass at the long
+    batch (attention through the kernel and its backward on the local
+    heads), then one train step (loss and gradients, then AdamW in
+    place), both from the seeded params as :func:`_shard_rank_layout`
+    laid them out. Keeps, for :func:`_shard_rank_errs`, this rank's own
+    regions of the long batch's gradients, of the step's update to the
+    fp32 master, of the first moment and of the params before and after."""
     from repro_torch.core.tree import leaves
     from repro_torch.launch.analysis import TraceCounter
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          global_norm)
-    from repro_torch.sharding import context as shctx
     from repro_torch.training.loop import _loss_and_grads
     params, opt = _SHARD["params"], _SHARD["opt"]
 
     def own(ts):
         return [(_owned_region(t), t.to_local().detach()) for t in ts]
 
-    _zero_launches()
-    _shard_sync()
-    t0 = time.perf_counter()
-    with shctx.activate(_SHARD["mesh"]):
-        loss2, grads2 = _loss_and_grads(_SHARD["cfg"], params,
-                                        _SHARD["grad_batch"])
-        norm2 = float(global_norm(grads2).full_tensor())
-        loss2 = float(loss2.full_tensor())
-        grads2 = [g if g.placements == p.placements
-                  else g.redistribute(p.device_mesh, p.placements)
-                  for g, p in zip(leaves(grads2), leaves(params))]
-    _shard_sync()
-    grad_s = time.perf_counter() - t0
-    flash_in_grad = _launches()["flash_attention"]
-    rss = [_rss_bytes()]  # host memory after the pass and after the step
-    cmp = {"grads2": own(grads2),
-           "params_before": [(i, t.clone())
-                             for i, t in own(leaves(params))]}
+    out, cmp = {}, {}
+    if grad_pass:
+        _zero_launches()
+        _shard_sync()
+        t0 = time.perf_counter()
+        with _computing():
+            loss2, grads2 = _loss_and_grads(_SHARD["cfg"], params,
+                                            _SHARD["grad_batch"])
+            out["grad2_norm"] = float(global_norm(grads2).full_tensor())
+            out["grad_loss"] = float(loss2.full_tensor())
+            grads2 = [g if g.placements == p.placements
+                      else g.redistribute(p.device_mesh, p.placements)
+                      for g, p in zip(leaves(grads2), leaves(params))]
+        _shard_sync()
+        out["grad_s"] = time.perf_counter() - t0
+        out["flash_in_grad"] = _launches()["flash_attention"]
+        cmp["grads2"] = own(grads2)
+        del grads2
+    out["rss"] = [_rss_bytes()]  # host memory before and after the step
+    cmp["params_before"] = [(i, t.clone()) for i, t in own(leaves(params))]
     master_before = [t.to_local().clone() for t in leaves(opt["master"])]
-    del grads2
     _shard_sync()
     t0 = time.perf_counter()
     # the train step (``make_train_step``'s two halves) under the dry
     # run's counter: this rank's FLOPs and collectives, for the trace
     counter = TraceCounter((params, opt, _SHARD["batch"]), record_ops=True)
-    with shctx.activate(_SHARD["mesh"]):
+    with _computing():
         with counter:
             loss, grads = _loss_and_grads(_SHARD["cfg"], params,
                                           _SHARD["batch"])
             apply_updates(params, opt, grads, AdamWConfig())
-        norm = float(global_norm(grads).full_tensor())
-        loss = float(loss.full_tensor())
+        out["grad_norm"] = float(global_norm(grads).full_tensor())
+        out["loss"] = float(loss.full_tensor())
     _shard_sync()
-    step_s = time.perf_counter() - t0
-    rss.append(_rss_bytes())
+    out["step_s"] = time.perf_counter() - t0
+    out["rss"].append(_rss_bytes())
     cmp["delta"] = [(i, t - b) for (i, t), b in
                     zip(own(leaves(opt["master"])), master_before)]
     cmp["m"] = own(leaves(opt["m"]))
     cmp["params"] = own(leaves(params))
     _SHARD["cmp"] = cmp
-    return {"loss": loss, "grad_norm": norm, "grad_loss": loss2,
-            "grad2_norm": norm2, "step_s": step_s, "grad_s": grad_s,
-            "flash_in_grad": flash_in_grad, "rss": rss,
-            "counted": _counted(counter),
-            "peak_bytes": counter.peak_temp_bytes}
+    out.update(counted=_counted(counter), peak_bytes=counter.peak_temp_bytes)
+    return out
+
+
+def _shard_rank_prefill() -> dict:
+    """The prefill of the gradient pass's batch from the params as
+    :func:`_shard_rank_layout` laid them out, before the step updates
+    them (the kernel on the local heads): rank 0's logits on the host
+    (fp32), the seconds and the case's ``flash_attention`` launches."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.serving.engine import make_prefill_step
+    cfg = dataclasses.replace(_SHARD["cfg"], max_decode_len=SHARD_DECODE_LEN)
+    before = _launches()["flash_attention"]
+    _shard_sync()
+    t0 = time.perf_counter()
+    with _computing(), torch.no_grad():
+        logits, caches = make_prefill_step(cfg)(_SHARD["params"],
+                                                _SHARD["grad_batch"])
+        logits = logits.full_tensor().float().cpu()
+    _shard_sync()
+    del caches
+    return {"prefill_s": time.perf_counter() - t0,
+            "flash": _launches()["flash_attention"] - before,
+            "finite": bool(torch.isfinite(logits).all()),
+            "logits": logits if dist.get_rank() == 0 else None}
 
 
 def _counted(counter) -> dict:
@@ -3922,6 +4040,8 @@ def _shard_rank_errs(ref: dict) -> dict:
     one rank."""
     out = {}
     for name, ref_name in SHARD_CMP:
+        if name not in _SHARD["cmp"]:
+            continue   # no gradient pass in this case
         num = den = 0.0
         for (index, g), w in zip(_SHARD["cmp"][name], ref[ref_name]):
             if index is None:
@@ -3950,25 +4070,34 @@ def _sq_err(got, want) -> tuple:
 
 
 def _shard_rank_snapshot() -> None:
-    """A copy of this rank's shards, the state the lazy save writes."""
-    from repro_torch.core.tree import leaves
-    _SHARD["snapshot"] = [t.to_local().detach().clone() for t in leaves(
-        {"model": _SHARD["params"], "optimizer": _SHARD["opt"]})]
+    """A copy of this rank's shards, the state the lazy save writes, each
+    with its region (the index of the whole tensor it holds)."""
+    from repro_torch.core.tree import flatten_with_path, path_str
+    from repro_torch.sharding.partition import local_index
+    _SHARD["snapshot"] = [
+        (path_str(path), local_index(t), t.to_local().detach().clone())
+        for path, t in flatten_with_path({"model": _SHARD["params"],
+                                          "optimizer": _SHARD["opt"]})[0]]
 
 
 def _shard_rank_check_restore(restored: list) -> list:
-    """Every leaf of the world-1 restore (whole tensors) against this
-    rank's snapshot of its shard of it, bit for bit: the paths of those
-    that differ."""
+    """Every leaf of the world-1 restore (whole tensors, on a card by CUDA
+    IPC handle) against this rank's snapshot of its shard of it and
+    against the region of it this rank's elastic restore
+    (:func:`_shard_rank_elastic`) holds, bit for bit: the paths of those
+    that differ, ``elastic:`` before the second kind."""
     import torch
     from repro_torch.core.tree import flatten_with_path, path_str
     from repro_torch.sharding.partition import local_index
-    flat = flatten_with_path({"model": _SHARD["params"],
-                              "optimizer": _SHARD["opt"]})[0]
-    bad = []
-    for (path, t), snap, got in zip(flat, _SHARD["snapshot"], restored):
-        if not torch.equal(got[local_index(t)], snap):
-            bad.append(path_str(path))
+    bad = [path for (path, index, snap), got in zip(_SHARD.pop("snapshot"),
+                                                    restored)
+           if not torch.equal(got[index], snap)]
+    flat = flatten_with_path(_SHARD.pop("elastic"))[0]
+    bad += [f"elastic:{path_str(path)}" for (path, t), got in zip(flat,
+                                                                  restored)
+            if not torch.equal(t.to_local(), got[local_index(t)])]
+    if _SHARD["device"].type == "cuda":
+        torch.cuda.empty_cache()
     return bad
 
 
@@ -3986,51 +4115,71 @@ def _shard_state(step: int) -> dict:
             "meta": {"step": step, "arch": _SHARD["cfg"].name}}
 
 
-def _shard_rank_save(root: str) -> dict:
-    """Step 1 saved blocking; step 2 saved lazily while the next step's
-    forward and backward run, the capture barrier before its in-place
-    update; every rank's file bytes."""
-    import torch.distributed as dist
-    from repro_torch.core.baselines import rank_file
+def _shard_rank_save(root: str, blocking: bool) -> dict:
+    """Step 1 saved blocking (left out without ``blocking``); step 2 saved
+    lazily while the next step's forward and backward run, the capture
+    barrier before its in-place update; its commit is waited for later
+    (:func:`_shard_rank_commit`), while this rank works on. A manager
+    this rank held before is closed first."""
     from repro_torch.optim.adamw import AdamWConfig, apply_updates
-    from repro_torch.sharding import context as shctx
     from repro_torch.training.loop import _loss_and_grads
     out = {}
+    _shard_rank_close_manager()
     mgr = _shard_manager(root)
     _SHARD["manager"] = mgr
     _shard_sync()
-    t0 = time.perf_counter()
-    fut = mgr.save(1, _shard_state(1), blocking=True)
-    out["blocking"] = {"save_s": time.perf_counter() - t0,
-                       "persist_s": fut.stats.persist_latency_s}
+    if blocking:
+        t0 = time.perf_counter()
+        fut = mgr.save(1, _shard_state(1), blocking=True)
+        out["blocking"] = {"save_s": time.perf_counter() - t0,
+                           "persist_s": fut.stats.persist_latency_s}
     _shard_rank_snapshot()
     t0 = time.perf_counter()
-    fut = mgr.save(2, _shard_state(2))
+    _SHARD["save"] = (root, (1, 2) if blocking else (2,),
+                      mgr.save(2, _shard_state(2)))
     prologue = time.perf_counter() - t0
-    with shctx.activate(_SHARD["mesh"]):
+    with _computing():
         _loss, grads = _loss_and_grads(_SHARD["cfg"], _SHARD["params"],
                                        _SHARD["batch"])
         stall = mgr.wait_for_capture()
         apply_updates(_SHARD["params"], _SHARD["opt"], grads, AdamWConfig())
     _shard_sync()
-    step_s = time.perf_counter() - t0
-    mgr.wait_for_commit(2)
-    if mgr.commit_errors:
-        raise RuntimeError(f"commit errors: {mgr.commit_errors}")
     out["lazy"] = {"prologue_s": prologue, "capture_stall_s": stall,
-                   "persist_s": fut.stats.persist_latency_s,
-                   "step_with_save_s": step_s}
-    out["file_bytes"] = {
-        step: os.path.getsize(rank_file(os.path.join(root,
-                                                     f"global_step{step}"),
-                                        dist.get_rank()))
-        for step in (1, 2)}
+                   "step_with_save_s": time.perf_counter() - t0}
     return out
 
 
-def _shard_rank_elastic(root: str) -> dict:
-    """Step 2 restored onto a (1, 4) mesh: DTensor templates laid out by
-    the same rules there, each rank reading its own region."""
+def _shard_rank_commit() -> dict:
+    """Waits for :func:`_shard_rank_save`'s lazy save to commit: its
+    persist seconds, and this rank's file bytes by step."""
+    import torch.distributed as dist
+    from repro_torch.core.baselines import rank_file
+    root, steps, fut = _SHARD.pop("save")
+    mgr = _SHARD["manager"]
+    t0 = time.perf_counter()
+    mgr.wait_for_commit(2)
+    if mgr.commit_errors:
+        raise RuntimeError(f"commit errors: {mgr.commit_errors}")
+    return {"persist_s": fut.stats.persist_latency_s,
+            "commit_wait_s": time.perf_counter() - t0,
+            "file_bytes": {step: os.path.getsize(rank_file(os.path.join(
+                root, f"global_step{step}"), dist.get_rank()))
+                for step in steps}}
+
+
+def _shard_rank_close_manager() -> None:
+    mgr = _SHARD.pop("manager", None)
+    if mgr is not None:
+        mgr.close()
+
+
+def _shard_rank_elastic(root: str, dims: tuple, mode: str = None) -> dict:
+    """Step 2 restored onto a ``dims`` mesh (this rank's own mesh when it
+    is :data:`SHARD_DIMS`): DTensor templates laid out there by the rules
+    of ``mode`` (``None``: the state's own), each rank reading its own
+    region; kept for :func:`_shard_rank_check_restore`."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -4040,9 +4189,10 @@ def _shard_rank_elastic(root: str) -> dict:
                                                 param_pspecs,
                                                 placements_for)
     from repro_torch.sharding.sharded import _spec_at
-    cfg = _SHARD["cfg"]
-    dm = make_device_mesh(SHARD_ELASTIC_DIMS, SHARD_AXES,
-                          _SHARD["device"].type)
+    cfg = _SHARD["cfg"] if mode is None \
+        else dataclasses.replace(_SHARD["cfg"], sharding_mode=mode)
+    dm = _SHARD["mesh"] if tuple(dims) == SHARD_DIMS else \
+        make_device_mesh(dims, SHARD_AXES, _SHARD["device"].type)
     vm = virtual_mesh(dm)
     specs = {"model": param_pspecs(cfg, _SHARD["params"], vm),
              "optimizer": opt_pspecs(cfg, _SHARD["params"], vm)}
@@ -4064,17 +4214,10 @@ def _shard_rank_elastic(root: str) -> dict:
     got = _SHARD["manager"].restore(tree, step=2)
     _shard_sync()
     restore_s = time.perf_counter() - t0
-    # each leaf's sum over this rank's own region (the parent adds them
-    # up against the world-1 restore's)
-    from repro_torch.core.tree import leaves
-    import torch.distributed as dist
-    sums = []
-    for t in leaves({"model": got["model"], "optimizer": got["optimizer"]}):
-        index = _owned_region(t)
-        sums.append(0.0 if index is None
-                    else float(t.to_local().double().sum()))
+    _SHARD["elastic"] = {"model": got["model"],
+                         "optimizer": got["optimizer"]}
     return {"restore_s": restore_s, "meta": got["meta"],
-            "local_sums": sums, "rank": dist.get_rank(),
+            "rank": dist.get_rank(),
             "local_embed": tuple(got["model"]["embed"]["embed"]
                                  .to_local().shape)}
 
@@ -4118,9 +4261,10 @@ def _init_sharded(cfg, seed: int, dm):
 
 
 def _serve_cfg(decode_len: int, **kw):
+    """The phase's model laid out ``2d`` unless ``kw`` says otherwise."""
     import dataclasses
-    return dataclasses.replace(_SHARD["cfg"], sharding_mode="2d",
-                               max_decode_len=decode_len, **kw)
+    return dataclasses.replace(_SHARD["base_cfg"], **{
+        "sharding_mode": "2d", "max_decode_len": decode_len, **kw})
 
 
 def _kv_decode_len(prompt_len: int) -> int:
@@ -4139,16 +4283,21 @@ def _decode_cases(batch: int, prompt_len: int) -> dict:
                                     SHARD_PROMPT_SEED, None,
                                     SHARD_CASE_STEPS),
             "long_context": ({}, SHARD_DECODE_LEN, 1, SHARD_LONG_SEED,
-                             "data", SHARD_CASE_STEPS)}
+                             "data", SHARD_CASE_STEPS),
+            "tp_zero1": ({"sharding_mode": "tp_zero1"}, SHARD_DECODE_LEN,
+                         batch, SHARD_PROMPT_SEED, None,
+                         SHARD_CASE_STEPS)}
 
 
 def _expected_local_cache(case: str, batch: int, slots: int, cfg) -> tuple:
     """The first group's k as each rank holds it, by ``cache_pspecs``:
     (repeats, B, T, KV, hd) with the batch over ``data`` and the KV heads
-    over ``model`` (2d), the slots over ``model`` (kv), or for batch 1 the
+    over ``model`` (2d, and tp_zero1: the caches' layout does not depend
+    on the params'), the slots over ``model`` (kv), or for batch 1 the
     slots over ``data`` (long context)."""
     n, KV, hd = cfg.layer_groups[0][1], cfg.n_kv_heads, cfg.hd
     return {"2d": (n, batch // 2, slots, KV // 2, hd),
+            "tp_zero1": (n, batch // 2, slots, KV // 2, hd),
             "decode_kv_seq_shard": (n, batch // 2, slots // 2, KV, hd),
             "long_context": (n, 1, slots // 2, KV, hd)}[case]
 
@@ -4200,14 +4349,14 @@ def _decode_reference(cfg, device: str, batch: int, prompt_len: int,
 def _shard_rank_decode(case: str, batch: int, prompt_len: int,
                        steps) -> dict:
     """One of :func:`_decode_cases` on the mesh from the seeded serving
-    params: the sharded prefill (caches laid out by ``cache_pspecs``),
-    then a decode step a column of ``steps`` (B, n) on its ``DTensor``
-    caches. In ``2d`` the prefill and the first decode step run under the
-    dry run's counter, and rank 0 keeps the first local attention call's
-    q, k, v for :func:`_shard_rank_local_flash`. Returns
-    rank 0's logits on the host (fp32), the first layer's k as this rank
-    holds it, the seconds and the launch counts so far (the main path
-    ends with the last case)."""
+    params laid out in the case's mode: the sharded prefill (caches laid
+    out by ``cache_pspecs``), then a decode step a column of ``steps``
+    (B, n) on its ``DTensor`` caches. In ``2d`` and ``tp_zero1`` the
+    prefill and the first decode step run under the dry run's counter;
+    in ``2d`` rank 0 keeps the first local attention call's q, k, v for
+    :func:`_shard_rank_local_flash`. Returns rank 0's logits on the host
+    (fp32), the first layer's k as this rank holds it, the seconds, the
+    case's ``flash_attention`` launches and the launch counts so far."""
     import torch
     import torch.distributed as dist
     from repro_torch.kernels import flash_attention as fa
@@ -4222,20 +4371,23 @@ def _shard_rank_decode(case: str, batch: int, prompt_len: int,
     cfg = _serve_cfg(decode_len, **kw)
     dm, dev = _SHARD["mesh"], _SHARD["device"]
     vm = virtual_mesh(dm)
-    if "serve_params" not in _SHARD:
+    if _SHARD.get("serve_mode") != cfg.sharding_mode:
+        _shard_rank_drop_serving()
         _SHARD["serve_params"] = _init_sharded(cfg, SHARD_SERVE_SEED, dm)
+        _SHARD["serve_mode"] = cfg.sharding_mode
     params = _SHARD["serve_params"]
+    flash_before = _launches()["flash_attention"]
     prompt = {"tokens": _shard_tokens(cfg, dev, batch, prompt_len, seed)}
     b = distribute_tree(prompt, batch_pspecs(cfg, "prefill", prompt, vm), dm)
     cols = [{"t": steps[:, i:i + 1].contiguous().to(dev)} for i in range(n)]
     cols = [distribute_tree(c, batch_pspecs(cfg, "decode", c, vm), dm)["t"]
             for c in cols]
-    counted = case == "2d"
+    counted = case in ("2d", "tp_zero1")
     calls = []
     orig = fa.flash_attention_cuda
 
     def record(q, k, v, **kw):
-        if not calls:
+        if not calls and case == "2d":
             calls.append((q.clone(), k.clone(), v.clone(), dict(kw)))
         return orig(q, k, v, **kw)
 
@@ -4276,9 +4428,10 @@ def _shard_rank_decode(case: str, batch: int, prompt_len: int,
     out["slots"] = k.shape[2]
     out["finite"] = all(bool(torch.isfinite(x).all()) for x in out["logits"])
     out["launches"] = _launches()
+    out["flash"] = out["launches"]["flash_attention"] - flash_before
     if dist.get_rank():
         out.pop("logits")
-    elif counted and calls:
+    elif calls:
         _SHARD["flash_call"] = calls[0]
     del caches
     return out
@@ -4301,6 +4454,7 @@ def _shard_rank_local_flash():
 
 def _shard_rank_drop_serving() -> None:
     _SHARD.pop("serve_params", None)
+    _SHARD.pop("serve_mode", None)
     if _SHARD["device"].type == "cuda":
         import torch
         torch.cuda.empty_cache()
@@ -4422,9 +4576,7 @@ def _zoo_tokens(cfg) -> tuple:
 
 
 def _shard_rank_close() -> None:
-    mgr = _SHARD.pop("manager", None)
-    if mgr is not None:
-        mgr.close()
+    _shard_rank_close_manager()
     _SHARD.clear()
 
 
@@ -4456,23 +4608,35 @@ def _unsharded_reference(device: str, cfg, batch: int, seq: int,
                          grad_batch: int, grad_seq: int) -> dict:
     """The ranks' gradient pass and train step run unsharded in this
     process from the same seeded params: the losses, the gradients'
-    global norms and the whole tensors :data:`SHARD_CMP` names."""
+    global norms and the whole tensors :data:`SHARD_CMP` names; and the
+    prefill of the gradient pass's batch (``prefill_logits``, on the
+    host in fp32), which the modes of :data:`SHARD_MODES` but
+    ``tp_zero1`` run."""
+    import dataclasses
+
     import torch
     from repro_torch.core.tree import leaves, map_leaves
     from repro_torch.launch.analysis import TraceCounter
     from repro_torch.models.model import init_params
     from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                          global_norm, init_opt_state)
+    from repro_torch.serving.engine import make_prefill_step
     from repro_torch.training.loop import _loss_and_grads
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = map_leaves(lambda t: t.requires_grad_(True),
                         init_params(cfg, gen, device))
     opt = init_opt_state(params)
+    grad_tokens = {"tokens": _shard_tokens(cfg, device, grad_batch,
+                                           grad_seq, SEED + 3)}
+    with torch.no_grad():
+        logits, _caches = make_prefill_step(dataclasses.replace(
+            cfg, max_decode_len=SHARD_DECODE_LEN))(params, grad_tokens)
+    out = {"prefill_logits": logits.float().cpu()}
+    del logits, _caches
     t0 = time.perf_counter()
-    loss2, grads2 = _loss_and_grads(cfg, params, {"tokens": _shard_tokens(
-        cfg, device, grad_batch, grad_seq, SEED + 3)})
-    out = {"grad_loss": float(loss2), "grad2_norm": float(global_norm(grads2)),
-           "grads2": leaves(grads2)}
+    loss2, grads2 = _loss_and_grads(cfg, params, grad_tokens)
+    out.update(grad_loss=float(loss2), grad2_norm=float(global_norm(grads2)),
+               grads2=leaves(grads2))
     out["grad_s"] = time.perf_counter() - t0
     master_before = [t.clone() for t in leaves(opt["master"])]
     tokens = {"tokens": _shard_tokens(cfg, device, batch, seq, SEED + 1)}
@@ -4501,29 +4665,29 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                      traced: dict = None, zoo: dict = None) -> dict:
     """Phase 15 on ``device`` (the CPU rehearses it at a smoke config):
     the unsharded gradient pass and step here, then the four ranks'
-    sharded ones, saves and restores; this process restores the lazily
-    saved step at world 1. Then the decode cases (:func:`_sharded_decode`:
-    the 2d prefill and decode, ``decode_kv_seq_shard``, long context)
-    against the unsharded decode here. Each rank counts its step, its 2d
-    prefill and first decode step with the dry run's counter, held
-    exactly against ``traced`` (:func:`trace_sharded_steps`' record,
-    traced here when ``None``). Then the ranks' gradient passes of
-    ``zoo`` (name -> config; ``None``: :data:`SHARD_ZOO_PATTERNS` at full
-    width) against the same passes unsharded here.
-    ``started`` is :func:`start_sharded_ranks`' result (started here when
-    ``None``). Fails on a mismatch; returns the report with every rank's
+    sharded ones laid out ``2d``, saves and restores; this process
+    restores the lazily saved step at world 1. Then the 2d decode cases
+    (:func:`_sharded_decode`: the 2d prefill and decode,
+    ``decode_kv_seq_shard``, long context) against the unsharded decode
+    here, then :data:`SHARD_MODES` (:func:`_sharded_modes`: each mode's
+    step against the same unsharded one; ``tp_zero1``'s save, restores and
+    decode). Each rank counts its steps, its 2d and tp_zero1 prefill and
+    first decode step with the dry run's counter, held exactly against
+    ``traced`` (:func:`trace_sharded_steps`' record, traced here when
+    ``None``). Then the ranks' gradient passes of ``zoo`` (name ->
+    config; ``None``: :data:`SHARD_ZOO_PATTERNS` at full width) against
+    the same passes unsharded here. ``started`` is
+    :func:`start_sharded_ranks`' result (started here when ``None``).
+    Fails on a mismatch; returns the report with every rank's
     launches."""
     import torch
-    from repro_torch.core import CheckpointManager
-    from repro_torch.core.layout import FileReader
-    from repro_torch.core.tree import leaves
-    from repro_torch.models.model import init_params
-    from repro_torch.optim.adamw import init_opt_state
 
     report = {}
     if traced is None:
         traced = trace_sharded_steps(cfg, batch, seq, prefill_batch,
                                      prefill_len)
+        traced["modes"] = trace_sharded_modes(cfg, batch, seq, prefill_batch,
+                                              prefill_len)
     report["traced"] = traced
     ref = _unsharded_reference(device, cfg, batch, seq, grad_batch,
                                grad_seq)
@@ -4543,103 +4707,23 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
             report[k] = [r[k] for r in steps]
         _check_counted("train", [r["counted"] for r in steps],
                        traced["train"])
-        # the scalars: every rank holds the same; the gradients' global
-        # norm sees their scale, which AdamW's clipped, normalised first
-        # step does not (a sum over ``data`` for its mean reads 1 here)
-        for k, rtol in (("loss", SHARD_LOSS_RTOL),
-                        ("grad_loss", SHARD_LOSS_RTOL),
-                        ("grad_norm", SHARD_LOSS_RTOL),
-                        ("grad2_norm", SHARD_LOSS_RTOL)):
-            got = {r[k] for r in steps}
-            if len(got) != 1:
-                fail(f"sharded step: the ranks disagree on the {k}: {got}")
-            got = got.pop()
-            err = abs(got - ref[k]) / abs(ref[k])
-            report[k] = {"sharded": got, "unsharded": ref[k],
-                         "rel_err": err, "rtol": rtol}
-            if not math.isfinite(got) or not err <= rtol:
-                fail(f"sharded step: {k} {got} against {ref[k]} unsharded "
-                     f"(rtol {rtol})")
+        report.update(_hold_step("sharded step", group, steps, ref))
         report["grad_norm"]["sum_over_data_control"] = abs(
             2 * report["grad_norm"]["sharded"] - ref["grad_norm"]) \
             / ref["grad_norm"]
-        import torch.multiprocessing  # noqa: F401 — CUDA tensors by handle
-        errs = group.run(_shard_rank_errs,
-                         {k: ref[k] for _n, k in SHARD_CMP})
-        rel = {name: math.sqrt(sum(e[name][0] for e in errs)
-                               / sum(e[name][1] for e in errs))
-               for name, _k in SHARD_CMP}
-        report["rel_l2"] = rel
-        del ref
-        if device == "cuda":
-            torch.cuda.ipc_collect()
-        # gated: the gradients, the first moment, the master's update and
-        # the params; logged: ``params_before``, the control (a step that
-        # left the params as they were reads 1 on the update)
-        for name, rtol in (("grads2", SHARD_GRAD_RTOL),
-                           ("m", SHARD_GRAD_RTOL),
-                           ("delta", SHARD_UPDATE_RTOL),
-                           ("params", SHARD_PARAM_RTOL)):
-            if not rel[name] <= rtol:
-                fail(f"sharded step: {name}'s relative L2 error "
-                     f"{rel[name]} against the unsharded run past {rtol}")
-        saves = group.run(_shard_rank_save, workdir)
-        report["saves"] = saves
-        # this process, world 1: step 2, every rank's region bit-exact to
-        # its shard as the lazy save found it
-        tpl = {"model": init_params(
-            cfg, torch.Generator(device=device).manual_seed(0), device)}
-        tpl["optimizer"] = init_opt_state(tpl["model"])
-        tpl["meta"] = {"step": 0, "arch": ""}
-        t0 = time.perf_counter()
-        with CheckpointManager.from_policy(workdir, device=device) as mgr:
-            got = mgr.restore(tpl, step=2)
-        report["world1_restore_s"] = time.perf_counter() - t0
-        if got["meta"]["step"] != 2:
-            fail(f"sharded save: restored meta {got['meta']}")
-        restored = leaves({"model": got["model"],
-                           "optimizer": got["optimizer"]})
-        bad = group.run(_shard_rank_check_restore, restored)
-        if any(bad):
-            fail(f"sharded save: the world-1 restore differs from the "
-                 f"ranks' shards: {bad}")
-        # bytes by rank: the unique shards, each written once
-        sdir = os.path.join(workdir, "global_step2")
-        rank_bytes = [sum(e.nbytes for e in FileReader(os.path.join(
-            sdir, f"rank{r:05d}.dsllm")).tensors.values())
-            for r in range(world)]
-        unique = sum(t.numel() * t.element_size() for t in restored)
-        report["bytes"] = {"by_rank": rank_bytes, "sum": sum(rank_bytes),
-                           "unique": unique}
-        if sum(rank_bytes) != unique:
-            fail(f"sharded save: rank bytes {rank_bytes} sum to "
-                 f"{sum(rank_bytes)}, the unique shards are {unique}")
-        leaf_sums = [float(t.double().sum()) for t in restored]
-        del got, tpl, restored
-        if device == "cuda":
-            torch.cuda.ipc_collect()
-            torch.cuda.empty_cache()
-        elastic = group.run(_shard_rank_elastic, workdir)
-        report["elastic"] = [{k: v for k, v in r.items()
-                              if k != "local_sums"} for r in elastic]
-        for r in elastic:
-            if r["meta"]["step"] != 2:
-                fail(f"sharded elastic restore: meta {r['meta']}")
-        # the (1, 4) regions, each counted once, sum to every leaf's sum
-        for i, want in enumerate(leaf_sums):
-            got_sum = sum(r["local_sums"][i] for r in elastic)
-            if abs(got_sum - want) > 1e-9 * max(1.0, abs(want)):
-                fail(f"sharded elastic restore: leaf {i} sums to {got_sum}"
-                     f", the world-1 restore's to {want}")
-        report["decode"] = _sharded_decode(device, cfg, group, prefill_batch,
-                                           prefill_len)
-        pre = report["decode"].pop("ranks")
+        # saved beside the next step; committed and restored after the
+        # decode cases, which the ranks run meanwhile
+        saves = group.run(_shard_rank_save, workdir, True)
+        refs = {}
+        report["decode"] = _sharded_decode(
+            device, cfg, group, prefill_batch, prefill_len,
+            ("2d", "decode_kv_seq_shard", "long_context"), refs)
+        pre = report["decode"].pop("ranks")["2d"]
         unsharded = report["decode"].pop("unsharded_counted")
-        report["local_flash"] = group.run(_shard_rank_local_flash)[0]
+        report["decode"].pop("launches_by_rank")
         log("sharded decode: " + "; ".join(
             f"{k} logits rel L2 max {max(v['rel_l2']):.3e}, k "
-            f"{v['local_k'][0]}" for k, v in report["decode"].items()
-            if k != "launches_by_rank"))
+            f"{v['local_k'][0]}" for k, v in report["decode"].items()))
         group.run(_shard_rank_drop_serving)
         _check_counted("prefill", [r["counted_prefill"] for r in pre],
                        traced["prefill"])
@@ -4647,6 +4731,20 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
                        traced["decode"])
         report["work"] = _sharded_work(world, steps, pre, ref_counted,
                                        unsharded)
+        report.update(_sharded_save_restore(device, cfg, group, workdir,
+                                            SHARD_ELASTIC_DIMS, None, saves))
+        report["modes"] = _sharded_modes(
+            device, cfg, group, os.path.join(workdir, "modes"), ref,
+            ref_counted, unsharded, refs, traced["modes"],
+            traced["train"]["collectives"]["counts"], prefill_batch,
+            prefill_len)
+        report["launches_by_rank"] = report["modes"].pop("launches_by_rank")
+        # a check's launch, after the main path's counts were read
+        report["local_flash"] = group.run(_shard_rank_local_flash)[0]
+        del ref, refs
+        if device == "cuda":
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
         report["zoo"] = _sharded_zoo_grads(device, group, zoo or {
             name: _zoo_cfg(name, len(p), p)
             for name, p in SHARD_ZOO_PATTERNS.items()})
@@ -4658,30 +4756,274 @@ def run_sharded_path(device: str, cfg, workdir: str, batch: int, seq: int,
     return report
 
 
-def _sharded_decode(device: str, cfg, group, batch: int,
-                    prompt_len: int) -> dict:
-    """Phase 15's decode cases (:func:`_decode_cases`): for each, the
-    unsharded prefill and greedy decode in this process, then the ranks'
-    sharded prefill and decode teacher-forced with its tokens. Fails
-    unless every logits lies within :data:`SHARD_LOGIT_RTOL` relative L2
-    error of the unsharded decode's and every rank's first k cache is
-    laid out as :func:`_expected_local_cache` says; logs (no gate) the
-    share of steps whose argmax agrees. Returns by case the errors, the
-    layout and the seconds, the launch counts by rank after the last case
-    (the main path's end) and ``ranks``, the 2d case's rank reports."""
+def _hold_step(what: str, group, steps: list, ref: dict) -> dict:
+    """The ranks' step (and gradient pass, where they ran one) against the
+    unsharded run's ``ref``: the loss and the gradients' global norm,
+    alike on every rank, within :data:`SHARD_LOSS_RTOL`; each rank's own
+    regions (:func:`_shard_rank_errs`) of the gradients and the first
+    moment within :data:`SHARD_GRAD_RTOL`, of the update within
+    :data:`SHARD_UPDATE_RTOL`, of the params within
+    :data:`SHARD_PARAM_RTOL` (``params_before`` is logged, the control: a
+    step that left the params as they were reads 1 on the update)."""
+    import torch
+    out = {}
+    # the scalars: every rank holds the same; the gradients' global norm
+    # sees their scale, which AdamW's clipped, normalised first step does
+    # not (a sum over ``data`` for its mean reads 1 in 2d)
+    for k in ("loss", "grad_loss", "grad_norm", "grad2_norm"):
+        if k not in steps[0]:
+            continue
+        got = {r[k] for r in steps}
+        if len(got) != 1:
+            fail(f"{what}: the ranks disagree on the {k}: {got}")
+        got = got.pop()
+        err = abs(got - ref[k]) / abs(ref[k])
+        out[k] = {"sharded": got, "unsharded": ref[k], "rel_err": err,
+                  "rtol": SHARD_LOSS_RTOL}
+        if not math.isfinite(got) or not err <= SHARD_LOSS_RTOL:
+            fail(f"{what}: {k} {got} against {ref[k]} unsharded (rtol "
+                 f"{SHARD_LOSS_RTOL})")
+    cmp = [(n, k) for n, k in SHARD_CMP
+           if n != "grads2" or "grad_loss" in steps[0]]
+    import torch.multiprocessing  # noqa: F401 — CUDA tensors by handle
+    errs = group.run(_shard_rank_errs, {k: ref[k] for _n, k in cmp})
+    if torch.cuda.is_available():
+        torch.cuda.ipc_collect()
+    rel = out["rel_l2"] = {
+        name: math.sqrt(sum(e[name][0] for e in errs)
+                        / sum(e[name][1] for e in errs))
+        for name, _k in cmp}
+    limits = out["rel_l2_rtol"] = {
+        name: rtol for name, rtol in (
+            ("grads2", SHARD_GRAD_RTOL), ("m", SHARD_GRAD_RTOL),
+            ("delta", SHARD_UPDATE_RTOL), ("params", SHARD_PARAM_RTOL))
+        if name in rel}
+    for name, rtol in limits.items():
+        if not rel[name] <= rtol:
+            fail(f"{what}: {name}'s relative L2 error {rel[name]} against "
+                 f"the unsharded run past {rtol}")
+    return out
+
+
+def _sharded_save_restore(device: str, cfg, group, root: str,
+                          dims: tuple, mode: str, saves: list) -> dict:
+    """The ranks' save under ``root`` (:func:`_shard_rank_save`, whose
+    results ``saves`` are) committed, then step 2 restored by the ranks
+    onto a ``dims`` mesh laid out by ``mode``'s rules (``None``: the
+    state's own) while this process restores it at world 1; the world-1
+    restore must equal, bit for bit, every rank's shard as the lazy save
+    found it and every rank's elastic restore. Fails unless the rank
+    files' bytes sum to the state's unique bytes (a leaf replicated over
+    ranks written once)."""
+    import torch
+    from repro_torch.core import CheckpointManager
+    from repro_torch.core.layout import FileReader
+    from repro_torch.core.tree import leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import init_opt_state
+    for s, c in zip(saves, group.run(_shard_rank_commit)):
+        s.update(c)
+    out = {"saves": saves}
+    tpl = {"model": init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)}
+    tpl["optimizer"] = init_opt_state(tpl["model"])
+    tpl["meta"] = {"step": 0, "arch": ""}
+    group.start(_shard_rank_elastic, root, dims, mode)
+    try:
+        t0 = time.perf_counter()
+        with CheckpointManager.from_policy(root, device=device) as mgr:
+            got = mgr.restore(tpl, step=2)
+        out["world1_restore_s"] = time.perf_counter() - t0
+    finally:
+        elastic = group.results()
+    out["elastic"] = elastic
+    if got["meta"]["step"] != 2 or any(r["meta"]["step"] != 2
+                                       for r in elastic):
+        fail(f"sharded save: restored meta {got['meta']}, onto {dims} "
+             f"{[r['meta'] for r in elastic]}")
+    restored = leaves({"model": got["model"], "optimizer": got["optimizer"]})
+    del got, tpl
+    bad = group.run(_shard_rank_check_restore, restored)
+    if any(bad):
+        fail(f"sharded save: the world-1 restore differs from the ranks' "
+             f"shards or their restore onto {dims} ({mode or 'same'} "
+             f"layout), by rank: {bad}")
+    # bytes by rank: the unique shards, each written once
+    sdir = os.path.join(root, "global_step2")
+    rank_bytes = [sum(e.nbytes for e in FileReader(os.path.join(
+        sdir, f"rank{r:05d}.dsllm")).tensors.values())
+        for r in range(group.world)]
+    unique = sum(t.numel() * t.element_size() for t in restored)
+    out["bytes"] = {"by_rank": rank_bytes, "sum": sum(rank_bytes),
+                    "unique": unique}
+    del restored
+    if device == "cuda":
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    if sum(rank_bytes) != unique:
+        fail(f"sharded save: rank bytes {rank_bytes} sum to "
+             f"{sum(rank_bytes)}, the unique shards are {unique}")
+    return out
+
+
+def _sharded_modes(device: str, cfg, group, workdir: str, ref: dict,
+                   ref_counted: dict, serve_ref: dict, refs: dict,
+                   traced: dict, plain_counts: dict, batch: int,
+                   prompt_len: int) -> dict:
+    """:data:`SHARD_MODES` on the ranks, in turn: the seeded state laid
+    out again in the mode (:func:`_shard_rank_layout`), its prefill of
+    the gradient pass's batch (:func:`_shard_rank_prefill`; but
+    ``tp_zero1``) within :data:`SHARD_LOGIT_RTOL` of the unsharded
+    prefill in ``ref``, and its train step, held as the 2d step is
+    (:func:`_hold_step` against the same unsharded run ``ref``; the
+    counted step equal to the mode's fake (2, 2) trace in ``traced``; its
+    FLOPs within :data:`SHARD_WORK_MAX` of a world-th of the unsharded
+    step's ``ref_counted``). Ulysses' counted collectives must hold more
+    all-to-alls than the 2d step's ``plain_counts`` (on a cpu mesh more
+    all-gathers), the sequence-parallel residual's more reduce-scatters.
+    ``tp_zero1`` also saves
+    under ``workdir`` lazily beside its next step, prefills and decodes
+    against the unsharded decode in ``refs`` (its counted prefill and
+    decode step equal to the trace, the prefill within
+    :data:`SHARD_WORK_MAX` of the unsharded ``serve_ref``); after the
+    last mode its save is committed and restored
+    (:func:`_sharded_save_restore`: at world 1 and onto the 2d (2, 2)
+    layout). Every rank must launch ``flash_attention`` in every mode's
+    prefill. Returns by mode the report, and ``launches_by_rank`` at the
+    end (the main path's)."""
     import dataclasses
 
     import torch
+    world = math.prod(SHARD_DIMS)
     out = {}
-    for case, (kw, decode_len, rows, seed, _axis, n) in \
-            _decode_cases(batch, prompt_len).items():
-        c = dataclasses.replace(cfg, sharding_mode="2d",
-                                max_decode_len=decode_len, **kw)
-        count = {} if case == "2d" else None
-        steps, want, ref_s = _decode_reference(c, device, rows, prompt_len,
-                                               seed, n, count)
+    for name, kw in SHARD_MODES.items():
+        c = dataclasses.replace(cfg, **{"sharding_mode": "2d", **kw})
+        t0 = time.perf_counter()
+        layout = group.run(_shard_rank_layout, c)
+        case = {"layout_s": time.perf_counter() - t0,
+                "local_bytes": [r["local_bytes"] for r in layout]}
+        if name != "tp_zero1":
+            pre = group.run(_shard_rank_prefill)
+            err = _rel_l2(pre[0]["logits"], ref["prefill_logits"])
+            case.update(prefill_s=[r["prefill_s"] for r in pre],
+                        prefill_rel_l2=err, prefill_rtol=SHARD_LOGIT_RTOL,
+                        prefill_flash=[r["flash"] for r in pre])
+            if not all(r["finite"] for r in pre) \
+                    or not err <= SHARD_LOGIT_RTOL:
+                fail(f"sharded {name} prefill: logits' relative L2 error "
+                     f"{err} against the unsharded prefill (rtol "
+                     f"{SHARD_LOGIT_RTOL}), finite by rank "
+                     f"{[r['finite'] for r in pre]}")
+            if device == "cuda" and not all(case["prefill_flash"]):
+                fail(f"sharded {name} prefill: flash_attention launches "
+                     f"by rank {case['prefill_flash']}")
+        steps = group.run(_shard_rank_step, False)
+        what = f"sharded {name} step"
+        _check_counted(f"{name} train", [r["counted"] for r in steps],
+                       traced[name]["train"])
+        case.update({k: [r[k] for r in steps]
+                     for k in ("step_s", "peak_bytes")})
+        case.update(_hold_step(what, group, steps, ref))
+        coll = [r["counted"]["collectives"] for r in steps]
+        case["work"] = [r["counted"]["flops"] / (ref_counted["flops"] / world)
+                        for r in steps]
+        case["collective_counts"] = coll[0]["counts"]
+        for kind in ("all-gather", "all-to-all", "reduce-scatter"):
+            case[f"{kind}_bytes"] = [x["by_kind"][kind] for x in coll]
+        if not max(case["work"]) <= SHARD_WORK_MAX:
+            fail(f"{what}: each rank's FLOPs over a {world}th of the "
+                 f"unsharded step's read {case['work']}, past "
+                 f"{SHARD_WORK_MAX}")
+        # each flag's path shows in its collectives: Ulysses' exchange of
+        # sequence for heads is an all-to-all on a card (a ``DTensor`` on
+        # a cpu mesh takes an all-gather instead); the sequence-parallel
+        # residual's row products reduce-scatter where 2d's all-reduce
+        kind = {"ulysses": "all-to-all" if device == "cuda" else "all-gather",
+                "seq_parallel": "reduce-scatter"}.get(name)
+        if kind and not all(x["counts"][kind] > plain_counts[kind]
+                            for x in coll):
+            fail(f"{what}: counted collectives {[x['counts'] for x in coll]}"
+                 f", {kind} no more than the 2d step's {plain_counts[kind]}:"
+                 f" the flag's path did not run")
+        if name == "tp_zero1":
+            # saved lazily beside the next step; committed, restored and
+            # checked after its decode, which the ranks run meanwhile
+            case["saves"] = group.run(_shard_rank_save,
+                                      os.path.join(workdir, name), False)
+            dec = _sharded_decode(device, cfg, group, batch, prompt_len,
+                                  (name,), refs)
+            ranks = dec["ranks"][name]
+            group.run(_shard_rank_drop_serving)
+            _check_counted(f"{name} prefill",
+                           [r["counted_prefill"] for r in ranks],
+                           traced[name]["prefill"])
+            _check_counted(f"{name} decode",
+                           [r["counted_decode"] for r in ranks],
+                           traced[name]["decode"])
+            case["decode"] = dec[name]
+            for kind in ("prefill", "decode"):
+                case["decode"][f"{kind}_work"] = [
+                    r[f"counted_{kind}"]["flops"]
+                    / (serve_ref[kind]["flops"] / world) for r in ranks]
+            case["decode"]["decode_all_gather_bytes"] = [
+                r["counted_decode"]["collectives"]["by_kind"]["all-gather"]
+                for r in ranks]
+            if not max(case["decode"]["prefill_work"]) <= SHARD_WORK_MAX:
+                fail(f"sharded {name} prefill: each rank's FLOPs over a "
+                     f"{world}th of the unsharded prefill's read "
+                     f"{case['decode']['prefill_work']}, past "
+                     f"{SHARD_WORK_MAX}")
+        out[name] = case
         if device == "cuda":
             torch.cuda.empty_cache()
+    zero1 = out["tp_zero1"]
+    t0 = time.perf_counter()
+    zero1.update(_sharded_save_restore(
+        device, cfg, group, os.path.join(workdir, "tp_zero1"), SHARD_DIMS,
+        "2d", zero1["saves"]))
+    zero1["check_s"] = time.perf_counter() - t0
+    # the main path ends here: the launch counts by rank
+    out["launches_by_rank"] = group.run(_launches)
+    return out
+
+
+def _sharded_decode(device: str, cfg, group, batch: int,
+                    prompt_len: int, cases: tuple, refs: dict) -> dict:
+    """Phase 15's decode ``cases`` (of :func:`_decode_cases`): for each,
+    the unsharded prefill and greedy decode in this process (kept in
+    ``refs`` by prompt and headroom: a later case of the same prompt in
+    another layout takes the first of its tokens and logits), then the
+    ranks' sharded prefill and decode teacher-forced with its tokens.
+    Fails unless every logits lies within :data:`SHARD_LOGIT_RTOL`
+    relative L2 error of the unsharded decode's, every rank's first k
+    cache is laid out as :func:`_expected_local_cache` says and every
+    rank launched ``flash_attention`` in the case; logs (no gate) the
+    share of steps whose argmax agrees. Returns by case the errors, the
+    layout and the seconds, the launch counts by rank after the last case
+    and ``ranks``, each counted case's rank reports, with
+    ``unsharded_counted``, the unsharded prefill's and first decode
+    step's FLOPs."""
+    import dataclasses
+
+    import torch
+    out = {"ranks": {}}
+    for case in cases:
+        kw, decode_len, rows, seed, _axis, n = _decode_cases(
+            batch, prompt_len)[case]
+        c = dataclasses.replace(cfg, **{"sharding_mode": "2d",
+                                        "max_decode_len": decode_len, **kw})
+        key = (decode_len, rows, seed)
+        if key not in refs:
+            count = {} if case == "2d" else None
+            refs[key] = _decode_reference(c, device, rows, prompt_len, seed,
+                                          n, count) + (count,)
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        steps, want, ref_s, count = refs[key]
+        if steps.shape[1] < n:
+            fail(f"sharded decode {case}: {n} steps against an unsharded "
+                 f"decode of {steps.shape[1]}")
+        steps, want = steps[:, :n], want[:n + 1]
         ranks = group.run(_shard_rank_decode, case, batch, prompt_len, steps)
         got = ranks[0]["logits"]
         errs = [_rel_l2(g, w) for g, w in zip(got, want)]
@@ -4708,9 +5050,13 @@ def _sharded_decode(device: str, cfg, group, batch: int,
             if rank["cache"][1] != local:
                 fail(f"sharded decode {case}: rank {r} holds k "
                      f"{rank['cache']}, the layout gives {local}")
-        if case == "2d":
-            out["ranks"] = [{k: v for k, v in r.items() if k != "logits"}
-                            for r in ranks]
+            if device == "cuda" and rank["flash"] == 0:
+                fail(f"sharded decode {case}: rank {r} never launched "
+                     f"flash_attention")
+        out[case]["flash_by_rank"] = [r["flash"] for r in ranks]
+        if "counted_prefill" in ranks[0]:
+            out["ranks"][case] = [{k: v for k, v in r.items()
+                                   if k != "logits"} for r in ranks]
             out["unsharded_counted"] = count
         out["launches_by_rank"] = [r["launches"] for r in ranks]
     return out
@@ -4863,8 +5209,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         shutil.rmtree(workdir, ignore_errors=True)
     report["phase_s"] = time.perf_counter() - t0
     report["host_bytes"] = host
-    by_rank = report["decode"].pop("launches_by_rank")
-    report["launches_by_rank"] = by_rank
+    by_rank = report["launches_by_rank"]
     for r, launches in enumerate(by_rank):
         for k in ("flash_attention", "checksum_u32"):
             if launches[k] == 0:
@@ -4882,7 +5227,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
              f"plain version: {local}")
     log(f"sharded path: {report['phase_s']:.1f} s after the ranks' spawn "
         f"{report['spawn_s']:.1f} s and setup {report['setup_s']:.1f} s "
-        f"(those beside phase 14); "
+        f"(those beside phase 13's traces and phase 14); "
         f"step by rank " + ", ".join(f"{s:.3f}" for s in report["step_s"])
         + f" s (unsharded {report['unsharded_step_s']:.3f} s); gradient "
         f"pass at {SHARD_GRAD_BATCH} x {SHARD_GRAD_SEQ} by rank " + ", ".join(
@@ -4937,6 +5282,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
             + f" s by rank (unsharded prefill and decode "
             f"{v['unsharded_s']:.3f} s)" for k, v in report["decode"].items())
         + f" ({card})")
+    log("sharded modes " + json.dumps(report["modes"]) + f" ({card})")
     log("sharded zoo gradient passes: " + "; ".join(
             f"{k} ({'/'.join(v['pattern'])}, {v['tokens'][0]} x "
             f"{v['tokens'][1]} tokens) rel L2 "
@@ -4968,7 +5314,7 @@ def run_sharded_phase(cfg, path_launches: dict, card: str,
         f"{s['blocking']['persist_s']:.3f}), lazy prologue "
         f"{s['lazy']['prologue_s']:.3f} s, capture stall "
         f"{s['lazy']['capture_stall_s']:.3f} s, persist "
-        f"{s['lazy']['persist_s']:.3f} s" for r, s in
+        f"{s['persist_s']:.3f} s" for r, s in
         enumerate(report["saves"]))
         + f"; bytes by rank {report['bytes']['by_rank']} (sum "
         f"{report['bytes']['sum']} = unique {report['bytes']['unique']}); "
@@ -5232,25 +5578,29 @@ def main() -> None:
     # -- phase 12: the rest of the zoo (slice 14) --------------------------
     log("zoo rest report " + json.dumps(run_zoo_rest_phase(path_launches)))
 
-    # -- phase 13: the dry run against the card (slices 15, 18) -----------
-    dry = run_dryrun_phase(cfg, path_launches, smi)
-    log("dryrun report " + json.dumps(dry))
-
-    # phase 15's four ranks spawn and set up (about 25 s of imports, CUDA
-    # start-up and their seeded state) on a thread of their own while
-    # phase 14 runs
+    # phase 15's four ranks spawn and set up (about 26 s of imports, CUDA
+    # start-up and their seeded state) on a thread of their own once phase
+    # 13's steps are timed, while its sharded traces and phase 14 run
     import concurrent.futures
-    _release_pinned()
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    started = pool.submit(start_sharded_ranks, "cuda", cfg, SHARD_BATCH,
-                          SHARD_SEQ, SHARD_GRAD_BATCH, SHARD_GRAD_SEQ)
+    started = []
+
+    def start() -> None:
+        _release_pinned()
+        started.append(pool.submit(start_sharded_ranks, "cuda", cfg,
+                                   SHARD_BATCH, SHARD_SEQ, SHARD_GRAD_BATCH,
+                                   SHARD_GRAD_SEQ))
+
+    # -- phase 13: the dry run against the card (slices 15, 18) -----------
+    dry = run_dryrun_phase(cfg, path_launches, smi, start)
+    log("dryrun report " + json.dumps(dry))
 
     # -- phase 14: the examples (slice 16) --------------------------------
     log("examples report " + json.dumps(run_examples_phase(path_launches)))
 
-    # -- phase 15: sharded model compute (slices 17-19) -------------------
+    # -- phase 15: sharded model compute (slices 17-21) -------------------
     log(f"sharded report " + json.dumps(run_sharded_phase(
-        cfg, path_launches, smi, started, dry["sharded_trace"]))
+        cfg, path_launches, smi, started[0], dry["sharded_trace"]))
         + f" ({smi})")
     pool.shutdown()
 

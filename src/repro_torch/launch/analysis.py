@@ -29,7 +29,10 @@ figure is rank 0's, as the reference's are one device's:
   redistributions issue, by the reference's kinds
   (``all_gather_into_tensor`` all-gather, ``all_reduce`` all-reduce,
   ``reduce_scatter_tensor`` reduce-scatter, ``all_to_all_single``
-  all-to-all; coalesced and in-place forms under the same kind), each
+  all-to-all; coalesced and in-place forms under the same kind), and
+  ``_dtensor.shard_dim_alltoall`` (the all-to-all by which a ``DTensor``
+  on a ``cuda`` mesh moves a split to another dimension; on a ``cpu``
+  mesh it takes an all-gather instead) as an all-to-all, each
   counted with its result's bytes, as the reference sums result shapes.
   ``wait_tensor`` is not counted, as the reference skips ``-done``.
 - **Temp bytes**: the peak of live storage the step allocates beyond its
@@ -205,8 +208,12 @@ def op_profile(ops: Iterable[OpRecord]) -> Dict[str, List[int]]:
 
 
 def collective_kind(func) -> Optional[str]:
-    """The reference's kind of a ``_c10d_functional`` collective, or
-    ``None`` (another operator, ``wait_tensor``)."""
+    """The reference's kind of a ``_c10d_functional`` collective (or of
+    ``_dtensor.shard_dim_alltoall``, the all-to-all ``DTensor`` runs
+    itself to move a split from one dimension to another), or ``None``
+    (another operator, ``wait_tensor``)."""
+    if func.namespace == "_dtensor" and func._opname == "shard_dim_alltoall":
+        return "all-to-all"
     if func.namespace != "_c10d_functional":
         return None
     name = func._opname

@@ -70,6 +70,8 @@ def _rank_main(conn: Any, rank: int, world: int, port: int, backend: str,
             except EOFError:
                 return
             if msg[0] == "close":
+                from repro_torch.sharding import gloo_cuda
+                gloo_cuda.release()
                 return
             _, fn, args, kwargs = msg
             try:

@@ -98,4 +98,9 @@ def apply_updates(params, opt_state: Dict[str, Any], grads,
         vhat = v / b2c
         w.sub_(hp.lr * (mhat / (torch.sqrt(vhat) + hp.eps)
                         + hp.weight_decay * w))
+        if is_dtensor(p) and w.placements != p.placements:
+            # ZeRO-1: the updated params gathered over ``data`` in their
+            # own dtype, not the fp32 master (the cast is the same either
+            # side of the gather)
+            w = w.to(p.dtype)
         p.copy_(_like(w, p))

@@ -703,7 +703,7 @@ def test_port_imports_neither_jax_nor_repro():
     with them blocked."""
     files = _port_files()
     assert sum("examples/torch" in f for f in files) == 6
-    assert sum("scripts/torch" in f for f in files) == 4
+    assert sum("scripts/torch" in f for f in files) == 5
     for path in files:
         bad = {m for m in _imported_tops(path)
                if m in ("jax", "jaxlib", "repro")}

@@ -20,6 +20,9 @@ run are in ``tests/test_torch_spmd.py``.
   its state saved blocking and lazily beside the next step (the capture
   barrier before the in-place update), both restored bit-exactly; the
   rank files again equal the ``ShardedTensor`` save's.
+* The smoke variant's state after a ``tp_zero1`` step saved and
+  restored onto the ``2d`` layout, and by ``repro``, bit for bit; the
+  rank files hold exactly the state's unique bytes.
 * A ZeRO-1 leaf over the whole mesh planned at a quarter a rank.
 * The rank runtime's ``torch_distributed`` flag: no rendezvous joins
   nothing, a configured one joins every rank, a failing one raises.
@@ -49,7 +52,7 @@ from repro_torch.launch.spmd import SpmdGroup, free_port
 from repro_torch.sharding import shard_tree
 from test_torch_spmd import (AXES, SPECS, _at, _rank_basic,
                              _rank_collectives, _rank_train_save,
-                             _tensors, _train_cfg)
+                             _rank_zero1_to_2d, _tensors, _train_cfg)
 
 
 @pytest.fixture(scope="module")
@@ -166,21 +169,66 @@ def test_sharded_train_state_saves_blocking_and_lazily(group, tmp_path):
             _sharded_save(str(tmp_path / f"st{step}"), step, snaps[step],
                           specs))
     # repro restores the lazily saved step bit for bit
+    _assert_repro_restores(root, 2, snaps[2])
+
+
+def _assert_repro_restores(root, step, want):
+    """``repro`` restores ``step`` of ``root`` bit for bit equal to
+    ``want`` (a tree of whole tensors)."""
     def zeros(t):
         dt = jnp.bfloat16 if t.dtype == torch.bfloat16 \
             else np.dtype(str(t.dtype).replace("torch.", ""))
         return jnp.zeros(tuple(t.shape), dt)
-    jtpl = map_leaves(zeros, snaps[2])
-    jgot = JManager.from_policy(root).restore(jtpl, step=2)
-    for (p, want), (_q, got) in zip(flatten_with_path(snaps[2])[0],
-                                    flatten_with_path(jgot)[0]):
+    jgot = JManager.from_policy(root).restore(map_leaves(zeros, want),
+                                              step=step)
+    for (p, w), (_q, got) in zip(flatten_with_path(want)[0],
+                                 flatten_with_path(jgot)[0]):
         got = np.atleast_1d(np.asarray(got))
-        want = want.reshape(-1)
-        if want.dtype == torch.bfloat16:
-            got, want = got.view(np.uint16), want.view(torch.int16)
+        w = w.reshape(-1)
+        if w.dtype == torch.bfloat16:
+            got, w = got.view(np.uint16), w.view(torch.int16)
         np.testing.assert_array_equal(got.reshape(-1).view(np.uint8),
-                                      want.numpy().view(np.uint8),
+                                      w.numpy().view(np.uint8),
                                       err_msg=path_str(p))
+
+
+def test_zero1_save_restores_onto_2d_layout(group, tmp_path):
+    """The llama3.2-1b smoke variant's state after a ``tp_zero1`` step on
+    the ranks (the paper's layout: params replicated over ``data``, their
+    optimizer state split over it), saved, restored onto the ``2d``
+    (2, 2) layout bit for bit (a change of partition mode on resume) and
+    by ``repro`` bit for bit; a leaf replicated over ``data`` is written
+    once, so the rank files hold exactly the state's unique bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(smoke_variant(get_config("llama3.2-1b")),
+                              dtype="float32", sharding_mode="tp_zero1")
+    params = TM.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.device("cpu"))
+    params_np = map_leaves(lambda t: t.detach().numpy(), params)
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32)
+    root = str(tmp_path / "port")
+    res = group.run(_rank_zero1_to_2d, root, cfg, params_np, tokens)
+    d, hdh = params_np["groups"][0][0]["attn"]["wq"].shape[1:]
+    for r in res:
+        assert r["exact"] and r["meta"] == {"step": 1}
+        assert r["commit_errors"] == []
+        # wq and its fp32 master: (model) and (data, model) in tp_zero1,
+        # (data, model) for both in 2d
+        assert r["layouts"] == {
+            "tp_zero1": ((1, d, hdh // 2), (1, d // 2, hdh // 2)),
+            "2d": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2))}
+    saved = res[0]["saved"]
+    files = _rank_files(os.path.join(root, "global_step1"))
+    assert len(files) == 4
+    assert sum(e.nbytes for f in files
+               for e in FileReader(f).tensors.values()) \
+        == sum(t.numel() * t.element_size() for _p, t in
+               flatten_with_path(saved)[0])
+    _assert_repro_restores(root, 1, saved)
 
 
 def test_torch_distributed_flag(tmp_path, monkeypatch):

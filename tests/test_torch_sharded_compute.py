@@ -14,12 +14,17 @@ port's unsharded one, in fp32:
   ``fsdp`` (batch over both axes), starcoder2's with
   ``ulysses_attention`` at S 256, and dbrx's MoE in ``2d``: the loss and
   every updated parameter;
-* decode with the batch-sharded cache, with ``decode_kv_seq_shard`` over
-  a 256-slot cache, and one long-context prompt with the ``seq`` axis on
-  ``data``: the prefill's last logits and four teacher-forced decode
-  steps' logits;
+* llama3.2-1b's with ``ulysses_attention`` and with
+  ``seq_parallel_residual`` at S 256 (the configuration the card runs
+  them in);
+* decode with the batch-sharded cache (in ``2d`` and ``tp_zero1``),
+  with ``decode_kv_seq_shard`` over a 256-slot cache, and one
+  long-context prompt with the ``seq`` axis on ``data``: the prefill's
+  last logits and four teacher-forced decode steps' logits;
 * the forward with ``seq_parallel_residual`` (S 128), and dbrx's MoE
-  forward: logits and the MoE aux loss.
+  forward: logits and the MoE aux loss;
+* the dry run's fake (2, 2) trace against what the ranks count, in
+  ``2d``, ``tp_zero1``, ``fsdp`` and with Ulysses.
 
 Logits and loss within 1e-5 relative L2 error, and the updated
 parameters within 1e-5 relative L2 error over the whole tree (XLA, ATen
@@ -28,9 +33,10 @@ leaf whose gradient is zero in exact arithmetic (the key bias ``bk``: a
 constant added to every logit of a row leaves its softmax as it is) has
 a gradient of rounding noise, which AdamW's first step normalises to an
 update of up to ``lr``, different in every summation order. The partition
-modes only lay the same step out, so the three llama3.2-1b cases share
-one reference. ``repro``'s own tests pin that its results do not depend
-on the mesh, so its unsharded result is the reference for every layout.
+modes and sequence-parallel flags only lay the same step out, so the
+llama3.2-1b cases at one length share one reference. ``repro``'s own
+tests pin that its results do not depend on the mesh, so its unsharded
+result is the reference for every layout.
 """
 
 import dataclasses
@@ -127,11 +133,16 @@ def _case_inputs(name, S, **kw):
     return (cfg,) + _inputs(jcfg, 4, S)[1:]
 
 
+#: settings that act only under a mesh: the unsharded step is the same
+#: whatever they say
+MESH_ONLY = ("sharding_mode", "ulysses_attention", "seq_parallel_residual")
+
+
 def _references(name, S, **kw):
     """``((loss, params, what) of repro, of the port)``: the unsharded
-    step, once for every partition mode."""
+    step, once for every partition mode and sequence-parallel flag."""
     key = (name, S, tuple(sorted((k, v) for k, v in kw.items()
-                                 if k != "sharding_mode")))
+                                 if k not in MESH_ONLY)))
     if key not in _REFERENCES:
         jcfg, cfg = _configs(name, **kw)
         jparams, params_np, tokens = _inputs(jcfg, 4, S)
@@ -146,6 +157,11 @@ TRAIN_CASES = {
     "tp_zero1": ("llama3.2-1b", {"sharding_mode": "tp_zero1"}, 32),
     "fsdp": ("llama3.2-1b", {"sharding_mode": "fsdp"}, 32),
     "ulysses": ("starcoder2-7b", {"ulysses_attention": True}, 256),
+    # the configuration the card runs Ulysses and the sequence-parallel
+    # residual in (chip_smoke.py's phase 15), one reference for both
+    "ulysses_llama": ("llama3.2-1b", {"ulysses_attention": True}, 256),
+    "seq_parallel_residual": ("llama3.2-1b",
+                              {"seq_parallel_residual": True}, 256),
     # the MoE's experts on each rank's local shards (their einsums under
     # grad), dbrx's smoke variant
     "moe_2d": ("dbrx-132b", {"sharding_mode": "2d"}, 32),
@@ -183,6 +199,8 @@ def test_sharded_train_step_matches_reference(group, case):
               "tp_zero1": ((1, d, hdh // 2), (1, d // 2, hdh // 2)),
               "fsdp": ((1, d // 4, hdh), (1, d // 4, hdh)),
               "ulysses": ((1, d // 2, hdh // 2), (1, d // 2, hdh // 2))}
+    expect["ulysses_llama"] = expect["seq_parallel_residual"] = \
+        expect["ulysses"]
     assert res[0][2] == expect[case.split("_", 1)[-1]
                                if name in LAYOUT_MATRIX else case]
 
@@ -198,6 +216,10 @@ DECODE_CASES = {
     "decode_kv_seq_shard": ({"decode_kv_seq_shard": True}, 4, None,
                             (1, 2, 128, 2, 64)),
     "long_context": ({}, 1, "data", (1, 1, 128, 2, 64)),
+    # the paper's layout: the params over model, replicated over data
+    # (the cache is laid out as in 2d)
+    "decode_tp_zero1": ({"sharding_mode": "tp_zero1"}, 4, None,
+                        (1, 2, 256, 1, 64)),
 }
 
 
@@ -323,21 +345,34 @@ def test_sharded_ring_cache_prefill(group, kind):
         assert np.array_equal(g == 0, w == 0)
 
 
-@pytest.mark.parametrize("name", ["llama3.2-1b", "recurrentgemma-2b"])
+#: what chip_smoke.py's phase 15 holds each rank's counted step against
+#: the fake trace in: (config, overrides, tokens); the 2d step, and
+#: llama3.2-1b in the paper's layout, the batch over both axes and
+#: Ulysses' exchange
+COUNT_CASES = {"llama3.2-1b": ("llama3.2-1b", {}, 32),
+               "recurrentgemma-2b": ("recurrentgemma-2b", {}, 32),
+               "tp_zero1": ("llama3.2-1b", {"sharding_mode": "tp_zero1"}, 32),
+               "fsdp": ("llama3.2-1b", {"sharding_mode": "fsdp"}, 32),
+               "ulysses": ("llama3.2-1b", {"ulysses_attention": True}, 128)}
+
+
+@pytest.mark.parametrize("name", list(COUNT_CASES))
 def test_fake_trace_counts_what_the_ranks_run(group, name):
-    """The dry run's trace of a ``2d`` train step on a fake (2, 2) mesh
-    (rank 0's local program) against the same step run by the four gloo
-    ranks under the same counter: per-device FLOPs, collectives' counts
-    and bytes by kind, and the per-kind op profile (every operator kind's
-    count and result bytes), equal on every rank."""
+    """The dry run's trace of a train step on a fake (2, 2) mesh (rank
+    0's local program) against the same step run by the four gloo ranks
+    under the same counter: per-device FLOPs, collectives' counts and
+    bytes by kind, and the per-kind op profile (every operator kind's
+    count and result bytes), equal on every rank (fsdp: the batch over
+    both axes on the ranks, as the dry run sets it)."""
     from repro_torch.configs.base import InputShape
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_abstract_mesh
-    cfg, params_np, tokens = _case_inputs(name, 32)
+    arch, kw, S = COUNT_CASES[name]
+    cfg, params_np, tokens = _case_inputs(arch, S, **kw)
     group.start(_rank_count, cfg, params_np, tokens, "train")
     try:
         rec = dryrun.dryrun_record(
-            cfg, InputShape("t", 32, 4, "train"),
+            cfg, InputShape("t", S, 4, "train"),
             make_abstract_mesh((2, 2), ("data", "model")), record_ops=True)
     finally:
         ranks = group.results()

@@ -23,7 +23,8 @@ from repro_torch.configs import get_config, smoke_variant
 from repro_torch.convert import from_numpy_state, to_numpy_state
 from repro_torch.core import CheckpointManager
 from repro_torch.core.policy import CheckpointPolicy, DistPolicy
-from repro_torch.core.tree import flatten_with_path, map_leaves, path_str
+from repro_torch.core.tree import (flatten_with_path, leaves, map_leaves,
+                                   path_str)
 from repro_torch.launch.spmd import SpmdError, SpmdGroup
 from repro_torch.models import model as TM
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
@@ -197,6 +198,9 @@ def _rank_count(cfg, params_np, tokens, kind):
     params = from_numpy_state(params_np, "cpu")
     batch = {"tokens": torch.from_numpy(tokens)}
     db = distribute_tree(batch, batch_pspecs(cfg, kind, batch, vm), dm)
+    # fsdp: the batch over the whole mesh, as the dry run sets it
+    shctx.set_batch_axes(("data", "model") if cfg.sharding_mode == "fsdp"
+                         else None)
     if kind == "train":
         args = (distribute_tree(
             map_leaves(lambda t: t.requires_grad_(True), params),
@@ -209,8 +213,11 @@ def _rank_count(cfg, params_np, tokens, kind):
                 db)
         step = TE.make_prefill_step(cfg)
     counter = TraceCounter(args, record_ops=True)
-    with shctx.activate(dm), counter:
-        step(*args)
+    try:
+        with shctx.activate(dm), counter:
+            step(*args)
+    finally:
+        shctx.set_batch_axes(None)
     return {"flops": counter.flops, "collectives": counter.collectives(),
             "profile": counter.profile()}
 
@@ -352,6 +359,54 @@ def _rank_train_save(root, params, tokens):
     return out
 
 
+def _rank_zero1_to_2d(root, cfg, params_np, tokens):
+    """A ``tp_zero1`` train step of ``cfg`` on the ranks, its state saved
+    blocking, then restored onto templates laid out ``2d`` on the same
+    mesh (a change of partition mode on resume): whether every restored
+    leaf equals the saved one bit for bit, and the local shapes of the
+    first block's ``wq`` and its fp32 master in both layouts. Rank 0 also
+    returns the gathered saved state."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import context as shctx
+    from repro_torch.sharding.partition import (batch_pspecs,
+                                                distribute_tree,
+                                                opt_pspecs, param_pspecs)
+    dm, vm = _rank_mesh(cfg)
+    params = from_numpy_state(params_np, "cpu")
+    batch = {"tokens": torch.from_numpy(tokens)}
+    p = distribute_tree(map_leaves(lambda t: t.requires_grad_(True),
+                                   params), param_pspecs(cfg, params, vm), dm)
+    o = distribute_tree(init_opt_state(params), opt_pspecs(cfg, params, vm),
+                        dm)
+    b = distribute_tree(batch, batch_pspecs(cfg, "train", batch, vm), dm)
+    with shctx.activate(dm):
+        p, o, _loss = make_train_step(cfg, AdamWConfig())(p, o, b)
+    saved = {"model": p, "optimizer": o}
+    want = map_leaves(lambda t: t.full_tensor().detach().clone(), saved)
+    c2 = dataclasses.replace(cfg, sharding_mode="2d")
+    zeros = map_leaves(torch.zeros_like, params)
+    tpl = {"model": distribute_tree(zeros, param_pspecs(c2, params, vm), dm),
+           "optimizer": distribute_tree(init_opt_state(zeros),
+                                        opt_pspecs(c2, params, vm), dm),
+           "meta": {"step": 0}}
+    with _group_manager(root) as mgr:
+        mgr.save(1, dict(saved, meta={"step": 1}), blocking=True)
+        got = mgr.restore(tpl, step=1)
+        errors = list(mgr.commit_errors)
+    pairs = zip(leaves({"model": got["model"],
+                        "optimizer": got["optimizer"]}), leaves(want))
+    exact = all(torch.equal(g.full_tensor(), w) for g, w in pairs)
+
+    def wq(tree):
+        return tuple(tree["groups"][0][0]["attn"]["wq"].to_local().shape)
+    layouts = {"tp_zero1": (wq(p), wq(o["master"])),
+               "2d": (wq(got["model"]), wq(got["optimizer"]["master"]))}
+    return {"exact": exact, "meta": got["meta"], "layouts": layouts,
+            "commit_errors": errors,
+            "saved": want if dist.get_rank() == 0 else None}
+
+
 def _train_cfg():
     """``tests/test_distributed.py``'s cut of the smoke variant, at one
     layer."""
@@ -364,17 +419,27 @@ def _train_cfg():
 def _rank_collectives():
     """DTensor redistributions through gloo's native CPU path, then
     through :mod:`repro_torch.sharding.gloo_cuda`'s collectives
-    registered for the CPU key: the same values. Last in this file: the
-    override stays installed in the group's ranks."""
+    registered for the CPU key: the same values. Also
+    ``_dtensor.shard_dim_alltoall`` (Ulysses' exchange of a split
+    sequence for split heads, which a ``DTensor`` on a cuda mesh runs
+    and PyTorch 2.11's own version of kills a rank under gloo), called
+    directly: the same values both ways, and the dry run's counter counts
+    the routed one as one all-to-all. And the functional collectives
+    called directly over the world (an all-to-all of uneven splits, a
+    max, an all-gather, a reduce-scatter), the routed ones through
+    staging buffers of a few bytes, so each moves in many chunks. Last in
+    this file: the override stays installed in the group's ranks."""
     import torch.distributed as dist
     from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                           Shard, distribute_tensor)
 
+    from repro_torch.launch.analysis import TraceCounter
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.sharding import gloo_cuda
     dm = make_device_mesh((2, 2), AXES, device="cpu")
     t = torch.arange(4 * 6 * 8, dtype=torch.float32).reshape(4, 6, 8)
     r = float(dist.get_rank() + 1)
+    model = dm.get_group(1).group_name
 
     def run():
         d = distribute_tensor(t, dm, [Shard(0), Shard(1)])
@@ -383,17 +448,41 @@ def _rank_collectives():
         x = distribute_tensor(t, dm, [Shard(2), Replicate()]) \
             .requires_grad_(True)
         (x * x).sum().backward()
+        counter = TraceCounter(())
+        with counter:
+            a2a = torch.ops._dtensor.shard_dim_alltoall(d.to_local(), 1, 2,
+                                                        model)
         return [d.redistribute(dm, [Shard(0), Shard(2)]).full_tensor(),
                 d.full_tensor(),
                 p.redistribute(dm, [Shard(0), Replicate()]).to_local(),
                 p.redistribute(dm, [Replicate(), Replicate()]).to_local(),
-                x.grad.full_tensor()]
+                x.grad.full_tensor(), a2a] + direct(), \
+            counter.collectives()["counts"]
 
-    native = run()
+    def direct():
+        f, world = torch.ops._c10d_functional, dist.group.WORLD.group_name
+        i = dist.get_rank()
+        # rank i sends rank j (i + j) % 3 + 1 rows, and takes as many
+        splits = [(i + j) % 3 + 1 for j in range(4)]
+        rows = torch.arange(sum(splits) * 3, dtype=torch.float32) \
+            .reshape(-1, 3) + 100 * i
+        return [f.wait_tensor(x) for x in (
+            f.all_to_all_single(rows, splits, splits, world),
+            f.all_reduce(t * r, "max", world),
+            f.all_gather_into_tensor(t * r, 4, world),
+            f.reduce_scatter_tensor(t * r, "sum", 4, world))]
+
+    native, _counts = run()
+    gloo_cuda.STAGING_BYTES = 48
     gloo_cuda.install("CPU")
-    routed = run()
+    routed, counts = run()
+    # the exchange leaves this rank its rows over data, the middle
+    # dimension whole and its half of the last over model
+    c = dm.get_coordinate()
+    want = t[c[0] * 2:(c[0] + 1) * 2, :, c[1] * 4:(c[1] + 1) * 4]
     return all(torch.equal(a, b) for a, b in zip(native, routed)) \
-        and torch.equal(native[0], t)
+        and torch.equal(native[0], t) and torch.equal(routed[5], want) \
+        and counts["all-to-all"] == 1 and sum(counts.values()) == 1
 
 
 # ------------------------------------------------------- SpmdGroup itself
