@@ -33,7 +33,8 @@ Phases, any failure exits non-zero:
    and ``layers._Flash``'s gradients (relative L2 error, 1e-4 fp32, 2e-2
    bf16) against the plain version's, also at phase 11b's shape; each
    timed attention shape held against the plain version first (hd 64 at
-   phase 6's, hd 128 at phase 11a's, hd 256 at 12a's and 12b's) — then
+   phase 6's, hd 128 at phase 11a's and 12d's, hd 256 at 12a's and
+   12b's) — then
    timed with CUDA
    events beside its plain version, its bound (flash attention also as
    TFLOP/s and its share of the bound), and a library yardstick where one
@@ -116,8 +117,8 @@ Phases, any failure exits non-zero:
    resume: index, reads, assembly), bytes read and ``checksum_u32``
    launches at save and commit and at restore (verify and resume).
    Kernel launch counts are zeroed just before each of phases 4, 5, 6,
-   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b, 12c, 13 and
-   14
+   10 (run right after 6), 7, 8, 9a, 9b, 11a, 11b, 12a, 12b, 12c, each
+   case of 12d and 12e, 13 and 14
    and read just after; each
    kernel of the phase must have run. Phases
    4-6 log the digest's launches and each restore's chain-verify time;
@@ -200,7 +201,26 @@ Phases, any failure exits non-zero:
    for 32 twice, the same tokens (dbrx's prefill ``{128/full: 1}``), and
    rwkv's prefill of 4,080 tokens and 16 decode steps within a relative
    L2 error of 2e-2 of its 4,096-token forward. One ``zoo rest report``
-   JSON line.
+   JSON line. (d) llama4-maverick-400b-a17b at full width cut to its
+   first two layers (``chunked``, ``chunked_moe``: chunks of 8,192, 40/8
+   heads at hd 128, top-1 of 128 experts with the shared expert, an
+   untied head of 202,048 columns; 18.55 G params, 37.1 GB, seeded on
+   the card): ``greedy_generate`` of 2 x 8,448 tokens for 32 twice (the
+   same tokens; ``{128/chunked: 2}`` a prefill, none in decode), the
+   steps by hand (each decode step writes chunk-ring slot ``pos % 8192``
+   alone, the same tokens), the prefill's MoE layer's dispatch (at most
+   one slot a token, at most C = 3 tokens an expert a group; 64 seeded
+   tokens and up to 16 dropped ones within a relative L2 error of 2e-2
+   of their expert computed alone in fp32 plus the shared expert), every
+   layer's real q, k, v through the kernel and the plain version; then
+   its one ``chunked`` layer alone: a prefill of 8,176 tokens and 32
+   decode steps across position 8,192, the logits at 8,191, 8,192 and
+   8,207 within a relative L2 error of 2e-2 of a forward over the same
+   tokens. (e) starcoder2-7b (1 ``window`` layer, prompts of 4,352 past
+   its 4,096 window) and llama2-7b (2 ``full`` layers, MHA) as (a), and
+   command-r-35b (1 ``full`` layer, a tied 256,000 vocabulary) as (c).
+   One ``zoo last report`` JSON line with the card's name and power
+   limit.
 13. The dry run against the card (slice 15), last: phase 6's prefill and
    a training step (``make_train_step``) of llama3.2-1b at full width, 2
    layers, at 2 x 4,096 tokens (past the 2,048 of the direct attention
@@ -380,6 +400,37 @@ RWKV_TAIL = 16
 #: WKV round to bf16 at other points; ``tests/test_torch_model_zoo_
 #: recurrent.py`` holds the same bound on the CPU)
 RWKV_TAIL_REL_L2 = 2e-2
+#: the zoo's last configs (phases 12d and 12e), at full width cut in
+#: depth. 12d: llama4-maverick at the first two layers of its pattern
+#: (chunked attention with a dense FFN, then with top-1 of 128 experts
+#: and the shared expert; 18.55 G params, 37.1 GB bf16), prompts of one
+#: chunk and 256 tokens (so the kernel skips the tiles before a query's
+#: chunk, and the decode ring starts with a 256-token partial chunk);
+#: then its one ``chunked`` layer alone (4.52 GB): a prefill of
+#: ``RING_PREFILL`` tokens and ``RING_STEPS`` decode steps fed the next
+#: given tokens, across position 8,192 where the ring restarts, held
+#: against a forward over the same tokens within ``RING_REL_L2``
+#: (relative L2 error, as rwkv's tail)
+LLAMA4, LLAMA4_PATTERN = "llama4-maverick-400b-a17b", ("chunked",
+                                                       "chunked_moe")
+LLAMA4_PROMPT = 8192 + 256
+#: its attention shape, which phase 3 times: 40/8 heads, chunks of 8,192
+LLAMA4_HEADS, LLAMA4_CHUNK = (40, 8), 8192
+RING_PREFILL, RING_STEPS, RING_REL_L2 = 8192 - 16, 32, RWKV_TAIL_REL_L2
+#: 12d's dispatch check: tokens of one prefill's MoE layer held against
+#: the expert each was dispatched to, computed alone in fp32, plus the
+#: shared expert (relative L2 error a token): this many seeded tokens,
+#: and up to ``DISPATCH_DROPPED`` tokens that found their expert full
+DISPATCH_TOKENS, DISPATCH_DROPPED, DISPATCH_REL_L2 = 64, 16, 2e-2
+#: 12e: the three dense configs, one repetition of their pattern each
+#: (llama2-7b two ``full`` layers), and their prompts: starcoder2's past
+#: its 4,096 window, so the kernel's window mask skips tiles and the
+#: decode ring wraps
+ZOO12E_PATTERNS = {"starcoder2-7b": ("window",),
+                   "llama2-7b": ("full", "full"),
+                   "command-r-35b": ("full",)}
+ZOO12E_PROMPTS = {"starcoder2-7b": 4096 + 256, "llama2-7b": SERVE_PROMPT,
+                  "command-r-35b": SERVE_PROMPT}
 #: flash attention at odd sizes: (queries, keys) — one short of, on and
 #: past the bf16 kernel's 128-row tiles, fewer keys than queries — (H, KV)
 #: heads, and masks: a window narrower than a tile, chunks across tiles
@@ -1031,14 +1082,15 @@ def _flash_err(got, want, tol: float) -> float:
 
 
 def flash_bound_ms(B: int, S: int, H: int, KV: int, hd: int,
-                   itemsize: int, window: int = 0,
-                   n_prefix: int = 0) -> tuple:
-    """(bound ms, bound_by) of causal attention: its FLOP
-    (``flash_attention.flash_flop``, the attention operator's FLOP formula)
-    against the bf16 tensor-core peak; q, k, v read once and the output
-    written once against the memory rate."""
+                   itemsize: int, window: int = 0, n_prefix: int = 0,
+                   kind: str = None, chunk: int = 0) -> tuple:
+    """(bound ms, bound_by) of causal attention under the ``kind`` mask
+    (``full``, or ``window`` where ``window`` is set) with its window or
+    chunk: its FLOP (``flash_attention.flash_flop``, the attention
+    operator's FLOP formula) against the bf16 tensor-core peak; q, k, v
+    read once and the output written once against the memory rate."""
     from repro_torch.kernels.flash_attention import flash_flop
-    flop = flash_flop(B, S, H, hd, window, n_prefix)
+    flop = flash_flop(B, S, H, hd, window, n_prefix, kind=kind, chunk=chunk)
     nbytes = itemsize * B * S * hd * (2 * H + 2 * KV)
     t_ops, t_bytes = flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -1160,7 +1212,9 @@ def check_flash_kernel(gen) -> dict:
     (``is_causal``, and the window's boolean mask), and at hd 256 at
     phase 12a's (10/1 heads, ``window`` 2,048) and 12b's (8/1 heads,
     ``full`` with a prefix of 256: SDPA with the boolean mask, and causal
-    SDPA at the same shape beside it)."""
+    SDPA at the same shape beside it), and at 12d's (B 2, S 8,448, 40/8
+    heads, hd 128, ``chunked`` 8,192: SDPA with the boolean chunk mask,
+    and causal SDPA)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     B = SERVE_BATCH
@@ -1193,48 +1247,53 @@ def check_flash_kernel(gen) -> dict:
     stats_err = _check_flash_stats(gen)
     grad_err = _check_flash_backward(gen)
 
-    def timed(S, H, KV, hd, window, n_prefix=0):
-        """Times at (B, S, H/KV, hd, bf16, causal or ``window``, with the
-        prefix), after the kernel's output there is held against the
-        plain version's."""
+    def timed(S, H, KV, hd, window, n_prefix=0, kind=None, chunk=0,
+              reps=50):
+        """Times at (B, S, H/KV, hd, bf16, causal, ``window`` or ``kind``
+        with its chunk, with the prefix), after the kernel's output there
+        is held against the plain version's; beside a masked SDPA, causal
+        SDPA too."""
         q = torch.randn(B, S, H, hd, device="cuda", generator=gen) \
             .to(torch.bfloat16)
         k = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
             .to(torch.bfloat16)
         v = torch.randn(B, S, KV, hd, device="cuda", generator=gen) \
             .to(torch.bfloat16)
-        kind = "window" if window else "full"
+        kind = kind or ("window" if window else "full")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         causal = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
                               enable_gqa=True)
         lib = causal
-        if window or n_prefix:
+        if kind != "full" or n_prefix:
             mask = fa.allowed(torch.arange(S, device="cuda"),
                               torch.arange(S, device="cuda"), kind, window,
-                              0, n_prefix)
+                              chunk, n_prefix)
             lib = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
                                enable_gqa=True)
         kern = lambda: fa.flash_attention_cuda(  # noqa: E731
-            q, k, v, kind=kind, window=window, n_prefix=n_prefix)
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            n_prefix=n_prefix)
         plain = lambda: fa.flash_attention_plain(  # noqa: E731
-            q, k, v, kind=kind, window=window, n_prefix=n_prefix)
+            q, k, v, kind=kind, window=window, chunk=chunk,
+            n_prefix=n_prefix)
         err = _flash_err(kern(), plain(), FLASH_TOL["bfloat16"])
         if not math.isfinite(err):
             fail(f"flash_attention disagrees with its plain version at B "
                  f"{B} S {S} heads {H}/{KV} hd {hd} bf16 {kind} (window "
-                 f"{window}, n_prefix {n_prefix})")
-        ms, library_ms = _time_turns(kern, lib, 50)
-        plain_ms = _time_ms(plain, 5)
+                 f"{window}, chunk {chunk}, n_prefix {n_prefix})")
+        ms, library_ms = _time_turns(kern, lib, reps)
+        plain_ms = _time_ms(plain, max(1, reps // 10))
         bound_ms, bound_by = flash_bound_ms(B, S, H, KV, hd, 2, window,
-                                            n_prefix)
+                                            n_prefix, kind, chunk)
+        flop = fa.flash_flop(B, S, H, hd, window, n_prefix, kind=kind,
+                             chunk=chunk)
         row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "tflops": fa.flash_flop(B, S, H, hd, window, n_prefix)
-               / (ms * 1e-3) / 1e12, "bound_share": bound_ms / ms,
-               "max_abs_err": err}
-        if n_prefix:
-            _ms, row["library_causal_ms"] = _time_turns(kern, causal, 50)
+               "tflops": flop / (ms * 1e-3) / 1e12,
+               "bound_share": bound_ms / ms, "max_abs_err": err}
+        if n_prefix or kind == "chunked":
+            _ms, row["library_causal_ms"] = _time_turns(kern, causal, reps)
         return row
 
     S = SERVE_PROMPT
@@ -1276,12 +1335,30 @@ def check_flash_kernel(gen) -> dict:
             f"{r['library_ms']:.4f} ms"
             + (f", causal SDPA at that shape {r['library_causal_ms']:.4f} ms"
                if n_prefix else "") + ")")
+    # 12d's attention shape: llama4-maverick's chunked layers at one chunk
+    # and 256 tokens (GQA 40/8; the kernel skips the tiles before a
+    # query's chunk)
+    r = timed(LLAMA4_PROMPT, *LLAMA4_HEADS, 128, 0, kind="chunked",
+              chunk=LLAMA4_CHUNK, reps=10)
+    worst = max(worst, r["max_abs_err"])
+    row.update({f"hd128_chunked{LLAMA4_CHUNK}_{k}": r[k] for k in r})
+    log(f"kernel flash_attention at B {B} S {LLAMA4_PROMPT} heads "
+        f"{LLAMA4_HEADS[0]}/{LLAMA4_HEADS[1]} hd 128 bf16 chunked "
+        f"{LLAMA4_CHUNK}: within {FLASH_TOL['bfloat16']} of the plain "
+        f"version (max |diff| {r['max_abs_err']:.3g}); {r['ms']:.4f} ms, "
+        f"{r['tflops']:.1f} TFLOP/s, {r['bound_share']:.3f} of the bound "
+        f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}, scaled_dot_product_attention with the chunk "
+        f"mask {r['library_ms']:.4f} ms, causal SDPA at that shape "
+        f"{r['library_causal_ms']:.4f} ms)")
     log(f"kernel flash_attention: within {FLASH_TOL} of its plain version "
         f"at (S, T) {FLASH_SEQS} and {SERVE_PROMPT}, heads {FLASH_HEADS}, "
         f"hd {FLASH_HDS}, masks {FLASH_KINDS}, fp32 and bf16, with a prefix "
         f"of {FLASH_PREFIX} at (S, T) {FLASH_PREFIX_SEQS}, and at B {B} "
         f"S {S} 32/16 hd 128 causal and window {ZOO_WINDOW}, hd 256 10/1 "
-        f"window {ZOO12A_WINDOW} and 8/1 prefix {FLASH_PREFIX} (max |diff| "
+        f"window {ZOO12A_WINDOW} and 8/1 prefix {FLASH_PREFIX}, S "
+        f"{LLAMA4_PROMPT} {LLAMA4_HEADS[0]}/{LLAMA4_HEADS[1]} hd 128 chunked "
+        f"{LLAMA4_CHUNK} (max |diff| "
         f"{worst:.3g}); row stats within 1e-3, also at B {ZOO_TRAIN_BATCH} "
         f"S {ZOO_TRAIN_SEQ} 24/24 hd 64 (max |dm| {stats_err:.3g}); "
         f"layers._Flash's dq, dk, dv within a relative L2 error of "
@@ -2852,38 +2929,149 @@ def _zoo_prompt(cfg, device: str, batch: int, prompt_len: int) -> dict:
     return prompt
 
 
+def _sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _greedy_twice(cfg, params, prompt, n_new: int, device: str,
+                  what: str) -> tuple:
+    """``greedy_generate`` of ``prompt`` for ``n_new`` tokens twice: the
+    same tokens, all inside the vocabulary, each prefill launching the
+    kernel once an attention layer by its mask and the prefix
+    (:func:`_prefill_launches`; on the card) and no decode step launching
+    it. Returns ``(tokens, [seconds of each run], launches by kind)``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving import engine
+    want = _prefill_launches(cfg) if device == "cuda" else {}
+    runs = []
+    for _ in range(2):
+        before = collections.Counter(fa.LAUNCHES_BY)
+        t0 = time.perf_counter()
+        out = engine.greedy_generate(cfg, params, prompt, n_new)
+        _sync(device)
+        runs.append((out, time.perf_counter() - t0, _flash_by_kind(before)))
+    (out, _s, by_kind), (out2, _s2, by_kind2) = runs
+    if out.shape != (prompt["tokens"].shape[0], n_new) \
+            or bool(((out < 0) | (out >= cfg.vocab)).any()):
+        fail(f"{what} ({cfg.name}): greedy_generate gave "
+             f"{tuple(out.shape)} with tokens outside the vocabulary")
+    if not torch.equal(out, out2):
+        fail(f"{what} ({cfg.name}): greedy_generate gave other tokens the "
+             f"second time")
+    if by_kind != want or by_kind2 != want:
+        fail(f"{what} ({cfg.name}): a greedy_generate launched the "
+             f"attention kernel {by_kind} / {by_kind2}, not {want} (once a "
+             f"layer in the prefill, by the layer's mask; none in decode)")
+    return out, [r[1] for r in runs], by_kind
+
+
+def _ring_len(cfg, btype: str) -> int:
+    """The slots of a ``window`` (the window) or ``chunked`` (the chunk)
+    layer's decode ring; 0 for a layer without one."""
+    from repro_torch.models import model as M
+    if btype not in M.ATTN_TYPES:
+        return 0
+    return {"window": cfg.window, "chunked": cfg.chunk}.get(
+        M.attn_kind(btype), 0)
+
+
+def _steps_by_hand(cfg, params, prompt, prompt_len: int, n_new: int,
+                   device: str, want, what: str,
+                   prefill_ctx=contextlib.nullcontext) -> dict:
+    """The prefill (under ``prefill_ctx()``), then ``n_new`` greedy decode
+    steps by hand: every step must write slot ``pos % T`` of each ring (a
+    ``window`` layer's of T = the window slots, a ``chunked`` layer's of T
+    = the chunk, which restarts at each chunk) and nothing else of it,
+    and shift every ``rec`` layer's ``conv`` by one input; the tokens
+    must equal ``want`` (``greedy_generate``'s). Returns the prefill
+    step, its seconds, the decode's seconds in all, the tokens fed to
+    each step, the ring slots written, the steps whose slot lay below
+    their position (past a ring's first wrap or restart), the rings and
+    the ``rec`` caches after the steps."""
+    import torch
+    from repro_torch.serving import engine
+    cfg_n = dataclasses.replace(cfg, max_decode_len=n_new)
+    prefill = engine.make_prefill_step(cfg_n)
+    decode = engine.make_decode_step(cfg_n)
+    t0 = time.perf_counter()
+    with prefill_ctx():
+        logits, caches = prefill(params, prompt)
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    blocks = [(b, c) for (pattern, _n), group in zip(cfg.layer_groups, caches)
+              for b, c in zip(pattern, group)]
+    rings = [(c, _ring_len(cfg, b)) for b, c in blocks if _ring_len(cfg, b)]
+    recs = [c for b, c in blocks if b == "rec"]
+    toks, slots, decode_s, wraps = [], [], 0.0, 0
+    for i in range(n_new):
+        pos = prompt_len + cfg.n_prefix_embeds + i
+        toks.append(torch.argmax(logits[:, -1].float(), -1)
+                    .to(torch.int32)[:, None])
+        before = [(c["k"].clone(), c["v"].clone()) for c, _T in rings]
+        rec_before = [c["conv"].clone() for c in recs]
+        t0 = time.perf_counter()
+        logits, caches = decode(params, toks[-1], caches, pos)
+        _sync(device)
+        decode_s += time.perf_counter() - t0
+        slot = {pos % T for _c, T in rings}
+        slots.append(sorted(slot))
+        wraps += bool(rings) and max(slot) < pos
+        for (c, T), (k0, v0) in zip(rings, before):
+            for new, old in ((c["k"], k0), (c["v"], v0)):
+                changed = (new != old).flatten(3).any(-1).any(0).any(0)
+                if changed.nonzero().flatten().tolist() != [pos % T]:
+                    fail(f"{what} ({cfg.name}): decode at position {pos} "
+                         f"changed ring slots "
+                         f"{changed.nonzero().flatten().tolist()}, not "
+                         f"[{pos % T}] of {T}")
+        for c, conv0 in zip(recs, rec_before):
+            # the convolution's window of the last W - 1 inputs shifts by
+            # one (a repeated token may leave h and the values as they
+            # were: greedy decoding can settle on one token)
+            shifted = (c["conv"][:, :, :-1] == conv0[:, :, 1:]) \
+                .flatten(1).all(-1)
+            if not bool(shifted.all()):
+                fail(f"{what} ({cfg.name}): decode at position {pos}: rec "
+                     f"layers' conv shifted by one {shifted.tolist()}")
+    del logits
+    if not torch.equal(torch.cat(toks, 1), want):
+        fail(f"{what} ({cfg.name}): the prefill and decode steps gave "
+             f"other tokens than greedy_generate")
+    return {"prefill": prefill, "prefill_s": prefill_s, "decode_s": decode_s,
+            "toks": toks, "slots": slots, "wraps": wraps,
+            "rings": [c for c, _T in rings], "recs": recs}
+
+
 def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
                        prompt_len: int, n_new: int) -> dict:
-    """11a, 12a and 12b: ``cfg`` (gemma3-27b: window and full blocks;
-    recurrentgemma-2b: RG-LRU and window blocks; paligemma-3b: the
-    prefix-LM) served from a checkpoint. Params made on ``device`` from a
+    """11a, 12a, 12b and 12e: ``cfg`` (gemma3-27b: window and full
+    blocks; recurrentgemma-2b: RG-LRU and window blocks; paligemma-3b:
+    the prefix-LM; starcoder2-7b: a window layer with biases, layernorm
+    and ``gelu_mlp``; llama2-7b: full MHA layers) served from a
+    checkpoint. Params made on ``device`` from a
     seeded generator are saved once as ``{"model": params}`` (datastates
     engine, raw policy) and restored by ``load_params_for_serving``, bit
     for bit; then ``greedy_generate`` runs ``batch`` seeded prompts of
     ``prompt_len`` tokens (after the config's patch prefix, where it has
     one) for ``n_new`` tokens twice (the same tokens), each prefill
     launching the kernel once an attention layer with the layer's mask
-    and the prefix at ``cfg.hd`` and no decode step launching it; then
-    the steps again by hand, where every decode step must write slot
-    ``pos % window`` of each window layer's ring and nothing else of it
-    and shift every ``rec`` layer's ``conv`` by one input, and the ``rec``
-    layers' state after them must match a prefill over the same tokens
-    (:func:`_rec_state_errs`)."""
+    and the prefix at ``cfg.hd`` and no decode step launching it
+    (:func:`_greedy_twice`); then the steps again by hand
+    (:func:`_steps_by_hand`: each decode step writes one slot of each
+    ring), and the ``rec`` layers' state after them must match a prefill
+    over the same tokens (:func:`_rec_state_errs`)."""
     import torch
     from repro_torch.core import (CheckpointManager, CheckpointPolicy,
                                   EnginePolicy)
     from repro_torch.core import dtypes
     from repro_torch.core.tree import leaves, map_leaves
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
     from repro_torch.serving import engine
 
     on_card = device == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
     gen = torch.Generator(device=device).manual_seed(SEED + 11)
     params = M.init_params(cfg, gen, device)
     saved = [t.clone() for t in leaves(params)]
@@ -2908,84 +3096,23 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
         M.param_shapes(cfg))
     t0 = time.perf_counter()
     params, st = engine.load_params_for_serving(workdir, template, step=1)
-    sync()
+    _sync(device)
     restore_s = time.perf_counter() - t0
     del template
     _assert_equal(params, saved, "zoo serving: restore")
     del saved
     gc.collect()
 
-    want = _prefill_launches(cfg) if on_card else {}
     prompt = _zoo_prompt(cfg, device, batch, prompt_len)
-    runs = []
-    for _ in range(2):
-        before = collections.Counter(fa.LAUNCHES_BY)
-        t0 = time.perf_counter()
-        out = engine.greedy_generate(cfg, params, prompt, n_new)
-        sync()
-        runs.append((out, time.perf_counter() - t0, _flash_by_kind(before)))
-    (out, _s, by_kind), (out2, _s2, by_kind2) = runs
-    if out.shape != (batch, n_new) or bool(((out < 0)
-                                            | (out >= cfg.vocab)).any()):
-        fail(f"zoo serving: greedy_generate gave {tuple(out.shape)} with "
-             f"tokens outside the vocabulary")
-    if not torch.equal(out, out2):
-        fail("zoo serving: greedy_generate gave other tokens the second "
-             "time")
-    if by_kind != want or by_kind2 != want:
-        fail(f"zoo serving: a greedy_generate launched the attention "
-             f"kernel {by_kind} / {by_kind2}, not {want} (once a layer in "
-             f"the prefill, by the layer's mask; none in decode)")
-
-    # the steps by hand: prefill, then each decode step writes one ring
-    # slot of every window layer
-    cfg_n = dataclasses.replace(cfg, max_decode_len=n_new)
-    prefill = engine.make_prefill_step(cfg_n)
-    decode = engine.make_decode_step(cfg_n)
-    t0 = time.perf_counter()
-    logits, caches = prefill(params, prompt)
-    sync()
-    prefill_s = time.perf_counter() - t0
-    rings = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
-             for b, c in zip(pattern, group) if b == "window"]
-    recs = [c for (pattern, _n), group in zip(cfg.layer_groups, caches)
-            for b, c in zip(pattern, group) if b == "rec"]
-    toks, decode_s, wraps = [], 0.0, 0
-    for i in range(n_new):
-        pos = prompt_len + cfg.n_prefix_embeds + i
-        toks.append(torch.argmax(logits[:, -1].float(), -1)
-                    .to(torch.int32)[:, None])
-        before = [(c["k"].clone(), c["v"].clone()) for c in rings]
-        rec_before = [(c["h"].clone(), c["conv"].clone()) for c in recs]
-        t0 = time.perf_counter()
-        logits, caches = decode(params, toks[-1], caches, pos)
-        sync()
-        decode_s += time.perf_counter() - t0
-        slot = pos % cfg.window if rings else pos
-        wraps += slot < pos
-        for c, (k0, v0) in zip(rings, before):
-            for new, old in ((c["k"], k0), (c["v"], v0)):
-                changed = (new != old).flatten(3).any(-1).any(0).any(0)
-                if changed.nonzero().flatten().tolist() != [slot]:
-                    fail(f"zoo serving: decode at position {pos} changed "
-                         f"ring slots {changed.nonzero().flatten().tolist()}"
-                         f", not [{slot}]")
-        for c, (_h0, conv0) in zip(recs, rec_before):
-            # the convolution's window of the last W - 1 inputs shifts by
-            # one (a repeated token may leave h and the values as they
-            # were: greedy decoding can settle on one token)
-            shifted = (c["conv"][:, :, :-1] == conv0[:, :, 1:]) \
-                .flatten(1).all(-1)
-            if not bool(shifted.all()):
-                fail(f"zoo serving: decode at position {pos}: rec layers' "
-                     f"conv shifted by one {shifted.tolist()}")
-    rec_errs = _rec_state_errs(cfg, prefill, params, prompt, toks, recs) \
-        if recs else []
-    if not torch.equal(torch.cat(toks, 1), out):
-        fail("zoo serving: the prefill and decode steps gave other tokens "
-             "than greedy_generate")
+    out, runs, by_kind = _greedy_twice(cfg, params, prompt, n_new, device,
+                                       "zoo serving")
+    hand = _steps_by_hand(cfg, params, prompt, prompt_len, n_new, device,
+                          out, "zoo serving")
+    prefill, recs = hand["prefill"], hand["recs"]
+    prefill_s, wraps = hand["prefill_s"], hand["wraps"]
+    rec_errs = _rec_state_errs(cfg, prefill, params, prompt, hand["toks"],
+                               recs) if recs else []
     peak = torch.cuda.max_memory_allocated() if on_card else None
-    del logits, caches
     layer_errs = _zoo_layer_flash_errs(cfg, prefill, params, prompt) \
         if on_card else []
     report = {
@@ -2997,8 +3124,8 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
         "save_persist_s": fut.stats.persist_latency_s,
         "restore_s": restore_s, "restore_verify_s": st.verify_s,
         "restore_read_s": st.read_s, "prefill_s": prefill_s,
-        "decode_s_per_token": decode_s / n_new,
-        "generate_s": [r[1] for r in runs], "flash_by_kind": by_kind,
+        "decode_s_per_token": hand["decode_s"] / n_new,
+        "generate_s": runs, "flash_by_kind": by_kind,
         "ring_wraps": wraps, "rec_state_rel_l2": rec_errs,
         "layer_max_abs_err": layer_errs,
         "tokens": out.cpu().tolist()}
@@ -3012,7 +3139,7 @@ def run_zoo_serve_path(device: str, cfg, workdir: str, batch: int,
         f"{report['decode_s_per_token'] * 1e3:.2f} ms a token; the same "
         f"{n_new} tokens twice; kernel launches a prefill {by_kind}; "
         + (f"{wraps} decode steps past the ring's first wrap, each writing "
-           f"slot pos % {cfg.window} alone; " if rings else "")
+           f"slot pos % {cfg.window} alone; " if hand["rings"] else "")
         + (f"every step shifted each of {len(recs)} rec layers' conv, "
            f"and (h, conv) after the steps within a relative L2 error of "
            f"{REC_STATE_REL_L2} of a prefill over the same tokens "
@@ -3053,7 +3180,8 @@ def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
     recorded: each attention layer's real q, k, v (and mask) through the
     plain version too, within ``FLASH_TOL["bfloat16"]``; fails unless the
     prefill launched the kernel once an attention layer, with the layer's
-    mask and the prefix. Returns each layer's largest difference."""
+    mask (its window or chunk) and the prefix. Returns each layer's
+    largest difference."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
@@ -3073,12 +3201,14 @@ def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
     finally:
         fa.flash_attention_cuda = launch
     del logits, caches
-    masks = [(kw["kind"], kw["window"], kw["n_prefix"])
+    masks = [(kw["kind"], kw["window"], kw["chunk"], kw["n_prefix"])
              for *_qkv, kw, _g in seen]
-    if masks != [(b, cfg.window, cfg.n_prefix_embeds) for b in kinds]:
-        fail(f"zoo serving: the prefill launched the attention kernel with "
-             f"(mask, window, prefix) {masks}, not the layers' {kinds} at "
-             f"window {cfg.window}, prefix {cfg.n_prefix_embeds}")
+    if masks != [(b, cfg.window, cfg.chunk, cfg.n_prefix_embeds)
+                 for b in kinds]:
+        fail(f"zoo ({cfg.name}): the prefill launched the attention kernel "
+             f"with (mask, window, chunk, prefix) {masks}, not the layers' "
+             f"{kinds} at window {cfg.window}, chunk {cfg.chunk}, prefix "
+             f"{cfg.n_prefix_embeds}")
     errs = []
     for i, (q, k, v, kw, got) in enumerate(seen):
         with torch.no_grad():
@@ -3087,8 +3217,8 @@ def _zoo_layer_flash_errs(cfg, prefill, params, prompt) -> list:
         torch.cuda.synchronize()
         err = _flash_err(got, want, FLASH_TOL["bfloat16"])
         if not math.isfinite(err):
-            fail(f"zoo serving: flash_attention disagrees with its plain "
-                 f"version on layer {i}'s q/k/v {tuple(q.shape)}/"
+            fail(f"zoo ({cfg.name}): flash_attention disagrees with its "
+                 f"plain version on layer {i}'s q/k/v {tuple(q.shape)}/"
                  f"{tuple(k.shape)} ({kw}): max |diff| "
                  f"{float((got.float() - want.float()).abs().max())!r}")
         errs.append(err)
@@ -3133,65 +3263,58 @@ def run_zoo_train_path(device: str, cfg, workdir: str, batch: int,
 
 
 def run_zoo_generate_path(device: str, cfg, batch: int, prompt_len: int,
-                          n_new: int) -> dict:
-    """12c: ``cfg`` (dbrx-132b: MoE; rwkv6-7b: RWKV6) from params made on
-    ``device`` from a seeded generator, without a save (their checkpoints
-    cross between the packages in the CPU tests): ``greedy_generate`` of
-    ``batch`` seeded prompts of ``prompt_len`` tokens for ``n_new``
-    twice, the same tokens, each prefill launching the kernel once an
-    attention layer by its mask and no decode step launching it. A config
-    with ``rwkv`` blocks also decodes on from a prefill of ``prompt_len -
-    RWKV_TAIL`` tokens, fed the next given tokens, to last logits within
-    :data:`RWKV_TAIL_REL_L2` (relative L2 error) of a forward over all
-    ``prompt_len``."""
+                          n_new: int, what: str = "zoo generation",
+                          by_hand=None) -> dict:
+    """12c, 12d (through :func:`run_llama4_path`) and 12e: ``cfg``
+    (dbrx-132b: MoE; rwkv6-7b: RWKV6; llama4-maverick; command-r-35b: a
+    ``full`` layer at d_model 8,192 with a tied 256,000 vocabulary) from
+    params made on ``device`` from a seeded generator, without a save
+    (their checkpoints cross between the packages in the CPU tests):
+    ``greedy_generate`` of ``batch`` seeded prompts of ``prompt_len``
+    tokens for ``n_new`` twice (:func:`_greedy_twice`), then one prefill
+    timed alone, or instead ``by_hand(params, prompt, tokens)``, which
+    returns ``(prefill step, its seconds, report fields, log text)``;
+    then on the card every attention layer's real q, k, v through the
+    kernel against the plain version (:func:`_zoo_layer_flash_errs`). A
+    config with ``rwkv`` blocks also decodes on from a prefill of
+    ``prompt_len - RWKV_TAIL`` tokens, fed the next given tokens, to last
+    logits within :data:`RWKV_TAIL_REL_L2` (relative L2 error) of a
+    forward over all ``prompt_len``."""
     import torch
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import model as M
     from repro_torch.serving import engine
 
     on_card = device == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
     gen = torch.Generator(device=device).manual_seed(SEED + 13)
     t0 = time.perf_counter()
     params = M.init_params(cfg, gen, device)
-    sync()
+    _sync(device)
     init_s = time.perf_counter() - t0
-    want = _prefill_launches(cfg) if on_card else {}
     prompt = _zoo_prompt(cfg, device, batch, prompt_len)
-    runs = []
-    for _ in range(2):
-        before = collections.Counter(fa.LAUNCHES_BY)
+    out, runs, by_kind = _greedy_twice(cfg, params, prompt, n_new, device,
+                                       what)
+    if by_hand is None:
+        prefill = engine.make_prefill_step(cfg)
         t0 = time.perf_counter()
-        out = engine.greedy_generate(cfg, params, prompt, n_new)
-        sync()
-        runs.append((out, time.perf_counter() - t0, _flash_by_kind(before)))
-    (out, _s, by_kind), (out2, _s2, by_kind2) = runs
-    if out.shape != (batch, n_new) or bool(((out < 0)
-                                            | (out >= cfg.vocab)).any()):
-        fail(f"zoo generation ({cfg.name}): greedy_generate gave "
-             f"{tuple(out.shape)} with tokens outside the vocabulary")
-    if not torch.equal(out, out2):
-        fail(f"zoo generation ({cfg.name}): greedy_generate gave other "
-             f"tokens the second time")
-    if by_kind != want or by_kind2 != want:
-        fail(f"zoo generation ({cfg.name}): a greedy_generate launched the "
-             f"attention kernel {by_kind} / {by_kind2}, not {want}")
-    prefill = engine.make_prefill_step(cfg)
-    t0 = time.perf_counter()
-    logits, caches = prefill(params, prompt)
-    sync()
-    prefill_s = time.perf_counter() - t0
-    del logits, caches
+        logits, caches = prefill(params, prompt)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+        del logits, caches
+        fields, said = {}, ""
+    else:
+        prefill, prefill_s, fields, said = by_hand(params, prompt, out)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    layer_errs = _zoo_layer_flash_errs(cfg, prefill, params, prompt) \
+        if on_card else []
     report = {"config": cfg.name, "layers": cfg.n_layers,
               "pattern": [list(p) for p, _n in cfg.layer_groups],
+              "hd": cfg.hd, "heads": [cfg.n_heads, cfg.n_kv_heads],
               "params": _n_params(cfg), "init_s": init_s,
-              "prefill_s": prefill_s, "generate_s": [r[1] for r in runs],
-              "flash_by_kind": by_kind, "tokens": out.cpu().tolist()}
-    tail = ""
+              "prefill_s": prefill_s, "generate_s": runs,
+              "flash_by_kind": by_kind, "layer_max_abs_err": layer_errs,
+              "tokens": out.cpu().tolist(), **fields}
+    if on_card:
+        report["max_memory_allocated_generate"] = peak
     if any(b == "rwkv" for p, _n in cfg.layer_groups for b in p):
         tokens = prompt["tokens"]
         cut = prompt_len - RWKV_TAIL
@@ -3205,26 +3328,26 @@ def run_zoo_generate_path(device: str, cfg, batch: int, prompt_len: int,
                 logits, caches = M.decode(
                     cfg, params, {"tokens": tokens[:, pos:pos + 1]}, caches,
                     pos)
-        sync()
+        _sync(device)
         err = _rel_l2(logits[:, -1], whole)
         if not err < RWKV_TAIL_REL_L2:
-            fail(f"zoo generation ({cfg.name}): a prefill of {cut} tokens "
+            fail(f"{what} ({cfg.name}): a prefill of {cut} tokens "
                  f"and {RWKV_TAIL} decode steps gave last logits at a "
                  f"relative L2 error of {err!r} from a forward over "
                  f"{prompt_len} (limit {RWKV_TAIL_REL_L2})")
         report.update(tail_rel_l2=err, tail_s=time.perf_counter() - t0)
-        tail = (f"; a prefill of {cut} tokens and {RWKV_TAIL} decode steps "
-                f"within a relative L2 error of {err:.3g} of the "
-                f"{prompt_len}-token forward")
+        said += (f"; a prefill of {cut} tokens and {RWKV_TAIL} decode steps "
+                 f"within a relative L2 error of {err:.3g} of the "
+                 f"{prompt_len}-token forward")
         del whole, logits, caches
-    if on_card:
-        report["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    log(f"zoo generation ({cfg.name}, {cfg.n_layers} layers, "
+    log(f"{what} ({cfg.name}, {cfg.n_layers} layers {report['pattern']}, "
         f"{report['params']} params, seeded on {device} in {init_s:.2f} s): "
-        f"prefill of {batch} x {prompt_len} {prefill_s:.3f} s, "
-        f"greedy_generate of {n_new} tokens "
-        f"{', '.join(f'{r[1]:.2f}' for r in runs)} s, the same tokens "
-        f"twice; kernel launches a prefill {by_kind}{tail}")
+        f"greedy_generate of {batch} x {prompt_len} for {n_new} tokens "
+        f"{', '.join(f'{r:.2f}' for r in runs)} s, the same tokens twice; "
+        f"kernel launches a prefill {by_kind}; prefill {prefill_s:.3f} s"
+        f"{said}; every attention layer's real q/k/v through the kernel "
+        f"within {FLASH_TOL['bfloat16']} of the plain version (max |diff| "
+        f"by layer {layer_errs})")
     del params
     return report
 
@@ -3236,8 +3359,6 @@ def run_zoo_rest_phase(path_launches: dict) -> dict:
     from seeded params (:func:`run_zoo_generate_path`); each part with
     the launch counts zeroed just before and read into ``path_launches``
     just after."""
-    import torch
-    report = {}
     zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
 
     def cfg(name):
@@ -3248,60 +3369,36 @@ def run_zoo_rest_phase(path_launches: dict) -> dict:
         return {name: run_zoo_generate_path("cuda", cfg(name), SERVE_BATCH,
                                             SERVE_PROMPT, SERVE_NEW)
                 for name in ("dbrx-132b", "rwkv6-7b")}
-    for key, run in (
-            ("recurrent", lambda: run_zoo_serve_path(
-                "cuda", cfg("recurrentgemma-2b"),
-                os.path.join(zoo_dir, "rec"), SERVE_BATCH, SERVE_PROMPT,
-                SERVE_NEW)),
-            ("prefix_lm", lambda: run_zoo_serve_path(
-                "cuda", cfg("paligemma-3b"), os.path.join(zoo_dir, "vlm"),
-                SERVE_BATCH, SERVE_PROMPT - FLASH_PREFIX, SERVE_NEW)),
-            ("generate", generate)):
-        shutil.rmtree(zoo_dir, ignore_errors=True)
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            _zero_launches()
-            t0 = time.perf_counter()
-            report[key] = run()
-            report[key]["launches"] = path_launches[f"zoo_{key}"] = \
-                _launches()
-            report[key]["phase_s"] = time.perf_counter() - t0
-            report[key]["max_memory_allocated"] = \
-                torch.cuda.max_memory_allocated()
-        finally:
-            shutil.rmtree(zoo_dir, ignore_errors=True)
-        gc.collect()
-        torch.cuda.empty_cache()
-    for key, k in (("recurrent", "checksum_u32"),
-                   ("recurrent", "flash_attention"),
-                   ("prefix_lm", "checksum_u32"),
-                   ("prefix_lm", "flash_attention"),
-                   ("generate", "flash_attention")):
-        if report[key]["launches"][k] == 0:
-            fail(f"kernel {k} was never launched on the zoo {key} path")
+    report = _run_zoo_cases((
+        ("recurrent", lambda: run_zoo_serve_path(
+            "cuda", cfg("recurrentgemma-2b"), os.path.join(zoo_dir, "rec"),
+            SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)),
+        ("prefix_lm", lambda: run_zoo_serve_path(
+            "cuda", cfg("paligemma-3b"), os.path.join(zoo_dir, "vlm"),
+            SERVE_BATCH, SERVE_PROMPT - FLASH_PREFIX, SERVE_NEW)),
+        ("generate", generate)), path_launches,
+        (("recurrent", "checksum_u32"), ("recurrent", "flash_attention"),
+         ("prefix_lm", "checksum_u32"), ("prefix_lm", "flash_attention"),
+         ("generate", "flash_attention")))
     log(f"zoo path, the rest: 12a {report['recurrent']['phase_s']:.1f} s, "
         f"12b {report['prefix_lm']['phase_s']:.1f} s, 12c "
         f"{report['generate']['phase_s']:.1f} s")
     return report
 
 
-def run_zoo_phase(path_launches: dict) -> dict:
-    """Phase 11 on the card: 11a and 11b, each with the launch counts
-    zeroed just before and read into ``path_launches`` just after."""
+def _run_zoo_cases(cases: tuple, path_launches: dict,
+                   need: tuple) -> dict:
+    """Each ``(key, run)`` of ``cases`` on the card under
+    ``build/chip_smoke_zoo/`` (removed before and after it): the launch
+    counts zeroed and the peak device memory reset just before, the
+    counts read into ``path_launches["zoo_<key>"]`` just after, the
+    allocator's cache emptied between cases. Fails unless each ``(key,
+    kernel)`` of ``need`` launched. Returns each case's report with its
+    ``launches``, ``phase_s`` and ``max_memory_allocated``."""
     import torch
     report = {}
     zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
-    for key, run in (
-            ("serving", lambda: run_zoo_serve_path(
-                "cuda", _zoo_cfg("gemma3-27b", len(ZOO_SERVE_PATTERN),
-                                 ZOO_SERVE_PATTERN),
-                os.path.join(zoo_dir, "serve"), SERVE_BATCH, SERVE_PROMPT,
-                SERVE_NEW)),
-            ("training", lambda: run_zoo_train_path(
-                "cuda", _zoo_cfg("musicgen-medium", ZOO_TRAIN_LAYERS,
-                                 ("xattn",)),
-                os.path.join(zoo_dir, "train"), ZOO_TRAIN_BATCH,
-                ZOO_TRAIN_SEQ))):
+    for key, run in cases:
         shutil.rmtree(zoo_dir, ignore_errors=True)
         try:
             torch.cuda.reset_peak_memory_stats()
@@ -3317,13 +3414,330 @@ def run_zoo_phase(path_launches: dict) -> dict:
             shutil.rmtree(zoo_dir, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    for key, k in (("serving", "checksum_u32"), ("serving", "flash_attention"),
-                   ("training", "checksum_u32"),
-                   ("training", "flash_attention")):
+    for key, k in need:
         if report[key]["launches"][k] == 0:
             fail(f"kernel {k} was never launched on the zoo {key} path")
+    return report
+
+
+def run_zoo_phase(path_launches: dict) -> dict:
+    """Phase 11 on the card: 11a and 11b, each with the launch counts
+    zeroed just before and read into ``path_launches`` just after."""
+    zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
+    report = _run_zoo_cases((
+        ("serving", lambda: run_zoo_serve_path(
+            "cuda", _zoo_cfg("gemma3-27b", len(ZOO_SERVE_PATTERN),
+                             ZOO_SERVE_PATTERN),
+            os.path.join(zoo_dir, "serve"), SERVE_BATCH, SERVE_PROMPT,
+            SERVE_NEW)),
+        ("training", lambda: run_zoo_train_path(
+            "cuda", _zoo_cfg("musicgen-medium", ZOO_TRAIN_LAYERS,
+                             ("xattn",)),
+            os.path.join(zoo_dir, "train"), ZOO_TRAIN_BATCH,
+            ZOO_TRAIN_SEQ))), path_launches,
+        (("serving", "checksum_u32"), ("serving", "flash_attention"),
+         ("training", "checksum_u32"), ("training", "flash_attention")))
     log(f"zoo path: 11a {report['serving']['phase_s']:.1f} s, 11b "
         f"{report['training']['phase_s']:.1f} s")
+    return report
+
+
+@contextlib.contextmanager
+def _recording_moe(seen: list):
+    """Record every MoE layer's call while in the block: ``route``'s
+    dispatch and combine (G, S, E, C) and ``apply_moe``'s params, input
+    and output (the shared expert's included), a dict a call appended to
+    ``seen``."""
+    from repro_torch.models import moe
+    apply, route = moe.apply_moe, moe.route
+
+    def recording_route(cfg, p, xg, topk_idx=None):
+        got = route(cfg, p, xg, topk_idx)
+        seen.append({"disp": got[0], "comb": got[1]})
+        return got
+
+    def recording_apply(cfg, p, x):
+        out, aux = apply(cfg, p, x)
+        seen[-1].update(p=p, x=x, out=out)
+        return out, aux
+    moe.route, moe.apply_moe = recording_route, recording_apply
+    try:
+        yield seen
+    finally:
+        moe.route, moe.apply_moe = route, apply
+
+
+def dispatch_check(cfg, rec: dict) -> dict:
+    """12d's dispatch check of one MoE layer's call recorded by
+    :func:`_recording_moe`. ``route``'s dispatch must give each token at
+    most ``top_k`` slots, each (expert, slot) at most one token, and so
+    no expert more than ``C = moe.capacity`` tokens in any group. For
+    :data:`DISPATCH_TOKENS` seeded tokens and up to
+    :data:`DISPATCH_DROPPED` tokens that found their experts full, the
+    layer's output must lie within
+    :data:`DISPATCH_REL_L2` (relative L2 error, a token) of the experts
+    the token was dispatched to, each gated FFN computed alone in fp32
+    and weighed by its combine value, plus the shared expert's: a
+    dropped token's output is the shared expert's alone. Returns the
+    measures, with ``problems``, the list of what failed."""
+    import torch
+    from repro_torch.models import layers, moe
+    disp, comb, p, x, out = (rec[k] for k in ("disp", "comb", "p", "x",
+                                              "out"))
+    G, S, E, C = disp.shape
+    d = x.shape[-1]
+    problems = []
+    per_token = disp.sum((2, 3)).flatten()
+    if C != moe.capacity(cfg, S):
+        problems.append(f"capacity {C}, not {moe.capacity(cfg, S)}")
+    if bool((per_token > cfg.top_k).any()):
+        problems.append(f"a token took {int(per_token.max())} slots, more "
+                        f"than top {cfg.top_k}")
+    if bool((disp.sum(1) > 1).any()):
+        problems.append("an expert's slot took more than one token")
+    if bool((disp.sum((1, 3)) > C).any()):
+        problems.append(f"an expert took more than {C} tokens in a group")
+    kept = per_token > 0
+    dropped = (~kept).nonzero().flatten()
+    gen = torch.Generator().manual_seed(SEED + 15)
+    picked = torch.cat([
+        torch.randperm(G * S, generator=gen)[:DISPATCH_TOKENS]
+        .to(disp.device), dropped[:DISPATCH_DROPPED]]).unique()
+    xs = x.reshape(G * S, d)[picked].float()[:, None]          # (n, 1, d)
+    want = torch.zeros_like(xs)
+    if cfg.shared_expert:
+        shared = {k: v.float() for k, v in p["shared"].items()}
+        want = layers.apply_ffn(cfg, shared, xs)
+        del shared
+    gates = comb.reshape(G * S, E, C)[picked].sum(-1)           # (n, E)
+    rows, experts = disp.reshape(G * S, E, C)[picked].sum(-1) \
+        .nonzero(as_tuple=True)
+    for e in experts.unique().tolist():
+        sel = rows[experts == e]
+        w = {k: p[k][e].float() for k in ("w_gate", "w_up", "w_down")}
+        want[sel] += gates[sel, e][:, None, None] \
+            * layers.apply_ffn(cfg, w, xs[sel])
+        del w
+    got = out.reshape(G * S, d)[picked].float()
+    errs = (got - want[:, 0]).norm(dim=-1) / want[:, 0].norm(dim=-1)
+    errs = torch.where(torch.isfinite(got).all(-1), errs, math.inf)
+    was_kept = kept[picked]
+    worst = {"kept": float(errs[was_kept].max()) if bool(was_kept.any())
+             else None,
+             "dropped": float(errs[~was_kept].max())
+             if bool((~was_kept).any()) else None}
+    for what, e in worst.items():
+        if e is not None and not e < DISPATCH_REL_L2:
+            problems.append(f"a {what} token's output stands at a relative "
+                            f"L2 error of {e!r} from its experts computed "
+                            f"alone (limit {DISPATCH_REL_L2})")
+    return {"groups": G, "group_tokens": S, "experts": E, "capacity": C,
+            "tokens": G * S, "dropped": int(dropped.numel()),
+            "dropped_share": float(dropped.numel()) / (G * S),
+            "checked": int(picked.numel()),
+            "checked_dropped": int((~was_kept).sum()),
+            "kept_rel_l2_max": worst["kept"],
+            "dropped_rel_l2_max": worst["dropped"], "problems": problems}
+
+
+def _weight_bytes(cfg) -> tuple:
+    """``(expert bytes, decode bytes, all bytes)`` of ``cfg``'s params: the
+    routed experts' weights, which a decode step's capacity dispatch
+    reads whole (every expert's slots, empty or not); every weight a
+    decode step reads (all but the embedding table, of which it reads two
+    rows; a tied table is the head, read whole); and all of them."""
+    from repro_torch.core import dtypes
+    from repro_torch.core.tree import flatten_with_path
+    from repro_torch.models import model as M
+    expert = decode = total = 0
+    for path, spec in flatten_with_path(M.param_shapes(cfg))[0]:
+        names = [str(k) for k in path]
+        n = math.prod(spec.shape) * dtypes.lookup(spec.dtype).torch.itemsize
+        total += n
+        if names[-2:] == ["embed", "embed"] and not cfg.tie_embeddings:
+            continue
+        decode += n
+        if "moe" in names and "shared" not in names \
+                and names[-1] in ("w_gate", "w_up", "w_down"):
+            expert += n
+    return expert, decode, total
+
+
+def run_llama4_path(device: str, cfg, batch: int, prompt_len: int,
+                    n_new: int) -> dict:
+    """12d: ``cfg`` (llama4-maverick: ``chunked`` attention, top-1 of 128
+    experts with the shared expert, an untied head) through
+    :func:`run_zoo_generate_path`, with the steps by hand
+    (:func:`_steps_by_hand`: each decode step writes slot ``pos % chunk``
+    of each chunk ring alone) in place of its timed prefill, the
+    prefill's MoE layers recorded and the first held by
+    :func:`dispatch_check`. Reports the decode's time a token beside its
+    byte bound: the expert weights each step reads."""
+    what = "zoo llama4"
+
+    def by_hand(params, prompt, out):
+        seen = []
+        hand = _steps_by_hand(cfg, params, prompt, prompt_len, n_new, device,
+                              out, what, lambda: _recording_moe(seen))
+        if not seen:
+            fail(f"{what}: the prefill ran no MoE layer")
+        dispatch = dispatch_check(cfg, seen[0])
+        if dispatch["problems"]:
+            fail(f"{what}: dispatch at {cfg.n_experts} experts: "
+                 f"{dispatch['problems']}")
+        expert_bytes, weight_bytes, all_bytes = _weight_bytes(cfg)
+        decode_ms = hand["decode_s"] / n_new * 1e3
+        fields = {
+            "chunk": cfg.chunk, "bytes": all_bytes,
+            "decode_ms_per_token": decode_ms,
+            "decode_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_weights_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+            "expert_bytes": expert_bytes,
+            "ring_slots": [hand["slots"][0], hand["slots"][-1]],
+            "dispatch": dispatch}
+        said = (
+            f"; {all_bytes} bytes of params; decode {decode_ms:.2f} ms a "
+            f"token (bound "
+            f"{fields['decode_bound_ms']:.2f} ms: {expert_bytes} bytes of "
+            f"experts at {HBM_BYTES_PER_S:.3g} B/s; every weight "
+            f"{fields['decode_weights_bound_ms']:.2f} ms), each step "
+            f"writing chunk-ring slot pos % {cfg.chunk} alone (slots "
+            f"{hand['slots'][0]}..{hand['slots'][-1]}); dispatch at "
+            f"{dispatch['experts']} experts, capacity {dispatch['capacity']} "
+            f"a group of {dispatch['group_tokens']} ({dispatch['groups']} "
+            f"groups): {dispatch['dropped']} of {dispatch['tokens']} tokens "
+            f"dropped ({dispatch['dropped_share']:.4f}); "
+            f"{dispatch['checked']} tokens ({dispatch['checked_dropped']} "
+            f"dropped) within relative L2 {dispatch['kept_rel_l2_max']!r} "
+            f"(kept) / {dispatch['dropped_rel_l2_max']!r} (dropped) of their "
+            f"experts alone plus the shared expert")
+        return hand["prefill"], hand["prefill_s"], fields, said
+    return run_zoo_generate_path(device, cfg, batch, prompt_len, n_new, what,
+                                 by_hand)
+
+
+def chunk_ring_errs(device: str, cfg, batch: int, prefill_len: int,
+                    n_steps: int, decode_cfg=None) -> dict:
+    """``cfg``'s params and ``batch`` x (``prefill_len + n_steps``) tokens
+    seeded on ``device``; a forward over all the tokens, then a prefill of
+    the first ``prefill_len`` and ``n_steps`` decode steps fed the next
+    given tokens (decoded as ``decode_cfg`` where given, on the same
+    params and caches). Returns ``{position: relative L2 error}`` of each
+    step's logits from the forward's at that position."""
+    import torch
+    from repro_torch.models import model as M
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    params = M.init_params(cfg, gen, device)
+    tokens = torch.randint(
+        0, cfg.vocab, (batch, prefill_len + n_steps),
+        generator=torch.Generator().manual_seed(SEED + 14),
+        dtype=torch.int32).to(device)
+    errs = {}
+    with torch.no_grad():
+        whole = M.forward(cfg, params, {"tokens": tokens})
+        want = whole[:, prefill_len:].float()
+        del whole
+        _l, caches = M.forward(cfg, params,
+                               {"tokens": tokens[:, :prefill_len]},
+                               collect_caches=True)
+        del _l
+        for pos in range(prefill_len, prefill_len + n_steps):
+            logits, caches = M.decode(decode_cfg or cfg, params,
+                                      {"tokens": tokens[:, pos:pos + 1]},
+                                      caches, pos)
+            errs[pos] = _rel_l2(logits[:, -1], want[:, pos - prefill_len])
+    return errs
+
+
+def ring_positions(cfg, prefill_len: int, n_steps: int) -> tuple:
+    """The decode positions 12d's ring check holds: the last of the
+    prefill's chunk, the first of the next (where the ring restarts) and
+    the last step's."""
+    boundary = (prefill_len // cfg.chunk + 1) * cfg.chunk
+    return boundary - 1, boundary, prefill_len + n_steps - 1
+
+
+def run_chunk_ring_path(device: str, cfg, batch: int, prefill_len: int,
+                        n_steps: int) -> dict:
+    """12d's chunk ring: ``cfg`` cut to ``chunked`` layers alone (no MoE,
+    whose capacity routes a forward's groups and a decode step's tokens
+    differently) decoded across a chunk boundary
+    (:func:`chunk_ring_errs`); at :func:`ring_positions` the decode's
+    logits within :data:`RING_REL_L2` of the forward's, whose prefill
+    runs the kernel's chunked mask (on the card: once a layer in the
+    forward and once in the prefill). A ring that kept the last chunk's
+    keys would attend them at the boundary."""
+    from repro_torch.kernels import flash_attention as fa
+    before = collections.Counter(fa.LAUNCHES_BY)
+    t0 = time.perf_counter()
+    errs = chunk_ring_errs(device, cfg, batch, prefill_len, n_steps)
+    _sync(device)
+    s = time.perf_counter() - t0
+    by_kind = _flash_by_kind(before)
+    want = {k: 2 * n for k, n in _prefill_launches(cfg).items()} \
+        if device == "cuda" else {}
+    if by_kind != want:
+        fail(f"zoo chunk ring ({cfg.name}): the forward and the prefill "
+             f"launched the attention kernel {by_kind}, not {want}")
+    held = {p: errs[p] for p in ring_positions(cfg, prefill_len, n_steps)}
+    if not prefill_len < min(held) < max(held) \
+            or not all(e < RING_REL_L2 for e in held.values()):
+        fail(f"zoo chunk ring ({cfg.name}): decode logits after a prefill "
+             f"of {prefill_len} tokens at relative L2 errors {held} from "
+             f"the forward's (limit {RING_REL_L2}; the decode must cross "
+             f"a chunk boundary)")
+    log(f"zoo chunk ring ({cfg.name}, {cfg.n_layers} layer "
+        f"{[list(p) for p, _n in cfg.layer_groups]}, chunk {cfg.chunk}): "
+        f"prefill of {batch} x {prefill_len} and {n_steps} decode steps "
+        f"across position {sorted(held)[1]} in {s:.2f} s; logits at "
+        f"positions {sorted(held)} within a relative L2 error of "
+        f"{max(held.values()):.3g} of a {prefill_len + n_steps}-token "
+        f"forward (every step {max(errs.values()):.3g}; limit "
+        f"{RING_REL_L2}); kernel launches {by_kind}")
+    return {"config": cfg.name, "layers": cfg.n_layers, "chunk": cfg.chunk,
+            "prefill": prefill_len, "steps": n_steps,
+            "held_rel_l2": {str(p): e for p, e in held.items()},
+            "rel_l2": {str(p): e for p, e in errs.items()},
+            "flash_by_kind": by_kind, "s": s}
+
+
+def run_zoo_last_phase(path_launches: dict) -> dict:
+    """Phases 12d and 12e on the card, the zoo's last configs at full
+    width: 12d llama4-maverick (:func:`run_llama4_path`) and its one
+    ``chunked`` layer's ring (:func:`run_chunk_ring_path`); 12e
+    starcoder2-7b and llama2-7b served from a checkpoint
+    (:func:`run_zoo_serve_path`) and command-r-35b generating from seeded
+    params (:func:`run_zoo_generate_path`); each with the launch counts
+    zeroed just before and read into ``path_launches`` just after."""
+    zoo_dir = os.path.join(ROOT, "build", "chip_smoke_zoo")
+
+    def cfg(name):
+        pattern = ZOO12E_PATTERNS[name]
+        return _zoo_cfg(name, len(pattern), pattern)
+
+    def serve(name, sub):
+        return lambda: run_zoo_serve_path(
+            "cuda", cfg(name), os.path.join(zoo_dir, sub), SERVE_BATCH,
+            ZOO12E_PROMPTS[name], SERVE_NEW)
+    report = _run_zoo_cases((
+        ("llama4", lambda: run_llama4_path(
+            "cuda", _zoo_cfg(LLAMA4, len(LLAMA4_PATTERN), LLAMA4_PATTERN),
+            SERVE_BATCH, LLAMA4_PROMPT, SERVE_NEW)),
+        ("chunk_ring", lambda: run_chunk_ring_path(
+            "cuda", _zoo_cfg(LLAMA4, 1, ("chunked",)), SERVE_BATCH,
+            RING_PREFILL, RING_STEPS)),
+        ("starcoder2", serve("starcoder2-7b", "sc2")),
+        ("llama2", serve("llama2-7b", "llama2")),
+        ("command_r", lambda: run_zoo_generate_path(
+            "cuda", cfg("command-r-35b"), SERVE_BATCH,
+            ZOO12E_PROMPTS["command-r-35b"], SERVE_NEW))), path_launches,
+        tuple((key, "flash_attention") for key in (
+            "llama4", "chunk_ring", "starcoder2", "llama2", "command_r"))
+        + (("starcoder2", "checksum_u32"), ("llama2", "checksum_u32")))
+    log("zoo path, the last: "
+        + ", ".join(f"{key} {r['phase_s']:.1f} s (max_memory_allocated "
+                    f"{r['max_memory_allocated']})"
+                    for key, r in report.items()))
     return report
 
 
@@ -5577,6 +5991,10 @@ def main() -> None:
 
     # -- phase 12: the rest of the zoo (slice 14) --------------------------
     log("zoo rest report " + json.dumps(run_zoo_rest_phase(path_launches)))
+
+    # -- phases 12d and 12e: the zoo's last configs (slice 22) ------------
+    log("zoo last report " + json.dumps(run_zoo_last_phase(path_launches))
+        + f" ({smi})")
 
     # phase 15's four ranks spawn and set up (about 26 s of imports, CUDA
     # start-up and their seeded state) on a thread of their own once phase

@@ -211,13 +211,21 @@ def param_shapes(cfg) -> Dict[str, Any]:
     return {"embed": embed, "ln_f": _norm(cfg, ()), "groups": groups}
 
 
+#: a leaf of more elements than this is drawn in flat pieces of this
+#: many, each cast into the leaf before the next is drawn, so no leaf's
+#: whole fp32 draw stands beside it (llama4-maverick's (128, 5,120,
+#: 8,192) expert weights would take 21.5 GB of fp32 each)
+DRAW_PIECE_ELEMS = 1 << 28
+
+
 def init_params(cfg, generator: torch.Generator, device: torch.device,
                 place: Optional[Callable] = None) -> Dict[str, Any]:
     """Random parameters from ``generator`` (normal * scale, cast to the
     leaf dtype; norm scales ones, biases zeros), made on ``device``.
     Different numbers than JAX's for the same seed; tests that compare the
     packages feed both the same numpy state through
-    :mod:`repro_torch.convert`. ``place(path, leaf)``: what to keep of each
+    :mod:`repro_torch.convert`. A leaf past :data:`DRAW_PIECE_ELEMS`
+    elements is drawn in pieces. ``place(path, leaf)``: what to keep of each
     leaf as it is made (a rank's shard, so the whole tree is never held
     at once); the draws are the same."""
     def make(spec: ParamSpec) -> torch.Tensor:
@@ -227,8 +235,17 @@ def init_params(cfg, generator: torch.Generator, device: torch.device,
         if spec.init == "zeros":
             return torch.zeros(spec.shape, dtype=dt, device=device)
         draw = torch.rand if spec.init == "uniform" else torch.randn
-        x = draw(spec.shape, generator=generator, device=device)
-        return x.mul_(spec.scale).add_(spec.offset).to(dt)
+        n = math.prod(spec.shape)
+        if n <= DRAW_PIECE_ELEMS:
+            x = draw(spec.shape, generator=generator, device=device)
+            return x.mul_(spec.scale).add_(spec.offset).to(dt)
+        out = torch.empty(spec.shape, dtype=dt, device=device)
+        flat = out.view(-1)
+        for lo in range(0, n, DRAW_PIECE_ELEMS):
+            x = draw((min(DRAW_PIECE_ELEMS, n - lo),), generator=generator,
+                     device=device)
+            flat[lo:lo + x.numel()] = x.mul_(spec.scale).add_(spec.offset)
+        return out
     if place is None:
         return map_leaves(make, param_shapes(cfg))
     flat, unflatten = flatten_with_path(param_shapes(cfg))

@@ -19,9 +19,19 @@ with ``device="cpu"``:
 * The partition rules give every leaf of the full-size trees the
   reference's spec, the expert-stacked ``(E, d, f)`` matrices expert
   parallel over ``model``.
+* llama4's ``chunked`` decode ring without the MoE (layers ``chunked``,
+  ``full``): prefill then decode across the 16-token chunk's restart,
+  against the reference's caches and logits and the port's forward
+  (fp32); and ``chip_smoke.py``'s phase 12d checks at smoke size, the
+  port alone in bf16: the chunk ring's decode against a forward within
+  a relative L2 error of 2e-2 across the restart (a ring decoded as a
+  window of the chunk's size reads past it), and the dispatch check of
+  a MoE layer's recorded call on a case that drops tokens.
 """
 
 import dataclasses
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,11 +43,11 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import smoke_variant as jsmoke  # noqa: E402
 from repro.models import moe as JMoE  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, smoke_variant  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.tree import flatten_with_path  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import layers, moe  # noqa: E402
 
 from test_torch_model_zoo_recurrent import (  # noqa: E402
     check_decode, check_forward_loss_and_grads, check_greedy,
@@ -154,3 +164,83 @@ def test_partition_rules_give_the_reference_specs(name):
                 seen += 1
     assert seen == 2 * 3 * sum(1 for p, _n in cfg.layer_groups for b in p
                                if b.endswith("_moe"))
+
+
+# ------------------------------------------- llama4's chunk ring (12d)
+LLAMA4 = "llama4-maverick-400b-a17b"
+
+
+@pytest.mark.parametrize("prompt,n_new", [(20, 12), (24, 12)])
+def test_chunk_ring_decode_matches_reference_and_forward(prompt, n_new):
+    """llama4's smoke variant with its MoE layer made ``full``: no
+    capacity, so each decode step's logits also equal the port's forward
+    at that position. A 20-token prompt leaves a 4-token partial chunk in
+    the ring (the restart at 16 inside the prefill); a 24-token one
+    decodes across the restart at 32."""
+    check_decode(LLAMA4, prompt=prompt, n_new=n_new, seed=24,
+                 against_forward=True,
+                 layer_groups=((("chunked", "full"), 1),), n_layers=2)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """``chip_smoke.py`` (the repo root's card smoke run), whose phase 12d
+    checks run here on the CPU."""
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _llama4_bf16(pattern):
+    cfg = smoke_variant(get_config(LLAMA4))
+    assert cfg.dtype == "bfloat16" and cfg.chunk == 16
+    return dataclasses.replace(cfg, layer_groups=((pattern, 1),),
+                               n_layers=len(pattern))
+
+
+def test_chunk_ring_restart_within_the_smoke_bound(smoke):
+    """12d's gate at smoke size: one ``chunked`` layer, a prefill of 16
+    tokens and 32 decode steps fed the next given tokens; the logits at
+    31, 32 (the restart) and 47 within ``RING_REL_L2`` of the forward's.
+    The control decodes the same caches as a window of the chunk's size,
+    which keeps the last chunk's keys: at 32 and 33 it reads past the
+    bound (at 47 both see positions 32-47)."""
+    cfg = _llama4_bf16(("chunked",))
+    errs = smoke.chunk_ring_errs("cpu", cfg, 2, 16, 32)
+    held = smoke.ring_positions(cfg, 16, 32)
+    assert held == (31, 32, 47)
+    assert all(errs[p] < smoke.RING_REL_L2 for p in held), errs
+    window = dataclasses.replace(cfg, layer_groups=((("window",), 1),),
+                                 window=cfg.chunk)
+    control = smoke.chunk_ring_errs("cpu", cfg, 2, 16, 32, window)
+    assert control[31] < smoke.RING_REL_L2, control
+    assert all(control[p] > smoke.RING_REL_L2 for p in (32, 33)), control
+    assert control[47] < smoke.RING_REL_L2, control
+
+
+def test_dispatch_check_of_a_recorded_moe_layer(smoke):
+    """12d's dispatch check at smoke size (4 experts, top 1, groups of
+    16, capacity 5) on a prefill that drops tokens: no problem found, and
+    dropped tokens among those checked. With the shared expert taken out
+    of the layer's output the check reports the tokens."""
+    cfg = _llama4_bf16(("chunked", "chunked_moe"))
+    params = TM.init_params(cfg, torch.Generator().manual_seed(5), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 40), dtype=np.int32))
+    seen = []
+    with torch.no_grad(), smoke._recording_moe(seen):
+        TM.forward(cfg, params, {"tokens": tokens})
+    assert len(seen) == 1
+    got = smoke.dispatch_check(cfg, seen[0])
+    assert got["problems"] == [], got
+    assert got["capacity"] == 5 and got["groups"] == 5
+    assert got["dropped"] > 0 and got["checked_dropped"] > 0, got
+    assert got["kept_rel_l2_max"] < smoke.DISPATCH_REL_L2
+    rec = dict(seen[0])
+    with torch.no_grad():
+        rec["out"] = rec["out"] - layers.apply_ffn(cfg, rec["p"]["shared"],
+                                                   rec["x"])
+    bad = smoke.dispatch_check(cfg, rec)
+    assert len(bad["problems"]) == 2, bad
